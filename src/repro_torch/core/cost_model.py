@@ -1,9 +1,10 @@
-"""Cost model for CA-tasks (paper §4.2 "Profiler").
+"""Cost model for CA-tasks and communication (paper §4.2 "Profiler" +
+Appendix A/B).
 
 The port's copy of ``repro.core.cost_model``: ``CostModel``,
-``CalibrationSnapshot``, ``GridCalibrator`` and ``ca_flops``, which the
-serving scheduler's ``admission="cost"`` and ``launch/serve.py
---calibrate`` use.  The hardware constants describe one NVIDIA H100 SXM
+``CalibrationSnapshot``, ``GridCalibrator``, ``ca_flops``,
+``causal_doc_flops``, ``linear_flops_per_token``, ``CommModel`` and
+``MemoryModel``.  The hardware constants describe one NVIDIA H100 SXM
 instead of a TPU v5e.
 
 On real hardware the paper benchmarks a (q_len, kv_len) latency grid and
@@ -39,6 +40,107 @@ def ca_flops(q_tokens: int | np.ndarray, kv_tokens: int | np.ndarray,
     2·q·kv·H·dh (QK^T) + 2·q·kv·H·dh (PV)."""
     return 4.0 * np.asarray(q_tokens, np.float64) * kv_tokens \
         * n_heads * head_dim
+
+
+def causal_doc_flops(doc_len: int | np.ndarray, n_heads: int,
+                     head_dim: int) -> np.ndarray:
+    """Total CA FLOPs of a causal document: sum_t 4·t·H·dh ≈ 2·l²·H·dh."""
+    l = np.asarray(doc_len, np.float64)
+    return 2.0 * l * (l + 1) * n_heads * head_dim
+
+
+def linear_flops_per_token(cfg) -> float:
+    """FLOPs per token of the context-independent layers (App. A formula:
+    2·h·(2h + h_kv + 3i) per layer, adapted per arch)."""
+    d = cfg.d_model
+    hq = cfg.n_heads * cfg.head_dim
+    hkv = cfg.n_kv_heads * cfg.head_dim
+    total = 0.0
+    for t in cfg.layer_pattern:
+        if t in ("global", "local", "cross", "enc"):
+            attn = 2 * (d * hq * 2 + d * hkv * 2)
+            if t == "cross":
+                attn *= 2
+            total += attn + 2 * cfg._ffn_active_flops_per_token()
+        elif t == "rglru":
+            w = cfg.rglru.lru_width or d
+            total += 2 * (2 * d * w + 2 * w * w + w * d) \
+                + 2 * cfg._ffn_active_flops_per_token()
+        elif t == "ssd":
+            s = cfg.ssm
+            d_in = s.expand * d
+            total += 2 * d * (2 * d_in + 2 * s.n_groups * s.d_state
+                              + d_in // s.head_dim) + 2 * d_in * d
+    return total * cfg.n_layers / len(cfg.layer_pattern)
+
+
+@dataclasses.dataclass(frozen=True)
+class CommModel:
+    """Bytes of moving CA-task inputs/outputs (App. B)."""
+    n_heads: int
+    head_dim: int
+    n_kv_heads: int
+    bytes_per_el: int = BYTES_PER_EL
+
+    @property
+    def size_q(self) -> int:          # bytes per q token (q + returned o)
+        return 2 * self.n_heads * self.head_dim * self.bytes_per_el
+
+    @property
+    def size_kv(self) -> int:         # bytes per kv token (k and v)
+        return 2 * self.n_kv_heads * self.head_dim * self.bytes_per_el
+
+    def migration_bytes(self, n_q_tokens: int, n_kv_tokens: int) -> float:
+        return n_q_tokens * self.size_q + n_kv_tokens * self.size_kv
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryModel:
+    """HBM bytes a CA task pins on its attention server while resident
+    (DESIGN.md §11).
+
+    A task is one q block against a causal kv prefix; its working set
+    is the q shard plus the returned o (``CommModel.size_q``), the k/v
+    context (``CommModel.size_kv``) and the f32 per-(q token, head)
+    lse residual the flash backward saves.  Reusing the CommModel byte
+    accessors keeps the planner's resident-bytes and comm-bytes ledgers
+    on one byte accounting that cannot drift apart.
+    """
+    comm: CommModel
+    lse_bytes: int = 4                # f32 per (q token, head)
+
+    def q_bytes(self, q_tokens) -> float:
+        """q shard + returned o resident for the task's q side."""
+        return float(q_tokens) * self.comm.size_q
+
+    def kv_bytes(self, kv_tokens) -> float:
+        """k and v context bytes for a ``kv_tokens``-token prefix."""
+        return float(kv_tokens) * self.comm.size_kv
+
+    def residual_bytes(self, q_tokens) -> float:
+        """Backward-saved softmax statistics (lse) for the q shard."""
+        return float(q_tokens) * self.comm.n_heads * self.lse_bytes
+
+    def live_kv_bytes(self, kv_tokens, mask=None, blk: int = 128) -> float:
+        """kv bytes a task actually *touches* under ``mask`` — the
+        live-block pricing of DESIGN.md §12.  The dense prefix
+        (:meth:`kv_bytes`) remains the residency ledger's unit because
+        the kv gather buffer realizes the contiguous range; live pricing
+        is the compute/bandwidth view planners and benchmarks weigh
+        masked tasks by."""
+        if mask is None or getattr(mask, "trivial", True):
+            return self.kv_bytes(kv_tokens)
+        from repro_torch.core.mask import live_kv_len  # local: avoid cycle
+        nb = -(-int(kv_tokens) // blk)
+        return self.kv_bytes(min(int(kv_tokens),
+                                 live_kv_len(mask, nb, blk)))
+
+    def task_bytes(self, q_len, kv_len, mask=None, blk: int = 128) -> float:
+        """Full resident footprint of one (q_len, kv_len) CA task.  With
+        a non-trivial ``mask`` the kv term is priced at the task's live
+        kv tokens (:meth:`live_kv_bytes`) — rectangle area otherwise."""
+        return self.q_bytes(q_len) + self.residual_bytes(q_len) \
+            + self.live_kv_bytes(kv_len, mask, blk)
 
 
 class CostModel:

@@ -1,1 +1,3 @@
-"""Data layout constants (see ``packing``)."""
+"""Packed training data (``packing``, ``distributions``, ``pipeline``):
+host numpy arrays, made from a seed exactly as the JAX package makes
+them."""

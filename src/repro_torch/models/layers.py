@@ -1,12 +1,13 @@
-"""Layer implementations for the serving slice: init, norms, RoPE, GQA
-projections and the MLP.
+"""Layer implementations for the dense decoder: init, norms, RoPE, GQA
+projections, self-attention over packed documents and the MLP.
 
 The port of the matching functions of ``repro.models.layers``, with the
 same weight names and layouts: weights are stored ``[in, out]`` and
-applied as ``h @ W``.  ``*_init`` returns an ``nn.ParameterDict``;
-``*_apply`` takes that or any mapping of tensors, so a test can hand in
-plain tensors.  The reference's sharding constraints (``ctx.cons``) are
-no-ops on one card and are left out.
+applied as ``h @ W``.  ``*_init`` returns an ``nn.ParameterDict`` of
+trainable weights; ``*_apply`` takes that or any mapping of tensors, so a
+test can hand in plain tensors.  The reference's sharding constraints
+(``ctx.cons``) and its tensor-parallel head padding are no-ops on one
+card and are left out.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Mapping, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.core.attention import core_attention
 
 
 # ----------------------------------------------------------------- helpers
@@ -27,8 +30,7 @@ def dense_init(gen: torch.Generator, fan_in: int, shape, dtype,
 
 
 def _params(**tensors: torch.Tensor) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tensors.items()})
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
 
 
 def norm_init(d: int, dtype, kind: str = "rmsnorm",
@@ -105,6 +107,23 @@ def qkv_proj(p: Mapping[str, torch.Tensor], h: torch.Tensor, cfg,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def self_attn_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, batch,
+                    cfg, ctx, *, causal: bool = True, window: int = 0,
+                    hook=None) -> torch.Tensor:
+    """h [B,S,D]; ``batch`` provides segment_ids/positions [B,S].
+    ``hook``, if given, is called with the attention inputs just before
+    core attention (an inspection point for tests and the smoke run)."""
+    b, s, _ = h.shape
+    seg, pos = batch["segment_ids"], batch["positions"]
+    q, k, v = qkv_proj(p, h, cfg, pos if cfg.use_rope else None)
+    if hook is not None:
+        hook(dict(q=q, k=k, v=v, segment_ids=seg, positions=pos, ctx=ctx))
+    out = core_attention(q, k, v, seg, pos, seg, pos, causal=causal,
+                         window=window, softcap=cfg.attn_logit_softcap,
+                         ctx=ctx)
+    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
 
 
 # --------------------------------------------------------------------- ffn

@@ -1,23 +1,26 @@
-"""Model assembly for the serving slice: a dense decoder with the ragged
-serving cache (DESIGN.md §8).
+"""Model assembly: a dense decoder trained on packed documents
+(``forward``) and served from the ragged serving cache (DESIGN.md §8).
 
-The port of the serving half of ``repro.models.model``.  The reference
-stacks each pattern slot's weights on a leading ``[n_groups]`` axis and
-scans over it; here each layer is its own module in ``Transformer.layers``
-and the scan is a Python loop.  Layer ``l`` is pattern slot
-``l % period`` of group ``l // period``.
+The port of ``repro.models.model`` for dense attention stacks.  The
+reference stacks each pattern slot's weights on a leading ``[n_groups]``
+axis and scans over it; here each layer is its own module in
+``Transformer.layers`` and the scan is a Python loop.  Layer ``l`` is
+pattern slot ``l % period`` of group ``l // period``.
 
-What this slice serves: attention-only patterns of ``global`` and
-``local`` layers (dense MLPs, optional post-norms, softcaps, tied
-embeddings).  Recurrent (``ssd``/``rglru``) and MoE layers,
-cross-attention, the encoder and the legacy ``layout="decode"`` cache
-raise ``NotImplementedError`` naming the slice that brings them.
+What runs: attention-only patterns of ``global`` and ``local`` layers
+(dense MLPs, optional post-norms, softcaps, tied embeddings).  Training
+with ``attn_impl="cad"`` takes causal ``global`` layers; a ``local``
+layer there needs the windowed fallback (ROADMAP queue 1 item 3).
+Recurrent (``ssd``/``rglru``) and MoE layers, cross-attention, the
+encoder and the legacy ``layout="decode"`` cache raise
+``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.data.packing import BLOCK as SERVE_BLOCK
@@ -91,18 +94,18 @@ class Transformer(nn.Module):
         gen.manual_seed(seed)
         dt = cfg.pdtype
         self.embed = nn.Parameter(L.dense_init(
-            gen, cfg.d_model, (cfg.vocab_size, cfg.d_model), dt, device),
-            requires_grad=False)
+            gen, cfg.d_model, (cfg.vocab_size, cfg.d_model), dt, device))
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(L.dense_init(
-                gen, cfg.d_model, (cfg.vocab_size, cfg.d_model), dt, device),
-                requires_grad=False)
+                gen, cfg.d_model, (cfg.vocab_size, cfg.d_model), dt, device))
         self.final_norm = L.norm_init(cfg.d_model, dt, cfg.norm, device)
         self.layers = nn.ModuleList(
             Block(cfg, cfg.layer_pattern[i % cfg.period], gen, device)
             for i in range(cfg.n_layers))
         # inspection hook: called as attn_hook(layer, inputs) with the
-        # kernel's inputs just before each attention call
+        # attention inputs just before each attention call (serving: the
+        # kernel's arguments; training: q, k, v, segment_ids, positions
+        # and the ParallelContext)
         self.attn_hook: Optional[Callable[[int, Dict], None]] = None
 
     @property
@@ -126,6 +129,45 @@ class Transformer(nn.Module):
             logits = torch.tanh(logits / cfg.final_logit_softcap) \
                 * cfg.final_logit_softcap
         return logits
+
+    # ----------------------------------------------------------- training
+    def _block_train(self, li: int, blk: Block, h, batch, ctx):
+        """``block_apply`` of an attention layer (reference
+        ``models/model.py:88-124``): norm1 -> self-attention -> [pnorm1]
+        -> residual -> norm2 -> FFN -> [pnorm2] -> residual."""
+        cfg = self.cfg
+        window = cfg.window if blk.kind == "local" else 0
+        hook = None
+        if self.attn_hook is not None:
+            hook = lambda inputs, li=li: self.attn_hook(li, inputs)  # noqa
+        a = L.self_attn_apply(blk.attn, L.norm_apply(blk.norm1, h, cfg.norm),
+                              batch, cfg, ctx, causal=True, window=window,
+                              hook=hook)
+        return self._attn_residual_tail(blk, h, a)
+
+    def forward(self, batch: Dict[str, torch.Tensor], ctx) \
+            -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Packed-LM forward.  ``batch`` holds ``tokens``,
+        ``segment_ids`` and ``positions`` [B, S] on the model's device
+        (and, with ``ctx.attn_impl == "cad"``, the step's plan is bound in
+        ``ctx.cad``).  With ``ctx.remat`` each layer's forward is re-run
+        in the backward (``torch.utils.checkpoint``, non-reentrant)
+        instead of keeping its activations.  Returns (logits [B,S,V] f32,
+        aux-losses: empty for dense stacks)."""
+        cfg = self.cfg
+        h = self._embed(batch["tokens"])
+        if not cfg.use_rope:
+            h = h + L.sinusoidal_pos(batch["positions"], cfg.d_model,
+                                     cfg.cdtype)
+        for li, blk in enumerate(self.layers):
+            if ctx.remat and torch.is_grad_enabled():
+                h = torch.utils.checkpoint.checkpoint(
+                    self._block_train, li, blk, h, batch, ctx,
+                    use_reentrant=False)
+            else:
+                h = self._block_train(li, blk, h, batch, ctx)
+        h = L.norm_apply(self.final_norm, h, cfg.norm)
+        return self._unembed(h), {}
 
     # -------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_seq: int,

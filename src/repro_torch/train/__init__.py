@@ -1,1 +1,2 @@
-"""Step factories (``step``)."""
+"""Training: the loss (``loss``), the step factories (``step``) and the
+host loop (``trainer``)."""
