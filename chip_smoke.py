@@ -14,7 +14,10 @@ Phases, each of which fails the run:
    CA-server forward (out, lse) and backward (dq, dk, dv) over f32/bf16,
    head_dim 64/128, blocks 64/128, GQA factors 1/3/4, ragged and
    overlapping kv ranges, a zero-length task, padded rows, jmax < N, and
-   causal / sliding-window+sink / dilated / softcap masks;
+   causal / sliding-window+sink / dilated / softcap masks; the flash
+   forward and backward over f32/bf16, head_dim 64/128, GQA 1/4, ragged
+   documents with padding, causal / non-causal / window / window+sink /
+   dilated masks, softcap 0/50;
 3. the serving slice at full width: llama3-8b in bf16 from a seeded
    generator, behind ``launch/serve.py``'s HTTP daemon, answering eight
    requests, with the launch counts read around that run, the kernel held
@@ -35,7 +38,30 @@ Phases, each of which fails the run:
    0 and 7; the dispatch's backward repeated bitwise;
 6. the CA-server kernels timed at the captured shapes against their
    bound, their plain versions and ``scaled_dot_product_attention`` with
-   the equivalent mask (fwd and fwd+bwd).
+   the equivalent mask (fwd and fwd+bwd);
+7. colocated training (``attn_impl="pallas"``: each layer attends where
+   it is, through the flash kernels) on phase 5's exact configuration,
+   3 steps with the launch counts of each step checked against layers x
+   {2 forwards, 1 dq, 1 dk/dv}, the step-0 loss bitwise equal to CAD's,
+   the flash kernels held against their plain versions on the q/k/v
+   captured at layers 0 and 7, their backward repeated bitwise, and the
+   ``xla`` route against the kernel;
+8. the flash kernels timed at layer 0's shape against their bound, their
+   plain versions and ``scaled_dot_product_attention`` with the dense
+   boolean mask (fwd, bwd, fwd+bwd), with the SM clock nvidia-smi reads
+   while the kernels run;
+9. the ``xla`` route (the training launcher's default without --cad) on
+   CUDA tensors: one step at llama3-8b width with 2 layers, and the
+   launcher itself on a reduced model;
+10. one step each of CAD and colocated training (phases 5 and 7's
+   configuration, the second step of a fresh 2-step run) traced with
+   ``torch.profiler``: device time by kernel family (attention kernels,
+   cuBLAS matmuls, copies, the rest by name), each attention kernel's
+   launches, busy time, the device's idle share inside the step and the
+   SM clock through it.
+
+Kernels timed twice (the forward kernels, before and after the library
+call) report the first median as ``ms`` and the second as ``ms_repeat``.
 
 The line before the card line lists every ported kernel as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after
@@ -410,7 +436,7 @@ def kernel_times(torch, ops, card):
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, enable_gqa=True))
         ms2 = cuda_ms(lambda: ops.ragged_decode_attention(**args))
-        out[name] = dict(ms=min(ms, ms2), plain_ms=plain_ms,
+        out[name] = dict(ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=lib_ms, bytes=nbytes, flops=flops)
         log(f"phase 4: ragged_decode {name} (q {tuple(q.shape)}, cache "
@@ -562,6 +588,101 @@ def check_ca_server_cases(torch, np, ops):
         f"cases (f32 max |err| out/lse {worst_fwd:.3e} <= {F32_ATOL}, "
         f"grads {worst_bwd:.3e} <= {CA_GRAD_RTOL} x max(1, max |grad|); "
         f"bf16 within atol=rtol={BF16_ATOL})")
+    return worst_fwd, worst_bwd
+
+
+# --------------------------------------------------------- phase 2 (flash)
+FLASH_MASKS = {"causal": dict(),
+               "non-causal": dict(causal=False),
+               "window": dict(window=48),
+               "window+sink": dict(window=48, sink=8),
+               "dilated": dict(rate=2)}
+FLASH_SEQ = 256
+
+
+def _flash_case(torch, np, seed, *, dtype, dh, rep, hkv=2, B=2,
+                S=FLASH_SEQ):
+    """Flash inputs on the card: per batch row 2-4 ragged documents that
+    are not block-aligned, then padding (segment 0), in-document
+    positions."""
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((B, S), np.int32)
+    pos = np.zeros((B, S), np.int32)
+    for b in range(B):
+        end = S - int(rng.integers(1, 40))
+        n_docs = int(rng.integers(2, 5))
+        cuts = np.sort(rng.choice(np.arange(1, end), n_docs - 1,
+                                  replace=False))
+        bounds = np.concatenate([[0], cuts, [end]])
+        for d in range(n_docs):
+            lo, hi = bounds[d], bounds[d + 1]
+            seg[b, lo:hi] = d + 1
+            pos[b, lo:hi] = np.arange(hi - lo)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+    ids = [torch.tensor(x, device=DEVICE) for x in (seg, pos, seg, pos)]
+    args = [rnd(B, S, hkv * rep, dh), rnd(B, S, hkv, dh), rnd(B, S, hkv, dh),
+            *ids]
+    return args, rnd(B, S, hkv * rep, dh)
+
+
+def check_flash_pair(torch, ops, args, opts, do):
+    """Kernel fwd (out, lse) and bwd (dq, dk, dv) against the plain
+    versions on the same inputs; the backward of both starts from the
+    plain version's (out, lse); padding rows must come out dead.
+    Returns (fwd err, grad err, ok)."""
+    dtype = args[0].dtype
+    out, lse = ops.flash_fwd(*args, **opts)
+    ref_out, ref_lse = ops.flash_fwd_reference(*args, **opts)
+    torch.cuda.synchronize()
+    e_out, ok_out = _max_err(torch, out, ref_out, dtype)
+    e_lse, ok_lse = _max_err(torch, lse, ref_lse.float(), dtype)
+    bwd_in = (*args[:3], ref_out, ref_lse.float().contiguous(), do,
+              *args[3:])
+    got = ops.flash_bwd(*bwd_in, **opts)
+    want = ops.flash_bwd_reference(*bwd_in, **opts)
+    torch.cuda.synchronize()
+    g_errs = [_grad_err(torch, a, b, dtype) for a, b in zip(got, want)]
+    dead = args[3] == 0
+    dead_ok = bool((out[dead] == 0).all()) and bool(
+        (lse.transpose(1, 2)[dead] == ops.LSE_DEAD).all())
+    ok = ok_out and ok_lse and dead_ok and all(o for _, o in g_errs)
+    return max(e_out, e_lse), max(e for e, _ in g_errs), ok
+
+
+def check_flash_cases(torch, np, ops):
+    """Phase 2: the flash kernels against their plain versions: f32 and
+    bf16, head_dim 64 and 128, GQA 1 (blocks of 128, the main path's) and
+    4 (blocks of 64), every mask family, softcap 0 and 50."""
+    worst_fwd = worst_bwd = 0.0
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (64, 128):
+            for rep in (1, 4):
+                blk = 128 if rep == 1 else 64
+                for mask in FLASH_MASKS:
+                    for softcap in (0.0, 50.0):
+                        args, do = _flash_case(torch, np, n, dtype=dtype,
+                                               dh=dh, rep=rep)
+                        opts = dict(FLASH_MASKS[mask], softcap=softcap,
+                                    blk_q=blk, blk_k=blk)
+                        e_f, e_b, ok = check_flash_pair(torch, ops, args,
+                                                        opts, do)
+                        if not ok:
+                            raise SystemExit(
+                                f"flash disagrees: dtype={dtype} dh={dh} "
+                                f"rep={rep} blk={blk} mask={mask} softcap="
+                                f"{softcap} fwd err {e_f} grad err {e_b}")
+                        if dtype == torch.float32:
+                            worst_fwd = max(worst_fwd, e_f)
+                            worst_bwd = max(worst_bwd, e_b)
+                        n += 1
+    log(f"phase 2: flash fwd + bwd kernels == plain versions in {n} cases "
+        f"(f32 max |err| out/lse {worst_fwd:.3e} <= {F32_ATOL}, grads "
+        f"{worst_bwd:.3e} <= {CA_GRAD_RTOL} x max(1, max |grad|); bf16 "
+        f"within atol=rtol={BF16_ATOL})")
     return worst_fwd, worst_bwd
 
 
@@ -781,7 +902,8 @@ def ca_kernel_times(torch, ops, batches, card):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    tot = {k: 0.0 for k in ("fwd", "bwd", "plain_fwd", "plain_bwd",
+    tot = {k: 0.0 for k in ("fwd", "fwd_repeat", "bwd", "plain_fwd",
+                            "plain_bwd",
                             "sdpa_fwd", "sdpa_fwd_bwd", "fwd_bytes",
                             "fwd_flops", "bwd_bytes", "bwd_flops",
                             "pairs", "live_tasks", "q_rows", "kv_rows",
@@ -824,8 +946,8 @@ def ca_kernel_times(torch, ops, batches, card):
             t["sdpa_fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask), iters=5)
             t["sdpa_fwd_bwd"] = cuda_ms(sdpa_fwd_bwd, iters=5)
-        t["fwd"] = min(t["fwd"], cuda_ms(
-            lambda: ops.ca_server_fwd(**args, **opts), iters=10))
+        t["fwd_repeat"] = cuda_ms(
+            lambda: ops.ca_server_fwd(**args, **opts), iters=10)
         del vis, mask, qs, ks, vs, dos, qg, kg, vg
         torch.cuda.empty_cache()
         f_bound = _bound(*fwd_w)
@@ -837,9 +959,10 @@ def ca_kernel_times(torch, ops, batches, card):
             f"fwd reads {info['fwd_in'] / 1e6:.1f} MB, writes "
             f"{info['fwd_out'] / 1e6:.1f} MB; bwd reads "
             f"{info['bwd_in'] / 1e6:.1f} MB, writes "
-            f"{info['bwd_out'] / 1e6:.1f} MB; fwd kernel {t['fwd']:.3f} ms "
-            f"(bound {f_bound[0]:.4f} {f_bound[1]}), plain "
-            f"{t['plain_fwd']:.3f}, sdpa {t['sdpa_fwd']:.3f}; bwd kernel "
+            f"{info['bwd_out'] / 1e6:.1f} MB; fwd kernel {t['fwd']:.3f} / "
+            f"{t['fwd_repeat']:.3f} ms (bound {f_bound[0]:.4f} "
+            f"{f_bound[1]}), plain {t['plain_fwd']:.3f}, sdpa "
+            f"{t['sdpa_fwd']:.3f}; bwd kernel "
             f"{t['bwd']:.3f} ms (bound {b_bound[0]:.4f} {b_bound[1]}), "
             f"plain {t['plain_bwd']:.3f}, sdpa fwd+bwd "
             f"{t['sdpa_fwd_bwd']:.3f} [{card}]")
@@ -857,7 +980,7 @@ def ca_kernel_times(torch, ops, batches, card):
     log(f"phase 6: one layer's CA work (4 servers, {int(tot['live_tasks'])} "
         f"live tasks, {int(tot['q_rows'])} q rows and {int(tot['kv_rows'])} "
         f"kv slots read, {int(tot['pairs'])} live pairs): fwd "
-        f"{tot['fwd']:.3f} ms = "
+        f"{tot['fwd']:.3f} / {tot['fwd_repeat']:.3f} ms = "
         f"{tot['fwd_flops'] / tot['fwd'] / 1e9:.2f} TFLOP/s (bound "
         f"{f_bound[0]:.4f} ms, {f_bound[1]}: {tot['fwd_bytes'] / 1e6:.1f} "
         f"MB, {tot['fwd_flops'] / 1e9:.1f} GFLOP), bwd {tot['bwd']:.3f} ms "
@@ -867,11 +990,412 @@ def ca_kernel_times(torch, ops, batches, card):
     return tot, f_bound, b_bound
 
 
+# ------------------------------------------------------------ phase 7
+def train_colocated(torch, ops, card, cad_steps):
+    """Phase 7: colocated training (``attn_impl="pallas"``, every layer
+    attends where it is through the flash kernels) on phase 5's exact
+    configuration, weights and batches."""
+    from repro_torch.models.model import Transformer
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.train.trainer import train
+    cfg, pipe, tc, _ = _train_setup()
+    tokens = pipe.global_batch * pipe.seq_len
+    model = Transformer(cfg, device=DEVICE, seed=0)
+    captured = {}
+
+    def capture(layer, inputs):
+        if layer in (0, cfg.n_layers - 1) and layer not in captured:
+            captured[layer] = {k: v.detach().clone() if torch.is_tensor(v)
+                               else v for k, v in inputs.items()}
+
+    expect = {"flash_fwd": cfg.n_layers * 2,           # + remat
+              "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
+    steps = []
+
+    def on_step(step, m):
+        counts = {k: ops.launches[k] for k in expect}
+        others = sum(n for k, n in ops.launches.items() if k not in expect)
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        model.attn_hook = None              # capture step 0 only
+        steps.append(dict(m, counts=counts, others=others, peak_gib=mem))
+        cad = cad_steps[step]
+        log(f"phase 7: step {step} loss {m['loss']:.6f} gnorm "
+            f"{m['grad_norm']:.4f} step {1e3 * m['step_s']:.1f} ms "
+            f"{tokens / m['step_s']:.0f} tokens/s peak {mem:.2f} GiB "
+            f"launches {counts} | CAD (phase 5): loss {cad['loss']:.6f} "
+            f"step {1e3 * cad['step_s']:.1f} ms "
+            f"{tokens / cad['step_s']:.0f} tokens/s peak "
+            f"{cad['peak_gib']:.2f} GiB [{card}]")
+
+    log(f"phase 7: colocated training, attn_impl='pallas': llama3-8b "
+        f"width, {cfg.n_layers} of 32 layers, bf16, {pipe.global_batch} x "
+        f"{pipe.seq_len} tokens ({pipe.distribution}), seed 0.  The 4 CAD "
+        f"servers of phase 5 share this one card, so the two step times "
+        f"are not the paper's comparison")
+    model.attn_hook = capture
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = train(cfg, pipe, tc, ctx=ParallelContext(attn_impl="pallas",
+                                                   remat=True),
+                model=model, device=DEVICE, on_step=on_step)
+    del res, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for s in steps:
+        if s["counts"] != expect or s["others"]:
+            raise SystemExit(f"phase 7: step {s['step']} launches "
+                             f"{s['counts']} (+{s['others']} of other "
+                             f"kernels) != {expect}")
+        if not math.isfinite(s["loss"]):
+            raise SystemExit(f"phase 7: step {s['step']} loss {s['loss']}")
+    # the step-0 loss must equal CAD's (phase 5, same weights and batch)
+    # bitwise: for every q row the flash and CA forward kernels visit the
+    # same 64-slot tiles of its document in the same order with the same
+    # arithmetic (masked lanes add exact zeros, skipped tiles are exact
+    # no-ops).  A tolerance would not do: at random init the loss moves
+    # less than 5e-3 over three steps, so a wrong attention could hide
+    # inside any tolerance the two bf16 kernels could otherwise need.
+    log(f"phase 7: launches per step = {expect} (layers x {{2 forwards "
+        f"with remat, 1 backward}}); step-0 loss {steps[0]['loss']!r} vs "
+        f"CAD's {cad_steps[0]['loss']!r} (must be bitwise equal)")
+    if steps[0]["loss"] != cad_steps[0]["loss"]:
+        raise SystemExit("phase 7: colocated and CAD step-0 losses differ")
+    if sorted(captured) != [0, cfg.n_layers - 1]:
+        raise SystemExit(f"phase 7: captured layers {sorted(captured)}")
+    total = {k: sum(s["counts"][k] for s in steps) for k in expect}
+    return steps, captured, total
+
+
+def flash_inputs(torch, inp):
+    """The flash kernels' arguments of one captured layer."""
+    seg = inp["segment_ids"].to(torch.int32).contiguous()
+    pos = inp["positions"].to(torch.int32).contiguous()
+    return [inp["q"].contiguous(), inp["k"].contiguous(),
+            inp["v"].contiguous(), seg, pos, seg, pos]
+
+
+def check_captured_flash(torch, ops, captured):
+    """Phase 7: the flash kernels against their plain versions on the q/k/v
+    captured at layers 0 and 7 (bf16), the dk/dv kernel repeated bitwise,
+    and the blockwise ``xla`` route against the kernel on layer 0."""
+    from repro_torch.core.attention import xla_flash_attention
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    worst = 0.0
+    for layer, inp in sorted(captured.items()):
+        args = flash_inputs(torch, inp)
+        do = torch.randn(args[0].shape, generator=gen,
+                         device=DEVICE).to(args[0].dtype)
+        e_f, e_b, ok = check_flash_pair(torch, ops, args, {}, do)
+        log(f"  captured layer {layer}: q {tuple(args[0].shape)} k "
+            f"{tuple(args[1].shape)} {args[0].dtype}: fwd max |err| "
+            f"{e_f:.3e}, grads {e_b:.3e}")
+        if not ok:
+            raise SystemExit(f"phase 7: flash kernels disagree on captured "
+                             f"layer {layer}")
+        worst = max(worst, e_f)
+    args = flash_inputs(torch, captured[0])
+    do = torch.randn(args[0].shape, generator=gen,
+                     device=DEVICE).to(args[0].dtype)
+    out, lse = ops.flash_fwd(*args)
+    runs = [ops.flash_bwd(*args[:3], out, lse, do, *args[3:])
+            for _ in range(2)]
+    bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
+    xla = xla_flash_attention(*args)
+    torch.cuda.synchronize()
+    e_xla, ok_xla = _max_err(torch, out, xla, out.dtype)
+    log(f"phase 7: flash backward on layer 0 repeated: bitwise {bitwise}; "
+        f"the xla route vs the flash kernel on layer 0: max |err| "
+        f"{e_xla:.3e}")
+    if not bitwise or not ok_xla:
+        raise SystemExit("phase 7: the flash backward is not deterministic "
+                         "or the xla route disagrees")
+    return worst
+
+
+# ------------------------------------------------------------ phase 8
+def _flash_work(torch, args):
+    """Live (q, kv) pairs the token mask allows, and the bytes each
+    function moves: every input read once, every output written once."""
+    from repro_torch.core.attention import mask_fn
+    q, k = args[0], args[1]
+    b, s, hq, dh = q.shape
+    seg, pos = args[3], args[4]
+    vis = mask_fn(seg, pos, seg, pos, causal=True, window=0)  # [B, S, S]
+    pairs = int(vis.sum())
+    el = q.element_size()
+    ids = 4 * seg.numel() * 4
+    lse = b * hq * s * 4
+    fwd_bytes = (q.numel() + 2 * k.numel()) * el + ids + q.numel() * el + lse
+    bwd_bytes = (3 * q.numel() + 2 * k.numel()) * el + lse + ids \
+        + (q.numel() + 2 * k.numel()) * el
+    return vis, pairs, (fwd_bytes, 4.0 * pairs * hq * dh), \
+        (bwd_bytes, 10.0 * pairs * hq * dh)
+
+
+def flash_kernel_times(torch, ops, inp, card):
+    """Phase 8: the flash kernels at layer 0's captured shape: kernel,
+    plain version, ``scaled_dot_product_attention`` with the dense boolean
+    mask [B, 1, S, S] (the memory-efficient backend; the port never calls
+    it) and the bound."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    args = flash_inputs(torch, inp)
+    q, k, v = args[:3]
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    do = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
+    out, lse = ops.flash_fwd(*args)
+    bwd_in = (q, k, v, out, lse, do, *args[3:])
+    vis, pairs, fwd_w, bwd_w = _flash_work(torch, args)
+
+    def fwd_bwd():
+        o, l_ = ops.flash_fwd(*args)
+        return ops.flash_bwd(q, k, v, o, l_, do, *args[3:])
+    sampler = sm_clocks_start()
+    try:
+        t = {"fwd": cuda_ms(lambda: ops.flash_fwd(*args), iters=10),
+             "bwd": cuda_ms(lambda: ops.flash_bwd(*bwd_in), iters=5),
+             "fwd_bwd": cuda_ms(fwd_bwd, iters=5)}
+    except BaseException:
+        sampler.kill()
+        raise
+    clocks = sm_clocks_stop(sampler)
+    t["plain_fwd"] = cuda_ms(lambda: ops.flash_fwd_reference(*args),
+                             iters=2, warmup=1)
+    t["plain_bwd"] = cuda_ms(lambda: ops.flash_bwd_reference(*bwd_in),
+                             iters=2, warmup=1)
+    # the yardstick's inputs in its own layout, made before timing
+    qs = q.transpose(1, 2).contiguous()
+    ks, vs = (x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+              .contiguous() for x in (k, v))
+    dos = do.transpose(1, 2).contiguous()
+    mask = vis[:, None]
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qs, ks, vs))
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        t["sdpa_fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask), iters=5)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+            return torch.autograd.grad(o, (qg, kg, vg), dos)
+        t["sdpa_fwd_bwd"] = cuda_ms(sdpa_fwd_bwd, iters=5)
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        t["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            o, (qg, kg, vg), dos, retain_graph=True), iters=5)
+    t["fwd_repeat"] = cuda_ms(lambda: ops.flash_fwd(*args), iters=10)
+    del vis, mask, qs, ks, vs, dos, qg, kg, vg, o
+    torch.cuda.empty_cache()
+    f_bound, b_bound = _bound(*fwd_w), _bound(*bwd_w)
+    log(f"phase 8: flash at layer 0's shape (q {tuple(q.shape)}, k "
+        f"{tuple(k.shape)} {q.dtype}, {pairs} live pairs per head = "
+        f"{pairs / (b * s * s):.4f} of all): fwd kernel {t['fwd']:.3f} / "
+        f"{t['fwd_repeat']:.3f} ms = {fwd_w[1] / t['fwd'] / 1e9:.2f} "
+        f"TFLOP/s (bound {f_bound[0]:.4f} ms {f_bound[1]}: "
+        f"{fwd_w[0] / 1e6:.1f} MB, {fwd_w[1] / 1e9:.1f} GFLOP), plain "
+        f"{t['plain_fwd']:.3f}, sdpa {t['sdpa_fwd']:.3f}; bwd "
+        f"kernels {t['bwd']:.3f} ms = {bwd_w[1] / t['bwd'] / 1e9:.2f} "
+        f"TFLOP/s (bound {b_bound[0]:.4f} ms {b_bound[1]}: "
+        f"{bwd_w[0] / 1e6:.1f} MB, {bwd_w[1] / 1e9:.1f} GFLOP), plain "
+        f"{t['plain_bwd']:.3f}, sdpa bwd {t['sdpa_bwd']:.3f}; fwd+bwd "
+        f"kernels {t['fwd_bwd']:.3f} ms, sdpa {t['sdpa_fwd_bwd']:.3f}; SM "
+        f"clock while the kernels were timed {clocks[0]:.0f} / "
+        f"{clocks[1]:.0f} / {clocks[2]:.0f} MHz (min / median / max), "
+        f"power draw up to {clocks[3]:.1f} W [{card}]")
+    return t, f_bound, b_bound, pairs
+
+
+# ------------------------------------------------------------ phase 9
+def xla_route_on_card(torch, ops, card):
+    """Phase 9: the colocated ``xla`` route (blockwise attention in plain
+    torch ops, the launcher's default without --cad) trains on CUDA
+    tensors: ``train()`` at llama3-8b width with 2 layers for one step,
+    then the launcher itself on a reduced model."""
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.model import Transformer
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.train.trainer import train
+    cfg, pipe, tc, _ = _train_setup()
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    model = Transformer(cfg, device=DEVICE, seed=0)
+    devices = set()
+    model.attn_hook = lambda layer, inp: devices.add(inp["q"].device.type)
+    ops.reset_launches()
+    res = train(cfg, pipe, dataclasses.replace(tc, steps=1),
+                ctx=ParallelContext(attn_impl="xla", remat=True),
+                model=model, device=DEVICE)
+    m = res["history"][0]
+    del res, model
+    kernels = sum(ops.launches.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 9: xla route, llama3-8b width, 2 layers, 1 step: loss "
+        f"{m['loss']:.6f} step {1e3 * m['step_s']:.1f} ms, attention on "
+        f"{sorted(devices)}, {kernels} kernel launches [{card}]")
+    if not math.isfinite(m["loss"]) or devices != {"cuda"} or kernels:
+        raise SystemExit("phase 9: the xla route did not train on the card")
+    res = train_main(["--arch", "smollm-360m-reduced", "--steps", "2",
+                      "--seq", "4096", "--batch", "4", "--ranks", "4"])
+    losses = [h["loss"] for h in res["history"]]
+    device = res["model"].device
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses) or device.type != "cuda":
+        raise SystemExit(f"phase 9: launcher losses {losses} on {device}")
+    log(f"phase 9: launcher without --cad (smollm-360m-reduced, 4 x 4096 "
+        f"tokens, 2 steps) on {device}: losses {losses}")
+
+
+# ----------------------------------------------------------- phase 10
+# kernel families of a traced step, matched in order on the kernel's name;
+# the attention kernels' pattern captures the kernel's short name
+KERNEL_FAMILIES = (
+    ("flash kernels", r"(flash_(?:fwd|bwd_dq|bwd_dkv))_kernel"),
+    ("CA-server kernels", r"(ca_(?:fwd|bwd_dq|bwd_dkv))_kernel"),
+    ("matmuls (cuBLAS)", r"gemm|nvjet|xmma|cutlass|cublas|splitk"),
+    ("copies and fills", r"^memcpy|^memset"))
+
+
+def device_breakdown(events):
+    """Device time of one traced window, in ms: per kernel family, each
+    attention kernel's launches, the largest of the rest by name, busy
+    time (the union of the kernels' intervals) and the span from the first
+    kernel's start to the last kernel's end."""
+    import re
+    from torch.autograd import DeviceType
+    kernels = [(e.name, e.time_range.start, e.time_range.end)
+               for e in events if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise SystemExit("phase 10: the profiler recorded no device time")
+    families = dict.fromkeys([f for f, _ in KERNEL_FAMILIES] + ["other"],
+                             0.0)
+    attention, other = {}, {}
+    for name, a, b in kernels:
+        ms = (b - a) / 1e3
+        fam, hit = next(((f, m) for f, pat in KERNEL_FAMILIES
+                         if (m := re.search(pat, name, re.I))),
+                        ("other", None))
+        families[fam] += ms
+        if fam == "other":
+            other[name] = other.get(name, 0.0) + ms
+        elif hit.groups():
+            attention.setdefault(hit.group(1), []).append(ms)
+    busy, end = 0.0, -math.inf
+    for _, a, b in sorted(kernels, key=lambda x: x[1]):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    span = max(b for *_, b in kernels) - min(a for _, a, _ in kernels)
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
+    return dict(kernels=len(kernels), busy_ms=busy / 1e3,
+                span_ms=span / 1e3, families=families, attention=attention,
+                top_other=top)
+
+
+def sm_clocks_start():
+    """nvidia-smi sampling the SM clock and power draw every 100 ms."""
+    return subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+
+def sm_clocks_stop(proc):
+    """Stop the sampler; (min, median, max) SM MHz and the largest power
+    draw in W over its samples."""
+    proc.terminate()
+    out, _ = proc.communicate(timeout=30)
+    rows = []
+    for line in out.splitlines():
+        try:
+            mhz, watts = (float(x) for x in line.split(","))
+        except ValueError:              # a partial or "[N/A]" sample
+            continue
+        rows.append((mhz, watts))
+    if not rows:
+        raise SystemExit("phase 10: nvidia-smi gave no clock samples")
+    mhz = sorted(r[0] for r in rows)
+    return mhz[0], mhz[len(mhz) // 2], mhz[-1], max(r[1] for r in rows)
+
+
+def traced_steps(torch, card, cad_steps, co_steps):
+    """Phase 10: one CAD and one colocated step on phases 5 and 7's
+    configuration, traced with ``torch.profiler`` while nvidia-smi samples
+    the SM clock: the second step of a fresh 2-step run (the first warms
+    the allocator and cuBLAS), beside the live pairs of both batches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.attention import mask_fn
+    from repro_torch.data.pipeline import raw_batches
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.train.trainer import train
+    cfg, pipe, tc, session = _train_setup()
+    # the attention kernels' work depends on the batch: phases 6 and 8
+    # time them on step 0's, the trace below is of step 1's
+    gen, pairs = raw_batches(pipe), []
+    for _ in range(2):
+        b = next(gen)
+        seg, pos = (torch.as_tensor(b[k], dtype=torch.int32, device=DEVICE)
+                    for k in ("segment_ids", "positions"))
+        pairs.append(int(mask_fn(seg, pos, seg, pos, causal=True,
+                                 window=0).sum()))
+    gen.close()
+    log(f"phase 10: live (q, kv) pairs per head: {pairs[0]} in step 0's "
+        f"batch (timed in phases 6 and 8), {pairs[1]} in step 1's (traced "
+        f"below), {pairs[1] / pairs[0]:.4f}x")
+    runs = {"CAD": (dict(session=session("balanced")), cad_steps),
+            "colocated": (dict(ctx=ParallelContext(attn_impl="pallas",
+                                                   remat=True)), co_steps)}
+    for name, (kw, untraced) in runs.items():
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        traced = {}
+
+        def on_step(step, m):
+            if step == 0:
+                traced["sampler"] = sm_clocks_start()
+                prof.start()
+            else:
+                prof.stop()
+                traced.update(m, clocks=sm_clocks_stop(traced["sampler"]))
+        try:
+            train(cfg, pipe, dataclasses.replace(tc, steps=2), device=DEVICE,
+                  on_step=on_step, **kw)
+        except BaseException:
+            if "sampler" in traced:
+                traced["sampler"].kill()
+            raise
+        gc.collect()
+        torch.cuda.empty_cache()
+        bd = device_breakdown(prof.events())
+        del prof
+        host_ms, ref_ms = 1e3 * traced["step_s"], 1e3 * untraced[1]["step_s"]
+        fams = ", ".join(f"{f} {ms:.1f}" for f, ms in bd["families"].items())
+        lo, med, hi, watts = traced["clocks"]
+        log(f"phase 10: {name} step 1 traced: {bd['kernels']} device "
+            f"events; host {host_ms:.1f} ms with the profiler on "
+            f"({ref_ms:.1f} ms untraced, phase {5 if name == 'CAD' else 7});"
+            f" device span {bd['span_ms']:.1f} ms, busy {bd['busy_ms']:.1f} "
+            f"ms (idle {1 - bd['busy_ms'] / bd['span_ms']:.4f} of the span, "
+            f"{1 - bd['busy_ms'] / ref_ms:.4f} of the untraced step); ms by "
+            f"family: {fams}; SM clock {lo:.0f} / {med:.0f} / {hi:.0f} MHz "
+            f"(min / median / max), power draw up to {watts:.1f} W [{card}]")
+        for kname, times in sorted(bd["attention"].items()):
+            times.sort()
+            log(f"  {kname}: {len(times)} launches, {sum(times):.1f} ms, "
+                f"per launch {times[0]:.3f} / {times[len(times) // 2]:.3f} / "
+                f"{times[-1]:.3f} ms (min / median / max)")
+        for kname, ms in bd["top_other"]:
+            log(f"  other: {ms:9.2f} ms  {kname[:100]}")
+
+
 # ---------------------------------------------------------------- main
 def build_kernels(build, ops):
     """Phase 1: build every kernel source, one nvcc each, all at once."""
     loaders = {"ragged_decode": ops.load_library,
-               "ca_server": ops.load_ca_server_library}
+               "ca_server": ops.load_ca_server_library,
+               "flash": ops.load_flash_library}
     errors = []
 
     def run(fn):
@@ -929,6 +1453,7 @@ def main(argv=None) -> int:
 
     f32_err = check_ragged_decode_cases(torch, ops)
     ca_fwd_err, ca_bwd_err = check_ca_server_cases(torch, np, ops)
+    fl_fwd_err, fl_bwd_err = check_flash_cases(torch, np, ops)
     src = "src/repro_torch/kernels/packed_flash/csrc/"
     kernel = {"name": "ragged_decode", "route": "cuda",
               "source": src + "ragged_decode.cu",
@@ -942,6 +1467,12 @@ def main(argv=None) -> int:
               "source": src + "ca_server.cu",
               "replaces": "src/repro/kernels/packed_flash/kernel.py:763",
               "max_abs_err": ca_bwd_err}
+    fl_fwd = {"name": "flash_fwd", "route": "cuda", "source": src + "flash.cu",
+              "replaces": "src/repro/kernels/packed_flash/kernel.py:140",
+              "max_abs_err": fl_fwd_err}
+    fl_bwd = {"name": "flash_bwd", "route": "cuda", "source": src + "flash.cu",
+              "replaces": "src/repro/kernels/packed_flash/kernel.py:310",
+              "max_abs_err": fl_bwd_err}
     if args.only != "kernels":
         engine, launches, captured_err = serve_full_width(torch, np, ops,
                                                           launch)
@@ -952,20 +1483,22 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         prefill = times["prefill"]
         kernel.update(launches=launches, ms=prefill["ms"],
+                      ms_repeat=prefill["ms_repeat"],
                       plain_ms=prefill["plain_ms"],
                       bound_ms=prefill["bound_ms"],
                       bound_by=prefill["bound_by"],
                       library_ms=prefill["library_ms"],
                       captured_max_abs_err=captured_err,
                       decode={k: times["decode"][k] for k in
-                              ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")})
+                              ("ms", "ms_repeat", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")})
 
         steps, captured, ca_launches = train_full_width(torch, ops, card)
         batches = captured_batches(torch, captured)
         ca_captured_err = check_captured(torch, ops, captured, batches)
         tot, f_bound, b_bound = ca_kernel_times(torch, ops, batches, card)
         ca_fwd.update(launches=ca_launches["ca_server_fwd"], ms=tot["fwd"],
+                      ms_repeat=tot["fwd_repeat"],
                       plain_ms=tot["plain_fwd"], bound_ms=f_bound[0],
                       bound_by=f_bound[1], library_ms=tot["sdpa_fwd"],
                       captured_max_abs_err=ca_captured_err,
@@ -979,7 +1512,41 @@ def main(argv=None) -> int:
                                    "boolean mask",
                       train={k: [s[k] for s in steps] for k in
                              ("loss", "step_s", "peak_gib")})
-    log(json.dumps({"kernels": [kernel, ca_fwd, ca_bwd]}))
+        del batches, captured
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        co_steps, co_captured, fl_launches = train_colocated(torch, ops, card,
+                                                             steps)
+        fl_captured_err = check_captured_flash(torch, ops, co_captured)
+        t, f_bound, b_bound, pairs = flash_kernel_times(
+            torch, ops, co_captured[0], card)
+        del co_captured
+        gc.collect()
+        torch.cuda.empty_cache()
+        shape = (f"layer 0 of step 0: q [4, 4096, 32, 128], k/v [4, 4096, "
+                 f"8, 128] bf16, {pairs} live pairs per head")
+        fl_fwd.update(launches=fl_launches["flash_fwd"], ms=t["fwd"],
+                      ms_repeat=t["fwd_repeat"],
+                      plain_ms=t["plain_fwd"], bound_ms=f_bound[0],
+                      bound_by=f_bound[1], library_ms=t["sdpa_fwd"],
+                      captured_max_abs_err=fl_captured_err, shape=shape,
+                      library_call="sdpa fwd, efficient attention, boolean "
+                                   "mask [B, 1, S, S]")
+        fl_bwd.update(launches=fl_launches["flash_bwd_dq"],
+                      launches_dkv=fl_launches["flash_bwd_dkv"],
+                      ms=t["bwd"], plain_ms=t["plain_bwd"],
+                      bound_ms=b_bound[0], bound_by=b_bound[1],
+                      library_ms=t["sdpa_bwd"],
+                      library_call="sdpa bwd alone, efficient attention, "
+                                   "boolean mask [B, 1, S, S]",
+                      fwd_bwd_ms=t["fwd_bwd"],
+                      library_fwd_bwd_ms=t["sdpa_fwd_bwd"],
+                      train={k: [s[k] for s in co_steps] for k in
+                             ("loss", "step_s", "peak_gib")})
+        xla_route_on_card(torch, ops, card)
+        traced_steps(torch, card, steps, co_steps)
+    log(json.dumps({"kernels": [kernel, ca_fwd, ca_bwd, fl_fwd, fl_bwd]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

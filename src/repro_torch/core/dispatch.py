@@ -16,10 +16,10 @@ plain versions on CPU tensors).  Everything around the kernels is
 gather, concatenation and scatter, so autograd mirrors the communication
 in the backward (the paper's "backward reuses the schedule").
 
-The reference's ``shard_map`` path over a device mesh (``_rank_fn``) waits
-for NCCL ranks (ROADMAP queue 1 item 4); windowed and non-causal layers,
-which the reference sends to ``xla_flash_attention``, wait for queue 1
-item 3.  Both raise ``NotImplementedError``.
+Windowed and non-causal layers, and calls without a plan, go to
+``xla_flash_attention`` as in the reference.  The reference's
+``shard_map`` path over a device mesh (``_rank_fn``) waits for NCCL ranks
+(ROADMAP queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.attention import xla_flash_attention
 from repro_torch.core.mask import live_kv_len, mask_params
 from repro_torch.core.plan import CADConfig, PingPongPlan
 from repro_torch.kernels.packed_flash.ops import ca_server_attention
@@ -231,22 +232,27 @@ def iter_plan_tasks(cfg: CADConfig, plan, mask=None) \
 def cad_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv, *, ctx,
                   causal=True, window=0, softcap=0.0, scale=None,
                   mask=None):
-    """Core-attention disaggregation entry point, for causal full-attention
-    layers (the quadratic-imbalance source).  A non-trivial ``mask``
-    (sliding+sink or dilated :class:`~repro_torch.core.mask.MaskSpec`) is
-    served through the plan path; it must match the spec the plan was
-    built with (``cad.mask``, set by the session, when the call site
-    passes none).  Windowed and non-causal layers, and calls without a
-    plan, go to ``xla_flash_attention`` in the reference: not ported yet
-    (ROADMAP queue 1 item 3)."""
+    """Core-attention disaggregation entry point.
+
+    Applies to causal full-attention layers (the quadratic-imbalance
+    source).  Windowed and non-causal layers, and calls without a plan,
+    fall back to ``xla_flash_attention``: their compute is linear in
+    tokens, so they do not create the imbalance CAD exists to fix
+    (DESIGN.md §5).  A non-trivial ``mask`` (sliding+sink or dilated
+    :class:`~repro_torch.core.mask.MaskSpec`) is served through the plan
+    path; it must match the spec the plan was built with (``cad.mask``,
+    set by the session, when the call site passes none)."""
     cad: Optional[CADContext] = getattr(ctx, "cad", None)
     if cad is not None and mask is not None and cad.mask != mask:
         cad = dataclasses.replace(cad, mask=mask)
+    spec = cad.mask if cad is not None else mask
     if cad is None or cad.plan is None or not causal or window:
-        raise NotImplementedError(
-            "cad_attention without a plan, or for a windowed / non-causal "
-            "layer, falls back to xla_flash_attention, which comes with "
-            "ROADMAP queue 1 item 3")
+        w, sink, rate = mask_params(spec, window)
+        return xla_flash_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv,
+                                   causal=causal, window=w, sink=sink,
+                                   rate=rate,
+                                   blk=cad.cfg.blk if cad else 128,
+                                   softcap=softcap, scale=scale)
     # padding tokens -> position -1 so the server kernels mask them
     pos = torch.where(seg_q > 0, pos_q, -1).to(torch.int32)
 

@@ -3,8 +3,9 @@
 Each kernel source under ``repro_torch/kernels/**/csrc/`` exposes a plain C
 interface.  ``load`` compiles it with ``nvcc`` for Hopper (``sm_90a``) into
 ``build/kernels/`` at the repository root, at first use, and opens it with
-``ctypes``.  The library's name carries a hash of the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded.
+``ctypes``.  The library's name carries a hash of the source, the headers
+beside it (``*.cuh``, which the sources include) and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
 
 Nothing is built when a module is imported: the CPU tests import every
 module, and a machine without ``nvcc`` must be able to.
@@ -51,7 +52,8 @@ def load(name: str, source: Path) -> ctypes.CDLL:
     with lock:
         if name in _libs:
             return _libs[name]
-        text = source.read_bytes()
+        text = source.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
         tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()) \
             .hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

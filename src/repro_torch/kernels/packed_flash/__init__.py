@@ -1,2 +1,2 @@
-"""Packed-flash attention kernels.  This slice ports the serving one:
-``ops.ragged_decode_attention`` (CUDA kernel ``csrc/ragged_decode.cu``)."""
+"""Packed-flash attention kernels: ``ops`` holds each CUDA kernel's wrapper
+(sources in ``csrc/``) beside its plain PyTorch version."""

@@ -61,47 +61,12 @@
 // caller's stream and returns cudaGetLastError(); anything it does not
 // cover returns cudaErrorInvalidValue without launching.
 
-#include <cstddef>
-#include <cstdint>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 64;   // q rows (fwd, dq) or kv rows (dk/dv) per CTA
 constexpr int kTile = 64;   // kv slots (fwd, dq) or q rows (dk/dv) per tile
-constexpr float kNegInf = -1073741824.0f;  // -2**30, kernel.py NEG_INF
-constexpr float kLseDead = 1073741824.0f;  // 2**30, kernel.py LSE_DEAD
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
 
 struct Mask {
   int window;  // 0 = no window
@@ -120,38 +85,9 @@ __device__ __forceinline__ bool visible(int pq, int pk, const Mask& m) {
   return true;
 }
 
-// scaled, softcapped logit (kernel.py _capped_masked_logits before the mask)
-__device__ __forceinline__ float cap(float dot, float scale, float softcap) {
-  const float x = dot * scale;
-  return softcap > 0.f ? tanhf(x / softcap) * softcap : x;
-}
-
-// kernel.py _ds_from_p: softmax backward, softcap chain rule and scale
-__device__ __forceinline__ float ds_from_p(float p, float dp, float delta,
-                                           float logit, bool ok, float scale,
-                                           float softcap) {
-  float ds = p * (dp - delta);
-  if (softcap > 0.f) {
-    const float sc = ok ? logit / softcap : 0.f;
-    ds *= 1.f - sc * sc;
-  }
-  return ds * scale;
-}
-
 // the kv block a task reads at relative index j (kernel.py:626-631)
 __device__ __forceinline__ int kv_block(int start, int j, int N) {
   return max(0, min(start + j, N - 1));
-}
-
-// stage `rows` rows of dh values (row stride `stride` elements) into f32
-// shared memory with row pitch `pitch`
-template <typename T, int DH>
-__device__ __forceinline__ void stage(float* dst, int pitch, const T* src,
-                                      size_t stride, int rows) {
-  for (int idx = threadIdx.x; idx < rows * DH; idx += kThreads) {
-    const int r = idx / DH, d = idx % DH;
-    dst[r * pitch + d] = to_f32(src[(size_t)r * stride + d]);
-  }
 }
 
 // ------------------------------------------------------------------ forward
@@ -588,15 +524,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------ launch
-template <typename K>
-cudaError_t raise_smem(K kernel, size_t bytes, bool* configured) {
-  if (*configured) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) *configured = true;
-  return e;
-}
-
 struct Args {
   const void *q, *k, *v, *dout, *lse_in, *delta;
   const void *kv_start, *kv_len, *q_pos, *kv_pos;

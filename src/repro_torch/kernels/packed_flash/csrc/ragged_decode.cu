@@ -41,46 +41,13 @@
 // cudaGetLastError() after the launch on the caller's stream.
 
 #include <climits>
-#include <cstddef>
-#include <cstdint>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
 constexpr int kTileK = 64;
 constexpr int kMaxBlkQ = 128;
-constexpr float kNegInf = -1073741824.0f;  // -2**30, kernel.py NEG_INF
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <int DH>
 constexpr size_t smem_bytes(int blk_q) {
@@ -200,12 +167,8 @@ __global__ void __launch_bounds__(kThreads)
         x_lo = fmaf(qd, k_lo[d], x_lo);
         x_hi = fmaf(qd, k_hi[d], x_hi);
       }
-      x_lo *= scale;
-      x_hi *= scale;
-      if (softcap > 0.f) {
-        x_lo = tanhf(x_lo / softcap) * softcap;
-        x_hi = tanhf(x_hi / softcap) * softcap;
-      }
+      x_lo = cap(x_lo, scale, softcap);
+      x_hi = cap(x_hi, scale, softcap);
       const int sl = s0 + lane, sh = s0 + lane + 32;
       const bool ok_lo = sl < len && sl <= p && (window <= 0 || p - sl < window);
       const bool ok_hi = sh < len && sh <= p && (window <= 0 || p - sh < window);
@@ -226,8 +189,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < PER_LANE; ++c) acc[c] = ar[lane + 32 * c] * corr;
 #pragma unroll 4
       for (int kk = 0; kk < 32; ++kk) {
-        const float pl = __shfl_sync(0xffffffffu, p_lo, kk);
-        const float ph = __shfl_sync(0xffffffffu, p_hi, kk);
+        const float pl = __shfl_sync(kFull, p_lo, kk);
+        const float ph = __shfl_sync(kFull, p_hi, kk);
         const float* vl = v_s + kk * DH;
         const float* vh = v_s + (kk + 32) * DH;
 #pragma unroll
@@ -264,15 +227,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_pos, void* out, int nq, int blk_q, int hq,
                    int hkv, int S, int window, float softcap, float scale,
                    cudaStream_t stream) {
-  static bool configured = false;  // once per instantiation
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ragged_decode_kernel<T, DH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes<DH>(kMaxBlkQ));
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  static bool configured = false;
+  cudaError_t e = raise_smem(ragged_decode_kernel<T, DH>,
+                             smem_bytes<DH>(kMaxBlkQ), &configured);
+  if (e != cudaSuccess) return e;
   dim3 grid(nq, hq);
   ragged_decode_kernel<T, DH><<<grid, kThreads, smem_bytes<DH>(blk_q), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

@@ -9,6 +9,11 @@ plain PyTorch version.
   kernels ``ca_server_fwd``, ``ca_server_bwd_dq`` and
   ``ca_server_bwd_dkv`` of ``csrc/ca_server.cu``; plain versions
   ``ca_server_fwd_reference`` / ``ca_server_bwd_reference``.
+* ``packed_flash_attention``: packed-document self-attention with its
+  backward (the colocated ``attn_impl="pallas"`` route), a
+  ``torch.autograd.Function`` over the kernels ``flash_fwd``,
+  ``flash_bwd_dq`` and ``flash_bwd_dkv`` of ``csrc/flash.cu``; plain
+  versions ``flash_fwd_reference`` / ``flash_bwd_reference``.
 
 Each keeps the layout of its ``repro.kernels.packed_flash`` counterpart.
 On CUDA tensors a wrapper launches its kernel (built with ``nvcc`` at
@@ -24,23 +29,26 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.core.attention import LSE_DEAD, NEG_INF, mask_fn
 from repro_torch.kernels import build
 
-NEG_INF = -2.0 ** 30
-LSE_DEAD = 2.0 ** 30          # lse of a fully masked row
 KV_TILE = 64                  # the CUDA kernel's kv tile; S must divide by it
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCE = _CSRC / "ragged_decode.cu"
 _CA_SOURCE = _CSRC / "ca_server.cu"
+_FLASH_SOURCE = _CSRC / "flash.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128)
 _BLK_Q = (1, 128)
 CA_BLOCKS = (64, 128)         # the CA-server kernels' task block sizes
+FLASH_BLOCK = 128             # the TPU kernel's DEFAULT_BLOCK
+FLASH_TILE = 64               # the flash kernels' tile; S must divide by it
 
 #: kernel launches made by the wrappers (plain counts a run resets and
 #: reads to show that the main path went through the kernels)
 launches = {"ragged_decode": 0, "ca_server_fwd": 0, "ca_server_bwd_dq": 0,
-            "ca_server_bwd_dkv": 0}
+            "ca_server_bwd_dkv": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
 
 
 def reset_launches() -> None:
@@ -105,28 +113,37 @@ def ragged_decode_reference(q, k_cache, v_cache, block_req, q_pos, kv_len,
     return out.permute(0, 3, 1, 2, 4).reshape(t, hq, dh).to(q.dtype)
 
 
-def _check_cuda_inputs(q, k_cache, v_cache, block_req, q_pos, kv_len,
-                       blk_q):
-    tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache,
-               "block_req": block_req, "q_pos": q_pos, "kv_len": kv_len}
+def _check_tensors(kernel, tensors, int_names):
+    """Raise unless every tensor is a contiguous CUDA tensor on the first
+    one's device, those in ``int_names`` are int32, and the first three
+    (q, k, v) share one dtype the kernels take."""
+    names = list(tensors)
+    q, k, v = (tensors[n] for n in names[:3])
     for name, x in tensors.items():
         if not x.is_cuda:
-            raise ValueError(f"ragged_decode kernel: {name} is on {x.device}, "
-                             f"the kernel runs on CUDA tensors only")
+            raise ValueError(f"{kernel} kernel: {name} is on {x.device}, the "
+                             f"kernel runs on CUDA tensors only")
         if x.device != q.device:
-            raise ValueError(f"ragged_decode kernel: {name} is on {x.device}"
-                             f", q on {q.device}")
+            raise ValueError(f"{kernel} kernel: {name} is on {x.device}, "
+                             f"{names[0]} on {q.device}")
         if not x.is_contiguous():
-            raise ValueError(f"ragged_decode kernel: {name} not contiguous")
-    for name in ("block_req", "q_pos", "kv_len"):
+            raise ValueError(f"{kernel} kernel: {name} not contiguous")
+    for name in int_names:
         if tensors[name].dtype != torch.int32:
-            raise ValueError(f"ragged_decode kernel: {name} must be int32, "
-                             f"got {tensors[name].dtype}")
-    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
-            or v_cache.dtype != q.dtype:
-        raise ValueError(f"ragged_decode kernel: q/k/v must share one of "
-                         f"{list(_DTYPES)}, got {q.dtype}, {k_cache.dtype}, "
-                         f"{v_cache.dtype}")
+            raise ValueError(f"{kernel} kernel: {name} must be int32, got "
+                             f"{tensors[name].dtype}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{kernel} kernel: q/k/v must share one of "
+                         f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+
+
+def _check_cuda_inputs(q, k_cache, v_cache, block_req, q_pos, kv_len,
+                       blk_q):
+    _check_tensors("ragged_decode",
+                   {"q": q, "k_cache": k_cache, "v_cache": v_cache,
+                    "block_req": block_req, "q_pos": q_pos, "kv_len": kv_len},
+                   ("block_req", "q_pos", "kv_len"))
     t, hq, dh = q.shape
     R, S, hkv, dh_k = k_cache.shape
     if v_cache.shape != k_cache.shape or dh_k != dh:
@@ -350,27 +367,11 @@ def ca_server_bwd_reference(q_tasks, k_buf, v_buf, out, lse, do, kv_start,
 def _check_ca_inputs(q, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos,
                      extra=()):
     """Raise on anything the CA-server kernels do not take."""
-    tensors = {"q_tasks": q, "k_buf": k_buf, "v_buf": v_buf,
-               "kv_start": kv_start, "kv_len": kv_len, "q_pos": q_pos,
-               "kv_pos": kv_pos, **dict(extra)}
-    for name, x in tensors.items():
-        if not x.is_cuda:
-            raise ValueError(f"ca_server kernel: {name} is on {x.device}, "
-                             f"the kernel runs on CUDA tensors only")
-        if x.device != q.device:
-            raise ValueError(f"ca_server kernel: {name} is on {x.device}, "
-                             f"q_tasks on {q.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"ca_server kernel: {name} not contiguous")
-    for name in ("kv_start", "kv_len", "q_pos", "kv_pos"):
-        if tensors[name].dtype != torch.int32:
-            raise ValueError(f"ca_server kernel: {name} must be int32, got "
-                             f"{tensors[name].dtype}")
-    if q.dtype not in _DTYPES or k_buf.dtype != q.dtype \
-            or v_buf.dtype != q.dtype:
-        raise ValueError(f"ca_server kernel: q/k/v must share one of "
-                         f"{list(_DTYPES)}, got {q.dtype}, {k_buf.dtype}, "
-                         f"{v_buf.dtype}")
+    _check_tensors("ca_server",
+                   {"q_tasks": q, "k_buf": k_buf, "v_buf": v_buf,
+                    "kv_start": kv_start, "kv_len": kv_len, "q_pos": q_pos,
+                    "kv_pos": kv_pos, **dict(extra)},
+                   ("kv_start", "kv_len", "q_pos", "kv_pos"))
     t, blk, hq, dh = q.shape
     n, blk_k, hkv, dh_k = k_buf.shape
     if v_buf.shape != k_buf.shape or blk_k != blk or dh_k != dh:
@@ -469,30 +470,28 @@ def ca_server_bwd(q_tasks, k_buf, v_buf, out, lse, do, kv_start, kv_len,
     return dq, dk, dv
 
 
-class _CAServerAttention(torch.autograd.Function):
-    """Forward saves (q, k_buf, v_buf, out, lse); backward rebuilds p from
-    the saved lse.  CUDA tensors run the kernels, CPU tensors the plain
-    versions."""
+class _KernelAttention(torch.autograd.Function):
+    """Attention over a kernel pair with the shape both pairs share:
+    ``fwd(q, k, v, *index, **opts) -> (out, lse)`` and
+    ``bwd(q, k, v, out, lse, do, *index, **opts) -> (dq, dk, dv)``, with
+    four int32 index tensors.  ``kernels`` is (fwd, bwd) for CUDA tensors
+    and (fwd, bwd) plain versions for CPU tensors.  Forward saves the
+    inputs and (out, lse); backward rebuilds p from the saved lse."""
 
     @staticmethod
-    def forward(ctx, q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos,
-                opts):
-        fwd = ca_server_fwd if q_tasks.is_cuda else ca_server_fwd_reference
-        out, lse = fwd(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
-                       kv_pos, **opts)
-        ctx.save_for_backward(q_tasks, k_buf, v_buf, kv_start, kv_len,
-                              q_pos, kv_pos, out, lse)
-        ctx.opts = opts
+    def forward(ctx, q, k, v, i0, i1, i2, i3, kernels, opts):
+        fwd, bwd = kernels[0] if q.is_cuda else kernels[1]
+        out, lse = fwd(q, k, v, i0, i1, i2, i3, **opts)
+        ctx.save_for_backward(q, k, v, i0, i1, i2, i3, out, lse)
+        ctx.bwd, ctx.opts = bwd, opts
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos, out, lse = \
-            ctx.saved_tensors
-        bwd = ca_server_bwd if q_tasks.is_cuda else ca_server_bwd_reference
-        dq, dk, dv = bwd(q_tasks, k_buf, v_buf, out, lse, g.contiguous(),
-                         kv_start, kv_len, q_pos, kv_pos, **ctx.opts)
-        return dq, dk, dv, None, None, None, None, None
+        q, k, v, *index, out, lse = ctx.saved_tensors
+        dq, dk, dv = ctx.bwd(q, k, v, out, lse, g.contiguous(), *index,
+                             **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def ca_server_attention(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
@@ -515,8 +514,10 @@ def ca_server_attention(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
                          f"{q_tasks.device}")
     opts = dict(jmax=jmax, window=window, sink=sink, rate=rate,
                 softcap=softcap, scale=scale)
-    return _CAServerAttention.apply(q_tasks, k_buf, v_buf, kv_start, kv_len,
-                                    q_pos, kv_pos, opts)
+    kernels = ((ca_server_fwd, ca_server_bwd),
+               (ca_server_fwd_reference, ca_server_bwd_reference))
+    return _KernelAttention.apply(q_tasks, k_buf, v_buf, kv_start, kv_len,
+                                  q_pos, kv_pos, kernels, opts)
 
 
 def load_ca_server_library() -> ctypes.CDLL:
@@ -526,6 +527,284 @@ def load_ca_server_library() -> ctypes.CDLL:
     signatures = {"ca_server_fwd": [ptr] * 9,
                   "ca_server_bwd_dq": [ptr] * 11,
                   "ca_server_bwd_dkv": [ptr] * 12}
+    for name, ptrs in signatures.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = ptrs + scalars
+            fn.restype = ctypes.c_int
+    return lib
+
+
+# ------------------------------------------------------------ packed flash
+def _flash_blocks(sq, skv, blk_q, blk_k, rate):
+    """The TPU kernel's block sizes (``kernel.py:148-152``)."""
+    blk_q, blk_k = min(blk_q, sq), min(blk_k, skv)
+    if sq % blk_q or skv % blk_k:
+        raise ValueError(f"pad the sequence to the block: Sq {sq} / blk_q "
+                         f"{blk_q}, Skv {skv} / blk_k {blk_k}")
+    if rate and rate > 1 and blk_q != blk_k:
+        raise ValueError("dilated masks need square blocks (blk_q == blk_k)")
+    return blk_q, blk_k
+
+
+def _flash_pair_mask(seg_q, pos_q, seg_k, pos_k, j, *, causal, window, sink,
+                     rate, blk_q, blk_k):
+    """Visible pairs of every q row against kv block ``j`` [B, Sq, blk_k]:
+    the token mask (``_flash_mask`` is ``mask_fn`` with the dilation at
+    blk_q), and ``_flash_block_live`` of the chunk-order block pair
+    (row // blk_q, j)."""
+    m = mask_fn(seg_q.long(), pos_q.long(), seg_k.long(), pos_k.long(),
+                causal=causal, window=window, sink=sink, rate=rate, blk=blk_q)
+    i = torch.arange(seg_q.shape[1], device=seg_q.device) // blk_q
+    run = torch.ones_like(i, dtype=torch.bool)
+    if causal:
+        run = run & (j * blk_k < (i + 1) * blk_q)
+    if window and window > 0 and not sink:
+        run = run & ((j + 1) * blk_k - 1 >= i * blk_q - window)
+    if rate and rate > 1:
+        run = run & ((i - j) % rate == 0)
+    return m & run[None, :, None]
+
+
+def _flash_block_logits(qf, k, seg_q, pos_q, seg_kv, pos_kv, j, *, causal,
+                        window, sink, rate, softcap, scale, blk_q, blk_k):
+    """Masked logits of every q row against kv block ``j``, with GQA as a
+    [Hkv, rep] split of the q heads.  qf [B, Sq, Hkv, rep, dh] in the
+    accumulation dtype.  Returns (logits [B, Hkv, rep, Sq, blk_k], mask
+    like it, kj [B, blk_k, Hkv, dh] in qf's dtype, the block's slice)."""
+    sl = slice(j * blk_k, (j + 1) * blk_k)
+    kj = k[:, sl].to(qf.dtype)
+    msk = _flash_pair_mask(seg_q, pos_q, seg_kv[:, sl], pos_kv[:, sl], j,
+                           causal=causal, window=window, sink=sink, rate=rate,
+                           blk_q=blk_q, blk_k=blk_k)[:, None, None]
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qf, kj) * scale
+    if softcap and softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    return torch.where(msk, logits, NEG_INF), msk, kj, sl
+
+
+def flash_fwd_reference(q, k, v, seg_q, pos_q, seg_kv, pos_kv, *,
+                        causal=True, window=0, sink=0, rate=1, softcap=0.0,
+                        scale=None, blk_q=FLASH_BLOCK, blk_k=FLASH_BLOCK):
+    """Plain PyTorch version of ``flash_fwd`` (``kernel.py:140``): the
+    online softmax over kv blocks of ``blk_k`` slots, every q row at once,
+    on the pairs the TPU kernel visits (its chunk-order block prune and
+    token mask).  A pruned or fully masked block is an exact no-op.
+    Returns (out like q, lse [B, Hq, Sq] in the accumulation dtype; dead
+    rows give out 0 and lse LSE_DEAD)."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = scale if scale is not None else dh ** -0.5
+    blk_q, blk_k = _flash_blocks(sq, skv, blk_q, blk_k, rate)
+    acc_dt = _acc_dtype(q)
+    qf = q.to(acc_dt).reshape(b, sq, hkv, rep, dh)
+    dev = q.device
+    m_acc = torch.full((b, hkv, rep, sq), NEG_INF, dtype=acc_dt, device=dev)
+    l_acc = torch.zeros((b, hkv, rep, sq), dtype=acc_dt, device=dev)
+    acc = torch.zeros((b, hkv, rep, sq, dh), dtype=acc_dt, device=dev)
+    for j in range(skv // blk_k):
+        logits, msk, _, sl = _flash_block_logits(
+            qf, k, seg_q, pos_q, seg_kv, pos_kv, j, causal=causal,
+            window=window, sink=sink, rate=rate, softcap=softcap,
+            scale=scale, blk_q=blk_q, blk_k=blk_k)
+        m_new = torch.maximum(m_acc, logits.amax(-1))
+        p = torch.where(msk, torch.exp(logits - m_new[..., None]), 0.0)
+        corr = torch.exp(m_acc - m_new)
+        l_acc = l_acc * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgrqk,bkgd->bgrqd", p, v[:, sl].to(acc_dt))
+        m_acc = m_new
+    live = m_acc > NEG_INF / 2
+    out = acc / l_acc.clamp(min=1e-30)[..., None]
+    out = torch.where(live[..., None], out, 0.0)
+    lse = torch.where(live, m_acc + torch.log(l_acc.clamp(min=1e-30)),
+                      LSE_DEAD)
+    # [B, g, r, q, d] -> [B, q, g, r, d] -> [B, Sq, Hq, dh]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
+    return out.to(q.dtype).contiguous(), lse.reshape(b, hq, sq)
+
+
+def flash_bwd_reference(q, k, v, out, lse, do, seg_q, pos_q, seg_kv, pos_kv,
+                        *, causal=True, window=0, sink=0, rate=1,
+                        softcap=0.0, scale=None, blk_q=FLASH_BLOCK,
+                        blk_k=FLASH_BLOCK):
+    """Plain PyTorch version of ``flash_bwd`` (``kernel.py:310``): p
+    rebuilt from the saved lse block by block on the forward's pairs,
+    ``delta = rowsum(do * out)``, ``_ds_from_p``'s softcap chain rule, and
+    dk/dv summed over the GQA group.  Returns (dq, dk, dv) in the dtypes of
+    q, k, v."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = scale if scale is not None else dh ** -0.5
+    blk_q, blk_k = _flash_blocks(sq, skv, blk_q, blk_k, rate)
+    acc_dt = _acc_dtype(q)
+    qf = q.to(acc_dt).reshape(b, sq, hkv, rep, dh)
+    g5 = do.to(acc_dt).reshape(b, sq, hkv, rep, dh)
+    delta = torch.einsum("bqgrd,bqgrd->bgrq", g5,
+                         out.to(acc_dt).reshape(b, sq, hkv, rep, dh))
+    lse5 = lse.to(acc_dt).reshape(b, hkv, rep, sq)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((b, skv, hkv, dh), dtype=acc_dt, device=k.device)
+    dv = torch.zeros_like(dk)
+    for j in range(skv // blk_k):
+        logits, msk, kj, sl = _flash_block_logits(
+            qf, k, seg_q, pos_q, seg_kv, pos_kv, j, causal=causal,
+            window=window, sink=sink, rate=rate, softcap=softcap,
+            scale=scale, blk_q=blk_q, blk_k=blk_k)
+        p = torch.where(msk, torch.exp(logits - lse5[..., None]), 0.0)
+        dv[:, sl] = torch.einsum("bgrqk,bqgrd->bkgd", p, g5)
+        dp = torch.einsum("bqgrd,bkgd->bgrqk", g5, v[:, sl].to(acc_dt))
+        ds = p * (dp - delta[..., None])
+        if softcap and softcap > 0:
+            sc = torch.where(msk, logits / softcap, 0.0)
+            ds = ds * (1.0 - sc * sc)
+        ds = ds * scale
+        dq = dq + torch.einsum("bgrqk,bkgd->bqgrd", ds, kj)
+        dk[:, sl] = torch.einsum("bgrqk,bqgrd->bkgd", ds, qf)
+    return (dq.reshape(b, sq, hq, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check_flash_inputs(q, k, v, seg_q, pos_q, seg_kv, pos_kv, blk_q, blk_k,
+                        rate, extra=()):
+    """Raise on anything the flash kernels do not take."""
+    _check_tensors("flash",
+                   {"q": q, "k": k, "v": v, "seg_q": seg_q, "pos_q": pos_q,
+                    "seg_kv": seg_kv, "pos_kv": pos_kv, **dict(extra)},
+                   ("seg_q", "pos_q", "seg_kv", "pos_kv"))
+    b, sq, hq, dh = q.shape
+    bk, skv, hkv, dh_k = k.shape
+    if v.shape != k.shape or bk != b or dh_k != dh:
+        raise ValueError(f"flash kernel: k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernel: head_dim {dh} not in "
+                         f"{KERNEL_HEAD_DIMS}")
+    if hq % hkv:
+        raise ValueError(f"flash kernel: {hq} q heads over {hkv} kv heads")
+    if min(b, sq, skv, hq) < 1 or sq % FLASH_TILE or skv % FLASH_TILE:
+        raise ValueError(f"flash kernel: B {b}, Sq {sq}, Skv {skv} must be "
+                         f"positive, the lengths multiples of {FLASH_TILE}")
+    if seg_q.shape != (b, sq) or pos_q.shape != (b, sq) \
+            or seg_kv.shape != (b, skv) or pos_kv.shape != (b, skv):
+        raise ValueError(f"flash kernel: segment/position shapes "
+                         f"{tuple(seg_q.shape)}, {tuple(pos_q.shape)}, "
+                         f"{tuple(seg_kv.shape)}, {tuple(pos_kv.shape)} do "
+                         f"not fit B={b}, Sq={sq}, Skv={skv}")
+    return _flash_blocks(sq, skv, blk_q, blk_k, rate)
+
+
+def _flash_scalars(q, k, blk_q, blk_k, causal, window, sink, rate, softcap,
+                   scale):
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else dh ** -0.5
+    return (b, sq, skv, hq, hkv, dh, _DTYPES[q.dtype], int(bool(causal)),
+            int(window or 0), int(sink or 0), int(rate or 1), blk_q, blk_k,
+            float(softcap or 0.0), float(scale))
+
+
+def flash_fwd(q, k, v, seg_q, pos_q, seg_kv, pos_kv, *, causal=True,
+              window=0, sink=0, rate=1, softcap=0.0, scale=None,
+              blk_q=FLASH_BLOCK, blk_k=FLASH_BLOCK):
+    """Launch the forward kernel on the current stream.  Layout of the TPU
+    kernel ``flash_fwd`` with ``return_lse``; returns (out like q, lse
+    [B, Hq, Sq] f32).  CUDA tensors only."""
+    blk_q, blk_k = _check_flash_inputs(q, k, v, seg_q, pos_q, seg_kv,
+                                       pos_kv, blk_q, blk_k, rate)
+    b, sq, hq, _ = q.shape
+    lib = load_flash_library()
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(),
+            pos_q.data_ptr(), seg_kv.data_ptr(), pos_kv.data_ptr(),
+            out.data_ptr(), lse.data_ptr(),
+            *_flash_scalars(q, k, blk_q, blk_k, causal, window, sink, rate,
+                            softcap, scale), stream)
+    _raise_on(err, "flash_fwd")
+    launches["flash_fwd"] += 1
+    return out, lse
+
+
+def flash_bwd(q, k, v, out, lse, do, seg_q, pos_q, seg_kv, pos_kv, *,
+              causal=True, window=0, sink=0, rate=1, softcap=0.0, scale=None,
+              blk_q=FLASH_BLOCK, blk_k=FLASH_BLOCK):
+    """The backward from the saved (out, lse): ``delta = rowsum(do * out)``
+    in f32 (a torch op, outside the kernels as in the reference), then the
+    dq kernel and the dk/dv kernel on the current stream.  Returns
+    (dq, dk, dv) in the dtypes of q and k.  CUDA tensors only."""
+    blk_q, blk_k = _check_flash_inputs(
+        q, k, v, seg_q, pos_q, seg_kv, pos_kv, blk_q, blk_k, rate,
+        extra=(("out", out), ("lse", lse), ("do", do)))
+    b, sq, hq, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or out.shape != q.shape \
+            or lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_bwd: do {tuple(do.shape)} {do.dtype}, out "
+                         f"{tuple(out.shape)}, lse {tuple(lse.shape)} "
+                         f"{lse.dtype} do not fit q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    lib = load_flash_library()
+    delta = torch.einsum("bqhd,bqhd->bhq", do.float(),
+                         out.float()).contiguous()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    scalars = _flash_scalars(q, k, blk_q, blk_k, causal, window, sink, rate,
+                             softcap, scale)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), seg_q.data_ptr(),
+           pos_q.data_ptr(), seg_kv.data_ptr(), pos_kv.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_bwd_dq(*ins, dq.data_ptr(), *scalars, stream)
+        _raise_on(err, "flash_bwd_dq")
+        launches["flash_bwd_dq"] += 1
+        err = lib.flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
+                                *scalars, stream)
+        _raise_on(err, "flash_bwd_dkv")
+        launches["flash_bwd_dkv"] += 1
+    return dq, dk, dv
+
+
+def packed_flash_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv,
+                           causal=True, window=0, softcap=0.0, scale=None,
+                           sink=0, rate=1):
+    """Packed-document self-attention (the colocated baseline), the port
+    of ``repro.kernels.packed_flash.ops.packed_flash_attention`` without
+    its ``bwd_impl`` switch.
+
+    q [B, Sq, Hq, dh]; k / v [B, Skv, Hkv, dh]; seg_* / pos_* [B, S]
+    segment ids (0 = padding) and in-document positions.  ``window`` /
+    ``sink`` / ``rate`` carry a MaskSpec (DESIGN.md §12), the dilation in
+    units of the kernel's 128-token block.  Differentiable in q, k, v.
+
+    CUDA tensors launch the kernels (f32 or bf16, head_dim 64 or 128, any
+    Hq / Hkv, lengths multiples of 64); anything they do not cover raises.
+    CPU tensors run the plain versions."""
+    if not q.is_cuda and q.device.type != "cpu":
+        raise ValueError(f"packed_flash_attention: no kernel for device "
+                         f"{q.device}")
+    opts = dict(causal=causal, window=window, sink=sink, rate=rate,
+                softcap=softcap, scale=scale)
+    ids = (x.to(torch.int32).contiguous()
+           for x in (seg_q, pos_q, seg_kv, pos_kv))
+    kernels = ((flash_fwd, flash_bwd),
+               (flash_fwd_reference, flash_bwd_reference))
+    return _KernelAttention.apply(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), *ids, kernels, opts)
+
+
+def load_flash_library() -> ctypes.CDLL:
+    lib = build.load("flash", _FLASH_SOURCE)
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    scalars = [i32] * 13 + [f32, f32, ptr]    # ints, softcap, scale, stream
+    signatures = {"flash_fwd": [ptr] * 9, "flash_bwd_dq": [ptr] * 11,
+                  "flash_bwd_dkv": [ptr] * 12}
     for name, ptrs in signatures.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:

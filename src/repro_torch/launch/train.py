@@ -13,10 +13,10 @@ synchronous), --strategy fixed|variable (packing baseline),
 factors), --server-hbm (per-rank HBM budgets in bytes), --mask
 (attention task shape beyond dense causal: "sliding:window=256,sink=16"
 or "dilated:rate=4").  ``--device`` (default ``cuda``) picks the card;
-without one, ``cuda`` raises.  Without --cad the model trains with the
-``ref`` attention oracle, since the reference's default ``xla`` path is
-not ported.  The reference's --kernel is not carried over: CUDA tensors
-run the hand-written kernels.  --calibrate, --stream-chunk,
+without one, ``cuda`` raises.  Without --cad the model trains with
+colocated blockwise ``xla`` attention, as in the reference.  The
+reference's --kernel is not carried over: CUDA tensors run the
+hand-written kernels.  --calibrate, --stream-chunk,
 --fault-schedule, --ckpt-dir/--ckpt-every and --trace are accepted and
 raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
@@ -119,7 +119,7 @@ def main(argv=None):
         if speeds or hbm or args.mask:
             print("note: --server-speeds/--server-hbm/--mask only apply "
                   "to the CAD attention service — ignored")
-        ctx = ParallelContext(attn_impl="ref", remat=True)
+        ctx = ParallelContext(attn_impl="xla", remat=True)
     tc = TrainConfig(steps=args.steps, peak_lr=args.lr,
                      warmup=max(1, args.steps // 10),
                      log_every=max(1, args.steps // 20))

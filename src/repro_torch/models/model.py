@@ -8,9 +8,9 @@ axis and scans over it; here each layer is its own module in
 pattern slot ``l % period`` of group ``l // period``.
 
 What runs: attention-only patterns of ``global`` and ``local`` layers
-(dense MLPs, optional post-norms, softcaps, tied embeddings).  Training
-with ``attn_impl="cad"`` takes causal ``global`` layers; a ``local``
-layer there needs the windowed fallback (ROADMAP queue 1 item 3).
+(dense MLPs, optional post-norms, softcaps, tied embeddings), trained
+under every ``attn_impl`` (with ``cad``, ``local`` layers take the
+dispatch's windowed fallback, ``xla_flash_attention``).
 Recurrent (``ssd``/``rglru``) and MoE layers, cross-attention, the
 encoder and the legacy ``layout="decode"`` cache raise
 ``NotImplementedError`` naming the slice that brings them.

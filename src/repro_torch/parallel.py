@@ -16,8 +16,8 @@ from typing import Any
 class ParallelContext:
     """What the model's forward reads besides weights and batch.
 
-    attn_impl: "ref" | "cad" (``xla`` and ``pallas`` raise, see
-               ``core.attention``)
+    attn_impl: "ref" | "xla" | "pallas" | "cad" (see
+               ``core.attention.core_attention``)
     cad:       the :class:`~repro_torch.core.dispatch.CADContext` (pool
                geometry + this step's plan) when attn_impl == "cad"
     remat:     re-run each layer's forward in the backward

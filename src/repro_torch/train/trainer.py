@@ -52,8 +52,8 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
     Pass ``session`` (a :class:`repro_torch.cad.CADSession`) to train with
     the attention service: the session provides the ParallelContext and
     attaches prefetched plans to every batch.  Without a session the loop
-    trains on raw packed batches with ``ctx`` (default: the ``ref``
-    oracle, since the reference's default ``xla`` path is not ported).
+    trains on raw packed batches with ``ctx`` (default: blockwise ``xla``
+    attention with remat, as in the reference).
     ``model`` (a Transformer) is trained in place; without one, weights
     are drawn from ``train_cfg.seed``.  ``on_step(step, metrics)`` is
     called after every step with the metrics as floats, the step's
@@ -67,7 +67,7 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
         ctx = session.context()
         gen = session.attach_plans(raw_batches(pipe_cfg))
     else:
-        ctx = ctx or ParallelContext(attn_impl="ref", remat=True)
+        ctx = ctx or ParallelContext(attn_impl="xla", remat=True)
         gen = raw_batches(pipe_cfg)
     opt = AdamW(lr=cosine_schedule(train_cfg.peak_lr, train_cfg.warmup,
                                    train_cfg.steps),

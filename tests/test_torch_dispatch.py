@@ -207,12 +207,33 @@ def test_server_batches_are_what_the_kernels_get(monkeypatch):
 
 
 def test_windowed_or_planless_layers_raise():
-    cfg = CADConfig(**make_cfg(2, 2 * BLK))
-    x = torch.zeros(2, 2 * BLK, 2, 32)
-    seg = torch.ones(2, 2 * BLK, dtype=torch.int32)
-    ctx = ParallelContext(attn_impl="cad", cad=D.CADContext(cfg=cfg))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        D.cad_attention(x, x, x, seg, seg, seg, seg, ctx=ctx)
+    """Windowed and non-causal layers, and calls without a plan, fall back
+    to ``xla_flash_attention`` as the reference's ``cad_attention`` does,
+    the dilated family at the pool's block.  (The name is that of the
+    test from before the fallback was ported, when these calls raised;
+    it is kept so the test's history stays one line.)"""
+    from repro.core.mask import MaskSpec as JMask
+    from repro_torch.core.mask import MaskSpec
+    geo = make_cfg(2, 2 * BLK)
+    rng = np.random.default_rng(5)
+    segs, poss = random_layout(rng, 2, 2 * BLK)
+    q = rng.standard_normal((2, 2 * BLK, 4, 32)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 2 * BLK, 2, 32)).astype(np.float32)
+            for _ in range(2))
+    jctx = JCtx(attn_impl="cad", cad=JD.CADContext(cfg=JCfg(**geo)))
+    ctx = ParallelContext(attn_impl="cad",
+                          cad=D.CADContext(cfg=CADConfig(**geo)))
+    cases = {"planless": ({}, {}), "windowed": ({"window": 40},) * 2,
+             "non-causal": ({"causal": False},) * 2,
+             "dilated": ({"mask": JMask("dilated", rate=2)},
+                         {"mask": MaskSpec("dilated", rate=2)})}
+    for case, (jkw, tkw) in cases.items():
+        want = JD.cad_attention(*(jnp.asarray(x) for x in (
+            q, k, v, segs, poss, segs, poss)), ctx=jctx, softcap=5.0, **jkw)
+        got = D.cad_attention(*(to_torch(x) for x in (
+            q, k, v, segs, poss, segs, poss)), ctx=ctx, softcap=5.0, **tkw)
+        np.testing.assert_allclose(to_numpy(got), np.asarray(want),
+                                   err_msg=case, **OUT_TOL)
 
 
 def test_iter_plan_tasks_matches_reference():
@@ -233,9 +254,22 @@ def test_iter_plan_tasks_matches_reference():
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 def test_unported_attention_routes_raise(impl):
+    """The ``xla`` and ``pallas`` routes of ``core_attention`` give what
+    the reference's router gives.  (The name is that of the test from
+    before these routes were ported, when they raised; it is kept so the
+    test's history stays one line.)"""
+    from repro.core.attention import core_attention as j_core_attention
     from repro_torch.core.attention import core_attention
-    x = torch.zeros(1, BLK, 2, 32)
-    seg = torch.ones(1, BLK, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1 item"):
-        core_attention(x, x, x, seg, seg, seg, seg,
-                       ctx=ParallelContext(attn_impl=impl))
+    rng = np.random.default_rng(6)
+    segs, poss = random_layout(rng, 1, 2 * BLK)
+    q, k, v = (rng.standard_normal((1, 2 * BLK, 2, 32)).astype(np.float32)
+               for _ in range(3))
+    want = j_core_attention(*(jnp.asarray(x) for x in (q, k, v, segs, poss,
+                                                       segs, poss)),
+                            ctx=JCtx(attn_impl=impl), window=48,
+                            softcap=5.0)
+    got = core_attention(*(to_torch(x) for x in (q, k, v, segs, poss, segs,
+                                                 poss)),
+                         ctx=ParallelContext(attn_impl=impl), window=48,
+                         softcap=5.0)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), **OUT_TOL)

@@ -49,6 +49,41 @@ def load_jax_params(cfg_t, params):
     return model
 
 
+def jax_loss_and_grads(cfg_j, params, batch, ctx):
+    """The reference's LM loss, logits and parameter gradients of one
+    packed batch (numpy arrays; with ``plan`` the CAD plan is bound)."""
+    from repro.models import model as JM
+    from repro.train.loss import lm_loss as j_lm_loss
+    jb = {k: jnp.asarray(batch[k]) for k in
+          ("tokens", "labels", "segment_ids", "positions")}
+    if "plan" in batch:
+        ctx = ctx.cad.bind_plan(ctx, jax.tree.map(jnp.asarray,
+                                                  batch["plan"]))
+
+    def loss_fn(p):
+        logits, _ = JM.forward(p, cfg_j, jb, ctx)
+        return j_lm_loss(logits, jb["labels"], jb["segment_ids"])[0], logits
+    (loss, logits), grads = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(params)
+    return loss, logits, grads
+
+
+def torch_loss_and_grads(model, batch, ctx):
+    """The port's LM loss, logits and gradients (by parameter name) of the
+    same batch, on the CPU."""
+    from repro_torch.train.loss import lm_loss
+    from repro_torch.train.step import batch_to_device
+    b = batch_to_device(batch, "cpu")
+    if "plan" in b:
+        ctx = ctx.cad.bind_plan(ctx, b["plan"])
+    logits, _ = model(b, ctx)
+    loss, _ = lm_loss(logits, b["labels"], b["segment_ids"])
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in
+                                       model.named_parameters()])
+    return loss, logits, dict(zip(names, grads))
+
+
 def test_to_torch_copies_read_only_jax_arrays():
     x = jnp.arange(6, dtype=jnp.float32).reshape(2, 3)
     t = to_torch(x)

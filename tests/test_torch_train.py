@@ -25,7 +25,6 @@ from repro.models import model as JM
 from repro.optim.adamw import AdamW as JAdamW
 from repro.optim.adamw import cosine_schedule as j_cosine
 from repro.parallel import ParallelContext as JCtx
-from repro.train.loss import lm_loss as j_lm_loss
 from repro.train.trainer import TrainConfig as JTrainConfig
 from repro.train.trainer import train as j_train
 from repro_torch.cad import CADSession
@@ -34,11 +33,11 @@ from repro_torch.data.pipeline import PipelineConfig, raw_batches
 from repro_torch.models.convert import params_from_jax
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.parallel import ParallelContext
-from repro_torch.train.loss import lm_loss
-from repro_torch.train.step import batch_to_device, make_eval_step
+from repro_torch.train.step import make_eval_step
 from repro_torch.train.trainer import TrainConfig, train
-from test_torch_helpers import (MODEL_TOL, load_jax_params, params_to_numpy,
-                                to_numpy)
+from test_torch_helpers import (MODEL_TOL, jax_loss_and_grads,
+                                load_jax_params, params_to_numpy, to_numpy,
+                                torch_loss_and_grads)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "smollm-360m-reduced"
@@ -59,33 +58,6 @@ def _sessions(cfg_j, cfg_t, pipe, **kw):
                                     prefetch=0, **kw))
 
 
-def _jax_loss_and_grads(cfg_j, params, batch, ctx):
-    jb = {k: jnp.asarray(batch[k]) for k in
-          ("tokens", "labels", "segment_ids", "positions")}
-    if "plan" in batch:
-        ctx = ctx.cad.bind_plan(ctx, jax.tree.map(jnp.asarray,
-                                                  batch["plan"]))
-
-    def loss_fn(p):
-        logits, _ = JM.forward(p, cfg_j, jb, ctx)
-        return j_lm_loss(logits, jb["labels"], jb["segment_ids"])[0], logits
-    (loss, logits), grads = jax.jit(jax.value_and_grad(
-        loss_fn, has_aux=True))(params)
-    return loss, logits, grads
-
-
-def _torch_loss_and_grads(model, batch, ctx):
-    b = batch_to_device(batch, "cpu")
-    if "plan" in b:
-        ctx = ctx.cad.bind_plan(ctx, b["plan"])
-    logits, _ = model(b, ctx)
-    loss, _ = lm_loss(logits, b["labels"], b["segment_ids"])
-    names = [n for n, _ in model.named_parameters()]
-    grads = torch.autograd.grad(loss, [p for _, p in
-                                       model.named_parameters()])
-    return loss, logits, dict(zip(names, grads))
-
-
 @pytest.mark.parametrize("impl", ["ref", "cad"])
 def test_forward_loss_and_gradients_match_reference(impl):
     cfg_j, cfg_t, params, pipe = _setup()
@@ -100,9 +72,9 @@ def test_forward_loss_and_gradients_match_reference(impl):
         batch_j = batch_t = next(raw_batches(PipelineConfig(**pipe)))
         ctx_j = JCtx(attn_impl="ref", remat=True)
         ctx_t = ParallelContext(attn_impl="ref", remat=True)
-    loss_j, logits_j, grads_j = _jax_loss_and_grads(cfg_j, params, batch_j,
+    loss_j, logits_j, grads_j = jax_loss_and_grads(cfg_j, params, batch_j,
                                                     ctx_j)
-    loss_t, logits_t, grads_t = _torch_loss_and_grads(model, batch_t, ctx_t)
+    loss_t, logits_t, grads_t = torch_loss_and_grads(model, batch_t, ctx_t)
     np.testing.assert_allclose(to_numpy(logits_t), np.asarray(logits_j),
                                **MODEL_TOL)
     np.testing.assert_allclose(float(loss_t.detach()), float(loss_j),
