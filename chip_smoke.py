@@ -17,7 +17,11 @@ Phases, each of which fails the run:
    causal / sliding-window+sink / dilated / softcap masks; the flash
    forward and backward over f32/bf16, head_dim 64/128, GQA 1/4, ragged
    documents with padding, causal / non-causal / window / window+sink /
-   dilated masks, softcap 0/50;
+   dilated masks, softcap 0/50; the SSD intra-chunk forward (y, states)
+   and backward (dC, dB, dx, ddt, dcsum) over chunk 64/128/256, N
+   32/64/128, P 32/64, head-group factors 1/4/32 (G = H and G < H), no
+   reset, a reset at the chunk start, resets mid-chunk, a reset at every
+   position, and csums below -80;
 3. the serving slice at full width: llama3-8b in bf16 from a seeded
    generator, behind ``launch/serve.py``'s HTTP daemon, answering eight
    requests, with the launch counts read around that run, the kernel held
@@ -54,11 +58,26 @@ Phases, each of which fails the run:
    CUDA tensors: one step at llama3-8b width with 2 layers, and the
    launcher itself on a reduced model;
 10. one step each of CAD and colocated training (phases 5 and 7's
-   configuration, the second step of a fresh 2-step run) traced with
-   ``torch.profiler``: device time by kernel family (attention kernels,
-   cuBLAS matmuls, copies, the rest by name), each attention kernel's
-   launches, busy time, the device's idle share inside the step and the
-   SM clock through it.
+   configuration) and of mamba2 training (phase 11's), the second step of
+   a fresh 2-step run, traced with ``torch.profiler``: device time by
+   kernel family (SSD, flash and CA kernels, cuBLAS matmuls, copies, the
+   rest by name), each hand-written kernel's launches, busy time, the
+   device's idle share inside the step and the SM clock through it.  It
+   runs last, after phases 11-12;
+11. mamba2-370m at full width and depth (48 layers, bf16, seeded weights)
+   through ``trainer.train`` with ``attn_impl="pallas"`` and remat, 3
+   steps on 4 x 4096 ``prolong`` tokens: loss, grad norm, step time,
+   tokens per second, peak memory and the SSD launch counts of each step,
+   checked against layers x {2 forwards, 1 per backward kernel}; the SSD
+   kernels held against their plain versions on the inputs captured at
+   layers 0 and 47, the backward repeated bitwise; one step of the einsum
+   route (``attn_impl="xla"``) on the same weights and batch, its step-0
+   loss bitwise equal to the kernel route's;
+12. the SSD kernels timed at layer 0's captured shape against their bound
+   (at the tensor-core rate of their f32 inputs, with the FMA-pipe rate's
+   figure beside it), their plain versions and the SM clock; the
+   backward's ``ms`` times its two kernel launches alone, its
+   ``wrapper_ms`` the wrapper with the dcsum assembly.
 
 Kernels timed twice (the forward kernels, before and after the library
 call) report the first median as ``ms`` and the second as ``ms_repeat``.
@@ -86,6 +105,8 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): the bounds below divide by these
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12        # f32 operands on the tensor cores
+F32_FMA_FLOPS = 67e12      # f32 outside the tensor cores
 
 # every phase runs on the card; the constant names the device once
 DEVICE = "cuda"
@@ -686,6 +707,109 @@ def check_flash_cases(torch, np, ops):
     return worst_fwd, worst_bwd
 
 
+# ----------------------------------------------------------- phase 2 (SSD)
+SSD_RESETS = ("none", "chunk start", "mid-chunk", "every position",
+              "csum below -80")
+# (G, H) per head-group factor rep = H / G
+SSD_GROUPS = {1: (2, 2), 4: (2, 8), 32: (1, 32)}
+
+
+def _ssd_case(torch, np, seed, *, c, N, P, rep, reset, Bt=2, K=2):
+    """SSD intra-chunk inputs on the card, f32.  C and B are scaled by
+    N**-0.5 so that the scores C·B are O(1), as a q·k logit is, and the
+    f32 atol speaks of outputs of order 1.  ``reset`` picks the reset
+    counts nr and the decay: none (nr constant 0), a reset at the chunk
+    start (nr constant 1), sorted random resets mid-chunk with some
+    zero decays (equal csums off the diagonal), a reset at every
+    position, or no reset with decays steep enough that csum spans well
+    below -80 within the chunk."""
+    rng = np.random.default_rng(seed)
+    G, H = SSD_GROUPS[rep]
+
+    def softplus(v):
+        return np.log1p(np.exp(v))
+    C = rng.standard_normal((Bt, K, c, G, N)) * N ** -0.5
+    B = rng.standard_normal((Bt, K, c, G, N)) * N ** -0.5
+    x = rng.standard_normal((Bt, K, c, H, P))
+    dt = softplus(rng.standard_normal((Bt, K, c, H)))
+    la = -softplus(rng.standard_normal((Bt, K, c, H)))
+    if reset == "none":
+        nr = np.zeros((Bt, K, c))
+    elif reset == "chunk start":
+        nr = np.ones((Bt, K, c))
+    elif reset == "mid-chunk":
+        nr = np.sort(rng.integers(0, 4, (Bt, K, c)), axis=-1)
+        la[rng.random(la.shape) < 0.2] = 0.0
+    elif reset == "every position":
+        nr = np.broadcast_to(np.arange(c), (Bt, K, c))
+    else:
+        nr = np.zeros((Bt, K, c))
+        la = la * 8.0
+    csum = np.cumsum(la, axis=2)
+    dy = rng.standard_normal((Bt, K, c, H, P))
+    dstate = rng.standard_normal((Bt, K, H, N, P))
+
+    def dev(a, dtype=torch.float32):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                            device=DEVICE)
+    args = [dev(C), dev(B), dev(x), dev(dt), dev(csum),
+            dev(nr, torch.int32)]
+    return args, dev(dy), dev(dstate)
+
+
+def check_ssd_pair(torch, ssd, args, dy, dstate, scaled=False):
+    """Kernel forward (y, states) and backward (dC, dB, dx, ddt, dcsum)
+    against the plain versions on the same inputs.  Forward: max |err| <=
+    F32_ATOL (times max(1, max |ref|) when ``scaled``, for inputs whose
+    outputs are not of order 1); gradients: <= CA_GRAD_RTOL x max(1,
+    max |grad|).  Returns (fwd err, grad err, ok)."""
+    got = ssd.ssd_chunk_fwd(*args)
+    want = ssd.ssd_chunk_fwd_reference(*args)
+    torch.cuda.synchronize()
+    f_errs = []
+    for a, b in zip(got, want):
+        err = float((a - b).abs().max())
+        lim = F32_ATOL * (max(1.0, float(b.abs().max())) if scaled else 1.0)
+        f_errs.append((err, err <= lim))
+    g_got = ssd.ssd_chunk_bwd(*args, dy, dstate)
+    g_want = ssd.ssd_chunk_bwd_reference(*args, dy, dstate)
+    torch.cuda.synchronize()
+    g_errs = [_grad_err(torch, a, b, torch.float32)
+              for a, b in zip(g_got, g_want)]
+    ok = all(o for _, o in f_errs + g_errs)
+    return max(e for e, _ in f_errs), max(e for e, _ in g_errs), ok
+
+
+def check_ssd_cases(torch, np, ssd):
+    """Phase 2: the SSD kernels against their plain versions: chunk
+    64/128/256 x N 32/64/128 x P 32/64 x rep 1/4/32 (G = H and G < H),
+    the reset patterns cycling over the cases so that each meets each
+    rep, Bt x K = 4 chunks."""
+    worst_fwd = worst_bwd = 0.0
+    n = 0
+    for c in (64, 128, 256):
+        for N in (32, 64, 128):
+            for P in (32, 64):
+                for rep in SSD_GROUPS:
+                    reset = SSD_RESETS[n % len(SSD_RESETS)]
+                    args, dy, dstate = _ssd_case(torch, np, n, c=c, N=N, P=P,
+                                                 rep=rep, reset=reset)
+                    e_f, e_b, ok = check_ssd_pair(torch, ssd, args, dy,
+                                                  dstate)
+                    if not ok:
+                        raise SystemExit(
+                            f"ssd_chunk disagrees: c={c} N={N} P={P} "
+                            f"rep={rep} reset={reset} fwd err {e_f} grad "
+                            f"err {e_b}")
+                    worst_fwd = max(worst_fwd, e_f)
+                    worst_bwd = max(worst_bwd, e_b)
+                    n += 1
+    log(f"phase 2: ssd_chunk fwd + bwd kernels == plain versions in {n} "
+        f"cases (f32 max |err| y/states {worst_fwd:.3e} <= {F32_ATOL}, "
+        f"grads {worst_bwd:.3e} <= {CA_GRAD_RTOL} x max(1, max |grad|))")
+    return worst_fwd, worst_bwd
+
+
 # ------------------------------------------------------------ phase 5
 TRAIN_LAYERS = 8          # of llama3-8b's 32: what one card's memory holds
 TRAIN_STEPS = 3
@@ -889,8 +1013,8 @@ def _ca_work(torch, b):
         (bwd_in + bwd_out, 10.0 * pairs * hq * dh), info
 
 
-def _bound(nbytes, flops):
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def _bound(nbytes, flops, peak_flops=BF16_FLOPS):
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
@@ -1253,6 +1377,7 @@ def xla_route_on_card(torch, ops, card):
 # kernel families of a traced step, matched in order on the kernel's name;
 # the attention kernels' pattern captures the kernel's short name
 KERNEL_FAMILIES = (
+    ("SSD kernels", r"(ssd_(?:fwd|bwd_dc|bwd_dbx))_kernel"),
     ("flash kernels", r"(flash_(?:fwd|bwd_dq|bwd_dkv))_kernel"),
     ("CA-server kernels", r"(ca_(?:fwd|bwd_dq|bwd_dkv))_kernel"),
     ("matmuls (cuBLAS)", r"gemm|nvjet|xmma|cutlass|cublas|splitk"),
@@ -1320,11 +1445,12 @@ def sm_clocks_stop(proc):
     return mhz[0], mhz[len(mhz) // 2], mhz[-1], max(r[1] for r in rows)
 
 
-def traced_steps(torch, card, cad_steps, co_steps):
+def traced_steps(torch, card, cad_steps, co_steps, mamba_steps):
     """Phase 10: one CAD and one colocated step on phases 5 and 7's
-    configuration, traced with ``torch.profiler`` while nvidia-smi samples
-    the SM clock: the second step of a fresh 2-step run (the first warms
-    the allocator and cuBLAS), beside the live pairs of both batches."""
+    configuration and one mamba2 step on phase 11's, traced with
+    ``torch.profiler`` while nvidia-smi samples the SM clock: the second
+    step of a fresh 2-step run (the first warms the allocator and
+    cuBLAS), beside the live pairs of both attention batches."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.attention import mask_fn
     from repro_torch.data.pipeline import raw_batches
@@ -1344,10 +1470,14 @@ def traced_steps(torch, card, cad_steps, co_steps):
     log(f"phase 10: live (q, kv) pairs per head: {pairs[0]} in step 0's "
         f"batch (timed in phases 6 and 8), {pairs[1]} in step 1's (traced "
         f"below), {pairs[1] / pairs[0]:.4f}x")
-    runs = {"CAD": (dict(session=session("balanced")), cad_steps),
-            "colocated": (dict(ctx=ParallelContext(attn_impl="pallas",
-                                                   remat=True)), co_steps)}
-    for name, (kw, untraced) in runs.items():
+    pallas = ParallelContext(attn_impl="pallas", remat=True)
+    m_cfg, m_pipe, m_tc = _mamba_setup()
+    runs = {"CAD": (cfg, pipe, tc, dict(session=session("balanced")),
+                    cad_steps, 5),
+            "colocated": (cfg, pipe, tc, dict(ctx=pallas), co_steps, 7),
+            "mamba2": (m_cfg, m_pipe, m_tc, dict(ctx=pallas), mamba_steps,
+                       11)}
+    for name, (r_cfg, r_pipe, r_tc, kw, untraced, phase) in runs.items():
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
         traced = {}
@@ -1360,8 +1490,8 @@ def traced_steps(torch, card, cad_steps, co_steps):
                 prof.stop()
                 traced.update(m, clocks=sm_clocks_stop(traced["sampler"]))
         try:
-            train(cfg, pipe, dataclasses.replace(tc, steps=2), device=DEVICE,
-                  on_step=on_step, **kw)
+            train(r_cfg, r_pipe, dataclasses.replace(r_tc, steps=2),
+                  device=DEVICE, on_step=on_step, **kw)
         except BaseException:
             if "sampler" in traced:
                 traced["sampler"].kill()
@@ -1375,7 +1505,7 @@ def traced_steps(torch, card, cad_steps, co_steps):
         lo, med, hi, watts = traced["clocks"]
         log(f"phase 10: {name} step 1 traced: {bd['kernels']} device "
             f"events; host {host_ms:.1f} ms with the profiler on "
-            f"({ref_ms:.1f} ms untraced, phase {5 if name == 'CAD' else 7});"
+            f"({ref_ms:.1f} ms untraced, phase {phase});"
             f" device span {bd['span_ms']:.1f} ms, busy {bd['busy_ms']:.1f} "
             f"ms (idle {1 - bd['busy_ms'] / bd['span_ms']:.4f} of the span, "
             f"{1 - bd['busy_ms'] / ref_ms:.4f} of the untraced step); ms by "
@@ -1390,12 +1520,251 @@ def traced_steps(torch, card, cad_steps, co_steps):
             log(f"  other: {ms:9.2f} ms  {kname[:100]}")
 
 
+# ----------------------------------------------------------- phase 11
+MAMBA_STEPS = 3
+
+
+def _mamba_setup():
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig
+    from repro_torch.train.trainer import TrainConfig
+    cfg = get_config("mamba2-370m")
+    pipe = PipelineConfig(distribution="prolong", max_doc_len=4096,
+                          seq_len=4096, global_batch=4, n_ranks=4,
+                          vocab_size=cfg.vocab_size, seed=0)
+    tc = TrainConfig(steps=MAMBA_STEPS, peak_lr=3e-4, warmup=1,
+                     log_every=1, seed=0)
+    return cfg, pipe, tc
+
+
+def train_mamba2(torch, ops, ssd, card):
+    """Phase 11: mamba2-370m at full width and depth on the card, bf16,
+    through ``trainer.train`` with ``attn_impl="pallas"`` and remat: every
+    layer's intra-chunk step in the SSD kernels."""
+    from repro_torch.models.model import Transformer
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.train.trainer import train
+    cfg, pipe, tc = _mamba_setup()
+    tokens = pipe.global_batch * pipe.seq_len
+    model = Transformer(cfg, device=DEVICE, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    captured = {}
+
+    def capture(layer, inputs):
+        if layer in (0, cfg.n_layers - 1) and layer not in captured:
+            captured[layer] = {k: v.detach().clone() for k, v in
+                               inputs.items()}
+
+    expect = {"ssd_chunk_fwd": cfg.n_layers * 2,          # + remat
+              "ssd_chunk_bwd_dc": cfg.n_layers,
+              "ssd_chunk_bwd_dbx": cfg.n_layers}
+    steps = []
+
+    def on_step(step, m):
+        counts = dict(ssd.launches)
+        others = sum(ops.launches.values())
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        ssd.reset_launches()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        model.attn_hook = None              # capture step 0 only
+        steps.append(dict(m, counts=counts, others=others, peak_gib=mem))
+        log(f"phase 11: step {step} loss {m['loss']:.6f} gnorm "
+            f"{m['grad_norm']:.4f} step {1e3 * m['step_s']:.1f} ms "
+            f"{tokens / m['step_s']:.0f} tokens/s peak {mem:.2f} GiB "
+            f"launches {counts} [{card}]")
+
+    log(f"phase 11: mamba2-370m at full width and depth ({cfg.n_layers} "
+        f"layers, {n_params / 1e6:.1f} M params, bf16), attn_impl='pallas' "
+        f"with remat, {pipe.global_batch} x {pipe.seq_len} tokens "
+        f"({pipe.distribution}), seed 0")
+    model.attn_hook = capture
+    ssd.reset_launches()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    train(cfg, pipe, tc, ctx=ParallelContext(attn_impl="pallas", remat=True),
+          model=model, device=DEVICE, on_step=on_step)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for s in steps:
+        if s["counts"] != expect or s["others"]:
+            raise SystemExit(f"phase 11: step {s['step']} launches "
+                             f"{s['counts']} (+{s['others']} of other "
+                             f"kernels) != {expect}")
+        if not math.isfinite(s["loss"]):
+            raise SystemExit(f"phase 11: step {s['step']} loss {s['loss']}")
+    if sorted(captured) != [0, cfg.n_layers - 1]:
+        raise SystemExit(f"phase 11: captured layers {sorted(captured)}")
+    log(f"phase 11: launches per step = {expect} (layers x {{2 forwards "
+        f"with remat, 1 per backward kernel}})")
+    total = {k: sum(s["counts"][k] for s in steps) for k in expect}
+    return steps, captured, total, n_params
+
+
+def _ssd_args(torch, inp, seed):
+    """The SSD kernels' arguments of one captured layer, and a seeded
+    cotangent (dy, dstate)."""
+    args = [inp[k].contiguous() for k in ("C", "B", "x", "dt", "csum", "nr")]
+    Bt, K, c, H, P = args[2].shape
+    N = args[0].shape[-1]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dy = torch.randn(args[2].shape, generator=gen, device=DEVICE)
+    dstate = torch.randn((Bt, K, H, N, P), generator=gen, device=DEVICE)
+    return args, dy, dstate
+
+
+def check_captured_ssd(torch, ssd, captured):
+    """Phase 11: the SSD kernels against their plain versions on the
+    inputs captured at layers 0 and 47, and the backward repeated
+    bitwise on layer 0's."""
+    worst_f = worst_b = 0.0
+    for layer, inp in sorted(captured.items()):
+        args, dy, dstate = _ssd_args(torch, inp, 7 + layer)
+        e_f, e_b, ok = check_ssd_pair(torch, ssd, args, dy, dstate,
+                                      scaled=True)
+        nr = args[5]
+        log(f"  captured layer {layer}: C {tuple(args[0].shape)}, x "
+            f"{tuple(args[2].shape)} f32, a reset in "
+            f"{int((nr[..., -1] > nr[..., 0]).sum())} of "
+            f"{nr.shape[0] * nr.shape[1]} chunks: y/states max |err| "
+            f"{e_f:.3e}, grads {e_b:.3e}")
+        if not ok:
+            raise SystemExit(f"phase 11: SSD kernels disagree on captured "
+                             f"layer {layer}")
+        worst_f, worst_b = max(worst_f, e_f), max(worst_b, e_b)
+    args, dy, dstate = _ssd_args(torch, captured[0], 7)
+    runs = [ssd.ssd_chunk_bwd(*args, dy, dstate) for _ in range(2)]
+    bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
+    log(f"phase 11: SSD backward on layer 0 repeated: bitwise {bitwise}")
+    if not bitwise:
+        raise SystemExit("phase 11: the SSD backward is not deterministic")
+    return worst_f, worst_b
+
+
+def mamba2_einsum_route(torch, ssd, card, kernel_steps):
+    """Phase 11: one step of the einsum route (``attn_impl="xla"``) at full
+    width on the same weights and batch.  Its step-0 loss must be bitwise
+    equal to the kernel route's: the forward kernel's FMA chains sum
+    C·Bᵀ, the weighted x and the end state in the order cuBLAS's f32
+    products do for the einsum route (phase 2's forward errors are 0),
+    and everything around the intra-chunk step is shared code.  A
+    tolerance could not tell a wrong SSD path from a right one: a
+    random-init loss moves little."""
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.train.trainer import train
+    cfg, pipe, tc = _mamba_setup()
+    ssd.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = train(cfg, pipe, dataclasses.replace(tc, steps=1),
+                ctx=ParallelContext(attn_impl="xla", remat=True),
+                device=DEVICE)
+    m = res["history"][0]
+    launched = sum(ssd.launches.values())
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    diff = abs(m["loss"] - kernel_steps[0]["loss"])
+    log(f"phase 11: einsum route (attn_impl='xla'), 1 step: loss "
+        f"{m['loss']!r} vs the kernel route's {kernel_steps[0]['loss']!r}: "
+        f"|diff| {diff:.3e} (required: bitwise equal); step "
+        f"{1e3 * m['step_s']:.1f} ms, peak {mem:.2f} GiB, {launched} SSD "
+        f"kernel launches [{card}]")
+    if launched or not math.isfinite(m["loss"]) \
+            or m["loss"] != kernel_steps[0]["loss"]:
+        raise SystemExit("phase 11: the einsum route disagrees with the "
+                         "kernel route")
+    return m, diff
+
+
+# ----------------------------------------------------------- phase 12
+def _ssd_work(torch, args):
+    """What the intra-chunk step needs on these inputs: the live (i, j)
+    pairs (j <= i in one document of the chunk) and the rows with no
+    reset after them, from nr; operations counted on those, with C·Bᵀ,
+    dC and dB once per group (B and C are per group: dC_i = sum_j (sum
+    over the group's heads of dS_ijh) B_j, the heads' sum an add per
+    pair and head); bytes: each input read once, each output written
+    once."""
+    C, B, x, dt, csum, nr = args
+    Bt, K, c, H, P = x.shape
+    G, N = C.shape[3], C.shape[4]
+    same = nr[:, :, :, None] == nr[:, :, None, :]
+    tri = torch.ones(c, c, dtype=torch.bool, device=nr.device).tril()
+    pairs = int((same & tri).sum())
+    live_end = int((nr == nr[:, :, -1:]).sum())
+    state = 2.0 * live_end * N * P * H
+    fwd_flops = 2.0 * pairs * (N * G + P * H) + state
+    bwd_flops = 2.0 * pairs * (3 * N * G + 2 * P * H) \
+        + pairs * (H - G) + 2 * state
+    el = 4
+    ins = (C.numel() + B.numel() + x.numel() + dt.numel() + csum.numel()
+           + nr.numel()) * el
+    states = Bt * K * H * N * P * el
+    fwd_bytes = ins + x.numel() * el + states
+    bwd_bytes = ins + x.numel() * el + states \
+        + (C.numel() + B.numel() + x.numel() + 2 * dt.numel()) * el
+    return pairs, live_end, (fwd_bytes, fwd_flops), (bwd_bytes, bwd_flops)
+
+
+def ssd_kernel_times(torch, ssd, inp, card):
+    """Phase 12: the SSD kernels at layer 0's captured shape: kernel (CUDA
+    event medians, the SM clock sampled meanwhile; the backward's two
+    launches alone into buffers made beforehand, and the whole wrapper),
+    plain version and the bound.  No single PyTorch call computes this
+    function, so there is no library time."""
+    args, dy, dstate = _ssd_args(torch, inp, 8)
+    pairs, live_end, fwd_w, bwd_w = _ssd_work(torch, args)
+    out = ssd.ssd_chunk_bwd_buffers(*args[:4])
+    sampler = sm_clocks_start()
+    try:
+        t = {"fwd": cuda_ms(lambda: ssd.ssd_chunk_fwd(*args), iters=10),
+             "bwd": cuda_ms(lambda: ssd.ssd_chunk_bwd_kernels(
+                 *args, dy, dstate, out), iters=10),
+             "bwd_wrapper": cuda_ms(lambda: ssd.ssd_chunk_bwd(
+                 *args, dy, dstate), iters=10)}
+    except BaseException:
+        sampler.kill()
+        raise
+    clocks = sm_clocks_stop(sampler)
+    t["plain_fwd"] = cuda_ms(lambda: ssd.ssd_chunk_fwd_reference(*args),
+                             iters=3, warmup=1)
+    t["plain_bwd"] = cuda_ms(lambda: ssd.ssd_chunk_bwd_reference(
+        *args, dy, dstate), iters=3, warmup=1)
+    t["fwd_repeat"] = cuda_ms(lambda: ssd.ssd_chunk_fwd(*args), iters=10)
+    del out
+    torch.cuda.empty_cache()
+    f_bound = _bound(*fwd_w, peak_flops=TF32_FLOPS)
+    b_bound = _bound(*bwd_w, peak_flops=TF32_FLOPS)
+    f_fma = _bound(*fwd_w, peak_flops=F32_FMA_FLOPS)
+    b_fma = _bound(*bwd_w, peak_flops=F32_FMA_FLOPS)
+    C, x = args[0], args[2]
+    log(f"phase 12: SSD at layer 0's shape (C/B {tuple(C.shape)}, x "
+        f"{tuple(x.shape)} f32, {pairs} live (i, j) pairs, {live_end} rows "
+        f"reach the end state): fwd kernel {t['fwd']:.3f} / "
+        f"{t['fwd_repeat']:.3f} ms = {fwd_w[1] / t['fwd'] / 1e9:.2f} "
+        f"TFLOP/s (bound {f_bound[0]:.4f} ms {f_bound[1]} at the TF32 "
+        f"tensor-core rate: {fwd_w[0] / 1e6:.1f} MB, {fwd_w[1] / 1e9:.2f} "
+        f"GFLOP; {f_fma[0]:.4f} ms {f_fma[1]} on the FMA pipes), plain "
+        f"{t['plain_fwd']:.3f}; bwd kernels {t['bwd']:.3f} ms = "
+        f"{bwd_w[1] / t['bwd'] / 1e9:.2f} TFLOP/s, wrapper with the dcsum "
+        f"assembly {t['bwd_wrapper']:.3f} ms (bound {b_bound[0]:.4f} ms "
+        f"{b_bound[1]} at the TF32 rate: {bwd_w[0] / 1e6:.1f} MB, "
+        f"{bwd_w[1] / 1e9:.2f} GFLOP; {b_fma[0]:.4f} ms {b_fma[1]} on the "
+        f"FMA pipes), plain {t['plain_bwd']:.3f}; SM clock "
+        f"{clocks[0]:.0f} / {clocks[1]:.0f} / {clocks[2]:.0f} MHz (min / "
+        f"median / max), power draw up to {clocks[3]:.1f} W [{card}]")
+    return t, f_bound, b_bound, f_fma, b_fma, pairs
+
+
 # ---------------------------------------------------------------- main
-def build_kernels(build, ops):
+def build_kernels(build, ops, ssd):
     """Phase 1: build every kernel source, one nvcc each, all at once."""
     loaders = {"ragged_decode": ops.load_library,
                "ca_server": ops.load_ca_server_library,
-               "flash": ops.load_flash_library}
+               "flash": ops.load_flash_library,
+               "ssd_chunk": ssd.load_library}
     errors = []
 
     def run(fn):
@@ -1441,6 +1810,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.packed_flash import ops
+    from repro_torch.kernels.ssd import ops as ssd
     from repro_torch.launch import serve as launch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1449,11 +1819,12 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    build_kernels(build, ops)
+    build_kernels(build, ops, ssd)
 
     f32_err = check_ragged_decode_cases(torch, ops)
     ca_fwd_err, ca_bwd_err = check_ca_server_cases(torch, np, ops)
     fl_fwd_err, fl_bwd_err = check_flash_cases(torch, np, ops)
+    ssd_fwd_err, ssd_bwd_err = check_ssd_cases(torch, np, ssd)
     src = "src/repro_torch/kernels/packed_flash/csrc/"
     kernel = {"name": "ragged_decode", "route": "cuda",
               "source": src + "ragged_decode.cu",
@@ -1473,6 +1844,15 @@ def main(argv=None) -> int:
     fl_bwd = {"name": "flash_bwd", "route": "cuda", "source": src + "flash.cu",
               "replaces": "src/repro/kernels/packed_flash/kernel.py:310",
               "max_abs_err": fl_bwd_err}
+    ssd_src = "src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu"
+    ssd_f = {"name": "ssd_chunk_fwd", "route": "cuda", "source": ssd_src,
+             "replaces": "src/repro/kernels/ssd/kernel.py:57",
+             "max_abs_err": ssd_fwd_err}
+    ssd_b = {"name": "ssd_chunk_bwd", "route": "cuda", "source": ssd_src,
+             "replaces": "src/repro/kernels/ssd/kernel.py:57 (its "
+                         "gradient: the TPU kernel has no backward, no "
+                         "Pallas counterpart)",
+             "max_abs_err": ssd_bwd_err}
     if args.only != "kernels":
         engine, launches, captured_err = serve_full_width(torch, np, ops,
                                                           launch)
@@ -1545,8 +1925,45 @@ def main(argv=None) -> int:
                       train={k: [s[k] for s in co_steps] for k in
                              ("loss", "step_s", "peak_gib")})
         xla_route_on_card(torch, ops, card)
-        traced_steps(torch, card, steps, co_steps)
-    log(json.dumps({"kernels": [kernel, ca_fwd, ca_bwd, fl_fwd, fl_bwd]}))
+
+        m_steps, m_captured, ssd_launches, m_params = train_mamba2(
+            torch, ops, ssd, card)
+        ssd_cap_f, ssd_cap_b = check_captured_ssd(torch, ssd, m_captured)
+        xla_m, loss_diff = mamba2_einsum_route(torch, ssd, card, m_steps)
+        t, f_bound, b_bound, f_fma, b_fma, pairs = ssd_kernel_times(
+            torch, ssd, m_captured[0], card)
+        del m_captured
+        gc.collect()
+        torch.cuda.empty_cache()
+        shape = (f"layer 0 of step 0: C/B [4, 16, 256, 1, 128], x [4, 16, "
+                 f"256, 32, 64] f32, {pairs} live (i, j) pairs")
+        no_library = ("no single PyTorch call computes the SSD intra-chunk "
+                      "step (decay-masked C·Bᵀ, times x, and the end state)")
+        train_rec = {k: [s[k] for s in m_steps]
+                     for k in ("loss", "step_s", "peak_gib")}
+        ssd_f.update(launches=ssd_launches["ssd_chunk_fwd"], ms=t["fwd"],
+                     ms_repeat=t["fwd_repeat"], plain_ms=t["plain_fwd"],
+                     bound_ms=f_bound[0], bound_by=f_bound[1],
+                     bound_rate="TF32 tensor cores 495 TFLOP/s",
+                     bound_ms_fma_rate=f_fma[0],
+                     library_ms=None, library_note=no_library,
+                     captured_max_abs_err=ssd_cap_f, shape=shape)
+        ssd_b.update(launches=ssd_launches["ssd_chunk_bwd_dc"],
+                     launches_dbx=ssd_launches["ssd_chunk_bwd_dbx"],
+                     ms=t["bwd"], wrapper_ms=t["bwd_wrapper"],
+                     plain_ms=t["plain_bwd"],
+                     bound_ms=b_bound[0], bound_by=b_bound[1],
+                     bound_rate="TF32 tensor cores 495 TFLOP/s",
+                     bound_ms_fma_rate=b_fma[0],
+                     library_ms=None, library_note=no_library,
+                     captured_max_abs_err=ssd_cap_b, shape=shape,
+                     train=dict(train_rec, params=m_params,
+                                xla_step0_loss=xla_m["loss"],
+                                xla_step_s=xla_m["step_s"],
+                                step0_loss_diff=loss_diff))
+        traced_steps(torch, card, steps, co_steps, m_steps)
+    log(json.dumps({"kernels": [kernel, ca_fwd, ca_bwd, fl_fwd, fl_bwd,
+                                ssd_f, ssd_b]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

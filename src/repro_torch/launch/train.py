@@ -14,7 +14,10 @@ factors), --server-hbm (per-rank HBM budgets in bytes), --mask
 (attention task shape beyond dense causal: "sliding:window=256,sink=16"
 or "dilated:rate=4").  ``--device`` (default ``cuda``) picks the card;
 without one, ``cuda`` raises.  Without --cad the model trains with
-colocated blockwise ``xla`` attention, as in the reference.  The
+colocated blockwise ``xla`` attention, as in the reference; an
+attention-free arch (mamba2-370m) trains the same way with --cad, after
+the reference's note that CAD does not apply, its SSD layers on the
+einsum route in torch ops.  The
 reference's --kernel is not carried over: CUDA tensors run the
 hand-written kernels.  --calibrate, --stream-chunk,
 --fault-schedule, --ckpt-dir/--ckpt-every and --trace are accepted and
@@ -116,6 +119,9 @@ def main(argv=None):
             plan_policy=args.plan_policy, prefetch=args.prefetch,
             server_speeds=speeds, server_hbm=hbm, mask=args.mask or None)
     else:
+        if args.cad:
+            print(f"note: {cfg.arch_id} is attention-free; CAD is "
+                  f"inapplicable (DESIGN.md §5) — training without it")
         if speeds or hbm or args.mask:
             print("note: --server-speeds/--server-hbm/--mask only apply "
                   "to the CAD attention service — ignored")

@@ -15,7 +15,7 @@ from typing import Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.model import check_serving_arch
+from repro_torch.models.model import check_training_arch
 
 
 def _tensor(x, dtype) -> torch.Tensor:
@@ -35,7 +35,7 @@ def _entries(np_params: Mapping, cfg) \
         -> Iterator[Tuple[str, object, Optional[int]]]:
     """(state_dict key, reference leaf, group) triples: the port's tensor
     is ``leaf`` itself, or ``leaf[group]`` of a group-stacked slot leaf."""
-    check_serving_arch(cfg)
+    check_training_arch(cfg)
     yield "embed", np_params["embed"]["embed"], None
     if not cfg.tie_embeddings:
         yield "unembed", np_params["unembed"]["unembed"], None

@@ -1,5 +1,6 @@
-"""Layer implementations for the dense decoder: init, norms, RoPE, GQA
-projections, self-attention over packed documents and the MLP.
+"""Layer implementations: init, norms, RoPE, GQA projections,
+self-attention over packed documents, the MLP, and the Mamba-2 SSD block
+(chunked scan, packed-document aware).
 
 The port of the matching functions of ``repro.models.layers``, with the
 same weight names and layouts: weights are stored ``[in, out]`` and
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.attention import core_attention
+from repro_torch.kernels.ssd import ops as ssd_ops
 
 
 # ----------------------------------------------------------------- helpers
@@ -146,3 +148,154 @@ def ffn_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor,
     else:
         inner = act(h @ p["w_up"])
     return inner @ p["w_down"]
+
+
+# -------------------------------------------------------------- mamba2 SSD
+def ssd_init(gen: torch.Generator, cfg, device=None) -> nn.ParameterDict:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    nh = d_in // s.head_dim
+    conv_ch = d_in + 2 * s.n_groups * s.d_state
+    dt = cfg.pdtype
+    p = _params(
+        # fused input projection -> [z (d_in), x (d_in), B, C (G*N each),
+        # dt (nh)]
+        in_proj=dense_init(gen, d, (d, 2 * d_in + 2 * s.n_groups * s.d_state
+                                    + nh), dt, device),
+        conv_w=dense_init(gen, s.conv_width, (s.conv_width, conv_ch), dt,
+                          device),
+        conv_b=torch.zeros(conv_ch, dtype=dt, device=device),
+        A_log=torch.log(torch.linspace(1.0, 16.0, nh, device=device)).to(dt),
+        D_skip=torch.ones(nh, dtype=dt, device=device),
+        dt_bias=torch.zeros(nh, dtype=dt, device=device),
+        out_proj=dense_init(gen, d_in, (d_in, d), dt, device))
+    p["out_norm"] = norm_init(d_in, dt, device=device)
+    return p
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 first: torch.Tensor) -> torch.Tensor:
+    """x [B,S,C]; w [W,C] depthwise causal conv, as shifted sums (not
+    ``F.conv1d``: cuDNN runs f32 convolutions in TF32 by default).
+    ``first`` [B,S] marks document starts: taps reaching across a
+    boundary are zeroed so packed documents do not leak into each other.
+    Returns silu(conv + b).  The reference's decode state (its second
+    output) comes with mamba2 serving."""
+    width = w.shape[0]
+    s = x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    nr = torch.cumsum(first.to(torch.int32), dim=1)              # [B,S]
+    nrp = F.pad(nr, (width - 1, 0), value=-1)
+    ys = sum(xp[:, i:i + s, :] * w[i]
+             * (nrp[:, i:i + s] == nr)[..., None].to(x.dtype)
+             for i in range(width))
+    return F.silu(ys + b)
+
+
+def _ssd_split(p: Mapping[str, torch.Tensor], h: torch.Tensor, cfg):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    nh = d_in // s.head_dim
+    gn = s.n_groups * s.d_state
+    proj = h @ p["in_proj"]
+    z = proj[..., :d_in]
+    xbc = proj[..., d_in:d_in + d_in + 2 * gn]
+    dt = proj[..., -nh:]
+    return z, xbc, dt, d_in, nh, gn
+
+
+def ssd_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, batch, cfg,
+              ctx, hook=None) -> torch.Tensor:
+    """Mamba-2 SSD block (chunked scan), packed-document aware: the decay
+    is zeroed at document starts so state never crosses documents.
+    ``hook``, if given, is called with the intra-chunk step's arguments
+    (see ``_ssd_chunked``)."""
+    s = cfg.ssm
+    b, S, _ = h.shape
+    seg = batch["segment_ids"]
+    first = torch.cat([torch.ones_like(seg[:, :1], dtype=torch.bool),
+                       seg[:, 1:] != seg[:, :-1]], dim=1)
+    z, xbc, dt, d_in, nh, gn = _ssd_split(p, h, cfg)
+    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"], first=first)
+    x = xbc[..., :d_in].reshape(b, S, nh, s.head_dim)
+    B_ = xbc[..., d_in:d_in + gn].reshape(b, S, s.n_groups, s.d_state)
+    C_ = xbc[..., d_in + gn:].reshape(b, S, s.n_groups, s.d_state)
+
+    A = -torch.exp(p["A_log"].float())                         # [nh] < 0
+    dt = F.softplus(dt.float() + p["dt_bias"].float())         # [B,S,nh]
+    log_a = dt * A                                             # <= 0
+    y = _ssd_chunked(x, dt, log_a, B_, C_, s.chunk_size, first, ctx=ctx,
+                     hook=hook)
+    y = y + x * p["D_skip"].to(x.dtype)[None, None, :, None]
+    y = y.reshape(b, S, d_in)
+    y = norm_apply(p["out_norm"], y * F.silu(z))
+    return y @ p["out_proj"]
+
+
+def _ssd_chunked(x, dt, log_a, B_, C_, chunk, first, ctx=None, hook=None):
+    """Chunked SSD: y_t = C_t^T ( sum_{j<=t} prod_{i in (j,t]} a_i *
+    dt_j B_j x_j^T ).  x [B,S,H,P]; B_/C_ [B,S,G,N]; log_a/dt [B,S,H];
+    first [B,S] bool marks document starts (state resets).  Returns
+    y [B,S,H,P] in x's dtype.
+
+    Document resets are not folded into log_a as -inf (the
+    cumsum-difference trick would suffer catastrophic cancellation); the
+    reset-count prefix sum gates which (j -> i) contributions are allowed.
+    ``ctx.attn_impl == "pallas"`` runs the intra-chunk step in the CUDA
+    kernels (``kernels/ssd``) with the G-sized B and C; every other
+    implementation runs the reference's einsum route in torch ops.
+    ``hook``, if given, is called with the kernel route's arguments
+    (C, B, x, dt, csum, nr) before the intra-chunk step."""
+    b, S, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    rep = H // G
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"seq {S} must divide into ssd chunks of {chunk}")
+    nc = S // chunk
+
+    def r(t):  # [B,S,...] -> [B,nc,chunk,...]
+        return t.reshape((b, nc, chunk) + tuple(t.shape[2:]))
+
+    xc, dtc, lac, fc = r(x), r(dt), r(log_a), r(first)
+    Bc, Cc = r(B_).float(), r(C_).float()           # [B,K,c,G,N]
+    # a_t at a reset position never multiplies anything that survives the
+    # reset-count gates below, so zero its log contribution.
+    lac = torch.where(fc[..., None], 0.0, lac)
+    nr = torch.cumsum(fc.to(torch.int32), dim=2, dtype=torch.int32)
+    csum = torch.cumsum(lac, dim=2)                 # [B,K,c,H]
+    # intra-chunk: input j reaches output i (j<=i) decayed by
+    # exp(csum_i - csum_j), weighted by dt_j, when no reset occurred in
+    # (j, i] <=> nr_i == nr_j; chunk-final states over inputs j with no
+    # reset after them (nr_j == nr_last)
+    args = dict(C=Cc, B=Bc, x=xc.float(), dt=dtc, csum=csum, nr=nr)
+    if getattr(ctx, "attn_impl", "") == "pallas":
+        if hook is not None:
+            hook(args)
+        y_intra, states = ssd_ops.ssd_chunk(**args)
+    else:
+        # the reference's einsum route: the plain version, differentiated
+        # by autograd
+        y_intra, states = ssd_ops.ssd_chunk_fwd_reference(**args)
+    # carried decay is zero if the chunk contains any reset
+    no_reset = (nr[:, :, -1] == 0)[..., None]             # [B,K,1]
+    chunk_decay = torch.exp(csum[:, :, -1, :].clamp(-80.0, 0.0)) \
+        * no_reset.float()                                # [B,K,H]
+    # the inter-chunk recurrence (the reference's lax.scan)
+    h_prev = torch.zeros((b, H, N, P), dtype=torch.float32, device=x.device)
+    h_before = []
+    for k in range(nc):
+        h_before.append(h_prev)
+        h_prev = h_prev * chunk_decay[:, k, :, None, None] + states[:, k]
+    h_before = torch.stack(h_before, dim=1)       # [B,K,H,N,P] entering
+    # inter-chunk: y_i += C_i^T decay(start..i) h_before, gated on no reset
+    # having occurred at or before i within this chunk; each group's C
+    # against its heads' states, without repeating C per head
+    dec_in = torch.exp(csum.clamp(-80.0, 0.0)) \
+        * (nr == 0).float()[..., None]                    # [B,K,c,H]
+    y_inter = torch.einsum("bkign,bkgrnp->bkigrp", Cc,
+                           h_before.reshape(b, nc, G, rep, N, P))
+    y_inter = y_inter.reshape(b, nc, chunk, H, P) * dec_in[..., None]
+    y = (y_intra + y_inter).reshape(b, S, H, P)
+    return y.to(x.dtype)

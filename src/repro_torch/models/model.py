@@ -1,19 +1,22 @@
-"""Model assembly: a dense decoder trained on packed documents
-(``forward``) and served from the ragged serving cache (DESIGN.md §8).
+"""Model assembly: decoders trained on packed documents (``forward``)
+and dense decoders served from the ragged serving cache (DESIGN.md §8).
 
-The port of ``repro.models.model`` for dense attention stacks.  The
-reference stacks each pattern slot's weights on a leading ``[n_groups]``
-axis and scans over it; here each layer is its own module in
-``Transformer.layers`` and the scan is a Python loop.  Layer ``l`` is
-pattern slot ``l % period`` of group ``l // period``.
+The port of ``repro.models.model``.  The reference stacks each pattern
+slot's weights on a leading ``[n_groups]`` axis and scans over it; here
+each layer is its own module in ``Transformer.layers`` and the scan is a
+Python loop.  Layer ``l`` is pattern slot ``l % period`` of group
+``l // period``.
 
-What runs: attention-only patterns of ``global`` and ``local`` layers
-(dense MLPs, optional post-norms, softcaps, tied embeddings), trained
-under every ``attn_impl`` (with ``cad``, ``local`` layers take the
-dispatch's windowed fallback, ``xla_flash_attention``).
-Recurrent (``ssd``/``rglru``) and MoE layers, cross-attention, the
-encoder and the legacy ``layout="decode"`` cache raise
-``NotImplementedError`` naming the slice that brings them.
+What trains: patterns of ``global``, ``local`` and ``ssd`` layers (dense
+MLPs, optional post-norms, softcaps, tied embeddings; the Mamba-2 SSD
+block), under every ``attn_impl`` (with ``cad``, ``local`` layers take
+the dispatch's windowed fallback, ``xla_flash_attention``; ``ssd``
+layers run their intra-chunk step in the CUDA kernels under ``pallas``
+and in torch ops otherwise).  What serves: the attention-only patterns.
+Serving ``ssd`` layers (``ssd_decode`` and their recurrent cache, ROADMAP
+queue 1 item 10), ``rglru`` and MoE layers, cross-attention, the encoder
+and the legacy ``layout="decode"`` cache raise ``NotImplementedError``
+naming what brings them.
 """
 from __future__ import annotations
 
@@ -40,13 +43,13 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def check_serving_arch(cfg) -> None:
-    """Raise for what the serving slice does not port yet."""
-    later = {"ssd": "the mamba2 slice (ssd_chunk kernel)",
-             "rglru": "the recurrentgemma slice (lru_scan kernel)",
-             "cross": "the cross-attention slice (whisper, llama3.2-vision)"}
+_LATER = {"rglru": "the recurrentgemma slice (lru_scan kernel)",
+          "cross": "the cross-attention slice (whisper, llama3.2-vision)"}
+
+
+def _check_arch(cfg, kinds, later) -> None:
     for kind in cfg.layer_pattern:
-        if kind not in _ATTN_KINDS:
+        if kind not in kinds:
             raise NotImplementedError(
                 f"{cfg.arch_id}: {kind!r} layers come with "
                 f"{later.get(kind, 'a later slice')}")
@@ -58,6 +61,18 @@ def check_serving_arch(cfg) -> None:
                                   f"cross-attention slice")
     if cfg.qk_norm:
         raise NotImplementedError(f"{cfg.arch_id}: qk_norm is not ported")
+
+
+def check_training_arch(cfg) -> None:
+    """Raise for what the port cannot build and train yet."""
+    _check_arch(cfg, _ATTN_KINDS + ("ssd",), _LATER)
+
+
+def check_serving_arch(cfg) -> None:
+    """Raise for what the port cannot serve yet."""
+    _check_arch(cfg, _ATTN_KINDS, dict(
+        _LATER, ssd="mamba2 serving (ssd_decode and the recurrent cache, "
+                    "ROADMAP queue 1 item 10)"))
 
 
 class Block(nn.Module):
@@ -77,14 +92,25 @@ class Block(nn.Module):
             self.pnorm2 = L.norm_init(cfg.d_model, dt, cfg.norm, device)
 
 
+class SSDBlock(nn.Module):
+    """One Mamba-2 layer: norm1 -> SSD mixer -> residual."""
+
+    def __init__(self, cfg, gen: torch.Generator, device):
+        super().__init__()
+        self.kind = "ssd"
+        self.norm1 = L.norm_init(cfg.d_model, cfg.pdtype, cfg.norm, device)
+        self.mixer = L.ssd_init(gen, cfg, device)
+
+
 class Transformer(nn.Module):
-    """Dense decoder for serving.  Weights are drawn from ``seed``
-    (normal * fan_in**-0.5, per tensor, in the param dtype, on ``device``);
+    """Decoder for training and, with attention-only patterns, serving.
+    Weights are drawn from ``seed`` (normal * fan_in**-0.5, per tensor, in
+    the param dtype, on ``device``);
     ``load_state_dict(convert.params_from_jax(...))`` replaces them."""
 
     def __init__(self, cfg, device="cuda", seed: int = 0):
         super().__init__()
-        check_serving_arch(cfg)
+        check_training_arch(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         # on the meta device the weights are shapes only (no memory), e.g.
@@ -99,13 +125,16 @@ class Transformer(nn.Module):
             self.unembed = nn.Parameter(L.dense_init(
                 gen, cfg.d_model, (cfg.vocab_size, cfg.d_model), dt, device))
         self.final_norm = L.norm_init(cfg.d_model, dt, cfg.norm, device)
+        kinds = [cfg.layer_pattern[i % cfg.period]
+                 for i in range(cfg.n_layers)]
         self.layers = nn.ModuleList(
-            Block(cfg, cfg.layer_pattern[i % cfg.period], gen, device)
-            for i in range(cfg.n_layers))
-        # inspection hook: called as attn_hook(layer, inputs) with the
-        # attention inputs just before each attention call (serving: the
-        # kernel's arguments; training: q, k, v, segment_ids, positions
-        # and the ParallelContext)
+            SSDBlock(cfg, gen, device) if kind == "ssd"
+            else Block(cfg, kind, gen, device) for kind in kinds)
+        # inspection hook: called as attn_hook(layer, inputs) with each
+        # sequence mixer's inputs just before its kernel call (serving: the
+        # kernel's arguments; training attention: q, k, v, segment_ids,
+        # positions and the ParallelContext; training ssd: the intra-chunk
+        # step's C, B, x, dt, csum, nr)
         self.attn_hook: Optional[Callable[[int, Dict], None]] = None
 
     @property
@@ -131,15 +160,20 @@ class Transformer(nn.Module):
         return logits
 
     # ----------------------------------------------------------- training
-    def _block_train(self, li: int, blk: Block, h, batch, ctx):
-        """``block_apply`` of an attention layer (reference
-        ``models/model.py:88-124``): norm1 -> self-attention -> [pnorm1]
-        -> residual -> norm2 -> FFN -> [pnorm2] -> residual."""
+    def _block_train(self, li: int, blk: nn.Module, h, batch, ctx):
+        """``block_apply`` (reference ``models/model.py:88-130``): for an
+        attention layer norm1 -> self-attention -> [pnorm1] -> residual ->
+        norm2 -> FFN -> [pnorm2] -> residual; for an ssd layer norm1 ->
+        SSD mixer -> residual."""
         cfg = self.cfg
-        window = cfg.window if blk.kind == "local" else 0
         hook = None
         if self.attn_hook is not None:
             hook = lambda inputs, li=li: self.attn_hook(li, inputs)  # noqa
+        if blk.kind == "ssd":
+            return h + L.ssd_apply(blk.mixer,
+                                   L.norm_apply(blk.norm1, h, cfg.norm),
+                                   batch, cfg, ctx, hook=hook)
+        window = cfg.window if blk.kind == "local" else 0
         a = L.self_attn_apply(blk.attn, L.norm_apply(blk.norm1, h, cfg.norm),
                               batch, cfg, ctx, causal=True, window=window,
                               hook=hook)
@@ -153,10 +187,10 @@ class Transformer(nn.Module):
         ``ctx.cad``).  With ``ctx.remat`` each layer's forward is re-run
         in the backward (``torch.utils.checkpoint``, non-reentrant)
         instead of keeping its activations.  Returns (logits [B,S,V] f32,
-        aux-losses: empty for dense stacks)."""
+        aux-losses: empty without MoE layers)."""
         cfg = self.cfg
         h = self._embed(batch["tokens"])
-        if not cfg.use_rope:
+        if not cfg.use_rope and cfg.has_attention():
             h = h + L.sinusoidal_pos(batch["positions"], cfg.d_model,
                                      cfg.cdtype)
         for li, blk in enumerate(self.layers):
@@ -184,6 +218,7 @@ class Transformer(nn.Module):
         if layout != "serve":
             raise ValueError(f"unknown cache layout {layout!r}")
         cfg = self.cfg
+        check_serving_arch(cfg)
         s_pad = -(-max_seq // SERVE_BLOCK) * SERVE_BLOCK
         shape = (batch_size, s_pad, cfg.n_kv_heads, cfg.head_dim)
         slots: List[Dict[str, torch.Tensor]] = [

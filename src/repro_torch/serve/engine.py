@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.packed_flash import ops as pf_ops
-from repro_torch.models.model import resolve_device
+from repro_torch.models.model import check_serving_arch, resolve_device
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.scheduler import (DECODE, DONE, ContinuousScheduler,
@@ -57,6 +57,7 @@ class Engine:
     def __init__(self, model, serve_cfg: ServeConfig,
                  batch_size: int = 1, device="cuda"):
         cfg = model.cfg
+        check_serving_arch(cfg)
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model weights are on {model.device}, the "

@@ -53,7 +53,9 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
     the attention service: the session provides the ParallelContext and
     attaches prefetched plans to every batch.  Without a session the loop
     trains on raw packed batches with ``ctx`` (default: blockwise ``xla``
-    attention with remat, as in the reference).
+    attention with remat, as in the reference); an attention-free model
+    (mamba2) trains with any ``ctx``, its SSD layers in the CUDA kernels
+    under ``attn_impl="pallas"`` and on the einsum route otherwise.
     ``model`` (a Transformer) is trained in place; without one, weights
     are drawn from ``train_cfg.seed``.  ``on_step(step, metrics)`` is
     called after every step with the metrics as floats, the step's

@@ -14,10 +14,10 @@ from repro.configs import get_config as jax_config
 from repro.models import model as JM
 from repro.parallel import ParallelContext
 from repro.train.step import make_serve_chunk_step as jax_chunk_step
-from repro_torch.configs import ModelConfig, MoEConfig
+from repro_torch.configs import ModelConfig, MoEConfig, SSMConfig
 from repro_torch.configs import get_config as torch_config
 from repro_torch.models import convert
-from repro_torch.models.model import Transformer
+from repro_torch.models.model import Transformer, check_serving_arch
 from repro_torch.train.step import make_serve_chunk_step
 from test_torch_helpers import MODEL_TOL, load_jax_params, to_numpy, to_torch
 
@@ -122,14 +122,26 @@ def _tiny(**over):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"layer_pattern": ("ssd",), "family": "ssm"}, "mamba2"),
+    ({"layer_pattern": ("ssd",), "family": "ssm",
+      "ssm": SSMConfig(d_state=16, head_dim=16, chunk_size=16)}, "mamba2"),
     ({"layer_pattern": ("rglru", "local")}, "recurrentgemma"),
     ({"layer_pattern": ("cross",)}, "cross-attention"),
     ({"moe": MoEConfig(n_experts=4, top_k=2, d_ff_expert=32)}, "MoE"),
 ])
 def test_outside_the_slice_raises(over, match):
+    """Serving raises for every arch outside the serving slice.  Building
+    a model raises for all but mamba2, whose ssd layers train and whose
+    serving cache raises."""
+    cfg = _tiny(**over)
     with pytest.raises(NotImplementedError, match=match):
-        Transformer(_tiny(**over), device="cpu")
+        check_serving_arch(cfg)
+    if "ssd" in cfg.layer_pattern:
+        model = Transformer(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match=match):
+            model.init_cache(2, 64)
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            Transformer(cfg, device="cpu")
 
 
 def test_legacy_decode_cache_raises():
