@@ -3,8 +3,8 @@
 The port's copy of ``repro.configs.base``: the same dataclasses, widths
 and ``reduced()`` rule, with torch dtypes in place of ``jnp.dtype``.  The
 registry holds the configs the port runs (llama3-8b, smollm-360m and
-gemma2-2b, served and trained; mamba2-370m, trained); the others come
-with the slices that run their layers.
+gemma2-2b, served and trained; mamba2-370m and recurrentgemma-9b,
+trained); the others come with the slices that run their layers.
 
 Every assigned architecture gets a ``ModelConfig`` in its own module under
 ``repro/configs``; the registry maps ``--arch <id>`` to it.  A config fully
@@ -288,4 +288,4 @@ def list_archs():
 
 def _load_all():
     from . import (gemma2_2b, llama3_8b, mamba2_370m,  # noqa: F401
-                   smollm_360m)
+                   recurrentgemma_9b, smollm_360m)

@@ -26,18 +26,19 @@
 // Design (simple and right first, the tile code of ca_server.cu; the
 // helpers shared with it are in common.cuh):
 //   * forward and dq: one CTA of 8 warps per (batch row b, q head h,
-//     64-row q tile).  The TPU's sequential kv grid axis is a loop inside
-//     the CTA over 64-slot kv tiles, K/V staged in shared memory as f32.
-//     One warp works on one q row at a time: each lane takes two keys of
-//     the tile for the dot products, and the lanes split dh for the P.V
-//     (or dS.K) update.
-//   * dk/dv: one CTA per (b, kv head g, 64-row kv tile) walks the q tiles
-//     in order and, for each, the rep = Hq / Hkv q heads of group g in
-//     order, accumulating dk and dv of its rows in shared memory in f32
-//     and writing them once in k's dtype.  GQA is folded in the kernel
-//     (the TPU kernel writes per-q-head f32 gradients and folds them
-//     outside): no rep-times f32 intermediate and no float atomics, so
-//     the sums run in one fixed order and repeated runs are bitwise equal.
+//     R-row q tile; R = 64, 32 at dh 256).  The TPU's sequential kv grid
+//     axis is a loop inside the CTA over 64-slot kv tiles, K/V staged in
+//     shared memory as f32.  One warp works on one q row at a time: each
+//     lane takes two keys of the tile for the dot products, and the lanes
+//     split dh for the P.V (or dS.K) update.
+//   * dk/dv: one CTA per (b, kv head g, R-row kv tile; R = 64, 16 at dh
+//     256) walks the 64-row q tiles in order and, for each, the rep =
+//     Hq / Hkv q heads of group g in order, accumulating dk and dv of its
+//     rows in shared memory in f32 and writing them once in k's dtype.
+//     GQA is folded in the kernel (the TPU kernel writes per-q-head f32
+//     gradients and folds them outside): no rep-times f32 intermediate
+//     and no float atomics, so the sums run in one fixed order and
+//     repeated runs are bitwise equal.
 //     A warp works on one kv row at a time: lanes take two q rows for the
 //     dot products and split dh for the dV / dK update.
 //   * pruning: before staging a tile the CTA checks whether any pair of
@@ -46,14 +47,23 @@
 //     softmax (max unchanged, p = 0, correction exp(0) = 1) and adds exact
 //     zeros to dq, dk and dv, so skipping it changes no bit; it prunes by
 //     document, more than the TPU's block prune, never less.
-//   * shared memory at dh 128 in f32: forward 130 KiB, dq 162 KiB, dk/dv
-//     194 KiB, all under the 227 KiB a CTA may use.  Dynamic shared memory,
-//     raised once per instantiation with cudaFuncSetAttribute.
+//   * shared memory in f32: at dh 128 forward 130 KiB, dq 162 KiB, dk/dv
+//     194 KiB, all under the 227 KiB a CTA may use.  At dh 256 the 64-row
+//     staging of every kernel would need 257-322 KiB, so a CTA owns fewer
+//     rows of its own while the tiles it walks keep 64 rows (two per lane,
+//     as at dh 64 and 128): 32 q rows in the forward (193 KiB) and dq (225
+//     KiB), 16 kv rows in dk/dv (194 KiB).  That keeps f32 staging for both
+//     input types and every sum in the order of dh 64 and 128, whose code
+//     is unchanged; staging bf16 would have halved the bytes only for bf16
+//     inputs.  Under recurrentgemma's MQA (rep 16, one kv head) dk/dv then
+//     has a CTA per 16 kv rows, each walking 16 q heads for every q tile.
+//     Dynamic shared memory, raised once per instantiation with
+//     cudaFuncSetAttribute.
 //
 // What the simple design gives up, each a later change: tensor cores
 // (mma.sync / wgmma on bf16 tiles), one K/V tile shared across the rep q
-// heads of a GQA group in the forward and dq kernels, tile loads
-// overlapped with compute, and head_dim 256 (gemma2).
+// heads of a GQA group in the forward and dq kernels (16 heads re-read one
+// K/V tile under MQA), and tile loads overlapped with compute.
 //
 // C interface (loaded with ctypes): each function launches on the
 // caller's stream and returns cudaGetLastError(); anything it does not
@@ -63,8 +73,16 @@
 
 namespace {
 
-constexpr int kRows = 64;   // q rows (fwd, dq) or kv rows (dk/dv) per CTA
 constexpr int kTile = 64;   // kv slots (fwd, dq) or q rows (dk/dv) per tile
+
+// a CTA's own rows: q rows (fwd, dq) or kv rows (dk/dv); fewer at dh 256,
+// where 64 rows of f32 staging do not fit in shared memory (header note)
+template <int DH>
+struct Rows {
+  static constexpr int kQ = DH <= 128 ? 64 : 32;
+  static constexpr int kKV = DH <= 128 ? 64 : 16;
+  static_assert(kTile % kQ == 0 && kTile % kKV == 0, "rows divide tiles");
+};
 
 // Python's floor division (jnp //), for positions of either sign
 __device__ __forceinline__ int floor_div(int a, int b) {
@@ -105,9 +123,10 @@ __device__ __forceinline__ bool visible(int row, int col, int sq, int pq,
   return block_live(row / m.blk_q, col / m.blk_k, m);
 }
 
-// whether any pair of rows [r0, r0 + kRows) x slots [c0, c0 + kTile) is
+// whether any pair of rows [r0, r0 + NR) x slots [c0, c0 + NC) is
 // visible, from the segment ids and positions staged in shared memory;
 // the same answer on every thread of the CTA (a barrier)
+template <int NR, int NC>
 __device__ __forceinline__ bool tile_any_visible(int r0, int c0,
                                                  const int* rseg,
                                                  const int* rpos,
@@ -115,8 +134,8 @@ __device__ __forceinline__ bool tile_any_visible(int r0, int c0,
                                                  const int* cpos,
                                                  const Mask& m) {
   bool any = false;
-  for (int idx = threadIdx.x; idx < kRows * kTile && !any; idx += kThreads) {
-    const int r = idx / kTile, c = idx % kTile;
+  for (int idx = threadIdx.x; idx < NR * NC && !any; idx += kThreads) {
+    const int r = idx / NC, c = idx % NC;
     any = visible(r0 + r, c0 + c, rseg[r], rpos[r], cseg[c], cpos[c], m);
   }
   return __syncthreads_or(any) != 0;
@@ -128,6 +147,7 @@ constexpr size_t fwd_smem() {
   // q, accumulators [kRows][DH]; K tile [kTile][DH + 1] (padded so the
   // lane-per-key reads fall in distinct banks); V tile [kTile][DH]; row
   // max and sum; row and slot segment ids and positions
+  constexpr int kRows = Rows<DH>::kQ;
   return sizeof(float) * (2 * (size_t)kRows * DH + (size_t)kTile * (DH + 1) +
                           (size_t)kTile * DH + 2 * (size_t)kRows) +
          sizeof(int) * 2 * (size_t)(kRows + kTile);
@@ -145,6 +165,7 @@ __global__ void __launch_bounds__(kThreads)
                      int hkv, Mask mask, float softcap, float scale) {
   constexpr int KS = DH + 1;
   constexpr int PER_LANE = DH / 32;
+  constexpr int kRows = Rows<DH>::kQ;
   extern __shared__ float smem[];
   float* q_s = smem;                  // [kRows][DH]
   float* acc_s = q_s + kRows * DH;    // [kRows][DH]
@@ -186,7 +207,9 @@ __global__ void __launch_bounds__(kThreads)
       kp_s[tid] = pos_kv[krow0 + c0 + tid];
     }
     __syncthreads();
-    if (!tile_any_visible(r0, c0, qs_s, qp_s, ks_s, kp_s, mask)) continue;
+    if (!tile_any_visible<kRows, kTile>(r0, c0, qs_s, qp_s, ks_s, kp_s,
+                                         mask))
+      continue;
     for (int idx = tid; idx < kTile * DH; idx += kThreads) {
       const int r = idx / DH, d = idx % DH;
       const size_t off = (krow0 + c0 + r) * kv_stride + (size_t)g * DH + d;
@@ -270,6 +293,7 @@ template <int DH>
 constexpr size_t dq_smem() {
   // q, dO, dQ [kRows][DH]; K and V tiles [kTile][DH + 1]; per-row lse and
   // delta; row and slot segment ids and positions
+  constexpr int kRows = Rows<DH>::kQ;
   return sizeof(float) * (3 * (size_t)kRows * DH +
                           2 * (size_t)kTile * (DH + 1) + 2 * (size_t)kRows) +
          sizeof(int) * 2 * (size_t)(kRows + kTile);
@@ -289,6 +313,7 @@ __global__ void __launch_bounds__(kThreads)
                         Mask mask, float softcap, float scale) {
   constexpr int KS = DH + 1;
   constexpr int PER_LANE = DH / 32;
+  constexpr int kRows = Rows<DH>::kQ;
   extern __shared__ float smem[];
   float* q_s = smem;                  // [kRows][DH]
   float* do_s = q_s + kRows * DH;     // [kRows][DH]
@@ -332,7 +357,9 @@ __global__ void __launch_bounds__(kThreads)
       kp_s[tid] = pos_kv[krow0 + c0 + tid];
     }
     __syncthreads();
-    if (!tile_any_visible(r0, c0, qs_s, qp_s, ks_s, kp_s, mask)) continue;
+    if (!tile_any_visible<kRows, kTile>(r0, c0, qs_s, qp_s, ks_s, kp_s,
+                                         mask))
+      continue;
     for (int idx = tid; idx < kTile * DH; idx += kThreads) {
       const int r = idx / DH, d = idx % DH;
       const size_t off = (krow0 + c0 + r) * kv_stride + (size_t)g * DH + d;
@@ -409,6 +436,7 @@ template <int DH>
 constexpr size_t dkv_smem() {
   // K, V, dK, dV rows [kRows][DH]; q and dO tiles [kTile][DH + 1];
   // per-q-row lse and delta; q-row and kv-row segment ids and positions
+  constexpr int kRows = Rows<DH>::kKV;
   return sizeof(float) * (4 * (size_t)kRows * DH +
                           2 * (size_t)kTile * (DH + 1) + 2 * (size_t)kTile) +
          sizeof(int) * 2 * (size_t)(kRows + kTile);
@@ -429,6 +457,7 @@ __global__ void __launch_bounds__(kThreads)
                          float scale) {
   constexpr int KS = DH + 1;
   constexpr int PER_LANE = DH / 32;
+  constexpr int kRows = Rows<DH>::kKV;
   extern __shared__ float smem[];
   float* k_s = smem;                  // [kRows][DH]
   float* v_s = k_s + kRows * DH;      // [kRows][DH]
@@ -473,7 +502,9 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     // rows are q rows here: pairs (q rows of this tile) x (our kv rows)
-    if (!tile_any_visible(t0, c0, qs_s, qp_s, ks_s, kp_s, mask)) continue;
+    if (!tile_any_visible<kTile, kRows>(t0, c0, qs_s, qp_s, ks_s, kp_s,
+                                         mask))
+      continue;
     for (int hr = 0; hr < rep; ++hr) {
       const int h = g * rep + hr;
       const size_t stat0 = ((size_t)b * hq + h) * Sq + t0;
@@ -586,7 +617,7 @@ cudaError_t launch_fwd(const Args& a) {
   cudaError_t e =
       raise_smem(flash_fwd_kernel<T, DH>, fwd_smem<DH>(), &configured);
   if (e != cudaSuccess) return e;
-  dim3 grid(a.Sq / kRows, a.hq, a.B);
+  dim3 grid(a.Sq / Rows<DH>::kQ, a.hq, a.B);
   flash_fwd_kernel<T, DH><<<grid, kThreads, fwd_smem<DH>(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const int32_t*>(a.seg_q),
@@ -604,7 +635,7 @@ cudaError_t launch_dq(const Args& a) {
   cudaError_t e =
       raise_smem(flash_bwd_dq_kernel<T, DH>, dq_smem<DH>(), &configured);
   if (e != cudaSuccess) return e;
-  dim3 grid(a.Sq / kRows, a.hq, a.B);
+  dim3 grid(a.Sq / Rows<DH>::kQ, a.hq, a.B);
   flash_bwd_dq_kernel<T, DH><<<grid, kThreads, dq_smem<DH>(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -624,7 +655,7 @@ cudaError_t launch_dkv(const Args& a) {
   cudaError_t e =
       raise_smem(flash_bwd_dkv_kernel<T, DH>, dkv_smem<DH>(), &configured);
   if (e != cudaSuccess) return e;
-  dim3 grid(a.Skv / kRows, a.hkv, a.B);
+  dim3 grid(a.Skv / Rows<DH>::kKV, a.hkv, a.B);
   flash_bwd_dkv_kernel<T, DH><<<grid, kThreads, dkv_smem<DH>(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -642,7 +673,7 @@ cudaError_t launch_dkv(const Args& a) {
 // which: 0 = forward, 1 = dq, 2 = dk/dv
 int dispatch(int which, int dtype, int dh, const Args& a) {
   const Mask& m = a.mask;
-  if (a.B < 1 || a.Sq < 1 || a.Skv < 1 || a.Sq % kRows != 0 ||
+  if (a.B < 1 || a.Sq < 1 || a.Skv < 1 || a.Sq % kTile != 0 ||
       a.Skv % kTile != 0 || a.hkv < 1 || a.hq % a.hkv != 0 ||
       m.rate < 1 || m.blk_q < 1 || m.blk_k < 1 ||
       (m.rate > 1 && m.blk_q != m.blk_k))
@@ -653,8 +684,10 @@ int dispatch(int which, int dtype, int dh, const Args& a) {
   return (int)launch_dkv<T, DH>(a)
   if (dtype == 0 && dh == 64) { FLASH_CASE(float, 64); }
   if (dtype == 0 && dh == 128) { FLASH_CASE(float, 128); }
+  if (dtype == 0 && dh == 256) { FLASH_CASE(float, 256); }
   if (dtype == 1 && dh == 64) { FLASH_CASE(__nv_bfloat16, 64); }
   if (dtype == 1 && dh == 128) { FLASH_CASE(__nv_bfloat16, 128); }
+  if (dtype == 1 && dh == 256) { FLASH_CASE(__nv_bfloat16, 256); }
 #undef FLASH_CASE
   return cudaErrorInvalidValue;
 }
@@ -688,8 +721,8 @@ Args make_args(const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16.  Shapes: q, out [B, Sq, hq, dh];
 // k, v [B, Skv, hkv, dh]; lse [B, hq, Sq] f32; seg_q, pos_q [B, Sq],
-// seg_kv, pos_kv [B, Skv] int32.  Sq and Skv multiples of 64.  The caller
-// checks shapes, types and contiguity.
+// seg_kv, pos_kv [B, Skv] int32; dh 64, 128 or 256.  Sq and Skv multiples
+// of 64.  The caller checks shapes, types and contiguity.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* seg_q, const void* pos_q,
                          const void* seg_kv, const void* pos_kv, void* out,

@@ -38,7 +38,8 @@ _SOURCE = _CSRC / "ragged_decode.cu"
 _CA_SOURCE = _CSRC / "ca_server.cu"
 _FLASH_SOURCE = _CSRC / "flash.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128)     # ragged_decode and the CA-server kernels
+FLASH_HEAD_DIMS = (64, 128, 256)  # the flash kernels
 _BLK_Q = (1, 128)
 CA_BLOCKS = (64, 128)         # the CA-server kernels' task block sizes
 FLASH_BLOCK = 128             # the TPU kernel's DEFAULT_BLOCK
@@ -679,9 +680,9 @@ def _check_flash_inputs(q, k, v, seg_q, pos_q, seg_kv, pos_kv, blk_q, blk_k,
     if v.shape != k.shape or bk != b or dh_k != dh:
         raise ValueError(f"flash kernel: k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
-    if dh not in KERNEL_HEAD_DIMS:
+    if dh not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash kernel: head_dim {dh} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+                         f"{FLASH_HEAD_DIMS}")
     if hq % hkv:
         raise ValueError(f"flash kernel: {hq} q heads over {hkv} kv heads")
     if min(b, sq, skv, hq) < 1 or sq % FLASH_TILE or skv % FLASH_TILE:
@@ -783,8 +784,9 @@ def packed_flash_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv,
     ``sink`` / ``rate`` carry a MaskSpec (DESIGN.md §12), the dilation in
     units of the kernel's 128-token block.  Differentiable in q, k, v.
 
-    CUDA tensors launch the kernels (f32 or bf16, head_dim 64 or 128, any
-    Hq / Hkv, lengths multiples of 64); anything they do not cover raises.
+    CUDA tensors launch the kernels (f32 or bf16, head_dim 64, 128 or 256,
+    any Hq / Hkv, lengths multiples of 64); anything they do not cover
+    raises.
     CPU tensors run the plain versions."""
     if not q.is_cuda and q.device.type != "cpu":
         raise ValueError(f"packed_flash_attention: no kernel for device "

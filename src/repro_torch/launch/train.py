@@ -17,7 +17,11 @@ without one, ``cuda`` raises.  Without --cad the model trains with
 colocated blockwise ``xla`` attention, as in the reference; an
 attention-free arch (mamba2-370m) trains the same way with --cad, after
 the reference's note that CAD does not apply, its SSD layers on the
-einsum route in torch ops.  The
+einsum route in torch ops.  recurrentgemma trains as the reference's
+launcher trains it: its rglru layers run the plain recurrence in torch
+ops with or without --cad (the ``lru_scan`` kernels are the ``pallas``
+route, which the launcher does not pick), and with --cad its local
+layers, all windowed, take the dispatch's blockwise fallback.  The
 reference's --kernel is not carried over: CUDA tensors run the
 hand-written kernels.  --calibrate, --stream-chunk,
 --fault-schedule, --ckpt-dir/--ckpt-every and --trace are accepted and

@@ -1,6 +1,7 @@
 """Layer implementations: init, norms, RoPE, GQA projections,
-self-attention over packed documents, the MLP, and the Mamba-2 SSD block
-(chunked scan, packed-document aware).
+self-attention over packed documents, the MLP, the Mamba-2 SSD block
+(chunked scan, packed-document aware) and the RecurrentGemma RG-LRU block
+(linear recurrence with document resets).
 
 The port of the matching functions of ``repro.models.layers``, with the
 same weight names and layouts: weights are stored ``[in, out]`` and
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.attention import core_attention
+from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 
 
@@ -299,3 +301,79 @@ def _ssd_chunked(x, dt, log_a, B_, C_, chunk, first, ctx=None, hook=None):
     y_inter = y_inter.reshape(b, nc, chunk, H, P) * dec_in[..., None]
     y = (y_intra + y_inter).reshape(b, S, H, P)
     return y.to(x.dtype)
+
+
+# ------------------------------------------------------------------ rg-lru
+def rglru_init(gen: torch.Generator, cfg, device=None) -> nn.ParameterDict:
+    r = cfg.rglru
+    d = cfg.d_model
+    w = r.lru_width or d
+    dt = cfg.pdtype
+    # a initialised so that a = sigmoid(lru_a)^8 is in ~[0.9, 0.999]
+    a_init = torch.log(torch.expm1(
+        torch.linspace(0.9, 0.999, w) ** (1 / 8.0)) + 1e-8)
+    return _params(
+        w_x=dense_init(gen, d, (d, w), dt, device),         # recurrence in
+        w_gate_br=dense_init(gen, d, (d, w), dt, device),   # gelu branch
+        conv_w=dense_init(gen, r.conv_width, (r.conv_width, w), dt, device),
+        conv_b=torch.zeros(w, dtype=dt, device=device),
+        w_input_gate=dense_init(gen, w, (w, w), dt, device),
+        w_rec_gate=dense_init(gen, w, (w, w), dt, device),
+        lru_a=a_init.to(dtype=dt, device=device),
+        w_out=dense_init(gen, w, (w, d), dt, device))
+
+
+_LRU_C = 8.0
+
+
+def rglru_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, batch, cfg,
+                ctx, hook=None) -> torch.Tensor:
+    """Griffin RG-LRU temporal-mixing block with document resets.
+    ``hook``, if given, is called with the scan's arguments (see
+    ``_rglru_scan``)."""
+    b, S, _ = h.shape
+    seg = batch["segment_ids"]
+    first = torch.cat([torch.ones_like(seg[:, :1], dtype=torch.bool),
+                       seg[:, 1:] != seg[:, :-1]], dim=1)
+    gate_br = F.gelu(h @ p["w_gate_br"], approximate="tanh")
+    x = h @ p["w_x"]
+    x = _causal_conv(x, p["conv_w"], p["conv_b"], first=first)
+    y = _rglru_scan(p, x, first, ctx=ctx, hook=hook)
+    y = y * gate_br
+    return y @ p["w_out"]
+
+
+def _rglru_gates(p: Mapping[str, torch.Tensor], x: torch.Tensor):
+    rg = torch.sigmoid(x @ p["w_rec_gate"]).float()
+    ig = torch.sigmoid(x @ p["w_input_gate"]).float()
+    log_a0 = F.logsigmoid(p["lru_a"].float())
+    log_a = _LRU_C * rg * log_a0                       # [B,S,W] (<= 0)
+    return log_a, ig
+
+
+def _clip01(x: torch.Tensor) -> torch.Tensor:
+    """clip(x, 0, 1) with ``jnp.clip``'s gradient: 1 inside, 1/2 at a bound
+    (``torch.clamp`` would pass all of it), 0 outside."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
+def _rglru_scan(p, x, first, ctx=None, hook=None):
+    """h_t = a_t h_{t-1} + sqrt(1-a_t^2) (i_t x_t), a_t = 0 at document
+    starts; returns h in x's dtype.  ``ctx.attn_impl == "pallas"`` with
+    the channel and sequence lengths multiples of 128 (the reference's
+    condition) runs the recurrence in the CUDA kernels (``lru_scan``),
+    after calling ``hook``, if given, with its f32 arguments ``a`` and
+    ``bterm``; every other case runs the plain forward under autograd
+    (the reference's ``associative_scan`` route)."""
+    log_a, ig = _rglru_gates(p, x)
+    log_a = torch.where(first[..., None], -1e30, log_a)
+    a = torch.exp(log_a)
+    beta = torch.sqrt(_clip01(1.0 - torch.exp(2.0 * log_a)))
+    bterm = beta * ig * x.float()
+    w, s = x.shape[-1], x.shape[1]
+    if getattr(ctx, "attn_impl", "") == "pallas" and w % 128 == 0 \
+            and s % 128 == 0:
+        if hook is not None:
+            hook(dict(a=a, bterm=bterm))
+        return rglru_ops.lru_scan(a, bterm).to(x.dtype)
+    return rglru_ops.lru_scan_fwd_reference(a, bterm).to(x.dtype)

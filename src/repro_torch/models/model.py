@@ -7,16 +7,18 @@ each layer is its own module in ``Transformer.layers`` and the scan is a
 Python loop.  Layer ``l`` is pattern slot ``l % period`` of group
 ``l // period``.
 
-What trains: patterns of ``global``, ``local`` and ``ssd`` layers (dense
-MLPs, optional post-norms, softcaps, tied embeddings; the Mamba-2 SSD
-block), under every ``attn_impl`` (with ``cad``, ``local`` layers take
-the dispatch's windowed fallback, ``xla_flash_attention``; ``ssd``
-layers run their intra-chunk step in the CUDA kernels under ``pallas``
-and in torch ops otherwise).  What serves: the attention-only patterns.
-Serving ``ssd`` layers (``ssd_decode`` and their recurrent cache, ROADMAP
-queue 1 item 10), ``rglru`` and MoE layers, cross-attention, the encoder
-and the legacy ``layout="decode"`` cache raise ``NotImplementedError``
-naming what brings them.
+What trains: patterns of ``global``, ``local``, ``ssd`` and ``rglru``
+layers (dense MLPs, optional post-norms, softcaps, tied embeddings; the
+Mamba-2 SSD block; the RecurrentGemma RG-LRU block), under every
+``attn_impl`` (with ``cad``, ``local`` layers take the dispatch's
+windowed fallback, ``xla_flash_attention``; ``ssd`` layers run their
+intra-chunk step and ``rglru`` layers their recurrence in the CUDA
+kernels under ``pallas`` and in torch ops otherwise).  What serves: the
+attention-only patterns.  Serving ``ssd`` and ``rglru`` layers
+(``ssd_decode``, ``rglru_decode`` and their recurrent caches, ROADMAP
+queue 1 item 10), MoE layers, cross-attention, the encoder and the
+legacy ``layout="decode"`` cache raise ``NotImplementedError`` naming
+what brings them.
 """
 from __future__ import annotations
 
@@ -43,8 +45,12 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-_LATER = {"rglru": "the recurrentgemma slice (lru_scan kernel)",
-          "cross": "the cross-attention slice (whisper, llama3.2-vision)"}
+_LATER = {"cross": "the cross-attention slice (whisper, llama3.2-vision)"}
+_RECURRENT_SERVING = {
+    "ssd": "mamba2 serving (ssd_decode and the recurrent cache, ROADMAP "
+           "queue 1 item 10)",
+    "rglru": "recurrentgemma serving (rglru_decode and the recurrent "
+             "cache, ROADMAP queue 1 item 10)"}
 
 
 def _check_arch(cfg, kinds, later) -> None:
@@ -65,14 +71,12 @@ def _check_arch(cfg, kinds, later) -> None:
 
 def check_training_arch(cfg) -> None:
     """Raise for what the port cannot build and train yet."""
-    _check_arch(cfg, _ATTN_KINDS + ("ssd",), _LATER)
+    _check_arch(cfg, _ATTN_KINDS + ("ssd", "rglru"), _LATER)
 
 
 def check_serving_arch(cfg) -> None:
     """Raise for what the port cannot serve yet."""
-    _check_arch(cfg, _ATTN_KINDS, dict(
-        _LATER, ssd="mamba2 serving (ssd_decode and the recurrent cache, "
-                    "ROADMAP queue 1 item 10)"))
+    _check_arch(cfg, _ATTN_KINDS, dict(_LATER, **_RECURRENT_SERVING))
 
 
 class Block(nn.Module):
@@ -102,6 +106,23 @@ class SSDBlock(nn.Module):
         self.mixer = L.ssd_init(gen, cfg, device)
 
 
+class RGLRUBlock(nn.Module):
+    """One RecurrentGemma recurrent layer: norm1 -> RG-LRU mixer ->
+    residual -> norm2 -> FFN -> residual."""
+
+    def __init__(self, cfg, gen: torch.Generator, device):
+        super().__init__()
+        self.kind = "rglru"
+        dt = cfg.pdtype
+        self.norm1 = L.norm_init(cfg.d_model, dt, cfg.norm, device)
+        self.mixer = L.rglru_init(gen, cfg, device)
+        self.norm2 = L.norm_init(cfg.d_model, dt, cfg.norm, device)
+        self.ffn = L.ffn_init(gen, cfg, device)
+
+
+_BLOCKS = {"ssd": SSDBlock, "rglru": RGLRUBlock}
+
+
 class Transformer(nn.Module):
     """Decoder for training and, with attention-only patterns, serving.
     Weights are drawn from ``seed`` (normal * fan_in**-0.5, per tensor, in
@@ -128,13 +149,14 @@ class Transformer(nn.Module):
         kinds = [cfg.layer_pattern[i % cfg.period]
                  for i in range(cfg.n_layers)]
         self.layers = nn.ModuleList(
-            SSDBlock(cfg, gen, device) if kind == "ssd"
+            _BLOCKS[kind](cfg, gen, device) if kind in _BLOCKS
             else Block(cfg, kind, gen, device) for kind in kinds)
         # inspection hook: called as attn_hook(layer, inputs) with each
         # sequence mixer's inputs just before its kernel call (serving: the
         # kernel's arguments; training attention: q, k, v, segment_ids,
         # positions and the ParallelContext; training ssd: the intra-chunk
-        # step's C, B, x, dt, csum, nr)
+        # step's C, B, x, dt, csum, nr; training rglru on the kernel
+        # route: the scan's a and bterm)
         self.attn_hook: Optional[Callable[[int, Dict], None]] = None
 
     @property
@@ -164,7 +186,8 @@ class Transformer(nn.Module):
         """``block_apply`` (reference ``models/model.py:88-130``): for an
         attention layer norm1 -> self-attention -> [pnorm1] -> residual ->
         norm2 -> FFN -> [pnorm2] -> residual; for an ssd layer norm1 ->
-        SSD mixer -> residual."""
+        SSD mixer -> residual; for an rglru layer norm1 -> RG-LRU mixer ->
+        residual -> norm2 -> FFN -> residual."""
         cfg = self.cfg
         hook = None
         if self.attn_hook is not None:
@@ -173,6 +196,12 @@ class Transformer(nn.Module):
             return h + L.ssd_apply(blk.mixer,
                                    L.norm_apply(blk.norm1, h, cfg.norm),
                                    batch, cfg, ctx, hook=hook)
+        if blk.kind == "rglru":
+            h = h + L.rglru_apply(blk.mixer,
+                                  L.norm_apply(blk.norm1, h, cfg.norm),
+                                  batch, cfg, ctx, hook=hook)
+            return h + L.ffn_apply(blk.ffn,
+                                   L.norm_apply(blk.norm2, h, cfg.norm), cfg)
         window = cfg.window if blk.kind == "local" else 0
         a = L.self_attn_apply(blk.attn, L.norm_apply(blk.norm1, h, cfg.norm),
                               batch, cfg, ctx, causal=True, window=window,

@@ -171,6 +171,36 @@ def test_xla_flash_attention_matches_reference(case):
                                    err_msg="d" + name, **KERNEL_TOL)
 
 
+@pytest.mark.parametrize("kw", [dict(), dict(window=64)],
+                         ids=["causal", "window64"])
+def test_head_dim_256_mqa_matches_tpu_kernels(kw):
+    """recurrentgemma's local layers: head_dim 256, 16 q heads over 1 kv
+    head, blocks of 128.  The plain forward against the TPU kernel in
+    interpret mode, and ``packed_flash_attention``'s gradients (the plain
+    backward, which sums dk/dv over the 16 heads) against ``jax.vjp`` of
+    the reference's (``K.flash_bwd``)."""
+    q, k, v, do, seg, pos = make_packed(11, 256, 16, 1, 256)
+    out_j, lse_j, _ = _jax_flash(q, k, v, do, seg, pos, kw, 128)
+    t = [to_torch(x) for x in (q, k, v, seg, pos, seg, pos)]
+    out, lse = ops.flash_fwd_reference(*t, **kw)
+    np.testing.assert_allclose(to_numpy(out), np.asarray(out_j),
+                               **KERNEL_TOL)
+    np.testing.assert_allclose(to_numpy(lse), np.asarray(lse_j),
+                               **KERNEL_TOL)
+    j_ids = [jnp.asarray(x) for x in (seg, pos, seg, pos)]
+    _, vjp = jax.vjp(
+        lambda a, b_, c: O.packed_flash_attention(a, b_, c, *j_ids, **kw),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    grads_j = vjp(jnp.asarray(do))
+    qkv = [to_torch(x).requires_grad_() for x in (q, k, v)]
+    got = ops.packed_flash_attention(*qkv, *t[3:], **kw)
+    grads = torch.autograd.grad(got, qkv, to_torch(do))
+    for name, g, want in zip("qkv", grads, grads_j):
+        np.testing.assert_allclose(to_numpy(g), np.asarray(want),
+                                   err_msg="d" + name, **KERNEL_TOL)
+    assert 256 in ops.FLASH_HEAD_DIMS and 256 not in ops.KERNEL_HEAD_DIMS
+
+
 def test_kernel_wrappers_take_cuda_tensors_only():
     q, k, v, do, seg, pos = make_packed(0, 128, 2, 2, 64)
     t = [to_torch(x) for x in (q, k, v, seg, pos, seg, pos)]

@@ -14,7 +14,7 @@ from repro.configs import get_config as jax_config
 from repro.models import model as JM
 from repro.parallel import ParallelContext
 from repro.train.step import make_serve_chunk_step as jax_chunk_step
-from repro_torch.configs import ModelConfig, MoEConfig, SSMConfig
+from repro_torch.configs import ModelConfig, MoEConfig, RGLRUConfig, SSMConfig
 from repro_torch.configs import get_config as torch_config
 from repro_torch.models import convert
 from repro_torch.models.model import Transformer, check_serving_arch
@@ -124,18 +124,19 @@ def _tiny(**over):
 @pytest.mark.parametrize("over,match", [
     ({"layer_pattern": ("ssd",), "family": "ssm",
       "ssm": SSMConfig(d_state=16, head_dim=16, chunk_size=16)}, "mamba2"),
-    ({"layer_pattern": ("rglru", "local")}, "recurrentgemma"),
+    ({"layer_pattern": ("rglru", "local"), "rglru": RGLRUConfig()},
+     "recurrentgemma"),
     ({"layer_pattern": ("cross",)}, "cross-attention"),
     ({"moe": MoEConfig(n_experts=4, top_k=2, d_ff_expert=32)}, "MoE"),
 ])
 def test_outside_the_slice_raises(over, match):
     """Serving raises for every arch outside the serving slice.  Building
-    a model raises for all but mamba2, whose ssd layers train and whose
-    serving cache raises."""
+    a model raises for all but mamba2 and recurrentgemma, whose recurrent
+    layers train and whose serving cache raises."""
     cfg = _tiny(**over)
     with pytest.raises(NotImplementedError, match=match):
         check_serving_arch(cfg)
-    if "ssd" in cfg.layer_pattern:
+    if {"ssd", "rglru"} & set(cfg.layer_pattern):
         model = Transformer(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match=match):
             model.init_cache(2, 64)

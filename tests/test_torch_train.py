@@ -102,7 +102,11 @@ def test_adamw_update_matches_reference():
     rng = np.random.default_rng(0)
     grads = {n: rng.standard_normal(tuple(p.shape)).astype(np.float32)
              for n, p in zip(names, plist)}
-    flat = {n: jnp.asarray(to_numpy(p)) for n, p in zip(names, plist)}
+    # copies: jnp.asarray of a CPU tensor's numpy view shares its memory,
+    # and the port's update below writes the parameters in place while
+    # JAX's asynchronous update may still be reading them
+    flat = {n: jnp.array(to_numpy(p), copy=True)
+            for n, p in zip(names, plist)}
     j_opt = JAdamW(lr=j_cosine(1e-3, 2, 10), weight_decay=0.1)
     new_j, state_j, gnorm_j = jax.jit(j_opt.update)(
         {n: jnp.asarray(g) for n, g in grads.items()}, j_opt.init(flat),
