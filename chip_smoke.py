@@ -10,7 +10,11 @@ Phases, each of which fails the run:
    build of every kernel source in the checkout (one nvcc per source, all
    started together; timed);
 2. every kernel against its plain PyTorch version on the card: the
-   serving kernel over the cases the serving path can give it, the
+   serving kernel over the cases the serving path can give it (f32 and
+   bf16, head_dim 64/128/256, GQA factors 1/2/4, blk_q 128 and 1, window
+   and softcap, a dead block, a request at kv_len 0, padded rows; every
+   bf16 case repeated and bitwise equal to its first call, which holds
+   the split-kv merge to its order), the
    CA-server forward (out, lse) and backward (dq, dk, dv) over f32/bf16,
    head_dim 64/128, blocks 64/128, GQA factors 1/3/4, ragged and
    overlapping kv ranges, a zero-length task, padded rows, jmax < N, and
@@ -33,9 +37,11 @@ Phases, each of which fails the run:
    against its plain version on captured q and cache tensors, and fused
    prefill against the per-token loop (checked on an f32 copy of the
    weights, reported in bf16);
-4. times at the serving path's shapes: the kernel, its plain version, one
+4. times at the serving path's shapes (llama3-8b's, and gemma2-2b's
+   head_dim 256 on a local layer): the kernel, its plain version, one
    PyTorch library call for the same work and the least time the card
-   could take; prefill tokens per second, decode time per step, peak memory;
+   could take; prefill tokens per second, decode time per step, peak
+   memory; then phase 10's serving trace and phase 15;
 5. the CAD training step at full width: llama3-8b (depth cut to 8 layers)
    in bf16 through ``trainer.train`` with a ``CADSession`` (4 simulated
    attention servers, 4 x 4096 tokens of ``prolong`` documents, policy
@@ -62,11 +68,16 @@ Phases, each of which fails the run:
 9. the ``xla`` route (the training launcher's default without --cad) on
    CUDA tensors: one step at llama3-8b width with 2 layers, and the
    launcher itself on a reduced model;
-10. one step each of CAD and colocated training (phases 5 and 7's
-   configuration), of mamba2 training (phase 11's) and of recurrentgemma
-   training (phase 13's), the second step of a fresh 2-step run, traced
-   with ``torch.profiler``: device time by kernel family (SSD, flash, LRU
-   and CA kernels, cuBLAS matmuls, copies, the rest by name), each
+10. serving traced, right after phase 4 while the llama3-8b engine is
+   loaded: one 512-row prefill chunk and one decode step, each a device
+   call traced with ``torch.profiler`` (device ms by kernel family, the
+   ragged kernel's share, the device's idle share of the call); and,
+   after phases 11-14, one step each of CAD and colocated training
+   (phases 5 and 7's configuration), of mamba2 training (phase 11's) and
+   of recurrentgemma training (phase 13's), the second step of a fresh
+   2-step run, traced with ``torch.profiler``: device time by kernel
+   family (SSD, flash, LRU, CA and ragged kernels, cuBLAS matmuls,
+   copies, the rest by name), each
    hand-written kernel's launches, busy time, the device's idle share
    inside the step and the SM clock through it.  It runs after phases
    11-14, before phase 13's xla-route check;
@@ -104,10 +115,23 @@ Phases, each of which fails the run:
    bound (bytes), its plain version and the SM clock (no PyTorch call
    computes a linear recurrence: no library time); the flash kernels at
    head_dim 256 timed at the first local layer's shape as phase 8 times
-   them, SDPA with the boolean window mask beside them.
+   them, SDPA with the boolean window mask beside them;
+15. (run after phase 4) gemma2-2b served at full width and depth (26
+   layers, head_dim 256, 8 q over 4 kv heads, window 4096, softcaps 50
+   and 30, vocab 256000; bf16, seeded weights, 4 slots x 6144 positions)
+   through ``Engine.serve``: 4 prompts of 4500-5000 tokens and 16 new
+   tokens each, launches = 26 x device calls, every token in the
+   vocabulary, the kernel against its plain version on the inputs of the
+   first local and global layers, prefill tokens per second and decode
+   ms per step.
 
 Kernels timed twice (the forward kernels, before and after the library
 call) report the first median as ``ms`` and the second as ``ms_repeat``.
+The ragged kernel, whose launches last about as long as the wrapper's
+host time, is timed three ways: ``ms`` for calls back to back (what the
+card sustains), ``device_ms`` from the profiler (the kernel alone) and
+``ms_single`` for a lone call between two events (how every other kernel
+is timed).
 
 The line before the card line lists every ported kernel as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after
@@ -182,6 +206,50 @@ def cuda_ms(fn, iters=20, warmup=3):
     return times[len(times) // 2]
 
 
+def cuda_ms_back_to_back(fn, n=100, reps=5, warmup=3):
+    """Median over ``reps`` runs of the CUDA-event time of ``n`` calls
+    issued back to back, divided by ``n``, in ms: what the card sustains
+    while the host keeps ahead of it (host-bound calls show the host's
+    time instead)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    times.sort()
+    return times[reps // 2]
+
+
+def profiled_device_ms(fn, n=20):
+    """Device time a call from ``torch.profiler``: the durations of the
+    kernels ``n`` calls launched, summed and divided by ``n``, in ms (the
+    host's time between launches is not in it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if not us:
+        raise SystemExit("phase 4: the profiler recorded no device time")
+    return us / 1e3 / n
+
+
 # ------------------------------------------------------------ phase 2
 def _decode_case(torch, gen, *, dtype, dh, rep, blk_q, window, softcap,
                  hkv=2, R=4, S=1024):
@@ -222,13 +290,15 @@ def _max_err(torch, out, ref, dtype):
 
 
 def check_ragged_decode_cases(torch, ops):
-    """Phase 2: the kernel against ragged_decode_reference on the card."""
+    """Phase 2: the kernel against ragged_decode_reference on the card.
+    Every bf16 case runs twice: the split-kv merge takes the parts in
+    order, so the repeat must be bitwise equal."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = 0.0
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for dh in (64, 128):
-            for rep in (1, 4):
+        for dh in ops.RAGGED_HEAD_DIMS:
+            for rep in (1, 2, 4):
                 for blk_q in (128, 1):
                     for window, softcap in ((0, 0.0), (256, 0.0),
                                             (0, 50.0), (256, 50.0)):
@@ -236,24 +306,29 @@ def check_ragged_decode_cases(torch, ops):
                                             rep=rep, blk_q=blk_q,
                                             window=window, softcap=softcap)
                         out = ops.ragged_decode_attention(**case)
+                        again = ops.ragged_decode_attention(**case) \
+                            if dtype == torch.bfloat16 else out
                         torch.cuda.synchronize()
                         ref = ops.ragged_decode_reference(**case)
                         torch.cuda.synchronize()
                         err, ok = _max_err(torch, out, ref, dtype)
                         dead = out.reshape(5, blk_q, -1)[2]
-                        if not ok or bool(dead.ne(0).any()):
+                        if not ok or bool(dead.ne(0).any()) \
+                                or not torch.equal(out, again):
                             raise SystemExit(
                                 f"ragged_decode disagrees: dtype={dtype} "
                                 f"dh={dh} rep={rep} blk_q={blk_q} "
                                 f"window={window} softcap={softcap} "
-                                f"max_err={err}")
-                        if dtype == torch.float32:
-                            worst = max(worst, err)
+                                f"max_err={err} repeat bitwise "
+                                f"{torch.equal(out, again)}")
+                        worst[dtype] = max(worst[dtype], err)
                         n += 1
     log(f"phase 2: ragged_decode kernel == plain version in {n} cases "
-        f"(f32 max |err| {worst:.3e} <= {F32_ATOL}; bf16 within "
-        f"atol=rtol={BF16_ATOL})")
-    return worst
+        f"(head_dim {ops.RAGGED_HEAD_DIMS}, rep 1/2/4, blk_q 128/1; f32 "
+        f"max |err| {worst[torch.float32]:.3e} <= {F32_ATOL}; bf16 max "
+        f"|err| {worst[torch.bfloat16]:.3e} within atol=rtol={BF16_ATOL}, "
+        f"every bf16 repeat bitwise equal)")
+    return worst[torch.float32]
 
 
 # ------------------------------------------------------------ phase 3
@@ -419,42 +494,74 @@ def serve_full_width(torch, np, ops, launch):
 
 
 # ------------------------------------------------------------ phase 4
-def _attn_work(torch, q, kv_len, block_req, pos, hkv, dtype_bytes):
+def _attn_work(torch, q, kv_len, block_req, pos, hkv, dtype_bytes,
+               window=0):
     """Bytes and FLOPs this call's data needs: q read and out written once,
-    each referenced request's live K/V rows read once; 4 FLOPs per
-    (row, visible slot, q head, dh)."""
+    each referenced request's K/V rows that some row sees read once (with
+    a window, the span from the oldest row's window to the newest row);
+    4 FLOPs per (row, visible slot, q head, dh)."""
     t, hq, dh = q.shape
     blk_q = t // block_req.shape[0]
     req = block_req.long().repeat_interleave(blk_q)
     rows = (pos >= 0) & (req >= 0)
     lens = kv_len.long()[req.clamp(min=0)]
-    visible = torch.minimum(pos.long() + 1, lens).clamp(min=0)[rows]
-    used = torch.unique(block_req[block_req >= 0].long())
-    kv_rows = int(kv_len.long()[used].sum())
+    hi = torch.minimum(pos.long() + 1, lens)
+    lo = (pos.long() - window + 1).clamp(min=0) if window > 0 \
+        else torch.zeros_like(hi)
+    visible = (hi - lo).clamp(min=0)[rows]
+    kv_rows = 0
+    for r in torch.unique(req[rows]).tolist():
+        mine = rows & (req == r)
+        kv_rows += max(0, int(hi[mine].max()) - int(lo[mine].min()))
     nbytes = 2 * t * hq * dh * dtype_bytes + 2 * kv_rows * hkv * dh \
         * dtype_bytes
     flops = 4.0 * float(visible.sum()) * hq * dh
     return nbytes, flops
 
 
-def kernel_times(torch, ops, card):
+# phase 4a's shapes: (R, S, hq, hkv, dh, window, softcap, positions of a
+# request's prefill chunk, decode position, kv_len)
+RAGGED_SHAPES = {
+    # llama3-8b: one 512-token prefill chunk, request b's positions
+    # 1920..2047 against its kv 0..2047; a 4-request decode step at kv 2000
+    "llama3-8b": dict(R=4, S=2048, hq=32, hkv=8, dh=128, window=0,
+                      softcap=0.0, prefill=(1920, 2048), decode=1999,
+                      kv=(2048, 2000)),
+    # gemma2-2b (head_dim 256, 8 q over 4 kv heads, softcap 50): a chunk
+    # at positions 4480..4607 of a local layer (window 4096 binds) and a
+    # decode step at kv 4608
+    "gemma2-2b local": dict(R=4, S=6144, hq=8, hkv=4, dh=256, window=4096,
+                            softcap=50.0, prefill=(4480, 4608), decode=4607,
+                            kv=(4608, 4608)),
+}
+
+
+TIMED_KEYS = ("ms", "ms_repeat", "device_ms", "ms_single", "plain_ms",
+              "bound_ms", "bound_by", "library_ms", "library_device_ms",
+              "library_ms_single")
+
+
+def kernel_times(torch, ops, card, arch="llama3-8b"):
     """Phase 4a: the kernel at the main path's shapes, with its bound, the
-    plain version and scaled_dot_product_attention as a yardstick."""
+    plain version and scaled_dot_product_attention as a yardstick (with a
+    boolean mask for the causal window; SDPA has no softcap), each timed
+    back to back, on the device (profiler) and as a lone call."""
     import torch.nn.functional as F
+    sh = RAGGED_SHAPES[arch]
     gen = torch.Generator(device="cuda").manual_seed(1)
     dev, dt = "cuda", torch.bfloat16
-    R, S, hq, hkv, dh = 4, 2048, 32, 8, 128
+    R, S, hq, hkv, dh = (sh[k] for k in ("R", "S", "hq", "hkv", "dh"))
+    window, softcap = sh["window"], sh["softcap"]
     k = torch.randn(R, S, hkv, dh, generator=gen, device=dev).to(dt)
     v = torch.randn(R, S, hkv, dh, generator=gen, device=dev).to(dt)
+    p0, p1 = sh["prefill"]
     shapes = {
-        # one 512-token prefill chunk: 4 q blocks, request b's positions
-        # 1920..2047 against its kv 0..2047
-        "prefill": (torch.arange(4, dtype=torch.int32),
-                    torch.arange(1920, 2048).repeat(4),
-                    torch.full((R,), 2048)),
-        # a 4-request decode step at kv 2000
-        "decode": (torch.arange(4, dtype=torch.int32),
-                   torch.full((4,), 1999), torch.full((R,), 2000)),
+        "prefill": (torch.arange(R, dtype=torch.int32),
+                    torch.arange(p0, p1).repeat(R),
+                    torch.full((R,), sh["kv"][0])),
+        "decode": (torch.arange(R, dtype=torch.int32),
+                   torch.full((R,), sh["decode"]),
+                   torch.full((R,), sh["kv"][1])),
     }
     out = {}
     for name, (block_req, pos, kv_len) in shapes.items():
@@ -464,8 +571,9 @@ def kernel_times(torch, ops, card):
         q = torch.randn(pos.shape[0], hq, dh, generator=gen,
                         device=dev).to(dt)
         args = dict(q=q, k_cache=k, v_cache=v, block_req=block_req,
-                    q_pos=pos, kv_len=kv_len)
-        nbytes, flops = _attn_work(torch, q, kv_len, block_req, pos, hkv, 2)
+                    q_pos=pos, kv_len=kv_len, window=window, softcap=softcap)
+        nbytes, flops = _attn_work(torch, q, kv_len, block_req, pos, hkv, 2,
+                                   window)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
         bound_ms = 1e3 * max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
@@ -476,21 +584,41 @@ def kernel_times(torch, ops, card):
         ks = k[:, :kl].transpose(1, 2).contiguous()
         vs = v[:, :kl].transpose(1, 2).contiguous()
         qpos = pos.reshape(nq, blk_q)[0]
-        mask = (torch.arange(kl, device=dev)[None, :] <= qpos[:, None])
+        slots = torch.arange(kl, device=dev)[None, :]
+        mask = slots <= qpos[:, None]
+        if window:
+            mask &= qpos[:, None] - slots < window
         mask = mask[None, None]
-        ms = cuda_ms(lambda: ops.ragged_decode_attention(**args))
+        def kernel():
+            return ops.ragged_decode_attention(**args)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+        # ms: calls back to back; device_ms: the profiler's kernel time;
+        # ms_single: one call between two events, as cuda_ms times the rest
+        ms = cuda_ms_back_to_back(kernel)
+        dev_ms = profiled_device_ms(kernel)
+        single_ms = cuda_ms(kernel)
         plain_ms = cuda_ms(lambda: ops.ragged_decode_reference(**args),
                            iters=10)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True))
-        ms2 = cuda_ms(lambda: ops.ragged_decode_attention(**args))
-        out[name] = dict(ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
+        lib_ms = cuda_ms_back_to_back(sdpa)
+        lib_dev_ms = profiled_device_ms(sdpa)
+        lib_single_ms = cuda_ms(sdpa)
+        ms2 = cuda_ms_back_to_back(kernel)
+        out[name] = dict(ms=ms, ms_repeat=ms2, device_ms=dev_ms,
+                         ms_single=single_ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=lib_ms, bytes=nbytes, flops=flops)
-        log(f"phase 4: ragged_decode {name} (q {tuple(q.shape)}, cache "
-            f"{tuple(k.shape)} bf16, kv {kl}): kernel {ms:.4f} / "
-            f"{ms2:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+                         library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                         library_ms_single=lib_single_ms, bytes=nbytes,
+                         flops=flops)
+        log(f"phase 4: ragged_decode {arch} {name} (q {tuple(q.shape)}, "
+            f"cache {tuple(k.shape)} bf16, kv {kl}, window {window}, "
+            f"softcap {softcap}): kernel {ms:.4f} / {ms2:.4f} ms back to "
+            f"back, {dev_ms:.4f} ms on the device, {single_ms:.4f} ms a "
+            f"lone call; plain {plain_ms:.4f} ms; sdpa {lib_ms:.4f} / "
+            f"{lib_dev_ms:.4f} / {lib_single_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.3f} GFLOP) [{card}]")
     return out
 
@@ -524,6 +652,210 @@ def engine_times(torch, np, engine, card):
         f"{b * 1900 / t_prefill:.0f} tokens/s; decode {decode_ms:.2f} ms "
         f"per step at batch {b}, kv ~1900 ({steps} steps); peak memory "
         f"{peak:.2f} GiB [{card}]")
+    return dict(prefill_tokens_per_s=b * 1900 / t_prefill,
+                decode_ms=decode_ms, peak_gib=peak)
+
+
+# ---------------------------------------------------- phase 10 (serving)
+def _trace_chunk_call(torch, engine, fn, nth):
+    """Run ``fn`` and trace the ``nth`` device call of ``engine`` (1-based)
+    with ``torch.profiler``: that call's device breakdown, its host ms
+    (ended by a synchronize) and its rows."""
+    from torch.profiler import ProfilerActivity, profile
+    orig, seen, res = engine._chunk, [0], {}
+
+    def traced(*a):
+        seen[0] += 1
+        if seen[0] != nth:
+            return orig(*a)
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+        t0 = time.perf_counter()
+        lg = orig(*a)
+        torch.cuda.synchronize()
+        res["host_ms"] = 1e3 * (time.perf_counter() - t0)
+        prof.stop()
+        res["bd"] = device_breakdown(prof.events())
+        res["rows"] = int(a[1].shape[0])
+        return lg
+    engine._chunk = traced
+    try:
+        fn()
+    finally:
+        engine._chunk = orig
+    if "bd" not in res:
+        raise SystemExit(f"phase 10: device call {nth} never came")
+    return res
+
+
+def traced_serving(torch, np, engine, card):
+    """Phase 10, serving (run right after phase 4, while the llama3-8b
+    engine is loaded): a full 512-row prefill chunk deep in a 4 x 1900
+    prefill, and a decode step at batch 4 and kv ~1890, each one device
+    call traced: device ms by kernel family, the ragged kernel's share of
+    the busy time, and the device's idle share of the call's host time."""
+    cfg, b = engine.cfg, engine.batch_size
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(1, cfg.vocab_size, (b, 1900))
+    short = prompt[:, :1884]
+    c0 = engine.n_chunk_calls
+    engine.prefill(short)
+    n_pf = engine.n_chunk_calls - c0
+    runs = {"prefill chunk": _trace_chunk_call(
+                torch, engine, lambda: engine.prefill(prompt), n_pf - 1),
+            "decode step": _trace_chunk_call(
+                torch, engine, lambda: engine.generate(short), n_pf + 6)}
+    out = {}
+    for name, r in runs.items():
+        bd = r["bd"]
+        ragged = bd["families"]["ragged_decode kernels"]
+        fams = ", ".join(f"{f} {ms:.3f}" for f, ms in bd["families"].items()
+                         if ms)
+        out[name] = dict(host_ms=r["host_ms"], busy_ms=bd["busy_ms"],
+                         span_ms=bd["span_ms"], ragged_ms=ragged,
+                         ragged_share=ragged / bd["busy_ms"],
+                         idle=1 - bd["busy_ms"] / r["host_ms"],
+                         families=bd["families"])
+        log(f"phase 10: llama3-8b serving, one {name} traced ({r['rows']} "
+            f"rows, {bd['kernels']} device events): host {r['host_ms']:.3f}"
+            f" ms, device span {bd['span_ms']:.3f} ms, busy "
+            f"{bd['busy_ms']:.3f} ms (idle {out[name]['idle']:.4f} of the "
+            f"host time); ragged_decode {ragged:.3f} ms = "
+            f"{out[name]['ragged_share']:.4f} of busy; ms by family: {fams} "
+            f"[{card}]")
+        for kname, times in sorted(bd["attention"].items()):
+            times.sort()
+            log(f"  {kname}: {len(times)} launches, {sum(times):.3f} ms, "
+                f"per launch {times[0]:.4f} / {times[len(times) // 2]:.4f} / "
+                f"{times[-1]:.4f} ms (min / median / max)")
+        for kname, ms in bd["top_other"][:5]:
+            log(f"  other: {ms:9.3f} ms  {kname[:100]}")
+    return out
+
+
+# ----------------------------------------------------------- phase 15
+GEMMA_PROMPTS = (4500, 5001)   # prompt lengths: the 4096 window binds
+GEMMA_TIMED = 4800             # the timed prefill's prompt length
+
+
+def serve_gemma2(torch, np, ops, launch, card):
+    """Phase 15 (run after phase 4): gemma2-2b at full width and depth
+    (26 layers, local / global alternating, head_dim 256, 8 q over 4 kv
+    heads, window 4096, softcaps 50 and 30, vocab 256000) in bf16 from a
+    seeded generator, 4 cache slots x 6144 positions, through
+    ``Engine.serve``: 4 prompts of 4500-5000 tokens and 16 new tokens
+    each.  Launches must be 26 x device calls, every token in the
+    vocabulary; the kernel is held against its plain version on the
+    inputs captured at the first local and global layers (a prefill chunk
+    past the window, a decode step); prefill tokens/s and decode ms a step
+    as phase 4 takes them.  The CPU oracle of this configuration is the
+    reference's serving path (``tests/test_torch_model_serve.py`` holds
+    gemma2-2b-reduced against it within tolerance)."""
+    args = launch.parse_args([
+        "--arch", "gemma2-2b", "--no-reduced", "--device", "cuda",
+        "--slots", "4", "--max-seq", "6144", "--chunk-tokens", "512",
+        "--max-new", "16", "--seed", "0"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = launch.build_engine(args)
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    log(f"phase 15: built {cfg.arch_id} ({n_params / 1e9:.3f} B params, "
+        f"{cfg.n_layers} layers {cfg.layer_pattern}, d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}, "
+        f"window {cfg.window}, {engine.model.embed.dtype}; cache 4 x "
+        f"{engine.scfg.max_seq}) in {time.perf_counter() - t0:.1f} s")
+    layers = {kind: cfg.layer_pattern.index(kind)
+              for kind in ("local", "global")}
+    captured = {}
+
+    def capture(layer, inputs):
+        if layer not in layers.values():
+            return
+        blk_q = inputs["q"].shape[0] // inputs["block_req"].shape[0]
+        key = ("prefill" if blk_q > 1 else "decode", layer)
+        if key in captured or (blk_q > 1 and int(inputs["q_pos"].max())
+                               < cfg.window + 128):
+            return
+        captured[key] = {k: v.clone() if torch.is_tensor(v) else v
+                         for k, v in inputs.items()}
+
+    rng = np.random.default_rng(4)
+    lens = rng.integers(*GEMMA_PROMPTS, 4)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)) for n in lens]
+    engine.model.attn_hook = capture
+    try:
+        ops.reset_launches()
+        engine.n_chunk_calls = 0
+        t0 = time.perf_counter()
+        res = engine.serve(prompts, max_new_tokens=16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launches["ragged_decode"]
+        calls = engine.n_chunk_calls
+    finally:
+        engine.model.attn_hook = None
+    toks = [res.get(i, np.zeros(0, np.int32)) for i in range(len(prompts))]
+    if any(len(t) != 16 or not ((t >= 0) & (t < cfg.vocab_size)).all()
+           for t in toks):
+        raise SystemExit(f"phase 15: generated {toks}")
+    if launches != cfg.n_layers * calls or calls == 0:
+        raise SystemExit(f"phase 15: {launches} kernel launches for {calls} "
+                         f"device calls of {cfg.n_layers} layers")
+    log(f"phase 15: served {len(prompts)} requests (prompts "
+        f"{sorted(int(n) for n in lens)}, {int(lens.sum())} prompt tokens, "
+        f"16 new each) in {wall:.2f} s; {calls} device calls, ragged_decode "
+        f"launches {launches} = {cfg.n_layers} x {calls}")
+    worst = 0.0
+    for key in sorted(captured):
+        inputs = captured[key]
+        out = ops.ragged_decode_attention(**inputs)
+        ref = ops.ragged_decode_reference(**inputs)
+        torch.cuda.synchronize()
+        err, ok = _max_err(torch, out, ref, out.dtype)
+        log(f"  captured {key[0]} layer {key[1]} "
+            f"({cfg.layer_pattern[key[1] % len(cfg.layer_pattern)]}, window "
+            f"{inputs['window']}): q {tuple(inputs['q'].shape)} positions "
+            f"up to {int(inputs['q_pos'].max())}, max |err| {err:.3e}")
+        if not ok:
+            raise SystemExit(f"phase 15: kernel disagrees on captured {key}")
+        worst = max(worst, err)
+    if len(captured) != 4:
+        raise SystemExit(f"phase 15: captured {sorted(captured)}")
+    del captured
+    # prefill tokens/s and decode ms a step, as phase 4 takes them
+    b, n = engine.batch_size, GEMMA_TIMED
+    prompt = rng.integers(1, cfg.vocab_size, (b, n))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.prefill(prompt)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    short = prompt[:, :n - 16]
+    t0 = time.perf_counter()
+    engine.prefill(short)
+    torch.cuda.synchronize()
+    t_short = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.generate(short)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    steps = engine.scfg.max_new_tokens - 1
+    decode_ms = 1e3 * (t_gen - t_short) / steps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"phase 15: prefill {b} x {n} tokens in {t_prefill:.3f} s = "
+        f"{b * n / t_prefill:.0f} tokens/s; decode {decode_ms:.2f} ms per "
+        f"step at batch {b}, kv ~{n - 16} ({steps} steps); peak memory "
+        f"{peak:.2f} GiB [{card}]")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, calls=calls, captured_max_abs_err=worst,
+                prefill_tokens_per_s=b * n / t_prefill, decode_ms=decode_ms,
+                peak_gib=peak, serve_s=wall)
 
 
 # ------------------------------------------------------------ phase 2 (CA)
@@ -1536,6 +1868,7 @@ KERNEL_FAMILIES = (
     ("flash kernels", r"(flash_(?:fwd|bwd_dq|bwd_dkv))_kernel"),
     ("LRU kernels", r"(lru_scan_(?:fwd|bwd))_kernel"),
     ("CA-server kernels", r"(ca_(?:fwd|bwd_dq|bwd_dkv))_kernel"),
+    ("ragged_decode kernels", r"(ragged_(?:mma|f32))_kernel"),
     ("matmuls (cuBLAS)", r"gemm|nvjet|xmma|cutlass|cublas|splitk"),
     ("copies and fills", r"^memcpy|^memset"))
 
@@ -2334,10 +2667,13 @@ def main(argv=None) -> int:
         engine, launches, captured_err = serve_full_width(torch, np, ops,
                                                           launch)
         times = kernel_times(torch, ops, card)
-        engine_times(torch, np, engine, card)
+        times256 = kernel_times(torch, ops, card, "gemma2-2b local")
+        serving = engine_times(torch, np, engine, card)
+        serve_trace = traced_serving(torch, np, engine, card)
         del engine
         gc.collect()
         torch.cuda.empty_cache()
+        gemma = serve_gemma2(torch, np, ops, launch, card)
         prefill = times["prefill"]
         kernel.update(launches=launches, ms=prefill["ms"],
                       ms_repeat=prefill["ms_repeat"],
@@ -2346,9 +2682,22 @@ def main(argv=None) -> int:
                       bound_by=prefill["bound_by"],
                       library_ms=prefill["library_ms"],
                       captured_max_abs_err=captured_err,
-                      decode={k: times["decode"][k] for k in
-                              ("ms", "ms_repeat", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms")})
+                      device_ms=prefill["device_ms"],
+                      ms_single=prefill["ms_single"],
+                      library_device_ms=prefill["library_device_ms"],
+                      library_ms_single=prefill["library_ms_single"],
+                      decode={k: times["decode"][k] for k in TIMED_KEYS},
+                      dh256={name: {k: times256[name][k]
+                                    for k in TIMED_KEYS}
+                             for name in ("prefill", "decode")},
+                      library_call="sdpa with a boolean causal (and window) "
+                                   "mask; no softcap at dh 256",
+                      serving=dict(serving, trace={
+                          k: {f: v[f] for f in ("host_ms", "busy_ms",
+                                                "ragged_ms", "ragged_share",
+                                                "idle")}
+                          for k, v in serve_trace.items()}),
+                      launches_gemma2=gemma.pop("launches"), gemma2=gemma)
 
         steps, captured, ca_launches = train_full_width(torch, ops, card)
         batches = captured_batches(torch, captured)

@@ -38,9 +38,15 @@ _SOURCE = _CSRC / "ragged_decode.cu"
 _CA_SOURCE = _CSRC / "ca_server.cu"
 _FLASH_SOURCE = _CSRC / "flash.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (64, 128)     # ragged_decode and the CA-server kernels
+RAGGED_HEAD_DIMS = (64, 128, 256)  # the ragged_decode kernel
+CA_HEAD_DIMS = (64, 128)          # the CA-server kernels
 FLASH_HEAD_DIMS = (64, 128, 256)  # the flash kernels
 _BLK_Q = (1, 128)
+# split-kv of the bf16 ragged_decode kernel (csrc/ragged_decode.cu): at
+# most MAX_SPLITS parts, each of at least MIN_SPLIT_TILES tiles of the
+# cache length, and only while the grid has fewer CTAs than the card SMs
+MAX_SPLITS = 32
+MIN_SPLIT_TILES = 4
 CA_BLOCKS = (64, 128)         # the CA-server kernels' task block sizes
 FLASH_BLOCK = 128             # the TPU kernel's DEFAULT_BLOCK
 FLASH_TILE = 64               # the flash kernels' tile; S must divide by it
@@ -150,9 +156,9 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_req, q_pos, kv_len,
     if v_cache.shape != k_cache.shape or dh_k != dh:
         raise ValueError(f"ragged_decode kernel: cache shapes {k_cache.shape}"
                          f", {v_cache.shape} do not fit q {q.shape}")
-    if dh not in KERNEL_HEAD_DIMS:
+    if dh not in RAGGED_HEAD_DIMS:
         raise ValueError(f"ragged_decode kernel: head_dim {dh} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+                         f"{RAGGED_HEAD_DIMS}")
     if blk_q not in _BLK_Q:
         raise ValueError(f"ragged_decode kernel: blk_q {blk_q} not in "
                          f"{_BLK_Q}")
@@ -166,13 +172,78 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_req, q_pos, kv_len,
         raise ValueError(f"ragged_decode kernel: kv_len {tuple(kv_len.shape)}"
                          f" / q_pos {tuple(q_pos.shape)} do not fit R={R}, "
                          f"T={t}")
+    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"ragged_decode kernel: {name} is not 16-byte "
+                             f"aligned (the kernel loads 16 bytes a thread)")
+
+
+def ragged_tiling(blk_q: int, dh: int):
+    """(rows a CTA, kv slots a tile) of the bf16 kernel: decode (blk_q 1)
+    16 rows over 64-slot tiles, prefill 64 rows over 64-slot tiles (32 at
+    head_dim 256)."""
+    if blk_q == 1:
+        return 16, 64
+    return 64, 32 if dh == 256 else 64
+
+
+def ragged_split_plan(nq: int, blk_q: int, hq: int, hkv: int, S: int,
+                      dh: int, n_sms: int):
+    """The bf16 kernel's grid and split-kv scratch, from shapes alone (the
+    live kv range is data on the card; each CTA cuts its own, see
+    ``kv_split_ranges``).  Returns (CTAs per split, n_split, scratch f32
+    elements).  The grid is (q block, kv head, row tile) CTAs, each q
+    block's rows being its blk_q x rep (q row, q head) pairs; with fewer
+    CTAs than SMs (a decode step) the kv range is cut in up to
+    ``2 * n_sms // CTAs`` parts: one wave of ~2 CTAs an SM, the kernel's
+    occupancy, with no partial second wave; a part keeps at least
+    MIN_SPLIT_TILES of the cache's tiles."""
+    bm, bn = ragged_tiling(blk_q, dh)
+    rows = blk_q * (hq // hkv)
+    base = nq * hkv * (-(-rows // bm))
+    n_split = 1
+    if base < n_sms:
+        n_split = max(1, min(2 * n_sms // base, MAX_SPLITS,
+                             (S // bn) // MIN_SPLIT_TILES))
+    scratch = base * n_split * bm * (dh + 2) if n_split > 1 else 0
+    return base, n_split, scratch
+
+
+def kv_split_ranges(t_lo: int, t_hi: int, n_split: int):
+    """The kernel's cut of a CTA's live tiles [t_lo, t_hi) into n_split
+    parts: ``per`` = ceil(n / n_split) tiles each, in order, empty parts
+    dropped.  Returns the non-empty parts' [lo, hi) tile ranges."""
+    n = max(0, t_hi - t_lo)
+    if n == 0:
+        return []
+    per = -(-n // n_split)
+    return [(t_lo + s * per, min(t_hi, t_lo + (s + 1) * per))
+            for s in range(-(-n // per))]
+
+
+# split-kv scratch per (device, stream): the f32 parts and the int32
+# counters, which the kernel leaves at zero, reused call after call (calls
+# on one stream run in order)
+_split_scratch: dict = {}
+
+
+def _scratch(device, stream: int, n_part: int, n_counters: int):
+    part, counters = _split_scratch.get((device, stream), (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    _split_scratch[(device, stream)] = (part, counters)
+    return part, counters
 
 
 def ragged_decode_fwd(q_blocks, k_cache, v_cache, block_req, kv_len, q_pos,
                       *, window=0, softcap=0.0, scale=None):
     """Launch the CUDA kernel on the current stream.  Layout of the TPU
     kernel: q_blocks [nq, blk_q, Hq, dh], q_pos [nq, blk_q]; returns
-    [nq, blk_q, Hq, dh] in q's dtype.  CUDA tensors only."""
+    [nq, blk_q, Hq, dh] in q's dtype.  CUDA tensors only.  bf16 inputs
+    take the tensor-core kernel with its split-kv scratch (kept per device
+    and stream), f32 inputs the exact FMA kernel."""
     nq, blk_q, hq, dh = q_blocks.shape
     q = q_blocks.reshape(nq * blk_q, hq, dh)
     pos = q_pos.reshape(nq * blk_q)
@@ -183,11 +254,21 @@ def ragged_decode_fwd(q_blocks, k_cache, v_cache, block_req, kv_len, q_pos,
     out = torch.empty_like(q_blocks)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        n_split, part, counters = 1, None, None
+        if q.dtype == torch.bfloat16:
+            base, n_split, scratch = ragged_split_plan(
+                nq, blk_q, hq, hkv, S, dh,
+                torch.cuda.get_device_properties(
+                    q.device).multi_processor_count)
+            if n_split > 1:
+                part, counters = _scratch(q.device, stream, scratch, base)
         err = lib.ragged_decode_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             block_req.data_ptr(), kv_len.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), nq, blk_q, hq, hkv, S, dh, _DTYPES[q.dtype],
-            int(window or 0), float(softcap or 0.0), float(scale), stream)
+            out.data_ptr(), 0 if part is None else part.data_ptr(),
+            0 if counters is None else counters.data_ptr(), nq, blk_q, hq,
+            hkv, S, dh, _DTYPES[q.dtype], n_split, int(window or 0),
+            float(softcap or 0.0), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"ragged_decode kernel launch failed: CUDA error "
                            f"{err}")
@@ -209,8 +290,8 @@ def ragged_decode_attention(q, k_cache, v_cache, block_req, q_pos, kv_len,
     q_pos    [T] int32    absolute positions (-1 = padded row)
     kv_len   [R] int32    visibility bound per request
 
-    CUDA tensors launch the kernel (f32 or bf16, head_dim 64 or 128, blk_q
-    1 or 128, any Hq / Hkv); anything it does not cover raises.  CPU
+    CUDA tensors launch the kernel (f32 or bf16, head_dim 64, 128 or 256,
+    blk_q 1 or 128, any Hq / Hkv); anything it does not cover raises.  CPU
     tensors run ``ragged_decode_reference``.
     """
     t, hq, dh = q.shape
@@ -235,7 +316,7 @@ def load_library() -> ctypes.CDLL:
     lib = build.load("ragged_decode", _SOURCE)
     fn = lib.ragged_decode_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -378,9 +459,9 @@ def _check_ca_inputs(q, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos,
     if v_buf.shape != k_buf.shape or blk_k != blk or dh_k != dh:
         raise ValueError(f"ca_server kernel: kv buffers {k_buf.shape}, "
                          f"{v_buf.shape} do not fit q_tasks {q.shape}")
-    if dh not in KERNEL_HEAD_DIMS:
+    if dh not in CA_HEAD_DIMS:
         raise ValueError(f"ca_server kernel: head_dim {dh} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+                         f"{CA_HEAD_DIMS}")
     if blk not in CA_BLOCKS:
         raise ValueError(f"ca_server kernel: block {blk} not in {CA_BLOCKS}")
     if hq % hkv:

@@ -7,10 +7,13 @@ dicts whose leaves carry a leading ``[n_groups]`` axis) and returns a
 ``l % period`` of group ``l // period``.  Weights keep the reference's
 ``[in, out]`` layout, which the port applies as ``h @ W``: nothing is
 transposed, here or in the hot path.
+
+``decay_mask`` says which of a ``Transformer``'s parameters the
+reference's AdamW decays, a rule it states on the stacked layout.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Optional, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,3 +73,16 @@ def param_shapes(params: Mapping, cfg) -> Dict[str, Tuple[int, ...]]:
     init), without materialising a weight."""
     return {k: tuple(v.shape[1:] if g is not None else v.shape)
             for k, v, g in _entries(params, cfg)}
+
+
+def decay_mask(model) -> List[bool]:
+    """Per tensor of ``model.parameters()``: does the reference's AdamW
+    decay it?  The reference decays a leaf of its param tree when
+    ``ndim >= 2`` (``src/repro/optim/adamw.py:57``).  A leaf of
+    ``blocks`` carries the leading ``[n_groups]`` axis, so a repeated
+    layer's tensor decays when it has ``dim() >= 1``: its matrices and
+    also its vectors (norm scales, biases, ``lru_a``, ``conv_b``,
+    ``A_log``, ``D_skip``, ``dt_bias``).  A top-level tensor (``embed``,
+    ``unembed``, ``final_norm``) decays when ``dim() >= 2``."""
+    return [p.dim() >= (1 if name.startswith("layers.") else 2)
+            for name, p in model.named_parameters()]

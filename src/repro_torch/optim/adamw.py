@@ -1,8 +1,11 @@
 """AdamW with decoupled weight decay, ported by hand from
 ``repro.optim.adamw`` to its exact arithmetic: the global-norm clip in
-f32, bias correction with ``eps`` outside the square root, decay on
-matrices only, f32 moments ``mu``/``nu`` and parameters kept in their own
-dtype.  (``torch.optim.AdamW`` puts the decay and the bias correction
+f32, bias correction with ``eps`` outside the square root, f32 moments
+``mu``/``nu`` and parameters kept in their own dtype.  Which tensors take
+weight decay is the caller's ``decay`` list: the reference decides on its
+layer-stacked tree (``src/repro/optim/adamw.py:57``), and
+``models.convert.decay_mask`` carries that rule to the port's per-layer
+tensors.  (``torch.optim.AdamW`` puts the decay and the bias correction
 elsewhere and computes something else.)
 
 The update works on the parameters in place, one tensor at a time, so
@@ -47,9 +50,13 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: AdamWState,
-               params: Sequence[torch.Tensor]):
-        """Update ``params`` in place from ``grads``; returns (new state,
-        the f32 global gradient norm before clipping)."""
+               params: Sequence[torch.Tensor], decay: Sequence[bool]):
+        """Update ``params`` in place from ``grads``, adding weight decay to
+        the tensors whose ``decay`` entry is true; returns (new state, the
+        f32 global gradient norm before clipping)."""
+        if len(decay) != len(params):
+            raise ValueError(f"{len(decay)} decay flags for {len(params)} "
+                             f"parameters")
         dev = params[0].device
         step = state.step + 1
         if self.grad_clip:
@@ -65,12 +72,12 @@ class AdamW:
         b1, b2 = self.b1, self.b2
         bc1 = 1 - _f32(b1, dev) ** step_f
         bc2 = 1 - _f32(b2, dev) ** step_f
-        for g, m, v, p in zip(grads, state.mu, state.nu, params):
+        for g, m, v, p, d in zip(grads, state.mu, state.nu, params, decay):
             g = g.float() * scale
             m.mul_(b1).add_((1 - b1) * g)
             v.mul_(b2).add_((1 - b2) * g * g)
             delta = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            if p.dim() >= 2:  # decay matrices only
+            if d:
                 delta = delta + self.weight_decay * p.float()
             p.copy_(p.float() - lr * delta)
         return AdamWState(step=step, mu=state.mu, nu=state.nu), gnorm

@@ -49,6 +49,15 @@ class ServeConfig:
     snapshot_provider: Optional[Callable] = None
 
 
+def check_kernel_head_dim(cfg) -> None:
+    """Raise unless the ragged cache-attention kernel, which serves every
+    attention layer on the card, takes ``cfg.head_dim``."""
+    if cfg.head_dim not in pf_ops.RAGGED_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: head_dim {cfg.head_dim} is not covered by the "
+            f"ragged cache-attention kernel ({pf_ops.RAGGED_HEAD_DIMS})")
+
+
 class Engine:
     """Serves one ``model.Transformer`` (and its config) from
     ``batch_size`` cache slots.  The model's weights must already live on
@@ -62,12 +71,8 @@ class Engine:
         if model.device.type != self.device.type:
             raise ValueError(f"model weights are on {model.device}, the "
                              f"engine runs on {self.device}")
-        if self.device.type == "cuda" \
-                and cfg.head_dim not in pf_ops.KERNEL_HEAD_DIMS:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: head_dim {cfg.head_dim} is not covered by "
-                f"the ragged cache-attention kernel yet "
-                f"({pf_ops.KERNEL_HEAD_DIMS})")
+        if self.device.type == "cuda":
+            check_kernel_head_dim(cfg)
         self.cfg, self.model = cfg, model
         self.scfg = serve_cfg
         self.batch_size = batch_size

@@ -33,8 +33,10 @@ def _bind(ctx, batch):
     return ctx
 
 
-def make_train_step(model, ctx, optimizer):
+def make_train_step(model, ctx, optimizer, decay):
     """Returns ``train_step(opt_state, batch) -> (opt_state, metrics)``.
+    ``decay`` flags the parameters that take weight decay
+    (``models.convert.decay_mask``).
     ``batch`` is a pipeline batch (host arrays) that may carry a CAD plan
     under 'plan'; it is data, consumed by the dispatch through the ctx.
     The model's parameters are updated in place."""
@@ -49,7 +51,8 @@ def make_train_step(model, ctx, optimizer):
         for v in aux.values():
             total = total + v
         grads = torch.autograd.grad(total, params)
-        opt_state, gnorm = optimizer.update(grads, opt_state, params)
+        opt_state, gnorm = optimizer.update(grads, opt_state, params,
+                                            decay)
         metrics = {"loss": loss.detach(), "total_loss": total.detach(),
                    "grad_norm": gnorm, "n_tokens": stats["n_tokens"]}
         metrics.update({k: v.detach() for k, v in aux.items()})

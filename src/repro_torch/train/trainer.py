@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.cad.session import CADSession
 from repro_torch.data.pipeline import PipelineConfig, raw_batches
+from repro_torch.models.convert import decay_mask
 from repro_torch.models.model import Transformer, resolve_device
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.parallel import ParallelContext
@@ -76,7 +77,7 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
                 weight_decay=train_cfg.weight_decay)
     params = list(model.parameters())
     opt_state = opt.init(params)
-    step_fn = make_train_step(model, ctx, opt)
+    step_fn = make_train_step(model, ctx, opt, decay_mask(model))
 
     history = []
     t0 = time.time()

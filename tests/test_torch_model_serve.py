@@ -145,6 +145,22 @@ def test_outside_the_slice_raises(over, match):
             Transformer(cfg, device="cpu")
 
 
+def test_engine_head_dim_guard_reads_the_kernel_set(monkeypatch):
+    """On the card the engine serves a config only if the ragged
+    cache-attention kernel takes its head_dim: gemma2-2b's 256 now, 192
+    not; the guard reads ``ops.RAGGED_HEAD_DIMS``."""
+    from repro_torch.kernels.packed_flash import ops
+    from repro_torch.serve import engine
+    gemma = torch_config("gemma2-2b")
+    assert gemma.head_dim == 256
+    engine.check_kernel_head_dim(gemma)
+    with pytest.raises(NotImplementedError, match=r"\(64, 128, 256\)"):
+        engine.check_kernel_head_dim(_tiny(head_dim=192))
+    monkeypatch.setattr(ops, "RAGGED_HEAD_DIMS", (64, 128))
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        engine.check_kernel_head_dim(gemma)
+
+
 def test_legacy_decode_cache_raises():
     model = Transformer(_tiny(), device="cpu")
     with pytest.raises(NotImplementedError, match="layout='decode'"):

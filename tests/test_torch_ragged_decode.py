@@ -87,6 +87,57 @@ def test_reference_matches_jax_kernel_paths(case, impl):
     np.testing.assert_allclose(got, np.asarray(want), **KERNEL_TOL)
 
 
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("blk_q", [128, 1])
+def test_head_dim_256_matches_jax_kernel_paths(blk_q, impl):
+    """gemma2-2b's attention shape, cut down: head_dim 256, rep 2 over 2 kv
+    heads, a window and softcap 50, on a 256-slot cache."""
+    q, k, v, block_req, pos, kv_len = _inputs(blk_q, 2, seed=2, dh=256)
+    want = jax_ops.ragged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(block_req), jnp.asarray(pos), jnp.asarray(kv_len),
+        window=50, softcap=50.0, impl=impl)
+    got = _port(q, k, v, block_req, pos, kv_len, 50, 50.0)
+    np.testing.assert_allclose(got, np.asarray(want), **KERNEL_TOL)
+    assert 256 in ops.RAGGED_HEAD_DIMS
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 8, 17, 32])
+def test_kv_splits_cover_every_live_tile_once_in_order(n_split):
+    """The kernel's cut of a CTA's live tiles into split-kv parts: the
+    parts are non-empty, at most n_split, contiguous and in order, and
+    together cover [t_lo, t_hi) exactly once."""
+    for t_lo in range(0, 5):
+        for t_hi in range(0, 70):
+            parts = ops.kv_split_ranges(t_lo, t_hi, n_split)
+            tiles = [t for lo, hi in parts for t in range(lo, hi)]
+            assert tiles == list(range(t_lo, max(t_lo, t_hi)))
+            assert len(parts) <= n_split
+            assert all(lo < hi for lo, hi in parts)
+
+
+def test_split_plan_and_scratch_sizing():
+    """Grid and scratch from shapes: a llama3-8b decode step at batch 4
+    (32 CTAs) is cut in 8 parts of the 2048-slot cache, so 256 CTAs, one
+    wave at 2 CTAs an SM; its prefill chunk (256 CTAs) is not cut;
+    gemma2-2b's (8 q over 4 kv heads of 256, 6144 slots) are cut in 16
+    and 4.  Scratch holds (acc, m, l) of every row of every part, and
+    nothing when there is one part."""
+    plan = ops.ragged_split_plan
+    assert plan(4, 1, 32, 8, 2048, 128, 132) == (32, 8, 32 * 8 * 16 * 130)
+    assert plan(4, 128, 32, 8, 2048, 128, 132) == (256, 1, 0)
+    assert plan(4, 1, 8, 4, 6144, 256, 132) == (16, 16, 16 * 16 * 16 * 258)
+    assert plan(4, 128, 8, 4, 6144, 256, 132) == (64, 4, 64 * 4 * 64 * 258)
+    # a short cache keeps MIN_SPLIT_TILES tiles a part
+    assert plan(1, 1, 4, 1, 256, 64, 132) == (1, 1, 0)
+    assert plan(1, 1, 4, 1, 512, 64, 132) == (1, 2, 2 * 16 * 66)
+    # rep 32 decode rows take two 16-row tiles; MAX_SPLITS caps the cut
+    base, n_split, _ = plan(1, 1, 32, 1, 1 << 16, 128, 132)
+    assert (base, n_split) == (2, ops.MAX_SPLITS)
+    assert ops.ragged_tiling(1, 256) == (16, 64)
+    assert ops.ragged_tiling(128, 256) == (64, 32)
+
+
 def test_kv_len_zero_and_padded_rows_write_zeros():
     q, k, v, block_req, pos, kv_len = _inputs(1, 1)
     got = _port(q, k, v, block_req, pos, kv_len, 0, 0.0)

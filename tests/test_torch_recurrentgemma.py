@@ -160,18 +160,10 @@ def test_packed_doc_isolation(impl):
 def test_three_step_loss_stream_matches_reference():
     """``trainer.train`` on the kernel route against the reference trainer
     on its ``pallas`` route, same weights and batches: AdamW, schedule and
-    loss included (atol 1e-4, as the dense stream in
-    ``test_torch_train.py``).
-
-    Without weight decay: the reference decides decay on its
-    layer-stacked tree, where every per-layer vector is 2-D, so it also
-    decays the norm scales, ``lru_a`` and ``conv_b``; the port decays
-    matrices only (ROADMAP queue 3).  On this model that moves the
-    step-1 loss by ~1.2e-3; matrix decay is held against the reference
-    by ``test_torch_train.py::test_adamw_update_matches_reference``."""
+    loss included, with the default weight decay (atol 1e-4, as the
+    dense stream in ``test_torch_train.py``)."""
     cfg_j, cfg_t, params, pipe = _setup()
-    tc = dict(steps=3, peak_lr=1e-3, warmup=1, log_every=1,
-              weight_decay=0.0)
+    tc = dict(steps=3, peak_lr=1e-3, warmup=1, log_every=1)
     res = j_train(cfg_j, JPipe(**pipe), JTrainConfig(**tc),
                   ctx=JCtx(attn_impl="pallas", remat=True), params=params)
     want = [h["loss"] for h in res["history"]]

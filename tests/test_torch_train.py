@@ -1,6 +1,6 @@
 """The port's training path (model forward, loss, AdamW, train step,
 trainer, CAD session and launcher) against the JAX package on
-``smollm-360m-reduced``, with the reference weights carried across by
+``smollm-360m-reduced`` (the AdamW decay mask on recurrentgemma's too), with the reference weights carried across by
 ``convert.params_from_jax``: logits, loss and every gradient for
 ``attn_impl`` ref and cad (f32; loss rtol 1e-5, gradients rtol 1e-4), one
 AdamW update, and a 3-step loss stream.  Inside the port: CAD losses are
@@ -30,7 +30,7 @@ from repro.train.trainer import train as j_train
 from repro_torch.cad import CADSession
 from repro_torch.configs import get_config as torch_config
 from repro_torch.data.pipeline import PipelineConfig, raw_batches
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import decay_mask, params_from_jax
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.parallel import ParallelContext
 from repro_torch.train.step import make_eval_step
@@ -91,10 +91,10 @@ def test_forward_loss_and_gradients_match_reference(impl):
 def test_adamw_update_matches_reference():
     """One update of the reference's AdamW and the port's on the same
     weights and gradients, tensor by tensor.  The reference optimizer is
-    handed the port's per-layer tensors: on its own layer-stacked tree a
-    per-layer vector (a norm scale) is 2-D and takes weight decay, which
-    the port, deciding on the layer's own tensor, does not (ROADMAP
-    queue 3)."""
+    handed the port's per-layer tensors, so it decays the tensors of
+    ``dim() >= 2`` among them, and the port is given that mask;
+    ``test_adamw_decay_mask_matches_reference`` holds the mask of the
+    trainer against the reference's own stacked tree."""
     _, cfg_t, params, _ = _setup()
     model = load_jax_params(cfg_t, params)
     names = [n for n, _ in model.named_parameters()]
@@ -114,7 +114,8 @@ def test_adamw_update_matches_reference():
 
     opt = AdamW(lr=cosine_schedule(1e-3, 2, 10), weight_decay=0.1)
     state, gnorm = opt.update([torch.from_numpy(grads[n]) for n in names],
-                              opt.init(plist), plist)
+                              opt.init(plist), plist,
+                              [p.dim() >= 2 for p in plist])
     assert state.step == 1
     np.testing.assert_allclose(float(gnorm), float(gnorm_j), rtol=1e-6)
     for label, got, want in (("param", plist, new_j),
@@ -122,6 +123,45 @@ def test_adamw_update_matches_reference():
                              ("nu", state.nu, state_j.nu)):
         for n, x in zip(names, got):
             np.testing.assert_allclose(to_numpy(x), np.asarray(want[n]),
+                                       rtol=1e-6, atol=1e-9,
+                                       err_msg=f"{label} {n}")
+
+
+@pytest.mark.parametrize("arch", [ARCH, "recurrentgemma-9b-reduced"])
+def test_adamw_decay_mask_matches_reference(arch):
+    """One update of the reference's AdamW on its own layer-stacked param
+    tree, and of the port's on the converted model with
+    ``convert.decay_mask``: parameters, mu and nu agree after conversion.
+    On the stacked tree every per-layer vector is 2-D and decays (norm
+    scales; on recurrentgemma also ``lru_a`` and ``conv_b``), the
+    top-level ``final_norm`` does not."""
+    cfg_j, cfg_t = jax_config(arch), torch_config(arch)
+    params = JM.init(jax.random.PRNGKey(0), cfg_j)
+    rng = np.random.default_rng(1)
+    grads = jax.tree.map(
+        lambda p: rng.standard_normal(p.shape).astype(np.float32), params)
+    j_opt = JAdamW(lr=j_cosine(1e-3, 2, 10), weight_decay=0.1)
+    new_j, state_j, gnorm_j = jax.jit(j_opt.update)(
+        jax.tree.map(jnp.asarray, grads), j_opt.init(params), params)
+
+    model = load_jax_params(cfg_t, params)
+    names = [n for n, _ in model.named_parameters()]
+    plist = [p for _, p in model.named_parameters()]
+    decay = decay_mask(model)
+    by_name = dict(zip(names, decay))
+    assert not by_name["final_norm.scale"] and by_name["embed"]
+    assert any(d and p.dim() == 1 for d, p in zip(decay, plist))
+    g_t = params_from_jax(grads, cfg_t)
+    opt = AdamW(lr=cosine_schedule(1e-3, 2, 10), weight_decay=0.1)
+    state, gnorm = opt.update([g_t[n] for n in names], opt.init(plist),
+                              plist, decay)
+    np.testing.assert_allclose(float(gnorm), float(gnorm_j), rtol=1e-6)
+    for label, got, want in (("param", plist, new_j),
+                             ("mu", state.mu, state_j.mu),
+                             ("nu", state.nu, state_j.nu)):
+        want = params_from_jax(params_to_numpy(want), cfg_t)
+        for n, x in zip(names, got):
+            np.testing.assert_allclose(to_numpy(x), to_numpy(want[n]),
                                        rtol=1e-6, atol=1e-9,
                                        err_msg=f"{label} {n}")
 
