@@ -13,7 +13,10 @@ plain PyTorch version.
   backward (the colocated ``attn_impl="pallas"`` route), a
   ``torch.autograd.Function`` over the kernels ``flash_fwd``,
   ``flash_bwd_dq`` and ``flash_bwd_dkv`` of ``csrc/flash.cu``; plain
-  versions ``flash_fwd_reference`` / ``flash_bwd_reference``.
+  versions ``flash_fwd_reference`` / ``flash_bwd_reference``.  Their bf16
+  kernels walk the tile ranges of ``flash_tile_ranges`` (the document
+  prune, a kernel of the same file; plain version
+  ``flash_tile_ranges_reference``).
 
 Each keeps the layout of its ``repro.kernels.packed_flash`` counterpart.
 On CUDA tensors a wrapper launches its kernel (built with ``nvcc`` at
@@ -40,7 +43,7 @@ _FLASH_SOURCE = _CSRC / "flash.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 RAGGED_HEAD_DIMS = (64, 128, 256)  # the ragged_decode kernel
 CA_HEAD_DIMS = (64, 128)          # the CA-server kernels
-FLASH_HEAD_DIMS = (64, 128, 256)  # the flash kernels
+FLASH_HEAD_DIMS = (64, 128, 192, 256)  # the flash kernels
 _BLK_Q = (1, 128)
 # split-kv of the bf16 ragged_decode kernel (csrc/ragged_decode.cu): at
 # most MAX_SPLITS parts, each of at least MIN_SPLIT_TILES tiles of the
@@ -50,12 +53,16 @@ MIN_SPLIT_TILES = 4
 CA_BLOCKS = (64, 128)         # the CA-server kernels' task block sizes
 FLASH_BLOCK = 128             # the TPU kernel's DEFAULT_BLOCK
 FLASH_TILE = 64               # the flash kernels' tile; S must divide by it
+# head split of the bf16 flash dk/dv kernel (csrc/flash.cu): the group's q
+# heads are cut in parts while the grid has fewer than FLASH_DKV_CTAS_PER_SM
+# CTAs an SM
+FLASH_DKV_CTAS_PER_SM = 4
 
 #: kernel launches made by the wrappers (plain counts a run resets and
 #: reads to show that the main path went through the kernels)
 launches = {"ragged_decode": 0, "ca_server_fwd": 0, "ca_server_bwd_dq": 0,
             "ca_server_bwd_dkv": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+            "flash_bwd_dkv": 0, "flash_tile_ranges": 0}
 
 
 def reset_launches() -> None:
@@ -221,9 +228,9 @@ def kv_split_ranges(t_lo: int, t_hi: int, n_split: int):
             for s in range(-(-n // per))]
 
 
-# split-kv scratch per (device, stream): the f32 parts and the int32
-# counters, which the kernel leaves at zero, reused call after call (calls
-# on one stream run in order)
+# split scratch per (device, stream) of the bf16 ragged_decode and flash
+# dk/dv kernels: the f32 parts and the int32 counters, which the kernels
+# leave at zero, reused call after call (calls on one stream run in order)
 _split_scratch: dict = {}
 
 
@@ -778,6 +785,143 @@ def _check_flash_inputs(q, k, v, seg_q, pos_q, seg_kv, pos_kv, blk_q, blk_k,
     return _flash_blocks(sq, skv, blk_q, blk_k, rate)
 
 
+_BIG = 2 ** 30
+
+
+def _kv_tile_groups(seg, pos):
+    """Per kv tile of FLASH_TILE slots [B, S / 64], its live slots (seg >
+    0) in three groups: those of its smallest segment id, those of its
+    largest, and those between.  For each group: (smallest and largest
+    segment id it may hold, smallest and largest position, whether it has
+    a slot).  A packed tile holds the tail of one document and the head of
+    the next, so the first two groups keep the two documents' positions
+    apart."""
+    b, s = seg.shape
+    seg = seg.reshape(b, s // FLASH_TILE, FLASH_TILE).long()
+    pos = pos.reshape(b, s // FLASH_TILE, FLASH_TILE).long()
+    live = seg > 0
+    lo = torch.where(live, seg, _BIG).amin(-1, keepdim=True)
+    hi = seg.amax(-1, keepdim=True)
+    groups = []
+    for sel, s0, s1 in ((live & (seg == lo), lo, lo),
+                        (live & (seg == hi), hi, hi),
+                        ((seg > lo) & (seg < hi), lo + 1, hi - 1)):
+        groups.append((s0[..., 0], s1[..., 0],
+                       torch.where(sel, pos, _BIG).amin(-1),
+                       torch.where(sel, pos, -_BIG).amax(-1), sel.any(-1)))
+    return groups
+
+
+def _first_last(keep):
+    """[.., n] bool -> [.., 2] int32: the first kept index and one past the
+    last, (0, 0) where none is kept."""
+    n = keep.shape[-1]
+    idx = torch.arange(n, device=keep.device)
+    lo = torch.where(keep, idx, n).amin(-1)
+    hi = torch.where(keep, idx + 1, 0).amax(-1)
+    return torch.stack([torch.minimum(lo, hi), hi], -1).to(torch.int32) \
+        .contiguous()
+
+
+def flash_tile_ranges_reference(seg_q, pos_q, seg_kv, pos_kv, *,
+                                causal=True, window=0, sink=0):
+    """Plain PyTorch version of the document prune of the bf16 flash
+    kernels (``flash_tile_ranges``), over tiles of FLASH_TILE rows or
+    slots.  A q row may see a kv tile only if one of the tile's slot
+    groups (``_kv_tile_groups``) may hold its segment id and meets the
+    row's masks on the group's positions: some position at most the row's
+    (causal), some inside the window or a sink slot.  A (q tile, kv tile)
+    pair is kept when one of the q tile's rows may see the kv tile, so no
+    pair visible under ``mask_fn`` is dropped.  Returns (kv_range [B, Sq /
+    64, 2], q_range [B, Skv / 64, 2]) int32: per q tile the kv tiles [lo,
+    hi) from the first to the last pair kept, per kv tile the q tiles;
+    (0, 0) where none.  The kernels test each warp tile inside a range
+    exactly, so the prune changes no bit."""
+    b, sq = seg_q.shape
+    sr = seg_q.long()[:, :, None]                         # [B, Sq, 1]
+    pr = pos_q.long()[:, :, None]
+    see = torch.zeros((), dtype=torch.bool, device=seg_q.device)
+    for s0, s1, p0, p1, some in _kv_tile_groups(seg_kv, pos_kv):
+        s0, s1, p0, p1, some = (x[:, None, :]
+                                for x in (s0, s1, p0, p1, some))
+        ok = some & (s0 <= sr) & (sr <= s1)
+        if causal:
+            ok = ok & (p0 <= pr)
+        if window and window > 0:
+            near = pr - p1 < window
+            if sink and sink > 0:
+                near = near | (p0 < sink)
+            ok = ok & near
+        see = see | ok                                    # [B, Sq, nT]
+    see = see & (sr > 0)
+    keep = see.reshape(b, sq // FLASH_TILE, FLASH_TILE, -1).any(2)
+    return _first_last(keep), _first_last(keep.transpose(1, 2))
+
+
+def flash_tile_ranges(seg_q, pos_q, seg_kv, pos_kv, *, causal=True,
+                      window=0, sink=0):
+    """The document prune of the bf16 flash kernels, on the device before
+    any tile is touched: (kv_range [B, Sq / 64, 2], q_range [B, Skv / 64,
+    2]) int32, as ``flash_tile_ranges_reference``, which CPU tensors run.
+    CUDA tensors (int32, contiguous, lengths multiples of 64) launch the
+    kernels ``flash_keep_kernel`` and ``flash_q_range_kernel`` of
+    ``csrc/flash.cu`` on the current stream, or raise."""
+    if seg_q.device.type == "cpu":
+        return flash_tile_ranges_reference(seg_q, pos_q, seg_kv, pos_kv,
+                                           causal=causal, window=window,
+                                           sink=sink)
+    ids = {"seg_q": seg_q, "pos_q": pos_q, "seg_kv": seg_kv,
+           "pos_kv": pos_kv}
+    for name, x in ids.items():
+        if not x.is_cuda or x.device != seg_q.device \
+                or x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(f"flash_tile_ranges kernel: {name} must be a "
+                             f"contiguous int32 CUDA tensor on "
+                             f"{seg_q.device}, got {x.dtype} on {x.device}")
+    (b, sq), skv = seg_q.shape, seg_kv.shape[1]
+    if pos_q.shape != (b, sq) or seg_kv.shape != (b, skv) \
+            or pos_kv.shape != (b, skv) or sq % FLASH_TILE \
+            or skv % FLASH_TILE:
+        raise ValueError(f"flash_tile_ranges kernel: shapes "
+                         f"{tuple(seg_q.shape)}, {tuple(seg_kv.shape)} "
+                         f"(lengths multiples of {FLASH_TILE})")
+    lib = load_flash_library()
+    nq, nt = sq // FLASH_TILE, skv // FLASH_TILE
+    dev = seg_q.device
+    kv_range = torch.empty((b, nq, 2), dtype=torch.int32, device=dev)
+    q_range = torch.empty((b, nt, 2), dtype=torch.int32, device=dev)
+    keep = torch.empty((b, nq, nt), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_tile_ranges(
+            seg_q.data_ptr(), pos_q.data_ptr(), seg_kv.data_ptr(),
+            pos_kv.data_ptr(), kv_range.data_ptr(), q_range.data_ptr(),
+            keep.data_ptr(), b, sq, skv, int(bool(causal)),
+            int(window or 0), int(sink or 0), stream)
+    _raise_on(err, "flash_tile_ranges")
+    launches["flash_tile_ranges"] += 1
+    return kv_range, q_range
+
+
+def flash_dkv_split(b: int, skv: int, hkv: int, rep: int, dh: int,
+                    n_sms: int):
+    """The bf16 dk/dv kernel's grid from shapes alone.  Returns (CTAs per
+    head part: batch rows x kv heads x kv-row tiles of 64, 32 at head_dim
+    192/256; n_split, the parts the group's rep q heads are cut into; the
+    f32 scratch elements of the parts' partial dk/dv).  n_split doubles
+    while it divides rep and the grid has fewer than
+    FLASH_DKV_CTAS_PER_SM CTAs an SM: recurrentgemma's MQA (one kv head,
+    rep 16) has 256 kv-row tiles for 132 SMs, each with 16 heads to walk."""
+    rows = 64 if dh <= 128 else 32
+    base = b * hkv * (skv // rows)
+    n_split = 1
+    while base * n_split < FLASH_DKV_CTAS_PER_SM * n_sms \
+            and rep % (2 * n_split) == 0:
+        n_split *= 2
+    scratch = base * n_split * 2 * rows * dh if n_split > 1 else 0
+    return base, n_split, scratch
+
+
 def _flash_scalars(q, k, blk_q, blk_k, causal, window, sink, rate, softcap,
                    scale):
     b, sq, hq, dh = q.shape
@@ -793,7 +937,9 @@ def flash_fwd(q, k, v, seg_q, pos_q, seg_kv, pos_kv, *, causal=True,
               blk_q=FLASH_BLOCK, blk_k=FLASH_BLOCK):
     """Launch the forward kernel on the current stream.  Layout of the TPU
     kernel ``flash_fwd`` with ``return_lse``; returns (out like q, lse
-    [B, Hq, Sq] f32).  CUDA tensors only."""
+    [B, Hq, Sq] f32).  CUDA tensors only.  bf16 takes the tensor-core
+    kernel over ``flash_tile_ranges``' kv ranges, f32 the exact FMA
+    kernel."""
     blk_q, blk_k = _check_flash_inputs(q, k, v, seg_q, pos_q, seg_kv,
                                        pos_kv, blk_q, blk_k, rate)
     b, sq, hq, _ = q.shape
@@ -802,10 +948,15 @@ def flash_fwd(q, k, v, seg_q, pos_q, seg_kv, pos_kv, *, causal=True,
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        kv_range = None
+        if q.dtype == torch.bfloat16:
+            kv_range, _ = flash_tile_ranges(seg_q, pos_q, seg_kv, pos_kv,
+                                            causal=causal, window=window,
+                                            sink=sink)
         err = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(),
             pos_q.data_ptr(), seg_kv.data_ptr(), pos_kv.data_ptr(),
-            out.data_ptr(), lse.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), _ptr(kv_range),
             *_flash_scalars(q, k, blk_q, blk_k, causal, window, sink, rate,
                             softcap, scale), stream)
     _raise_on(err, "flash_fwd")
@@ -819,7 +970,10 @@ def flash_bwd(q, k, v, out, lse, do, seg_q, pos_q, seg_kv, pos_kv, *,
     """The backward from the saved (out, lse): ``delta = rowsum(do * out)``
     in f32 (a torch op, outside the kernels as in the reference), then the
     dq kernel and the dk/dv kernel on the current stream.  Returns
-    (dq, dk, dv) in the dtypes of q and k.  CUDA tensors only."""
+    (dq, dk, dv) in the dtypes of q and k.  CUDA tensors only.  bf16 takes
+    the tensor-core kernels over ``flash_tile_ranges``' ranges, dk/dv with
+    the head split of ``flash_dkv_split`` (its scratch kept per device and
+    stream); f32 the exact FMA kernels."""
     blk_q, blk_k = _check_flash_inputs(
         q, k, v, seg_q, pos_q, seg_kv, pos_kv, blk_q, blk_k, rate,
         extra=(("out", out), ("lse", lse), ("do", do)))
@@ -843,11 +997,25 @@ def flash_bwd(q, k, v, out, lse, do, seg_q, pos_q, seg_kv, pos_kv, *,
            pos_q.data_ptr(), seg_kv.data_ptr(), pos_kv.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_bwd_dq(*ins, dq.data_ptr(), *scalars, stream)
+        kv_range = q_range = part = counters = None
+        n_split = 1
+        if q.dtype == torch.bfloat16:
+            kv_range, q_range = flash_tile_ranges(
+                seg_q, pos_q, seg_kv, pos_kv, causal=causal, window=window,
+                sink=sink)
+            base, n_split, n_part = flash_dkv_split(
+                b, k.shape[1], k.shape[2], hq // k.shape[2], q.shape[3],
+                torch.cuda.get_device_properties(
+                    q.device).multi_processor_count)
+            if n_split > 1:
+                part, counters = _scratch(q.device, stream, n_part, base)
+        err = lib.flash_bwd_dq(*ins, dq.data_ptr(), _ptr(kv_range),
+                               *scalars, stream)
         _raise_on(err, "flash_bwd_dq")
         launches["flash_bwd_dq"] += 1
         err = lib.flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
-                                *scalars, stream)
+                                _ptr(q_range), _ptr(part), _ptr(counters),
+                                *scalars, n_split, stream)
         _raise_on(err, "flash_bwd_dkv")
         launches["flash_bwd_dkv"] += 1
     return dq, dk, dv
@@ -865,8 +1033,8 @@ def packed_flash_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv,
     ``sink`` / ``rate`` carry a MaskSpec (DESIGN.md §12), the dilation in
     units of the kernel's 128-token block.  Differentiable in q, k, v.
 
-    CUDA tensors launch the kernels (f32 or bf16, head_dim 64, 128 or 256,
-    any Hq / Hkv, lengths multiples of 64); anything they do not cover
+    CUDA tensors launch the kernels (f32 or bf16, head_dim 64, 128, 192 or
+    256, any Hq / Hkv, lengths multiples of 64); anything they do not cover
     raises.
     CPU tensors run the plain versions."""
     if not q.is_cuda and q.device.type != "cpu":
@@ -882,15 +1050,21 @@ def packed_flash_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv,
                                   v.contiguous(), *ids, kernels, opts)
 
 
+def _ptr(x) -> int:
+    return 0 if x is None else x.data_ptr()
+
+
 def load_flash_library() -> ctypes.CDLL:
     lib = build.load("flash", _FLASH_SOURCE)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    scalars = [i32] * 13 + [f32, f32, ptr]    # ints, softcap, scale, stream
-    signatures = {"flash_fwd": [ptr] * 9, "flash_bwd_dq": [ptr] * 11,
-                  "flash_bwd_dkv": [ptr] * 12}
-    for name, ptrs in signatures.items():
+    scalars = [i32] * 13 + [f32, f32]         # ints, softcap, scale
+    signatures = {"flash_fwd": [ptr] * 10 + scalars + [ptr],
+                  "flash_bwd_dq": [ptr] * 12 + scalars + [ptr],
+                  "flash_bwd_dkv": [ptr] * 15 + scalars + [i32, ptr]}
+    signatures["flash_tile_ranges"] = [ptr] * 7 + [i32] * 6 + [ptr]
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = ptrs + scalars
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib

@@ -11,7 +11,10 @@ against the JAX package on the CPU, on the same numpy inputs:
   ``O.packed_flash_attention``;
 * ``xla_flash_attention`` forward and gradients against JAX's, with a
   sequence that is no multiple of the block and ``skip_masked_blocks`` on
-  and off.
+  and off;
+* ``flash_tile_ranges``, the bf16 kernels' document prune, against the
+  dense mask: every visible pair lies inside its tiles' ranges;
+  ``flash_dkv_split``'s head split of the dk/dv grid.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py``)."""
 import jax
@@ -62,6 +65,9 @@ CASES = {
     "dilated-noncausal-blk128": (dict(rate=2, causal=False), 128, 1, 32),
     "softcap-blk128-gqa2": (dict(softcap=5.0), 128, 2, 64),
     "softcap-window-blk64": (dict(softcap=5.0, window=48), 64, 1, 32),
+    "causal-blk128-gqa2-dh192": (dict(), 128, 2, 192),
+    "window-sink-softcap-blk64-dh192": (dict(window=48, sink=8, softcap=5.0),
+                                        64, 1, 192),
 }
 
 
@@ -212,3 +218,51 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     meta = [x.to("meta") for x in t]
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.packed_flash_attention(*meta)
+
+
+RANGE_MASKS = {"causal": dict(), "non-causal": dict(causal=False),
+               "window": dict(window=48), "window+sink": dict(window=48,
+                                                              sink=8),
+               "dilated": dict(rate=2)}
+
+
+@pytest.mark.parametrize("mask", list(RANGE_MASKS))
+def test_flash_tile_ranges_cover_every_visible_pair(mask):
+    """Over random packed layouts (documents shorter and longer than a
+    tile, padding), every pair the dense token mask allows lies in a
+    (q tile, kv tile) pair inside both ranges; and the prune drops tiles
+    wherever a row holds more than one document."""
+    kw = RANGE_MASKS[mask]
+    tile, s = ops.FLASH_TILE, 512
+    for seed in range(6):
+        _, _, _, _, seg, pos = make_packed(seed, s, 1, 1, 8,
+                                           n_docs=2 + 3 * seed, pad=seed * 7)
+        seg, pos = torch.from_numpy(seg), torch.from_numpy(pos)
+        kv_range, q_range = ops.flash_tile_ranges(
+            seg, pos, seg, pos, causal=kw.get("causal", True),
+            window=kw.get("window", 0), sink=kw.get("sink", 0))
+        dense = TA.mask_fn(seg, pos, seg, pos, causal=kw.get("causal", True),
+                           window=kw.get("window", 0), sink=kw.get("sink", 0),
+                           rate=kw.get("rate", 1), blk=128)
+        n = s // tile
+        need = dense.reshape(B, n, tile, n, tile).any(4).any(2)
+        idx = torch.arange(n)
+        in_kv = (kv_range[..., :1] <= idx) & (idx < kv_range[..., 1:])
+        in_q = (q_range[..., :1] <= idx) & (idx < q_range[..., 1:])
+        assert bool((in_kv | ~need).all()), (seed, kv_range)
+        assert bool((in_q | ~need.transpose(1, 2)).all()), (seed, q_range)
+        assert int(in_kv.sum()) < B * n * n, seed
+
+
+def test_flash_dkv_split_cuts_small_grids_only():
+    """llama3-8b's colocated step (4 x 4096, 8 kv heads, rep 4) has 2048
+    dk/dv CTAs: no split.  recurrentgemma's MQA (2 x 4096, 1 kv head, rep
+    16, head_dim 256) has 256 CTAs of 32 kv rows: its heads are cut in 4
+    parts of 4, with f32 partial dk and dv for each."""
+    assert ops.flash_dkv_split(4, 4096, 8, 4, 128, 132) == (2048, 1, 0)
+    base, n_split, scratch = ops.flash_dkv_split(2, 4096, 1, 16, 256, 132)
+    assert (base, n_split) == (256, 4)
+    assert scratch == base * n_split * 2 * 32 * 256
+    for rep in (1, 3, 6, 16):
+        _, n_split, _ = ops.flash_dkv_split(1, 64, 1, rep, 64, 132)
+        assert rep % n_split == 0
