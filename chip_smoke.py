@@ -16,9 +16,10 @@ Phases, each of which fails the run:
    bf16 case repeated and bitwise equal to its first call, which holds
    the split-kv merge to its order), the
    CA-server forward (out, lse) and backward (dq, dk, dv) over f32/bf16,
-   head_dim 64/128, blocks 64/128, GQA factors 1/3/4, ragged and
+   head_dim 64/128/192/256, blocks 64/128, GQA factors 1/3/4, ragged and
    overlapping kv ranges, a zero-length task, padded rows, jmax < N, and
-   causal / sliding-window+sink / dilated / softcap masks; the flash
+   causal / sliding-window+sink / dilated / softcap masks, every bf16
+   backward repeated and bitwise equal to its first call; the flash
    forward and backward over f32/bf16, head_dim 64/128/192, GQA 1/4,
    ragged documents with padding, causal / non-causal / window /
    window+sink / dilated masks, softcap 0/50, every bf16 backward repeated
@@ -55,13 +56,17 @@ Phases, each of which fails the run:
    0 and 7; the dispatch's backward repeated bitwise;
 6. the CA-server kernels timed at the captured shapes against their
    bound, their plain versions and ``scaled_dot_product_attention`` with
-   the equivalent mask (fwd and fwd+bwd);
+   the equivalent mask (fwd and fwd+bwd), and beside them the flash
+   kernels on the same layer's q/k/v (the same live pairs attended in
+   place) as the yardstick; then phase 16;
 7. colocated training (``attn_impl="pallas"``: each layer attends where
    it is, through the flash kernels) on phase 5's exact configuration,
    3 steps with the launch counts of each step checked against layers x
-   {2 forwards, 1 dq, 1 dk/dv}, the step-0 loss within CO_LOSS_LIMIT of
-   CAD's while controls with a fault put in (documents merged, no causal
-   mask; those of CO_REQUIRED_CONTROLS) fall outside it, the flash kernels
+   {2 forwards, 1 dq, 1 dk/dv}, the step-0 loss bitwise equal to CAD's
+   (both routes' bf16 forwards run the same tile arithmetic in the same
+   order) while controls with a fault put in (documents merged, no causal
+   mask; those of CO_REQUIRED_CONTROLS) fall outside CO_LOSS_LIMIT of it,
+   the flash kernels
    held against their plain versions on the q/k/v captured at layers 0
    and 7, their backward repeated bitwise, and the ``xla`` route against
    the kernel; then the same configuration in f32 with 2 layers, one step
@@ -85,7 +90,7 @@ Phases, each of which fails the run:
    of recurrentgemma training (phase 13's), the second step of a fresh
    2-step run, traced with ``torch.profiler``: device time by kernel
    family (SSD, flash, LRU, CA and ragged kernels, cuBLAS matmuls,
-   copies, the rest by name), each
+   copies, the rest by name), the CA kernels' share of the busy time, each
    hand-written kernel's launches, busy time, the device's idle share
    inside the step and the SM clock through it.  It runs after phases
    11-14, before phase 13's xla-route check;
@@ -131,7 +136,17 @@ Phases, each of which fails the run:
    tokens each, launches = 26 x device calls, every token in the
    vocabulary, the kernel against its plain version on the inputs of the
    first local and global layers, prefill tokens per second and decode
-   ms per step.
+   ms per step;
+16. (run after phase 6) a CAD training step of gemma2-2b at full width
+   (8 q over 4 kv heads of 256, softcaps 50 and 30, vocab 256000), depth
+   cut to 4 layers (local, global, local, global), bf16, 4 x 2048
+   ``prolong`` tokens on 4 simulated servers, 2 steps: the global layers
+   through ``ca_server`` at head_dim 256 with the softcap, the local
+   layers on the dispatch's windowed fallback; launches = servers x 2
+   global layers x {2, 1, 1} a step and no other kernel, the step-0 loss
+   bitwise equal under ``identity`` and ``balanced``, the kernels held
+   against their plain versions on the first global layer's server
+   batches (backward repeated bitwise) and timed there.
 
 Kernels timed twice (the forward kernels, before and after the library
 call) report the first median as ``ms`` and the second as ``ms_repeat``.
@@ -733,6 +748,10 @@ def traced_serving(torch, np, engine, card):
             f"host time); ragged_decode {ragged:.3f} ms = "
             f"{out[name]['ragged_share']:.4f} of busy; ms by family: {fams} "
             f"[{card}]")
+        ca_ms = bd["families"]["CA-server kernels"]
+        if ca_ms:
+            log(f"  CA-server kernels: {ca_ms:.1f} ms, "
+                f"{ca_ms / bd['busy_ms']:.4f} of the busy time")
         for kname, times in sorted(bd["attention"].items()):
             times.sort()
             log(f"  {kname}: {len(times)} launches, {sum(times):.3f} ms, "
@@ -928,7 +947,10 @@ def _grad_err(torch, got, ref, dtype):
 def check_ca_pair(torch, ops, args, opts, do):
     """Kernel fwd (out, lse) and bwd (dq, dk, dv) against the plain
     versions on the same inputs; the backward of both starts from the
-    plain version's (out, lse).  Returns (fwd err, grad err, ok)."""
+    plain version's (out, lse); zero-length tasks must come out dead; a
+    bf16 backward runs twice and must repeat bitwise (dk/dv sums each kv
+    slot's covering tasks in one order, with no float atomics).  Returns
+    (fwd err, grad err, ok)."""
     dtype = args["q_tasks"].dtype
     out, lse = ops.ca_server_fwd(**args, **opts)
     ref_out, ref_lse = ops.ca_server_fwd_reference(**args, **opts)
@@ -940,21 +962,28 @@ def check_ca_pair(torch, ops, args, opts, do):
               args["kv_len"], args["q_pos"], args["kv_pos"])
     got = ops.ca_server_bwd(*bwd_in, **opts)
     want = ops.ca_server_bwd_reference(*bwd_in, **opts)
+    again = (all(torch.equal(a, b) for a, b in
+                 zip(got, ops.ca_server_bwd(*bwd_in, **opts)))
+             if dtype == torch.bfloat16 else True)
     torch.cuda.synchronize()
     g_errs = [_grad_err(torch, a, b, dtype) for a, b in zip(got, want)]
     dead = args["kv_len"] == 0
     dead_ok = bool((out[dead] == 0).all()) and bool(
         (lse[dead] == ops.LSE_DEAD).all())
-    ok = ok_out and ok_lse and dead_ok and all(o for _, o in g_errs)
+    ok = ok_out and ok_lse and dead_ok and again \
+        and all(o for _, o in g_errs)
     return max(e_out, e_lse), max(e for e, _ in g_errs), ok
 
 
 def check_ca_server_cases(torch, np, ops):
-    """Phase 2: the CA-server kernels against their plain versions."""
-    worst_fwd = worst_bwd = 0.0
+    """Phase 2: the CA-server kernels against their plain versions: f32
+    and bf16, head_dim 64, 128, 192 and 256, blocks 64 and 128, GQA 1, 3
+    and 4, the four masks.  Returns the worst (fwd, grad) errors by dtype
+    name."""
+    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for dh in (64, 128):
+        for dh in ops.CA_HEAD_DIMS:
             for blk in (64, 128):
                 for rep in (1, 3, 4):
                     for mask in CA_MASKS:
@@ -968,15 +997,17 @@ def check_ca_server_cases(torch, np, ops):
                                 f"ca_server disagrees: dtype={dtype} dh={dh}"
                                 f" blk={blk} rep={rep} mask={mask} fwd err "
                                 f"{e_f} grad err {e_b}")
-                        if dtype == torch.float32:
-                            worst_fwd = max(worst_fwd, e_f)
-                            worst_bwd = max(worst_bwd, e_b)
+                        w = worst[str(dtype).split(".")[-1]]
+                        w[0], w[1] = max(w[0], e_f), max(w[1], e_b)
                         n += 1
+    f32, bf = worst["float32"], worst["bfloat16"]
     log(f"phase 2: ca_server fwd + bwd kernels == plain versions in {n} "
-        f"cases (f32 max |err| out/lse {worst_fwd:.3e} <= {F32_ATOL}, "
-        f"grads {worst_bwd:.3e} <= {CA_GRAD_RTOL} x max(1, max |grad|); "
-        f"bf16 within atol=rtol={BF16_ATOL})")
-    return worst_fwd, worst_bwd
+        f"cases, head_dim {'/'.join(map(str, ops.CA_HEAD_DIMS))} (f32 max "
+        f"|err| out/lse {f32[0]:.3e} <= {F32_ATOL}, grads {f32[1]:.3e} <= "
+        f"{CA_GRAD_RTOL} x max(1, max |grad|); bf16 max |err| out/lse "
+        f"{bf[0]:.3e}, grads {bf[1]:.3e}, within atol=rtol={BF16_ATOL}; "
+        f"bf16 backward repeated bitwise)")
+    return worst
 
 
 # --------------------------------------------------------- phase 2 (flash)
@@ -1420,14 +1451,16 @@ def captured_batches(torch, captured):
         pos = torch.where(inp["segment_ids"] > 0, inp["positions"], -1) \
             .to(torch.int32)
         cad = inp["ctx"].cad
-        out[layer] = dispatch.server_batches(inp["q"], inp["k"], inp["v"],
-                                             pos, cad.plan, cad)
+        out[layer] = [dict(b, layer=layer) for b in dispatch.server_batches(
+            inp["q"], inp["k"], inp["v"], pos, cad.plan, cad)]
     return out
 
 
-def check_captured(torch, ops, captured, batches):
-    """Phase 5: the kernels against the plain versions on the captured
-    server batches (bf16), and the dispatch's backward repeated bitwise."""
+def check_captured(torch, ops, captured, batches, softcap=0.0, phase=5):
+    """Phase 5 (and 16, with gemma2's attention softcap): the kernels
+    against the plain versions on the captured server batches (bf16), and
+    the dispatch's backward repeated bitwise on the first captured
+    layer."""
     from repro_torch.core import dispatch
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     worst = 0.0
@@ -1437,6 +1470,7 @@ def check_captured(torch, ops, captured, batches):
                                       "kv_start", "kv_len", "q_pos",
                                       "kv_pos")}
             opts = {k: b[k] for k in ("jmax", "window", "sink", "rate")}
+            opts["softcap"] = softcap
             do = torch.randn(b["q_tasks"].shape, generator=gen,
                              device=DEVICE).to(b["q_tasks"].dtype)
             e_f, e_b, ok = check_ca_pair(torch, ops, args, opts, do)
@@ -1445,13 +1479,14 @@ def check_captured(torch, ops, captured, batches):
                 f"{tuple(b['k_buf'].shape)} jmax {b['jmax']}: fwd max "
                 f"|err| {e_f:.3e}, grads {e_b:.3e}")
             if not ok:
-                raise SystemExit(f"phase 5: kernels disagree on captured "
-                                 f"layer {layer} server {s}")
+                raise SystemExit(f"phase {phase}: kernels disagree on "
+                                 f"captured layer {layer} server {s}")
             worst = max(worst, e_f)
     # the gather/scatter around the kernels: autograd's backward of the
     # index gathers is index_put(accumulate=True); repeated runs must
     # give the same bits
-    inp = captured[0]
+    first = min(captured)
+    inp = captured[first]
     cad = inp["ctx"].cad
     pos = torch.where(inp["segment_ids"] > 0, inp["positions"], -1) \
         .to(torch.int32)
@@ -1460,15 +1495,16 @@ def check_captured(torch, ops, captured, batches):
     runs = []
     for _ in range(2):
         q, k, v = (inp[n].clone().requires_grad_() for n in "qkv")
-        out = dispatch._global_sim(q, k, v, pos, cad.plan, cad, 0.0, None)
+        out = dispatch._global_sim(q, k, v, pos, cad.plan, cad, softcap,
+                                   None)
         runs.append((out, *torch.autograd.grad(out, (q, k, v), g)))
     bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
-    log(f"phase 5: dispatch fwd+bwd on layer 0's q/k/v repeated: bitwise "
-        f"{bitwise} (deterministic algorithms "
+    log(f"phase {phase}: dispatch fwd+bwd on layer {first}'s q/k/v "
+        f"repeated: bitwise {bitwise} (deterministic algorithms "
         f"{torch.are_deterministic_algorithms_enabled()})")
     if not bitwise:
-        raise SystemExit("phase 5: the dispatch backward is not "
-                         "deterministic")
+        raise SystemExit(f"phase {phase}: the dispatch backward is not "
+                         f"deterministic")
     return worst
 
 
@@ -1522,24 +1558,30 @@ def _bound(nbytes, flops, peak_flops=BF16_FLOPS):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
-def ca_kernel_times(torch, ops, batches, card):
-    """Phase 6: the CA-server kernels at layer 0's captured shapes (the 4
-    servers' batches of one layer, summed): kernel, plain version,
-    scaled_dot_product_attention with the equivalent boolean mask (the
-    memory-efficient backend; the port never calls it) and the bound."""
+def ca_kernel_times(torch, ops, per_server, inp, card, softcap=0.0,
+                    phase=6):
+    """Phase 6 (and 16, with gemma2's softcap): the CA-server kernels at a
+    captured layer's shapes (its servers' batches ``per_server``, summed):
+    kernel, plain version, scaled_dot_product_attention with the
+    equivalent boolean mask (the memory-efficient backend, which has no
+    softcap; the port never calls it) and the bound; and as the
+    yardstick, the flash kernels on the same layer's q/k/v (``inp``, the
+    same live pairs attended in place)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     gen = torch.Generator(device=DEVICE).manual_seed(4)
+    layer = per_server[0]["layer"]
     tot = {k: 0.0 for k in ("fwd", "fwd_repeat", "bwd", "plain_fwd",
                             "plain_bwd",
                             "sdpa_fwd", "sdpa_fwd_bwd", "fwd_bytes",
                             "fwd_flops", "bwd_bytes", "bwd_flops",
                             "pairs", "live_tasks", "q_rows", "kv_rows",
                             "fwd_in", "fwd_out", "bwd_in", "bwd_out")}
-    for s, b in enumerate(batches[0]):
+    for s, b in enumerate(per_server):
         args = {k: b[k] for k in ("q_tasks", "k_buf", "v_buf", "kv_start",
                                   "kv_len", "q_pos", "kv_pos")}
         opts = {k: b[k] for k in ("jmax", "window", "sink", "rate")}
+        opts["softcap"] = softcap
         q, k, v = args["q_tasks"], args["k_buf"], args["v_buf"]
         T, blk, hq, dh = q.shape
         N, _, hkv, _ = k.shape
@@ -1580,7 +1622,7 @@ def ca_kernel_times(torch, ops, batches, card):
         torch.cuda.empty_cache()
         f_bound = _bound(*fwd_w)
         b_bound = _bound(*bwd_w)
-        log(f"phase 6: layer 0 server {s}: T {T} x blk {blk} "
+        log(f"phase {phase}: layer {layer} server {s}: T {T} x blk {blk} "
             f"({info['live_tasks']} live tasks, {info['q_rows']} q rows "
             f"read), kv buffer {N} blocks ({info['kv_rows']} slots read), "
             f"{pairs} live pairs; "
@@ -1605,7 +1647,23 @@ def ca_kernel_times(torch, ops, batches, card):
             tot[key] += val
     f_bound = _bound(tot["fwd_bytes"], tot["fwd_flops"])
     b_bound = _bound(tot["bwd_bytes"], tot["bwd_flops"])
-    log(f"phase 6: one layer's CA work (4 servers, {int(tot['live_tasks'])} "
+    args = flash_inputs(torch, inp)
+    fl = dict(softcap=softcap)
+    do = torch.randn(args[0].shape, generator=gen, device=DEVICE) \
+        .to(args[0].dtype)
+    out, lse = ops.flash_fwd(*args, **fl)
+    tot["flash_fwd"] = cuda_ms(lambda: ops.flash_fwd(*args, **fl), iters=10)
+    tot["flash_bwd"] = cuda_ms(lambda: ops.flash_bwd(
+        *args[:3], out, lse, do, *args[3:], **fl), iters=5)
+    del out, lse, do
+    log(f"phase {phase}: yardstick, the flash kernels on the same layer "
+        f"{layer} q/k/v {tuple(args[0].shape)} (the same live pairs, "
+        f"attended in place): fwd {tot['flash_fwd']:.3f} ms, bwd "
+        f"{tot['flash_bwd']:.3f} ms; CA / flash "
+        f"{tot['fwd'] / tot['flash_fwd']:.2f}x fwd, "
+        f"{tot['bwd'] / tot['flash_bwd']:.2f}x bwd [{card}]")
+    log(f"phase {phase}: one layer's CA work ({len(per_server)} servers, "
+        f"{int(tot['live_tasks'])} "
         f"live tasks, {int(tot['q_rows'])} q rows and {int(tot['kv_rows'])} "
         f"kv slots read, {int(tot['pairs'])} live pairs): fwd "
         f"{tot['fwd']:.3f} / {tot['fwd_repeat']:.3f} ms = "
@@ -1620,16 +1678,24 @@ def ca_kernel_times(torch, ops, batches, card):
 
 # ------------------------------------------------------------ phase 7
 # The colocated step-0 loss against CAD's, on the same weights and batch.
-# In bf16 the two routes run different attention arithmetic (flash's
-# tensor-core kernels, ca_server's FMA kernel on f32-staged tiles), so they
-# differ by what bf16 rounding of 8 layers' attention outputs carries to
-# the loss.  The gap recorded on an H100 80GB HBM3 (700 W) is 1.287e-4
-# in every run (both routes' kernels are deterministic); the limit is
-# 1.5x the largest recorded.  At random init the loss moves
-# only ~4e-3 over three steps, so a limit alone could hide a wrong
-# attention: the controls, the colocated loss with one fault put in, must
-# fall outside it (on the batch used here: documents merged 1.02e-3, no
-# causal mask 1.31e-3).
+# While ca_server's bf16 path ran FMA kernels on f32-staged tiles, the
+# two bf16 routes ran different attention arithmetic and differed by
+# 1.287e-4 on an H100 80GB HBM3 (700 W) in every run (both routes'
+# kernels are deterministic); the limit is 1.5x that.
+# At random init the loss moves only ~4e-3 over three steps, so a limit
+# alone could hide a wrong attention: the controls, the colocated loss
+# with one fault put in, must fall outside it (on the batch used here:
+# documents merged 8.9e-4 to 1.02e-3, no causal mask 1.31e-3 to 1.44e-3).
+# Since the tensor-core CA kernels the two bf16 forwards are bitwise
+# equal, and the check requires it as well: both run the same tile
+# pieces (csrc/tiles.cuh: mma_abt, softmax_step, mma_pb) on the same
+# operands.  A CTA's rows are 16 q rows x the 4 q heads of one kv head,
+# q row major, in both (a CA task's q block is a 128-token block of the
+# packed sequence, so its 16-row groups are flash's), and both walk the
+# packed sequence's 64-slot kv tiles in ascending order (a task's kv
+# range is its document's blocks in order).  A tile one route visits and
+# the other skips holds no visible pair: an exact no-op.  The masks agree
+# pair by pair, as the f32 run's bitwise check shows on these batches.
 CO_LOSS_LIMIT = 1.93e-4
 CO_REQUIRED_CONTROLS = ("documents merged", "no causal mask")
 # the exact check: an f32 run of the same configuration, depth cut to
@@ -1792,19 +1858,23 @@ def train_colocated(torch, ops, card, cad_steps):
         if not math.isfinite(s["loss"]):
             raise SystemExit(f"phase 7: step {s['step']} loss {s['loss']}")
     # the step-0 loss against CAD's (phase 5, same weights and batch):
-    # within CO_LOSS_LIMIT, and every required control outside it (the
-    # f32 run, exact_f32_step0, holds the two routes bitwise equal)
+    # bitwise equal (and so within CO_LOSS_LIMIT), and every required
+    # control outside the limit (the f32 run, exact_f32_step0, holds the
+    # two routes' f32 kernels bitwise equal too)
     co, cad = steps[0]["loss"], cad_steps[0]["loss"]
     gap = abs(co - cad)
     log(f"phase 7: launches per step = {expect} (layers x {{2 forwards "
         f"with remat, 1 backward}}); step-0 loss {co!r} vs CAD's {cad!r}: "
-        f"|diff| {gap:.3e} (limit {CO_LOSS_LIMIT:.1e})")
+        f"|diff| {gap:.3e} (limit {CO_LOSS_LIMIT:.1e}; bitwise equal "
+        f"{co == cad})")
     controls = colocated_controls(torch, ops, cad)
     c_diff = {k: abs(v - cad) for k, v in controls.items()}
-    if gap > CO_LOSS_LIMIT or not all(c_diff[k] > CO_LOSS_LIMIT
-                                      for k in CO_REQUIRED_CONTROLS):
-        raise SystemExit("phase 7: the colocated step-0 loss is not within "
-                         "the limit of CAD's, or a required control is")
+    if co != cad or gap > CO_LOSS_LIMIT \
+            or not all(c_diff[k] > CO_LOSS_LIMIT
+                       for k in CO_REQUIRED_CONTROLS):
+        raise SystemExit("phase 7: the colocated step-0 loss is not bitwise "
+                         "equal to CAD's, or a required control is within "
+                         "the limit")
     if sorted(captured) != [0, cfg.n_layers - 1]:
         raise SystemExit(f"phase 7: captured layers {sorted(captured)}")
     total = {k: sum(s["counts"][k] for s in steps) for k in expect}
@@ -2035,7 +2105,8 @@ KERNEL_FAMILIES = (
     ("flash kernels",
      r"(flash_(?:fwd|bwd_dq|bwd_dkv|fwd_mma|dq_mma|dkv_mma))_kernel"),
     ("LRU kernels", r"(lru_scan_(?:fwd|bwd))_kernel"),
-    ("CA-server kernels", r"(ca_(?:fwd|bwd_dq|bwd_dkv))_kernel"),
+    ("CA-server kernels",
+     r"(ca_(?:fwd|bwd_dq|bwd_dkv|fwd_mma|dq_mma|dkv_mma))_kernel"),
     ("ragged_decode kernels", r"(ragged_(?:mma|f32))_kernel"),
     ("matmuls (cuBLAS)", r"gemm|nvjet|xmma|cutlass|cublas|splitk"),
     ("copies and fills", r"^memcpy|^memset"))
@@ -2179,6 +2250,10 @@ def traced_steps(torch, card, cad_steps, co_steps, mamba_steps, rg_steps):
             f"{1 - bd['busy_ms'] / ref_ms:.4f} of the untraced step); ms by "
             f"family: {fams}; SM clock {lo:.0f} / {med:.0f} / {hi:.0f} MHz "
             f"(min / median / max), power draw up to {watts:.1f} W [{card}]")
+        ca_ms = bd["families"]["CA-server kernels"]
+        if ca_ms:
+            log(f"  CA-server kernels: {ca_ms:.1f} ms, "
+                f"{ca_ms / bd['busy_ms']:.4f} of the busy time")
         for kname, times in sorted(bd["attention"].items()):
             times.sort()
             log(f"  {kname}: {len(times)} launches, {sum(times):.1f} ms, "
@@ -2734,6 +2809,142 @@ def lru_kernel_times(torch, rg, inp, card):
     return t, f_bound, b_bound
 
 
+# ----------------------------------------------------------- phase 16
+# gemma2-2b's widths (8 q over 4 kv heads of 256, attention softcap 50,
+# final softcap 30, vocab 256000) with its depth cut from 26 layers to the
+# (local, global) pair twice, on 4 x 2048 ``prolong`` tokens: the f32
+# logits over 256000 words bound the tokens one card holds beside phase
+# 5's allocator state
+GEMMA_CAD_LAYERS = 4
+GEMMA_CAD_STEPS = 2
+GEMMA_CAD_SEQ = 2048
+
+
+def _gemma_cad_setup():
+    from repro_torch.cad import CADSession
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig
+    from repro_torch.train.trainer import TrainConfig
+    cfg = dataclasses.replace(get_config("gemma2-2b"),
+                              n_layers=GEMMA_CAD_LAYERS)
+    pipe = PipelineConfig(distribution="prolong", max_doc_len=GEMMA_CAD_SEQ,
+                          seq_len=GEMMA_CAD_SEQ, global_batch=4, n_ranks=4,
+                          vocab_size=cfg.vocab_size, seed=0)
+    tc = TrainConfig(steps=GEMMA_CAD_STEPS, peak_lr=3e-4, warmup=1,
+                     log_every=1, seed=0)
+
+    def session(policy):
+        return CADSession.for_pipeline(cfg, pipe, plan_policy=policy,
+                                       prefetch=2)
+    return cfg, pipe, tc, session
+
+
+def train_gemma2_cad(torch, ops, card):
+    """Phase 16: a CAD training step of gemma2-2b at full width on the
+    card: the global layers through ``ca_server`` at head_dim 256 with the
+    attention softcap, the local (windowed) layers on the dispatch's
+    blockwise fallback.  Launches each step = servers x global layers x
+    {2 forwards with remat, 1 dq, 1 dk/dv}, and no other kernel; the
+    step-0 loss bitwise equal under ``identity`` and ``balanced``; the
+    kernels held against their plain versions on the server batches
+    captured at the first global layer, and timed there."""
+    from repro_torch.models.model import Transformer
+    from repro_torch.train.trainer import train
+    cfg, pipe, tc, session = _gemma_cad_setup()
+    n_servers = pipe.n_ranks
+    tokens = pipe.global_batch * pipe.seq_len
+    kinds = [cfg.layer_pattern[i % cfg.period] for i in range(cfg.n_layers)]
+    glob = [i for i, k in enumerate(kinds) if k == "global"]
+    ops.reset_launches()
+    res = train(cfg, pipe, dataclasses.replace(tc, steps=1),
+                session=session("identity"), device=DEVICE)
+    loss_identity = res["history"][0]["loss"]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = Transformer(cfg, device=DEVICE, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    captured = {}
+
+    def capture(layer, inputs):
+        if layer == glob[0] and layer not in captured:
+            captured[layer] = {k: v.detach().clone() if torch.is_tensor(v)
+                               else v for k, v in inputs.items()}
+
+    expect = {"ca_server_fwd": n_servers * len(glob) * 2,       # + remat
+              "ca_server_bwd_dq": n_servers * len(glob),
+              "ca_server_bwd_dkv": n_servers * len(glob)}
+    steps = []
+
+    def on_step(step, m):
+        counts = {k: ops.launches[k] for k in expect}
+        others = sum(n for k, n in ops.launches.items() if k not in expect)
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        model.attn_hook = None              # capture step 0 only
+        steps.append(dict(m, counts=counts, others=others, peak_gib=mem))
+        log(f"phase 16: step {step} loss {m['loss']:.6f} gnorm "
+            f"{m['grad_norm']:.4f} step {1e3 * m['step_s']:.1f} ms "
+            f"{tokens / m['step_s']:.0f} tokens/s peak {mem:.2f} GiB "
+            f"launches {counts} [{card}]")
+
+    log(f"phase 16: gemma2-2b at full width, depth cut to {cfg.n_layers} of "
+        f"26 layers ({kinds}; {n_params / 1e9:.3f} B params, bf16), CAD on "
+        f"{n_servers} simulated servers, {pipe.global_batch} x "
+        f"{pipe.seq_len} tokens ({pipe.distribution}), head_dim "
+        f"{cfg.head_dim}, softcap {cfg.attn_logit_softcap}, window "
+        f"{cfg.window} on the local layers; step-0 identity loss "
+        f"{loss_identity!r}")
+    model.attn_hook = capture
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    train(cfg, pipe, tc, model=model, session=session("balanced"),
+          device=DEVICE, on_step=on_step)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for st in steps:
+        if st["counts"] != expect or st["others"]:
+            raise SystemExit(f"phase 16: step {st['step']} launches "
+                             f"{st['counts']} (+{st['others']} of other "
+                             f"kernels) != {expect}")
+        if not math.isfinite(st["loss"]):
+            raise SystemExit(f"phase 16: step {st['step']} loss "
+                             f"{st['loss']}")
+    if steps[0]["loss"] != loss_identity:
+        raise SystemExit(f"phase 16: step-0 loss {steps[0]['loss']!r} under "
+                         f"balanced != {loss_identity!r} under identity")
+    if sorted(captured) != glob[:1]:
+        raise SystemExit(f"phase 16: captured layers {sorted(captured)}")
+    log(f"phase 16: launches per step = {expect} (servers x {len(glob)} "
+        f"global layers x {{2 forwards with remat, 1 backward}}, none on "
+        f"the local layers); step-0 loss bitwise equal under identity and "
+        f"balanced")
+    batches = captured_batches(torch, captured)
+    if any(b["q_tasks"].shape[-1] != 256 for b in batches[glob[0]]):
+        raise SystemExit("phase 16: the server batches are not head_dim 256")
+    err = check_captured(torch, ops, captured, batches,
+                         softcap=cfg.attn_logit_softcap, phase=16)
+    tot, f_bound, b_bound = ca_kernel_times(
+        torch, ops, batches[glob[0]], captured[glob[0]], card,
+        softcap=cfg.attn_logit_softcap, phase=16)
+    b0 = batches[glob[0]][0]
+    shape = (f"global layer {glob[0]}: q_tasks {tuple(b0['q_tasks'].shape)},"
+             f" k_buf {tuple(b0['k_buf'].shape)}, softcap "
+             f"{cfg.attn_logit_softcap}, {n_servers} servers summed")
+    del batches, captured, b0
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    return dict(launches=expect, loss=[st["loss"] for st in steps],
+                step_s=[st["step_s"] for st in steps],
+                peak_gib=[st["peak_gib"] for st in steps],
+                params=n_params, captured_max_abs_err=err, times=tot,
+                bounds=(f_bound, b_bound), shape=shape)
+
+
 # ---------------------------------------------------------------- main
 def build_kernels(build, ops, ssd, rg):
     """Phase 1: build every kernel source, one nvcc each, all at once."""
@@ -2800,7 +3011,7 @@ def main(argv=None) -> int:
     build_kernels(build, ops, ssd, rg)
 
     f32_err = check_ragged_decode_cases(torch, ops)
-    ca_fwd_err, ca_bwd_err = check_ca_server_cases(torch, np, ops)
+    ca_worst = check_ca_server_cases(torch, np, ops)
     fl_worst = check_flash_cases(torch, np, ops)
     ssd_fwd_err, ssd_bwd_err = check_ssd_cases(torch, np, ssd)
     fl256_worst = check_flash256_cases(torch, np, ops)
@@ -2813,11 +3024,13 @@ def main(argv=None) -> int:
     ca_fwd = {"name": "ca_server_fwd", "route": "cuda",
               "source": src + "ca_server.cu",
               "replaces": "src/repro/kernels/packed_flash/kernel.py:610",
-              "max_abs_err": ca_fwd_err}
+              "max_abs_err": ca_worst["float32"][0],
+              "max_abs_err_bf16": ca_worst["bfloat16"][0]}
     ca_bwd = {"name": "ca_server_bwd", "route": "cuda",
               "source": src + "ca_server.cu",
               "replaces": "src/repro/kernels/packed_flash/kernel.py:763",
-              "max_abs_err": ca_bwd_err}
+              "max_abs_err": ca_worst["float32"][1],
+              "max_abs_err_bf16": ca_worst["bfloat16"][1]}
     fl_fwd = {"name": "flash_fwd", "route": "cuda", "source": src + "flash.cu",
               "replaces": "src/repro/kernels/packed_flash/kernel.py:140",
               "max_abs_err": fl_worst["float32"][0],
@@ -2895,13 +3108,15 @@ def main(argv=None) -> int:
         steps, captured, ca_launches = train_full_width(torch, ops, card)
         batches = captured_batches(torch, captured)
         ca_captured_err = check_captured(torch, ops, captured, batches)
-        tot, f_bound, b_bound = ca_kernel_times(torch, ops, batches, card)
+        tot, f_bound, b_bound = ca_kernel_times(torch, ops, batches[0],
+                                                captured[0], card)
         ca_fwd.update(launches=ca_launches["ca_server_fwd"], ms=tot["fwd"],
                       ms_repeat=tot["fwd_repeat"],
                       plain_ms=tot["plain_fwd"], bound_ms=f_bound[0],
                       bound_by=f_bound[1], library_ms=tot["sdpa_fwd"],
                       captured_max_abs_err=ca_captured_err,
-                      shape="layer 0 of step 0, 4 server batches summed")
+                      shape="layer 0 of step 0, 4 server batches summed",
+                      flash_yardstick_ms=tot["flash_fwd"])
         ca_bwd.update(launches=ca_launches["ca_server_bwd_dq"],
                       launches_dkv=ca_launches["ca_server_bwd_dkv"],
                       ms=tot["bwd"], plain_ms=tot["plain_bwd"],
@@ -2909,11 +3124,29 @@ def main(argv=None) -> int:
                       library_ms=tot["sdpa_fwd_bwd"],
                       library_call="sdpa fwd+bwd, efficient attention, "
                                    "boolean mask",
+                      flash_yardstick_ms=tot["flash_bwd"],
                       train={k: [s[k] for s in steps] for k in
                              ("loss", "step_s", "peak_gib")})
         del batches, captured
         gc.collect()
         torch.cuda.empty_cache()
+        gemma_cad = train_gemma2_cad(torch, ops, card)
+        g_t, (g_fb, g_bb) = gemma_cad["times"], gemma_cad["bounds"]
+        ca_fwd["gemma2_dh256"] = dict(
+            launches=gemma_cad["launches"]["ca_server_fwd"], ms=g_t["fwd"],
+            ms_repeat=g_t["fwd_repeat"], plain_ms=g_t["plain_fwd"],
+            bound_ms=g_fb[0], bound_by=g_fb[1], library_ms=g_t["sdpa_fwd"],
+            library_call="sdpa fwd without softcap, boolean mask",
+            flash_yardstick_ms=g_t["flash_fwd"], shape=gemma_cad["shape"],
+            captured_max_abs_err=gemma_cad["captured_max_abs_err"])
+        ca_bwd["gemma2_dh256"] = dict(
+            launches=gemma_cad["launches"]["ca_server_bwd_dq"],
+            ms=g_t["bwd"], plain_ms=g_t["plain_bwd"], bound_ms=g_bb[0],
+            bound_by=g_bb[1], library_ms=g_t["sdpa_fwd_bwd"],
+            library_call="sdpa fwd+bwd without softcap, boolean mask",
+            flash_yardstick_ms=g_t["flash_bwd"], shape=gemma_cad["shape"],
+            train={k: gemma_cad[k] for k in ("loss", "step_s", "peak_gib",
+                                             "params")})
 
         co_steps, co_captured, fl_launches, co_check = train_colocated(
             torch, ops, card, steps)

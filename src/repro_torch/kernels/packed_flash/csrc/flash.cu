@@ -96,19 +96,9 @@
 #include <climits>
 
 #include "common.cuh"
+#include "tiles.cuh"
 
 namespace {
-
-constexpr int kTile = 64;   // kv slots (fwd, dq) or q rows (dk/dv) per tile
-
-// a CTA's own rows: q rows (fwd, dq) or kv rows (dk/dv); fewer at dh 256,
-// where 64 rows of f32 staging do not fit in shared memory (header note)
-template <int DH>
-struct Rows {
-  static constexpr int kQ = DH <= 128 ? 64 : 32;
-  static constexpr int kKV = DH <= 128 ? 64 : 16;
-  static_assert(kTile % kQ == 0 && kTile % kKV == 0, "rows divide tiles");
-};
 
 // Python's floor division (jnp //), for positions of either sign
 __device__ __forceinline__ int floor_div(int a, int b) {
@@ -637,45 +627,9 @@ __global__ void __launch_bounds__(kThreads)
 
 
 // ============================================ bf16: tensor-core kernels
-constexpr float kLn2 = 0.6931471805599453f;
-
-// 4 bytes global -> shared (metadata gathered entry by entry)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-// What a set of q rows or kv slots holds: the segment ids and positions
-// of its live entries (seg > 0) and whether any entry is padding.
-struct Span {
-  int smin, smax, pmin, pmax, dead;
-};
-
-__device__ __forceinline__ Span span_empty() {
-  return Span{INT_MAX, 0, INT_MAX, INT_MIN, 0};
-}
-
-__device__ __forceinline__ void span_add(Span& s, int seg, int pos) {
-  const bool live = seg > 0;
-  s.smin = min(s.smin, live ? seg : INT_MAX);
-  s.smax = max(s.smax, seg);
-  s.pmin = min(s.pmin, live ? pos : INT_MAX);
-  s.pmax = max(s.pmax, live ? pos : INT_MIN);
-  s.dead |= !live;
-}
-
-// the span of every lane's entries, on every lane
-__device__ __forceinline__ Span span_warp(Span s) {
-  s.smin = __reduce_min_sync(kFull, s.smin);
-  s.smax = __reduce_max_sync(kFull, s.smax);
-  s.pmin = __reduce_min_sync(kFull, s.pmin);
-  s.pmax = __reduce_max_sync(kFull, s.pmax);
-  s.dead = __reduce_or_sync(kFull, (unsigned)s.dead);
-  return s;
-}
-
-enum { kNone = 0, kAll = 1, kTokens = 2, kSome = 3 };
+// (GroupRows, Span, span_add, span_warp, the tile classes, KvStage,
+// mma_abt, mma_pb and softmax_step are in tiles.cuh, shared with
+// ca_server.cu; so are kTile and the f32 kernels' Rows)
 
 // A warp tile of q rows (span q, chunk-order rows [qi0, qi1]) against kv
 // slots (span k, slots [ki0, ki1]): kNone when it fails a condition every
@@ -743,25 +697,6 @@ __device__ __forceinline__ uint32_t pair_bits(int cls, const int (&ri)[2],
   return ok;
 }
 
-// Row tiles of the forward and dq kernels: each CTA row is a (q row, q
-// head) pair of one kv head's group, ordered q row major, so a CTA's
-// 64 (or 32) rows share every K/V tile it loads.
-struct GroupRows {
-  int b, g, rep, Sq, hq;
-  __device__ __forceinline__ int qrow(int gr) const { return gr / rep; }
-  __device__ __forceinline__ int head(int gr) const {
-    return g * rep + gr % rep;
-  }
-  // element offset of group row gr in q, out, dout, dq [B, Sq, hq, DH]
-  __device__ __forceinline__ size_t off(int gr, int dh) const {
-    return (((size_t)b * Sq + qrow(gr)) * hq + head(gr)) * dh;
-  }
-  // index of group row gr in lse, delta [B, hq, Sq]
-  __device__ __forceinline__ size_t stat(int gr) const {
-    return ((size_t)b * hq + head(gr)) * Sq + qrow(gr);
-  }
-};
-
 // the kv tiles [lo, hi) (units of kTile) that CTA rows [gr0, gr0 + rows)
 // may see: the union of the ranges of the one or two 64-row q tiles they
 // lie in (ops.py flash_tile_ranges); lo >= hi when none
@@ -778,101 +713,6 @@ __device__ __forceinline__ int2 row_tile_range(const int32_t* kv_range,
     }
   }
   return make_int2(lo, hi);
-}
-
-// a column tile of BN kv slots in the ring: K, V [BN][PITCH] bf16, then
-// the slots' segment ids and positions
-template <int DH, int BN>
-struct KvStage {
-  static constexpr int PITCH = DH + kPad;
-  static constexpr size_t bytes =
-      sizeof(bf16) * 2 * BN * PITCH + sizeof(int) * 2 * BN;
-  bf16 *k, *v;
-  int *seg, *pos;
-  __device__ __forceinline__ KvStage(unsigned char* base) {
-    k = reinterpret_cast<bf16*>(base);
-    v = k + BN * PITCH;
-    seg = reinterpret_cast<int*>(v + BN * PITCH);
-    pos = seg + BN;
-  }
-  // slots [s0, s0 + BN) of batch row b, kv head g
-  __device__ __forceinline__ void load(const bf16* kg, const bf16* vg,
-                                       const int32_t* seg_kv,
-                                       const int32_t* pos_kv, int b, int g,
-                                       int Skv, int hkv, int s0) {
-    constexpr int CHUNKS = DH / 8;  // 16-byte chunks of a row
-    const size_t row0 = (size_t)b * Skv + s0;
-    for (int c = threadIdx.x; c < BN * CHUNKS; c += kMmaThreads) {
-      const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
-      const size_t off = ((row0 + r) * hkv + g) * DH + col;
-      cp_async16(k + r * PITCH + col, kg + off, 16);
-      cp_async16(v + r * PITCH + col, vg + off, 16);
-    }
-    for (int c = threadIdx.x; c < BN / 4; c += kMmaThreads) {
-      cp_async16(seg + 4 * c, seg_kv + row0 + 4 * c, 16);
-      cp_async16(pos + 4 * c, pos_kv + row0 + 4 * c, 16);
-    }
-  }
-};
-
-// S (16 rows x BN slots of the warp) = A (16 rows of a_s) . B^T (BN rows
-// of b_s), over DH: both operands row-major bf16 in shared memory
-template <int DH, int BN>
-__device__ __forceinline__ void mma_abt(float (&s)[BN / 8][4],
-                                        const bf16* a_s, const bf16* b_s,
-                                        int lane) {
-  constexpr int PITCH = DH + kPad;
-#pragma unroll
-  for (int n = 0; n < BN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, a_s + (lane & 15) * PITCH + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int n = 0; n < BN / 8; n += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, b_s + (n * 8 + (lane >> 4) * 8 + (lane & 7)) * PITCH +
-                         kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(s[n], a, b[0], b[1]);
-      mma_bf16(s[n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 rows x DT n8 tiles from column tile d0) += P (16 x BN, from the
-// score registers, rounded to bf16) . B (BN rows of b_s); with SPLIT the
-// rounding error is multiplied in too (P = hi + lo, two products)
-template <int DH, int BN, int DT, bool SPLIT>
-__device__ __forceinline__ void mma_pb(float (&acc)[DT][4],
-                                       const float (&p)[BN / 8][4],
-                                       const bf16* b_s, int d0, int lane) {
-  constexpr int PITCH = DH + kPad;
-#pragma unroll
-  for (int kc = 0; kc < BN / 16; ++kc) {
-    uint32_t a[4], a_lo[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float* e = p[2 * kc + (i >> 1)] + 2 * (i & 1);
-      a[i] = pack_bf16(e[0], e[1]);
-      if constexpr (SPLIT) {
-        const __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&a[i]);
-        a_lo[i] = pack_bf16(e[0] - __low2float(hi), e[1] - __high2float(hi));
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < DT; d += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(
-          b, b_s + (kc * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * PITCH +
-                 (d0 + d) * 8 + (lane >> 4) * 8);
-      mma_bf16(acc[d], a, b[0], b[1]);
-      mma_bf16(acc[d + 1], a, b[2], b[3]);
-      if constexpr (SPLIT) {
-        mma_bf16(acc[d], a_lo, b[0], b[1]);
-        mma_bf16(acc[d + 1], a_lo, b[2], b[3]);
-      }
-    }
-  }
 }
 
 // ------------------------------------------------------- bf16 forward
@@ -982,46 +822,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (__any_sync(kFull, ok != 0)) {
       float sc[NT][4];
       mma_abt<DH, BN>(sc, q_w, st.k, lane);
-      // scaled, softcapped logits in log2 units (the softmax runs on exp2)
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = (ok >> (n * 4 + e)) & 1u
-                              ? cap(sc[n][e], scale, softcap) * kLog2e
-                              : kNegInf;
-          sc[n][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      float corr[2], ls[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
-        const float m_new = fmaxf(m[h], mx[h]);
-        corr[h] = exp2f(m[h] - m_new);
-        m[h] = m_new;
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = (ok >> (n * 4 + e)) & 1u
-                              ? exp2f(sc[n][e] - m[e >> 1])
-                              : 0.f;
-          sc[n][e] = p;
-          ls[e >> 1] += p;
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + ls[h];
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        o[d][0] *= corr[0];
-        o[d][1] *= corr[0];
-        o[d][2] *= corr[1];
-        o[d][3] *= corr[1];
-      }
+      softmax_step<NT, DT>(sc, ok, m, l, o, scale, softcap);
       // O += P V, P rounded to bf16 as the TPU kernel does
       mma_pb<DH, BN, DT, false>(o, sc, st.v, 0, lane);
     }

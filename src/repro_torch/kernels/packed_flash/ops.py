@@ -42,8 +42,8 @@ _CA_SOURCE = _CSRC / "ca_server.cu"
 _FLASH_SOURCE = _CSRC / "flash.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 RAGGED_HEAD_DIMS = (64, 128, 256)  # the ragged_decode kernel
-CA_HEAD_DIMS = (64, 128)          # the CA-server kernels
 FLASH_HEAD_DIMS = (64, 128, 192, 256)  # the flash kernels
+CA_HEAD_DIMS = FLASH_HEAD_DIMS    # the CA-server kernels
 _BLK_Q = (1, 128)
 # split-kv of the bf16 ragged_decode kernel (csrc/ragged_decode.cu): at
 # most MAX_SPLITS parts, each of at least MIN_SPLIT_TILES tiles of the
@@ -480,6 +480,15 @@ def _check_ca_inputs(q, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos,
                          f"{tuple(kv_start.shape)}, {tuple(kv_len.shape)}, "
                          f"{tuple(q_pos.shape)}, {tuple(kv_pos.shape)} do "
                          f"not fit T={t}, N={n}, blk={blk}")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernels load q, k, v, do, out and kv_pos 16
+        # bytes a thread
+        for name, x in (("q_tasks", q), ("k_buf", k_buf), ("v_buf", v_buf),
+                        ("kv_pos", kv_pos),
+                        *[(nm, y) for nm, y in extra if nm in ("do", "out")]):
+            if x.data_ptr() % 16:
+                raise ValueError(f"ca_server kernel: {name} is not 16-byte "
+                                 f"aligned")
 
 
 def _ca_scalars(q, k_buf, jmax, window, sink, rate, softcap, scale):
@@ -501,7 +510,8 @@ def ca_server_fwd(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos,
                   scale=None):
     """Launch the forward kernel on the current stream.  Layout of the TPU
     kernel ``ca_server_fwd``; returns (out like q_tasks, lse [T, Hq, blk]
-    f32).  CUDA tensors only."""
+    f32).  CUDA tensors only.  bf16 takes the tensor-core kernel, f32 the
+    exact FMA kernel."""
     _check_ca_inputs(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos)
     t, blk, hq, dh = q_tasks.shape
     lib = load_ca_server_library()
@@ -524,20 +534,31 @@ def ca_server_fwd(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos,
 def ca_server_bwd(q_tasks, k_buf, v_buf, out, lse, do, kv_start, kv_len,
                   q_pos, kv_pos, *, jmax=0, window=0, sink=0, rate=1,
                   softcap=0.0, scale=None):
-    """The backward from the saved (out, lse): ``delta = rowsum(do * out)``
-    in f32 (a torch op, outside the kernels as in the reference), then
-    the dq kernel and the dk/dv kernel on the current stream.  Returns
-    (dq, dk, dv) in the dtypes of q_tasks and k_buf.  CUDA tensors only."""
+    """The backward from the saved (out, lse): the dq kernel and the dk/dv
+    kernel on the current stream, with ``delta = rowsum(do * out)`` in
+    f32.  Returns (dq, dk, dv) in the dtypes of q_tasks and k_buf.  CUDA
+    tensors only.  bf16 takes the tensor-core kernels: the dq kernel
+    computes delta for its rows and writes it for dk/dv, which lists each
+    kv block's covering tasks itself, on the card.  f32 takes the exact
+    FMA kernels, with delta a torch op outside them as in the
+    reference."""
     _check_ca_inputs(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos,
                      extra=(("out", out), ("lse", lse), ("do", do)))
+    t, blk, hq, _ = q_tasks.shape
     if do.shape != q_tasks.shape or do.dtype != q_tasks.dtype \
-            or lse.dtype != torch.float32:
+            or out.shape != q_tasks.shape or out.dtype != q_tasks.dtype \
+            or lse.shape != (t, hq, blk) or lse.dtype != torch.float32:
         raise ValueError(f"ca_server_bwd: do {tuple(do.shape)} {do.dtype}, "
-                         f"lse {lse.dtype} do not fit q_tasks "
+                         f"out {tuple(out.shape)} {out.dtype}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype} do not fit q_tasks "
                          f"{tuple(q_tasks.shape)} {q_tasks.dtype}")
     lib = load_ca_server_library()
-    delta = torch.einsum("tqhd,tqhd->thq", do.float(),
-                         out.float()).contiguous()
+    if q_tasks.dtype == torch.bfloat16:     # written by the dq kernel
+        delta = torch.empty((t, hq, blk), dtype=torch.float32,
+                            device=q_tasks.device)
+    else:
+        delta = torch.einsum("tqhd,tqhd->thq", do.float(),
+                             out.float()).contiguous()
     dq = torch.empty_like(q_tasks)
     dk = torch.empty_like(k_buf)
     dv = torch.empty_like(v_buf)
@@ -549,7 +570,8 @@ def ca_server_bwd(q_tasks, k_buf, v_buf, out, lse, do, kv_start, kv_len,
            kv_pos.data_ptr())
     with torch.cuda.device(q_tasks.device):
         stream = torch.cuda.current_stream(q_tasks.device).cuda_stream
-        err = lib.ca_server_bwd_dq(*ins, dq.data_ptr(), *scalars, stream)
+        err = lib.ca_server_bwd_dq(*ins[:4], out.data_ptr(), *ins[4:],
+                                   dq.data_ptr(), *scalars, stream)
         _raise_on(err, "ca_server_bwd_dq")
         launches["ca_server_bwd_dq"] += 1
         err = lib.ca_server_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
@@ -595,9 +617,9 @@ def ca_server_attention(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
     means N.  ``window``/``sink``/``rate`` carry a MaskSpec
     (DESIGN.md §12).  Differentiable in q_tasks, k_buf and v_buf.
 
-    CUDA tensors launch the kernels (f32 or bf16, head_dim 64 or 128,
-    blk 64 or 128, any Hq / Hkv); anything they do not cover raises.  CPU
-    tensors run the plain versions."""
+    CUDA tensors launch the kernels (f32 or bf16, head_dim 64, 128, 192 or
+    256, blk 64 or 128, any Hq / Hkv); anything they do not cover raises.
+    CPU tensors run the plain versions."""
     if not q_tasks.is_cuda and q_tasks.device.type != "cpu":
         raise ValueError(f"ca_server_attention: no kernel for device "
                          f"{q_tasks.device}")
@@ -614,7 +636,7 @@ def load_ca_server_library() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     scalars = [i32] * 11 + [f32, f32, ptr]    # ints, softcap, scale, stream
     signatures = {"ca_server_fwd": [ptr] * 9,
-                  "ca_server_bwd_dq": [ptr] * 11,
+                  "ca_server_bwd_dq": [ptr] * 12,
                   "ca_server_bwd_dkv": [ptr] * 12}
     for name, ptrs in signatures.items():
         fn = getattr(lib, name)

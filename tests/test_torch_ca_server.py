@@ -32,6 +32,10 @@ CASES = {
     "dilated": (4, 64, 4, 2, 32, 8, {"rate": 2}, None),
     "softcap": (4, 64, 4, 2, 32, 8, {"softcap": 5.0}, None),
     "jmax": (4, 64, 4, 2, 32, 8, {}, "max_len"),
+    # nemotron's head_dim and gemma2's (with its attention softcap), which
+    # the CUDA kernels take since the tensor-core redesign
+    "dh192": (3, 64, 2, 1, 192, 4, {}, None),
+    "dh256+softcap": (3, 64, 4, 2, 256, 4, {"softcap": 50.0}, None),
 }
 # the interpret-mode TPU kernels take seconds per grid of this size, so
 # they run on a smaller batch
@@ -40,6 +44,8 @@ SMALL = {
                                    {"window": 40, "sink": 8,
                                     "softcap": 5.0}, None),
     "dilated+jmax": (3, 64, 2, 1, 32, 4, {"rate": 2}, "max_len"),
+    "dh192": (2, 64, 2, 1, 192, 3, {}, None),
+    "dh256+softcap": (2, 64, 2, 1, 256, 3, {"softcap": 50.0}, None),
 }
 
 

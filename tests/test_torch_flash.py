@@ -204,7 +204,8 @@ def test_head_dim_256_mqa_matches_tpu_kernels(kw):
     for name, g, want in zip("qkv", grads, grads_j):
         np.testing.assert_allclose(to_numpy(g), np.asarray(want),
                                    err_msg="d" + name, **KERNEL_TOL)
-    assert 256 in ops.FLASH_HEAD_DIMS and 256 not in ops.CA_HEAD_DIMS
+    assert 256 in ops.FLASH_HEAD_DIMS \
+        and ops.CA_HEAD_DIMS == ops.FLASH_HEAD_DIMS
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
