@@ -32,8 +32,8 @@
 // arithmetic flash.cu's f32 kernels share.
 //
 // bf16: ca_fwd_mma_kernel, ca_dq_mma_kernel, ca_dkv_mma_kernel, CTAs of 4
-// warps, built from the tile pieces of tiles.cuh that flash.cu's kernels
-// use:
+// warps, built from the tile pieces of tiles.cuh and kernels/csrc/mma.cuh
+// that flash.cu's kernels use:
 //   * every product on the tensor cores: mma.sync m16n8k16 with bf16
 //     fragments from ldmatrix / ldmatrix.trans and f32 accumulators.  The
 //     forward's online softmax runs in registers in log2 units (exp2), P

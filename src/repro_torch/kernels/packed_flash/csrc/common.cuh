@@ -1,8 +1,9 @@
 // Helpers shared by the packed-flash kernels (ragged_decode.cu,
 // ca_server.cu, flash.cu): the CTA shape, the TPU kernels' finite
 // sentinels, f32 staging of bf16 or f32 tiles, warp reductions, the
-// softcap and softmax-backward arithmetic of kernel.py, and the pieces of
-// the tensor-core kernels (cp.async, ldmatrix, mma.sync on bf16).
+// softcap and softmax-backward arithmetic of kernel.py, and the tensor-core
+// kernels' CTA shape; their cp.async, ldmatrix and mma.sync pieces come
+// from kernels/csrc/mma.cuh, shared with the SSD kernels.
 #pragma once
 
 #include <cstddef>
@@ -10,6 +11,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -75,62 +78,11 @@ __device__ __forceinline__ void stage(float* dst, int pitch, const T* src,
 }
 
 // ------------------------------------------- tensor-core building blocks
-using bf16 = __nv_bfloat16;
-
+// (cp.async, ldmatrix, mma.sync and the bf16 alias are in mma.cuh)
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kPad = 8;     // bf16 elements padding a shared-memory row
 constexpr int kStages = 2;  // ring of tiles in flight
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, the bytes past src_bytes (0 or 16) zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&x);
-}
 
 // allow `bytes` of dynamic shared memory for `kernel`, once per
 // instantiation (above 48 KB the launch is refused without it)

@@ -627,9 +627,10 @@ __global__ void __launch_bounds__(kThreads)
 
 
 // ============================================ bf16: tensor-core kernels
-// (GroupRows, Span, span_add, span_warp, the tile classes, KvStage,
-// mma_abt, mma_pb and softmax_step are in tiles.cuh, shared with
-// ca_server.cu; so are kTile and the f32 kernels' Rows)
+// (GroupRows, Span, span_add, span_warp, the tile classes, KvStage and
+// softmax_step are in tiles.cuh, shared with ca_server.cu, as are kTile
+// and the f32 kernels' Rows; mma_abt and mma_pb are in kernels/csrc/
+// mma.cuh)
 
 // A warp tile of q rows (span q, chunk-order rows [qi0, qi1]) against kv
 // slots (span k, slots [ki0, ki1]): kNone when it fails a condition every

@@ -1,10 +1,10 @@
 // Pieces shared by the kernels of flash.cu and ca_server.cu: the f32
 // kernels' rows a CTA, and the bf16 kernels' tile pieces (the group rows
 // of a CTA, the position spans a warp classifies a tile by, the cp.async
-// ring stage of K/V tiles, the two mma.sync products on ldmatrix
-// fragments, S = A B^T and acc += P B from the score registers, and the
-// forward's online-softmax step in exp2).  Each file keeps its own mask
-// arithmetic; these pieces hold none of it.
+// ring stage of K/V tiles and the forward's online-softmax step in exp2;
+// the two mma.sync products, S = A B^T and acc += P B from the score
+// registers, are mma_abt and mma_pb of kernels/csrc/mma.cuh).  Each file
+// keeps its own mask arithmetic; these pieces hold none of it.
 #pragma once
 
 #include <climits>
@@ -26,13 +26,6 @@ struct Rows {
 };
 
 constexpr float kLn2 = 0.6931471805599453f;
-
-// 4 bytes global -> shared (metadata gathered entry by entry)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
 
 // What a set of q rows or kv slots holds: the segment ids and positions
 // of its live entries (seg > 0) and whether any entry is padding.
@@ -133,66 +126,6 @@ struct KvStage {
       cp_async16(seg + 4 * c, seg_kv + row0 + 4 * c, 16);
   }
 };
-
-// S (16 rows x BN slots of the warp) = A (16 rows of a_s) . B^T (BN rows
-// of b_s), over DH: both operands row-major bf16 in shared memory
-template <int DH, int BN>
-__device__ __forceinline__ void mma_abt(float (&s)[BN / 8][4],
-                                        const bf16* a_s, const bf16* b_s,
-                                        int lane) {
-  constexpr int PITCH = DH + kPad;
-#pragma unroll
-  for (int n = 0; n < BN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, a_s + (lane & 15) * PITCH + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int n = 0; n < BN / 8; n += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, b_s + (n * 8 + (lane >> 4) * 8 + (lane & 7)) * PITCH +
-                         kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(s[n], a, b[0], b[1]);
-      mma_bf16(s[n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 rows x DT n8 tiles from column tile d0) += P (16 x BN, from the
-// score registers, rounded to bf16) . B (BN rows of b_s); with SPLIT the
-// rounding error is multiplied in too (P = hi + lo, two products)
-template <int DH, int BN, int DT, bool SPLIT>
-__device__ __forceinline__ void mma_pb(float (&acc)[DT][4],
-                                       const float (&p)[BN / 8][4],
-                                       const bf16* b_s, int d0, int lane) {
-  constexpr int PITCH = DH + kPad;
-#pragma unroll
-  for (int kc = 0; kc < BN / 16; ++kc) {
-    uint32_t a[4], a_lo[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float* e = p[2 * kc + (i >> 1)] + 2 * (i & 1);
-      a[i] = pack_bf16(e[0], e[1]);
-      if constexpr (SPLIT) {
-        const __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&a[i]);
-        a_lo[i] = pack_bf16(e[0] - __low2float(hi), e[1] - __high2float(hi));
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < DT; d += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(
-          b, b_s + (kc * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * PITCH +
-                 (d0 + d) * 8 + (lane >> 4) * 8);
-      mma_bf16(acc[d], a, b[0], b[1]);
-      mma_bf16(acc[d + 1], a, b[2], b[3]);
-      if constexpr (SPLIT) {
-        mma_bf16(acc[d], a_lo, b[0], b[1]);
-        mma_bf16(acc[d + 1], a_lo, b[2], b[3]);
-      }
-    }
-  }
-}
 
 // One kv tile of the forward's online softmax, FA2-style in registers:
 // sc holds the warp tile's raw dot products, ok its visible pairs (bit n

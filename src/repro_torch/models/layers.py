@@ -245,10 +245,12 @@ def _ssd_chunked(x, dt, log_a, B_, C_, chunk, first, ctx=None, hook=None):
     cumsum-difference trick would suffer catastrophic cancellation); the
     reset-count prefix sum gates which (j -> i) contributions are allowed.
     ``ctx.attn_impl == "pallas"`` runs the intra-chunk step in the CUDA
-    kernels (``kernels/ssd``) with the G-sized B and C; every other
-    implementation runs the reference's einsum route in torch ops.
-    ``hook``, if given, is called with the kernel route's arguments
-    (C, B, x, dt, csum, nr) before the intra-chunk step."""
+    kernels (``kernels/ssd``) with the G-sized B and C, and x, B and C in
+    their own (compute) dtype: bf16 goes to the tensor-core kernels, f32
+    to the exact FMA kernels.  Every other implementation runs the
+    reference's einsum route in torch ops, on f32 casts.  ``hook``, if
+    given, is called with the kernel route's arguments (C, B, x, dt,
+    csum, nr) before the intra-chunk step."""
     b, S, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
     rep = H // G
@@ -261,7 +263,7 @@ def _ssd_chunked(x, dt, log_a, B_, C_, chunk, first, ctx=None, hook=None):
         return t.reshape((b, nc, chunk) + tuple(t.shape[2:]))
 
     xc, dtc, lac, fc = r(x), r(dt), r(log_a), r(first)
-    Bc, Cc = r(B_).float(), r(C_).float()           # [B,K,c,G,N]
+    Cc = r(C_).float()                              # [B,K,c,G,N]
     # a_t at a reset position never multiplies anything that survives the
     # reset-count gates below, so zero its log contribution.
     lac = torch.where(fc[..., None], 0.0, lac)
@@ -271,15 +273,16 @@ def _ssd_chunked(x, dt, log_a, B_, C_, chunk, first, ctx=None, hook=None):
     # exp(csum_i - csum_j), weighted by dt_j, when no reset occurred in
     # (j, i] <=> nr_i == nr_j; chunk-final states over inputs j with no
     # reset after them (nr_j == nr_last)
-    args = dict(C=Cc, B=Bc, x=xc.float(), dt=dtc, csum=csum, nr=nr)
     if getattr(ctx, "attn_impl", "") == "pallas":
+        args = dict(C=r(C_), B=r(B_), x=xc, dt=dtc, csum=csum, nr=nr)
         if hook is not None:
             hook(args)
         y_intra, states = ssd_ops.ssd_chunk(**args)
     else:
         # the reference's einsum route: the plain version, differentiated
         # by autograd
-        y_intra, states = ssd_ops.ssd_chunk_fwd_reference(**args)
+        y_intra, states = ssd_ops.ssd_chunk_fwd_reference(
+            C=Cc, B=r(B_).float(), x=xc.float(), dt=dtc, csum=csum, nr=nr)
     # carried decay is zero if the chunk contains any reset
     no_reset = (nr[:, :, -1] == 0)[..., None]             # [B,K,1]
     chunk_decay = torch.exp(csum[:, :, -1, :].clamp(-80.0, 0.0)) \

@@ -10,6 +10,7 @@ gradients against ``jax.grad`` of the reference under ``xla`` (its
 packed-document isolation; a 3-step loss stream through ``trainer.train``
 against the reference trainer; the launcher; the full-width layout; and
 ``cuda`` without a card."""
+import dataclasses
 import math
 
 import jax
@@ -91,6 +92,26 @@ def test_kernel_route_gradients_match_reference():
     for name, g in grads_t.items():
         np.testing.assert_allclose(to_numpy(g), to_numpy(want[name]),
                                    rtol=1e-4, atol=1e-6, err_msg=name)
+
+
+def test_bf16_logits_agree_across_routes():
+    """mamba2-370m-reduced in bf16 (weights and compute, seeded): the
+    kernel route hands ``ssd_chunk`` bf16 x, B and C, whose plain versions
+    on the CPU compute in f32 from the cast values, as the einsum route
+    does from its f32 casts, so the two give the same logits bit for bit
+    (on the card the bf16 route is the tensor-core kernels; ``chip_smoke.py``
+    holds their loss gap within MAMBA_LOSS_LIMIT)."""
+    cfg = dataclasses.replace(torch_config(ARCH), param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    model = Transformer(cfg, device="cpu", seed=0)
+    batch = batch_to_device(_batch(dict(PIPE, vocab_size=cfg.vocab_size)),
+                            "cpu")
+    with torch.no_grad():
+        logits = {impl: model(batch, ParallelContext(attn_impl=impl,
+                                                     remat=False))[0]
+                  for impl in ("pallas", "xla")}
+    assert torch.isfinite(logits["pallas"]).all()
+    assert torch.equal(logits["pallas"], logits["xla"])
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])

@@ -5,7 +5,9 @@ interpret mode (as ``tests/test_kernels_ssd.py`` runs it) and the oracle
 ``ref_ssd_chunk``; G-sized against H-sized B and C; the hand-written
 backward against ``jax.vjp`` of the oracle (the TPU kernel has none);
 ``_ssd_chunked`` under ``pallas`` and ``xla`` and ``ssd_apply`` against the
-reference's.  Inputs from numpy seeds, f32.
+reference's; the route by dtype (bf16 C, B and x on the CPU equal to the
+f32 call on the same values, bit for bit; the wrappers' refusals); the
+backward's head split; the build's header hash.  Inputs from numpy seeds.
 
 Tolerances: ``KERNEL_TOL`` (atol 2e-5, rtol 1e-5) on y and states, whose
 sums run in another order in each framework; gradients rtol 1e-4 with an
@@ -13,6 +15,8 @@ atol of 1e-5 x max |grad| (a gradient sums up to two chunks' worth of
 products, so its rounding scales with its largest entry); the layer
 functions ``MODEL_TOL``."""
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +30,7 @@ from repro.kernels.ssd import ref as R
 from repro.models import layers as JL
 from repro.parallel import ParallelContext as JCtx
 from repro_torch.configs import get_config as torch_config
+from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ops
 from repro_torch.models import layers as TL
 from repro_torch.parallel import ParallelContext
@@ -270,3 +275,172 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                   ops.ssd_chunk_bwd_buffers(*t[:4]))
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.ssd_chunk(*(x.to("meta") for x in t))
+
+
+def _bf16_values(args):
+    """The inputs with C, B and x rounded to bf16 (numpy f32 arrays
+    holding bf16 values) and the same as bf16 CPU tensors."""
+    t = _torch(args)
+    low = [a.to(torch.bfloat16) if k < 3 else a for k, a in enumerate(t)]
+    vals = [to_numpy(a.float()) if k < 3 else args[k]
+            for k, a in enumerate(low)]
+    return vals, low
+
+
+@pytest.mark.parametrize("G,reset", [(1, "mid-chunk"), (2, "none"),
+                                     (4, "every position")])
+def test_bf16_call_equals_f32_call_bitwise(G, reset):
+    """bf16 C, B and x on CPU tensors: ``ssd_chunk`` runs the plain
+    versions in f32 from the cast values, so forward and backward equal an
+    f32 call on the same values bit for bit; the gradients of C, B and x
+    come back in bf16 (the f32 gradients cast), dt's and csum's in f32."""
+    args, cot = make(8, 2, 2, 64, 4, 32, 16, G=G, reset=reset)
+    vals, low = _bf16_values(args)
+    f32 = [t.requires_grad_() for t in _torch(vals[:5])]
+    bf = [t.clone().requires_grad_() for t in low[:5]]
+    nr = to_torch(args[5])
+    out32 = ops.ssd_chunk(*f32, nr)
+    out16 = ops.ssd_chunk(*bf, nr)
+    for a, b in zip(out16, out32):
+        assert a.dtype == torch.float32
+        assert torch.equal(a, b)
+    g32 = torch.autograd.grad(out32, f32, _torch(cot))
+    g16 = torch.autograd.grad(out16, bf, _torch(cot))
+    for k, (a, b) in enumerate(zip(g16, g32)):
+        want = torch.bfloat16 if k < 3 else torch.float32
+        assert a.dtype == want
+        assert torch.equal(a, b.to(want))
+
+
+@pytest.mark.parametrize("reset", ["mid-chunk", "csum below -80"])
+def test_bf16_rounded_inputs_match_tpu_kernel(reset):
+    """The bf16-rounded inputs through the TPU kernel in interpret mode
+    (which casts them to f32 inside, as the port's kernels read them) and
+    through ``ssd_chunk`` with bf16 C, B and x: within ``KERNEL_TOL``."""
+    args, _ = make(9, 2, 2, 128, 2, 64, 32, reset=reset)
+    vals, low = _bf16_values(args)
+    y, st = ops.ssd_chunk(*low)
+    y_k, st_k = K.ssd_chunk(*(jnp.asarray(a) for a in vals))
+    np.testing.assert_allclose(to_numpy(y), np.asarray(y_k), **KERNEL_TOL)
+    np.testing.assert_allclose(to_numpy(st), np.asarray(st_k), **KERNEL_TOL)
+
+
+def test_ssd_chunked_hands_the_op_the_compute_dtype(monkeypatch):
+    """Under ``pallas`` in bf16, ``_ssd_chunked`` hands ``ssd_chunk`` x, B
+    and C in bf16 (the tensor-core route on the card) with dt and csum in
+    f32; the einsum route, on f32 casts of the same values, gives the same
+    y bit for bit."""
+    calls = []
+    real = TL.ssd_ops.ssd_chunk
+
+    def spy(**args):
+        calls.append({k: v.dtype for k, v in args.items()})
+        return real(**args)
+    monkeypatch.setattr(TL.ssd_ops, "ssd_chunk", spy)
+    x, dt, la, B_, C_, first = (to_torch(a) for a in _chunked_inputs(10))
+    x, B_, C_ = (t.to(torch.bfloat16) for t in (x, B_, C_))
+    ys = {impl: TL._ssd_chunked(x, dt, la, B_, C_, 32, first,
+                                ctx=ParallelContext(attn_impl=impl))
+          for impl in ("pallas", "xla")}
+    bf, f32 = torch.bfloat16, torch.float32
+    assert calls == [dict(C=bf, B=bf, x=bf, dt=f32, csum=f32,
+                          nr=torch.int32)]
+    assert ys["pallas"].dtype == bf
+    assert torch.equal(ys["pallas"], ys["xla"])
+
+
+def test_kernel_wrappers_refuse_mixed_dtypes():
+    """C, B and x must share one dtype, f32 or bf16, and dt, csum, dy and
+    dstate be f32: the wrappers and ``ssd_chunk`` refuse anything else
+    before they look at the device; bf16 CPU tensors are refused by the
+    kernel wrappers like f32 ones."""
+    args, cot = make(11, 1, 1, 64, 2, 32, 32)
+    t = _torch(args)
+    mixed = [t[0].to(torch.bfloat16), *t[1:]]
+    for fn in (ops.ssd_chunk_fwd, ops.ssd_chunk):
+        with pytest.raises(ValueError, match="one dtype"):
+            fn(*mixed)
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.ssd_chunk_bwd(*mixed, *_torch(cot))
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.ssd_chunk(*(a.half() if k < 3 else a for k, a in enumerate(t)))
+    low = [a.to(torch.bfloat16) if k < 3 else a for k, a in enumerate(t)]
+    with pytest.raises(ValueError, match="dt must be torch.float32"):
+        ops.ssd_chunk_fwd(*low[:3], low[3].to(torch.bfloat16), *low[4:])
+    with pytest.raises(ValueError, match="dy must be torch.float32"):
+        ops.ssd_chunk_bwd(*low, cot_bf := _torch(cot)[0].bfloat16(),
+                          _torch(cot)[1])
+    assert cot_bf.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ops.ssd_chunk_fwd(*low)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ops.ssd_chunk_bwd(*low, *_torch(cot))
+
+
+@pytest.mark.parametrize("bk,g,nt,rep,sms,want", [
+    (64, 1, 4, 32, 132, 4),     # mamba2-370m's training shape: 1024 CTAs
+    (64, 1, 4, 32, 16, 1),      # a small card: the group in one part
+    (4, 1, 4, 32, 132, 32),     # too few chunks: every head its own part
+    (4, 2, 2, 4, 132, 4),
+    (16, 2, 4, 6, 132, 6),      # 6 heads: 3 parts give 384 < 528 CTAs
+])
+def test_head_parts_fill_the_card(bk, g, nt, rep, sms, want):
+    """The backward's head split: the least divisor of rep whose grid
+    reaches PART_WAVES x sms CTAs, or rep."""
+    got = ops.ssd_head_parts(bk, g, nt, rep, sms)
+    assert got == want
+    assert rep % got == 0
+
+
+def test_build_hash_covers_every_included_header(tmp_path, monkeypatch):
+    """``build.included_headers`` follows ``#include "..."`` through the
+    headers, beside the including file first and then in the shared
+    ``kernels/csrc``, so a header edit changes the library's tag; the SSD
+    source reaches the shared ``mma.cuh``, the flash source its two local
+    headers and ``mma.cuh`` through ``common.cuh``."""
+    ssd_src = Path(ops.__file__).parent / "csrc" / "ssd_chunk.cu"
+    assert [p.name for p in build.included_headers(ssd_src)] == ["mma.cuh"]
+    flash = Path(build.__file__).parent / "packed_flash" / "csrc" / "flash.cu"
+    assert [p.name for p in build.included_headers(flash)] == [
+        "common.cuh", "tiles.cuh", "mma.cuh"]
+    src = tmp_path / "k.cu"
+    src.write_text('#include "local.cuh"\n#include <cstdint>\n')
+    (tmp_path / "local.cuh").write_text('#include "mma.cuh"\nint a;\n')
+    tag0 = build.source_tag(src)
+    assert [p.name for p in build.included_headers(src)] == [
+        "local.cuh", "mma.cuh"]
+    (tmp_path / "local.cuh").write_text('#include "mma.cuh"\nint b;\n')
+    assert build.source_tag(src) != tag0
+    monkeypatch.setattr(build, "INCLUDE_DIR", tmp_path / "none")
+    with pytest.raises(FileNotFoundError, match="mma.cuh"):
+        build.included_headers(src)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("reset", RESETS)
+def test_chip_smoke_witnesses_match_oracle(reset):
+    """The witnesses ``chip_smoke.py`` sets beside mamba2's full-depth loss
+    gap compute the intra-chunk step's function, each in another
+    arithmetic: the plain version in f64, in f32 summing j in 16-row
+    blocks, and with S from the TF32 products (on the CPU, f32 ones).  On
+    bf16-rounded G-sized inputs, each within ``KERNEL_TOL`` of the JAX
+    oracle ``ref_ssd_chunk`` on the H-sized ones."""
+    cs = _chip_smoke()
+    args, _ = make(10, 2, 2, 64, 4, 32, 16, G=2, reset=reset)
+    vals, low = _bf16_values(args)
+    jargs = [jnp.asarray(a) for a in _repeat(vals, 4)]
+    y_o, st_o = (np.asarray(a) for a in _oracle(*jargs))
+    kw = dict(zip(("C", "B", "x", "dt", "csum", "nr"), low))
+    for y, st in (cs._plain64(torch, ops, **kw),
+                  cs._plain_split(torch, ops, rows=16, **kw),
+                  cs._plain_split(torch, ops, tf32=True, **kw)):
+        assert y.dtype == st.dtype == torch.float32
+        np.testing.assert_allclose(to_numpy(y), y_o, **KERNEL_TOL)
+        np.testing.assert_allclose(to_numpy(st), st_o, **KERNEL_TOL)
