@@ -33,9 +33,13 @@ Phases, each of which fails the run:
    bf16 backward repeated bitwise); the flash kernels at head_dim 256
    (f32/bf16, rep 1 and 16 over 1 kv head, causal, window 64 on ragged
    documents and window 2048 over 4096 tokens); the lru_scan forward (h)
-   and backward (da, db) over f32/bf16, S 128 to 4097 (1000 and 4097 no
-   multiple of any tile), W 128 to 4096, a = 0 at the start, mid-sequence
-   and everywhere, and a = 0.999, every output bitwise equal;
+   and backward (da, db) over f32/bf16, S 40 to 4097 (under one 64-step
+   stage, one stage minus and plus one, 1000 and 4097 no multiple of any
+   tile), W 20 to 4096 (under 32, no multiple of 32: through the TMA ring
+   or, where a row is no multiple of 16 bytes, the direct variant), B 1
+   to 3, inputs off 16-byte alignment (the direct variant), a = 0 at the
+   start, mid-sequence and everywhere, and a = 0.999, every output
+   bitwise equal, every case run twice and the runs bitwise equal;
 3. the serving slice at full width: llama3-8b in bf16 from a seeded
    generator, behind ``launch/serve.py``'s HTTP daemon, answering eight
    requests, with the launch counts read around that run, the kernel held
@@ -140,7 +144,10 @@ Phases, each of which fails the run:
    merged, no window), those of RG_REQUIRED_CONTROLS outside the limit;
 14. lru_scan timed at the first rglru layer's captured shape against its
    bound (bytes), its plain version and the SM clock (no PyTorch call
-   computes a linear recurrence: no library time); the flash kernels at
+   computes a linear recurrence: no library time), one launch and back
+   to back, its GB/s beside the card's own copy rate on the same bytes,
+   each kernel's registers (ptxas and the card), shared memory and CTAs
+   an SM; the flash kernels at
    head_dim 256 timed at the first local layer's shape as phase 8 times
    them, SDPA with the boolean window mask beside them;
 15. (run after phase 4) gemma2-2b served at full width and depth (26
@@ -1196,18 +1203,25 @@ def check_flash256_cases(torch, np, ops):
 
 
 # ---------------------------------------------------------- phase 2 (LRU)
-# (B, S, W): a length that is no multiple of the kernels' 16-step unroll
-# or the TPU's tiles (1000, 4097), the layer shape [2, 4096, 4096], narrow
-# and wide channels
+# (B, S, W): a length that is no multiple of the ring's 64-step stage or
+# the TPU's tiles (1000, 4097), the layer shape [2, 4096, 4096], narrow
+# and wide channels; then the ring's edges: S under one stage (40), one
+# stage minus and plus one (63, 65), W not a multiple of 32 (100: f32
+# rows of 400 bytes through the ring with a partial last chain, bf16
+# rows of 200 bytes through the direct variant; 72: bf16 through the
+# ring, a partial chain), W under 32 (20: f32 ring, bf16 direct; 24: both
+# through the ring), B 3
 LRU_SHAPES = ((2, 128, 128), (1, 1000, 256), (3, 4097, 384),
-              (2, 4096, 4096))
+              (2, 4096, 4096), (3, 40, 256), (1, 63, 128), (2, 65, 128),
+              (3, 1000, 100), (2, 300, 20), (3, 129, 72), (3, 100, 24))
 LRU_RESETS = ("none", "a = 0 at the start", "a = 0 mid-sequence",
               "a = 0 everywhere", "a = 0.999")
 
 
-def _lru_case(torch, seed, *, dtype, shape, reset):
+def _lru_case(torch, seed, *, dtype, shape, reset, offset=0):
     """a in (0.5, 1) (or as ``reset`` says), b and the cotangent g
-    standard normal, on the card in ``dtype``."""
+    standard normal, on the card in ``dtype``; with ``offset``, each a
+    contiguous view that starts ``offset`` values into its storage."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     a = 0.5 + 0.5 * torch.rand(shape, generator=gen, device=DEVICE)
     b = torch.randn(shape, generator=gen, device=DEVICE)
@@ -1220,7 +1234,20 @@ def _lru_case(torch, seed, *, dtype, shape, reset):
         a.zero_()
     elif reset == "a = 0.999":
         a.fill_(0.999)
+    if offset:
+        return tuple(torch.empty(x.numel() + offset, device=DEVICE,
+                                 dtype=dtype)[offset:].view(shape).copy_(x)
+                     for x in (a, b, g))
     return a.to(dtype), b.to(dtype), g.to(dtype)
+
+
+def lru_variant(x) -> str:
+    """Which kernel lru_scan.cu runs on inputs like ``x``: the TMA ring
+    takes rows of a multiple of 16 bytes at 16-byte aligned addresses,
+    the direct variant the rest."""
+    ring = x.shape[-1] * x.element_size() % 16 == 0 and \
+        x.data_ptr() % 16 == 0
+    return "ring" if ring else "direct"
 
 
 def check_lru_pair(torch, rg, a, b, g):
@@ -1246,33 +1273,53 @@ def check_lru_pair(torch, rg, a, b, g):
 
 def check_lru_cases(torch, rg):
     """Phase 2: the lru_scan kernels against their plain versions: f32 and
-    bf16, every shape of LRU_SHAPES, every reset pattern of LRU_RESETS.
-    f32 h within 1e-5 x max(1, max |h|), gradients as the other kernels',
-    and every output bitwise equal: both versions take the same steps,
-    each a product and a sum rounded separately."""
+    bf16, every shape of LRU_SHAPES, every reset pattern of LRU_RESETS,
+    and each dtype once more on inputs one value off 16-byte alignment
+    (the direct variant).  f32 h within 1e-5 x max(1, max |h|), gradients
+    as the other kernels', and every output bitwise equal: both versions
+    take the same steps, each a product and a sum rounded separately.
+    Every case runs the kernels twice, and the two runs must be bitwise
+    equal."""
     worst_fwd = worst_bwd = 0.0
-    n = n_bitwise = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for shape in LRU_SHAPES:
-            for reset in LRU_RESETS:
-                a, b, g = _lru_case(torch, 900 + n, dtype=dtype, shape=shape,
-                                    reset=reset)
-                e_f, e_b, bitwise, ok = check_lru_pair(torch, rg, a, b, g)
-                if not ok:
-                    raise SystemExit(
-                        f"lru_scan disagrees: dtype={dtype} shape={shape} "
-                        f"reset={reset} fwd err {e_f} grad err {e_b}")
-                if dtype == torch.float32:
-                    worst_fwd = max(worst_fwd, e_f)
-                    worst_bwd = max(worst_bwd, e_b)
-                n += 1
-                n_bitwise += bitwise
+    n = n_bitwise = n_again = 0
+    variants = {"ring": 0, "direct": 0}
+    cases = [(dtype, shape, reset, 0)
+             for dtype in (torch.float32, torch.bfloat16)
+             for shape in LRU_SHAPES for reset in LRU_RESETS]
+    cases += [(dtype, (3, 1000, 256), "a = 0 mid-sequence", 1)
+              for dtype in (torch.float32, torch.bfloat16)]
+    for dtype, shape, reset, offset in cases:
+        a, b, g = _lru_case(torch, 900 + n, dtype=dtype, shape=shape,
+                            reset=reset, offset=offset)
+        e_f, e_b, bitwise, ok = check_lru_pair(torch, rg, a, b, g)
+        if not ok:
+            raise SystemExit(
+                f"lru_scan disagrees: dtype={dtype} shape={shape} "
+                f"reset={reset} offset={offset} fwd err {e_f} grad err "
+                f"{e_b}")
+        runs = []
+        for _ in range(2):
+            h = rg.lru_scan_fwd(a, b)
+            runs.append((h, *rg.lru_scan_bwd(a, h, g)))
+        again = all(torch.equal(x, y) for x, y in zip(*runs))
+        if dtype == torch.float32:
+            worst_fwd = max(worst_fwd, e_f)
+            worst_bwd = max(worst_bwd, e_b)
+        n += 1
+        n_bitwise += bitwise
+        n_again += again
+        variants[lru_variant(a)] += 1
     log(f"phase 2: lru_scan fwd + bwd kernels == plain versions in {n} "
-        f"cases (f32 max |err| h {worst_fwd:.3e}, grads {worst_bwd:.3e}); "
-        f"bitwise equal (h, da, db) in {n_bitwise} of {n} (required: all)")
+        f"cases ({variants['ring']} through the TMA ring, "
+        f"{variants['direct']} through the direct variant; f32 max |err| h "
+        f"{worst_fwd:.3e}, grads {worst_bwd:.3e}); bitwise equal (h, da, "
+        f"db) in {n_bitwise} of {n}, repeats bitwise equal in {n_again} of "
+        f"{n} (required: all)")
     if n_bitwise != n:
         raise SystemExit("lru_scan: the kernels and the plain versions take "
                          "the same rounded steps, yet their bits differ")
+    if n_again != n:
+        raise SystemExit("lru_scan: a repeated run changed its bits")
     return worst_fwd, worst_bwd, True
 
 
@@ -2184,7 +2231,7 @@ KERNEL_FAMILIES = (
      r"(ssd_(?:fwd|bwd_dc|bwd_dbx|fwd_mma|bwd_part|bwd_fold|dcsum))_kernel"),
     ("flash kernels",
      r"(flash_(?:fwd|bwd_dq|bwd_dkv|fwd_mma|dq_mma|dkv_mma))_kernel"),
-    ("LRU kernels", r"(lru_scan_(?:fwd|bwd))_kernel"),
+    ("LRU kernels", r"(lru_scan_(?:fwd|bwd))(?:_direct)?_kernel"),
     ("CA-server kernels",
      r"(ca_(?:fwd|bwd_dq|bwd_dkv|fwd_mma|dq_mma|dkv_mma))_kernel"),
     ("ragged_decode kernels", r"(ragged_(?:mma|f32))_kernel"),
@@ -3209,22 +3256,49 @@ def rg_xla_route(torch, rg, ops, ssd, card, kernel_steps):
 
 
 # ----------------------------------------------------------- phase 14
-def lru_kernel_times(torch, rg, inp, card):
+def lru_build_report(torch, build, rg, dtype):
+    """Each lru_scan kernel in ``dtype``: ptxas's registers and spills (the
+    build's report) and, on the card, its registers, shared memory a CTA
+    (the ring's included) and CTAs resident an SM."""
+    import re
+    info = rg.kernel_info(dtype)
+    report = build.build_info["lru_scan"][1].splitlines()
+    tag = "f" if dtype == torch.float32 else "13__nv_bfloat16"
+    for name in info:
+        for i, line in enumerate(report):
+            if re.search(rf"\d{name}I{tag}E", line):
+                used = next((x for x in report[i + 1:i + 4]
+                             if "registers" in x), "")
+                spill = next((x for x in report[i + 1:i + 4]
+                              if "spill" in x), "")
+                info[name]["ptxas"] = " ".join(
+                    re.sub(r"ptxas info\s*:", "", x).strip()
+                    for x in (used, spill) if x)
+    return info
+
+
+def lru_kernel_times(torch, rg, inp, card, build):
     """Phase 14: the lru_scan kernels at the first rglru layer's captured
     shape: kernel (CUDA-event medians, the SM clock sampled meanwhile),
     plain version and the bound (bytes: every input read once, every
-    output written once).  No single PyTorch call computes a first-order
-    linear recurrence, so there is no library time."""
+    output written once), the achieved rate beside the card's own
+    device-to-device copy rate on the same bytes
+    (``torch.empty_like(a).copy_(a)``: what the card attains, under the
+    data sheet's 3.35 TB/s), each kernel's registers and shared memory.
+    No single PyTorch call computes a first-order linear recurrence, so
+    there is no library time."""
     a, b = inp["a"].contiguous(), inp["bterm"].contiguous()
     gen = torch.Generator(device=DEVICE).manual_seed(14)
     g = torch.randn(a.shape, generator=gen, device=DEVICE)
     h = rg.lru_scan_fwd(a, b)
     sampler = sm_clocks_start()
     try:
-        # ~1 ms a launch: 1000 launches keep the card busy long enough
+        # ~0.2 ms a launch: 1000 launches keep the card busy long enough
         # for the sampler's 100 ms samples
         t = {"fwd": cuda_ms(lambda: rg.lru_scan_fwd(a, b), iters=1000),
-             "bwd": cuda_ms(lambda: rg.lru_scan_bwd(a, h, g), iters=1000)}
+             "bwd": cuda_ms(lambda: rg.lru_scan_bwd(a, h, g), iters=1000),
+             "copy": cuda_ms(lambda: torch.empty_like(a).copy_(a),
+                             iters=1000)}
     except BaseException:
         sampler.kill()
         raise
@@ -3234,20 +3308,46 @@ def lru_kernel_times(torch, rg, inp, card):
     t["plain_bwd"] = cuda_ms(lambda: rg.lru_scan_bwd_reference(a, h, g),
                              iters=3, warmup=1)
     t["fwd_repeat"] = cuda_ms(lambda: rg.lru_scan_fwd(a, b))
+    # the card's own time, without the wrapper's host time between two
+    # events around one launch
+    t["fwd_b2b"] = cuda_ms_back_to_back(lambda: rg.lru_scan_fwd(a, b))
+    t["bwd_b2b"] = cuda_ms_back_to_back(lambda: rg.lru_scan_bwd(a, h, g))
+    t["copy_b2b"] = cuda_ms_back_to_back(
+        lambda: torch.empty_like(a).copy_(a))
     el = a.element_size()
     fwd_w = (3 * a.numel() * el, 2.0 * a.numel())
     bwd_w = (5 * a.numel() * el, 3.0 * a.numel())
     f_bound = _bound(*fwd_w, peak_flops=F32_FMA_FLOPS)
     b_bound = _bound(*bwd_w, peak_flops=F32_FMA_FLOPS)
+    # GB/s = bytes / ms / 1e6, of one launch and back to back
+    copy_w = 2 * a.numel() * el
+    for k, nbytes in (("fwd", fwd_w[0]), ("bwd", bwd_w[0]),
+                      ("copy", copy_w)):
+        t[k + "_gbs"] = nbytes / t[k] / 1e6
+        t[k + "_b2b_gbs"] = nbytes / t[k + "_b2b"] / 1e6
+    t["info"] = lru_build_report(torch, build, rg, a.dtype)
     log(f"phase 14: lru_scan at rglru layer 0's shape (a/b {tuple(a.shape)} "
         f"{a.dtype}): fwd kernel {t['fwd']:.4f} / {t['fwd_repeat']:.4f} ms "
-        f"= {fwd_w[0] / t['fwd'] / 1e9:.1f} GB/s (bound {f_bound[0]:.4f} ms "
-        f"{f_bound[1]}: {fwd_w[0] / 1e6:.1f} MB), plain {t['plain_fwd']:.3f}"
-        f"; bwd kernel {t['bwd']:.4f} ms = {bwd_w[0] / t['bwd'] / 1e9:.1f} "
-        f"GB/s (bound {b_bound[0]:.4f} ms {b_bound[1]}: {bwd_w[0] / 1e6:.1f}"
-        f" MB), plain {t['plain_bwd']:.3f}; library: none; SM clock "
+        f"(back to back {t['fwd_b2b']:.4f}) = {t['fwd_gbs']:.1f} GB/s "
+        f"({t['fwd_b2b_gbs']:.1f} back to back) "
+        f"(bound {f_bound[0]:.4f} ms "
+        f"{f_bound[1]}: {fwd_w[0] / 1e6:.1f} MB; share "
+        f"{f_bound[0] / t['fwd']:.3f}), plain {t['plain_fwd']:.3f}; bwd "
+        f"kernel {t['bwd']:.4f} ms (back to back {t['bwd_b2b']:.4f}) = "
+        f"{t['bwd_gbs']:.1f} GB/s ({t['bwd_b2b_gbs']:.1f} back to back) "
+        f"(bound "
+        f"{b_bound[0]:.4f} ms {b_bound[1]}: {bwd_w[0] / 1e6:.1f} MB; share "
+        f"{b_bound[0] / t['bwd']:.3f}), plain {t['plain_bwd']:.3f}; the "
+        f"card's copy of a ({copy_w / 1e6:.1f} MB moved) {t['copy']:.4f} ms"
+        f" (back to back {t['copy_b2b']:.4f}) = {t['copy_gbs']:.1f} GB/s "
+        f"({t['copy_b2b_gbs']:.1f} back to back) against the data "
+        f"sheet's {HBM_BYTES_PER_S / 1e9:.0f}; library: none; SM clock "
         f"{clocks[0]:.0f} / {clocks[1]:.0f} / {clocks[2]:.0f} MHz (min / "
         f"median / max), power draw up to {clocks[3]:.1f} W [{card}]")
+    for name, k in t["info"].items():
+        log(f"  {name}: {k['registers']} registers, {k['smem_bytes']} B "
+            f"shared a CTA, {k['ctas_per_sm']} CTAs an SM; ptxas: "
+            f"{k.get('ptxas', 'not in the report')}")
     return t, f_bound, b_bound
 
 
@@ -3709,7 +3809,7 @@ def main(argv=None) -> int:
             train_recurrentgemma(torch, ops, rg, ssd, card)
         rg_errs = check_captured_rg(torch, ops, rg, rg_captured, rg_cfg)
         t, f_bound, b_bound = lru_kernel_times(torch, rg, rg_captured[0],
-                                               card)
+                                               card, build)
         local0 = min(k for k, v in rg_captured.items() if "q" in v)
         t2, f2_bound, b2_bound, pairs = flash_kernel_times(
             torch, ops, rg_captured[local0], card, window=rg_cfg.window,
@@ -3724,15 +3824,24 @@ def main(argv=None) -> int:
         no_library = ("no single PyTorch call computes a first-order linear "
                       "recurrence")
         shape = "rglru layer 0 of step 0: a, bterm [2, 4096, 4096] f32"
+        copy = dict(ms=t["copy"], gb_per_s=t["copy_gbs"],
+                    ms_back_to_back=t["copy_b2b"],
+                    gb_per_s_back_to_back=t["copy_b2b_gbs"])
         lru_f.update(launches=lru_launches["lru_scan_fwd"], ms=t["fwd"],
                      ms_repeat=t["fwd_repeat"], plain_ms=t["plain_fwd"],
                      bound_ms=f_bound[0], bound_by=f_bound[1],
                      library_ms=None, library_note=no_library, shape=shape,
+                     gb_per_s=t["fwd_gbs"], ms_back_to_back=t["fwd_b2b"],
+                     card_copy=copy,
+                     kernel_info=t["info"]["lru_scan_fwd_kernel"],
                      captured_max_abs_err=max(e for e, _ in rg_errs["lru"]))
         lru_b.update(launches=lru_launches["lru_scan_bwd"], ms=t["bwd"],
                      plain_ms=t["plain_bwd"], bound_ms=b_bound[0],
                      bound_by=b_bound[1], library_ms=None,
                      library_note=no_library, shape=shape,
+                     gb_per_s=t["bwd_gbs"], ms_back_to_back=t["bwd_b2b"],
+                     card_copy=copy,
+                     kernel_info=t["info"]["lru_scan_bwd_kernel"],
                      captured_max_abs_err=max(e for _, e in rg_errs["lru"]),
                      train=dict({k: [s[k] for s in rg_steps]
                                  for k in ("loss", "step_s", "peak_gib")},

@@ -27,6 +27,17 @@ The plain forward under autograd is also the recurrence of the model's
 ``xla`` route (the counterpart of the reference's
 ``jax.lax.associative_scan``).
 
+The scan moves bytes: two products a value.  On the card one warp walks
+32 channels of a batch row (lane = channel) while a producer warp of the
+same CTA keeps a ring of 64-step stages (~96 KB) full in shared memory,
+one TMA load of a [64, 32] box of each input a stage, completing on
+mbarriers, so that enough bytes are in flight to reach the card's memory
+rate.  Inputs a tensor map cannot take (W·itemsize not a multiple of 16
+bytes, or an input not 16-byte aligned) run a direct variant whose lanes
+load ahead into registers; the C side picks the variant, the steps are
+the same.  ``kernel_info`` reports each kernel's registers, shared memory
+and resident CTAs an SM.
+
 On CUDA tensors a wrapper launches its kernel (built with ``nvcc`` at
 first use) or raises; on CPU tensors it runs the plain version.  There
 is no other route.
@@ -187,10 +198,28 @@ def load_library() -> ctypes.CDLL:
     lib = build.load("lru_scan", _SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     dims = [i32] * 4 + [ptr]            # B, S, W, dtype, stream
-    for name, ptrs in (("lru_scan_fwd", [ptr] * 3),
-                       ("lru_scan_bwd", [ptr] * 5)):
+    for name, args in (("lru_scan_fwd", [ptr] * 3 + dims),
+                       ("lru_scan_bwd", [ptr] * 5 + dims),
+                       ("lru_scan_kernel_info", [i32, ptr])):
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = ptrs + dims
+            fn.argtypes = args
             fn.restype = ctypes.c_int
     return lib
+
+
+#: the kernels ``kernel_info`` describes, in the C side's order
+KERNELS = ("lru_scan_fwd_kernel", "lru_scan_bwd_kernel",
+           "lru_scan_fwd_direct_kernel", "lru_scan_bwd_direct_kernel")
+
+
+def kernel_info(dtype: torch.dtype) -> dict:
+    """For each kernel of ``KERNELS`` in ``dtype`` (f32 or bf16), on the
+    current CUDA device: registers a thread, shared memory a CTA (bytes,
+    the ring's included) and CTAs resident an SM."""
+    out = (ctypes.c_int * (3 * len(KERNELS)))()
+    _raise_on(load_library().lru_scan_kernel_info(_DTYPES[dtype], out),
+              "lru_scan_kernel_info")
+    return {k: dict(registers=out[3 * i], smem_bytes=out[3 * i + 1],
+                    ctas_per_sm=out[3 * i + 2])
+            for i, k in enumerate(KERNELS)}

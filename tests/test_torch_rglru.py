@@ -13,6 +13,8 @@ tile's rows as a log-depth prefix, the plain version steps one row at a
 time: other rounding, growing with |h|); gradients within 1e-4 x max(1,
 max |grad|); the layer functions ``MODEL_TOL``."""
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -57,12 +59,28 @@ def _tol(ref, rel):
     return rel * max(1.0, float(np.abs(ref).max()))
 
 
-@pytest.mark.parametrize("reset", RESETS)
-def test_plain_forward_matches_tpu_kernel(reset):
+# the card's ring edges that the TPU kernel also takes (S under 256 or a
+# multiple of it, W under 128 or a multiple of it), one reset pattern
+# each: S under one 64-step stage, one stage minus and plus one, W not a
+# multiple of 32, W under 32, B 3; the kernels must equal the plain
+# versions bitwise on them (chip_smoke.py's phase 2)
+EDGE_SHAPES = ((3, 100, 100), (1, 65, 128), (2, 63, 24), (1, 40, 100))
+
+
+def _cases(shape):
+    """The five reset patterns at ``shape`` (ids: the pattern), then each
+    edge shape of EDGE_SHAPES with resets mid-sequence."""
+    return [pytest.param(shape, r, id=r) for r in RESETS] + [
+        pytest.param(e, "mid-sequence", id="x".join(map(str, e)))
+        for e in EDGE_SHAPES]
+
+
+@pytest.mark.parametrize("shape,reset", _cases((1, 512, 256)))
+def test_plain_forward_matches_tpu_kernel(shape, reset):
     """The plain forward against the TPU kernel in interpret mode (S 512:
-    two sequence tiles, the carry between them; W 256: two channel tiles)
-    and the oracle."""
-    a, b, _ = make(1, 1, 512, 256, reset)
+    two sequence tiles, the carry between them; W 256: two channel tiles;
+    then the edge shapes, one tile each) and the oracle."""
+    a, b, _ = make(1, *shape, reset)
     got = to_numpy(ops.lru_scan_fwd_reference(to_torch(a), to_torch(b)))
     want = np.asarray(K.lru_scan(jnp.asarray(a), jnp.asarray(b),
                                  interpret=True))
@@ -71,11 +89,11 @@ def test_plain_forward_matches_tpu_kernel(reset):
         np.testing.assert_allclose(got, ref, rtol=0, atol=_tol(ref, 1e-5))
 
 
-@pytest.mark.parametrize("reset", RESETS)
-def test_lru_scan_gradients_match_jax_vjp(reset):
+@pytest.mark.parametrize("shape,reset", _cases((2, 256, 128)))
+def test_lru_scan_gradients_match_jax_vjp(shape, reset):
     """``lru_scan``'s autograd (the plain backward on CPU tensors) against
     ``jax.vjp`` of the reference's custom-VJP ``lru_scan``."""
-    a, b, g = make(2, 2, 256, 128, reset)
+    a, b, g = make(2, *shape, reset)
     h_j, vjp = jax.vjp(JO.lru_scan, jnp.asarray(a), jnp.asarray(b))
     da_j, db_j = (np.asarray(x) for x in vjp(jnp.asarray(g)))
     at, bt = to_torch(a).requires_grad_(), to_torch(b).requires_grad_()
@@ -142,6 +160,31 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ops.lru_scan_bwd(a, b, g)
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.lru_scan(a.to("meta"), b.to("meta"))
+
+
+def test_chip_smoke_lru_cases_reach_both_variants():
+    """``chip_smoke.py``'s phase 2 sends each dtype through both kernels
+    of ``lru_scan.cu``: ``lru_variant`` (the C side's rule: inputs whose
+    rows are a multiple of 16 bytes at 16-byte aligned addresses take the
+    TMA ring) names the ring for the layer shape, the direct variant for
+    bf16 rows of 100 values and for inputs one value off alignment, and
+    every S of ``EDGE_SHAPES`` is among phase 2's shapes."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    for dtype in (torch.float32, torch.bfloat16):
+        off = torch.empty(257, dtype=dtype)[1:].view(1, 1, 256)
+        assert off.is_contiguous() and cs.lru_variant(off) == "direct"
+        seen = {cs.lru_variant(torch.empty((1, 1, w), dtype=dtype))
+                for _, _, w in cs.LRU_SHAPES}
+        assert seen | {cs.lru_variant(off)} == {"ring", "direct"}, dtype
+        assert cs.lru_variant(torch.empty((1, 1, 4096), dtype=dtype)) == \
+            "ring"
+    assert cs.lru_variant(torch.empty((1, 1, 100))) == "ring"
+    assert cs.lru_variant(torch.empty((1, 1, 100),
+                                      dtype=torch.bfloat16)) == "direct"
+    assert {s for _, s, _ in EDGE_SHAPES} <= {s for _, s, _ in cs.LRU_SHAPES}
 
 
 def test_clip_gradient_is_jax_clip():
