@@ -19,7 +19,11 @@ Phases, each of which fails the run:
    head_dim 64/128/192/256, blocks 64/128, GQA factors 1/3/4, ragged and
    overlapping kv ranges, a zero-length task, padded rows, jmax < N, and
    causal / sliding-window+sink / dilated / softcap masks, every bf16
-   backward repeated and bitwise equal to its first call; the flash
+   backward repeated and bitwise equal to its first call; in every CA
+   case the forward over kv-block ranges of 1, 2, 3 and 4 blocks with
+   the carry threaded (``ca_server_fwd_range``) against its plain version
+   and bitwise equal to the unstreamed kernel, and the backward with an lse cotangent (``g_lse``)
+   against its plain version, a bf16 one repeated bitwise; the flash
    forward and backward over f32/bf16, head_dim 64/128/192, GQA 1/4,
    ragged documents with padding, causal / non-causal / window /
    window+sink / dilated masks, softcap 0/50, every bf16 backward repeated
@@ -167,7 +171,39 @@ Phases, each of which fails the run:
    global layers x {2, 1, 1} a step and no other kernel, the step-0 loss
    bitwise equal under ``identity`` and ``balanced``, the kernels held
    against their plain versions on the first global layer's server
-   batches (backward repeated bitwise) and timed there.
+   batches (backward repeated bitwise) and timed there;
+17. (run after phase 6) the decomposed dispatch and the ring baseline at
+   llama3-8b width, on phase 5's captured layer-0 q/k/v, segment ids and
+   plan (4 servers, jmax 32), with the launch counts read around it:
+   ``build_server_inputs`` -> ``serve_task_batch`` ->
+   ``assemble_step_outputs`` bitwise equal to ``_global_sim``; server 1
+   dropped, re-served and merged (``merge_recovered``) bitwise equal to
+   the fault-free output; streamed serves in ranges of 1, 4, 7 and 32 kv
+   blocks bitwise equal to unstreamed; ``ring_attention`` bitwise equal
+   to ``ring_global_sim``, forward and gradients, and within
+   RING_GAP_LIMIT of CAD (its gradients within RING_GRAD_GAP_LIMIT) while
+   the control of RING_REQUIRED_CONTROLS (a ring pass dropped) falls
+   outside both; the range forward at 4 kv blocks a range and the
+   ``g_lse`` backward on phase 6's batches held against their plain
+   versions (the latter repeated bitwise); then CAD's per-server serves
+   timed against the ring's passes and merges (fwd, fwd+bwd; the ring
+   is an unfused baseline, its eager f32 merges over every task slot,
+   so its times are an upper bound), one ring forward traced by kernel
+   family, the streamed forward at each range size against the
+   unstreamed one (the bound counting the carries), and the ``g_lse``
+   backward timed;
+18. (run after phase 17) phase 5's configuration with ``calibrate=True``
+   and ``calibrate_every=1``, 3 steps: each step's plan probed in bf16
+   on the card after the step (``probe_plan_times``) and fed to the
+   calibrator; the step-0 loss bitwise equal to phase 5's, launches =
+   phase 5's + the probe's 5 forwards, later plans carrying their
+   ``calib_version``; the fitted grid cells logged beside the analytic
+   model's prediction, and the per-server speeds.  Then the witness for
+   its later losses: the steps whose calibrated plan differs from the
+   uncalibrated planner's on the same batch are listed, and the
+   calibrated run's batches and plans replayed through an uncalibrated
+   session (no calibrator, no probe) must give its losses bitwise: the
+   plans alone decide them.
 
 Kernels timed twice (the forward kernels, before and after the library
 call) report the first median as ``ms`` and the second as ``ms_repeat``.
@@ -934,6 +970,9 @@ CA_MASKS = {"causal": dict(),
             "dilated": dict(rate=2),
             "softcap": dict(softcap=30.0)}
 CA_JMAX = 4            # below N, and below some tasks' kv_len
+# kv blocks a range of the range/carry forward in phase 2: every range
+# size up to jmax (CA_JMAX: one finalizing range)
+CA_CHUNKS = (1, 2, 3, CA_JMAX)
 
 
 def _ca_case(torch, np, seed, *, dtype, dh, blk, rep, mask, hkv=2, T=7,
@@ -1016,12 +1055,64 @@ def check_ca_pair(torch, ops, args, opts, do):
     return max(e_out, e_lse), max(e for e, _ in g_errs), ok
 
 
+def same_bits(torch, a, b) -> bool:
+    """Bitwise equality of two tensors (-0.0 and 0.0 differ)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def check_ca_range_glse(torch, ops, args, opts, do, gen):
+    """The two extensions of this slice on one case: the range/carry
+    forward at every chunk of CA_CHUNKS, held against its plain version
+    (the plain ranges at the same chunk) at the forward tolerances and
+    required to give the unstreamed kernel's out and lse bitwise; the
+    backward with an lse cotangent (``g_lse``, a ring partial's) against
+    its plain version at the gradient tolerances, a bf16 one repeated
+    bitwise.  Returns (range fwd err, grad err, ok, range/carry forward
+    bitwise)."""
+    dtype = args["q_tasks"].dtype
+    kw = dict(args, **opts)
+    want = ops.ca_server_fwd(**kw)
+    bitwise, f_errs = True, []
+    for chunk in CA_CHUNKS:
+        got = ops.ca_server_fwd_chunked(**kw, chunk_blocks=chunk)
+        plain = ops.ca_server_fwd_chunked(
+            **kw, chunk_blocks=chunk,
+            fwd_range=ops.ca_server_fwd_range_reference)
+        bitwise = bitwise and all(same_bits(torch, a, b)
+                                  for a, b in zip(got, want))
+        f_errs += [_max_err(torch, got[0], plain[0], dtype),
+                   _max_err(torch, got[1], plain[1].float(), dtype)]
+    ref_out, ref_lse = ops.ca_server_fwd_reference(**kw)
+    t, blk, hq, _ = args["q_tasks"].shape
+    g_lse = torch.randn((t, hq, blk), generator=gen, device=DEVICE)
+    bwd_in = (args["q_tasks"], args["k_buf"], args["v_buf"], ref_out,
+              ref_lse.float().contiguous(), do, args["kv_start"],
+              args["kv_len"], args["q_pos"], args["kv_pos"])
+    got = ops.ca_server_bwd(*bwd_in, **opts, g_lse=g_lse)
+    ref = ops.ca_server_bwd_reference(*bwd_in, **opts, g_lse=g_lse)
+    again = (all(same_bits(torch, a, b) for a, b in zip(
+        got, ops.ca_server_bwd(*bwd_in, **opts, g_lse=g_lse)))
+        if dtype == torch.bfloat16 else True)
+    torch.cuda.synchronize()
+    g_errs = [_grad_err(torch, a, b, dtype) for a, b in zip(got, ref)]
+    ok = bitwise and again and all(o for _, o in f_errs + g_errs)
+    return (max(e for e, _ in f_errs), max(e for e, _ in g_errs), ok,
+            bitwise)
+
+
 def check_ca_server_cases(torch, np, ops):
     """Phase 2: the CA-server kernels against their plain versions: f32
     and bf16, head_dim 64, 128, 192 and 256, blocks 64 and 128, GQA 1, 3
-    and 4, the four masks.  Returns the worst (fwd, grad) errors by dtype
-    name."""
-    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    and 4, the four masks; in each case also the range/carry forward
+    (against its plain version, and bitwise against the unstreamed
+    kernel) and the ``g_lse`` backward.  Returns the worst (fwd, grad,
+    g_lse grad, range fwd) errors by dtype name, and under
+    ``range_bitwise`` the cases whose range forward was bitwise equal to
+    the unstreamed kernel's beside the cases run."""
+    worst = {"float32": [0.0] * 4, "bfloat16": [0.0] * 4}
+    n_bitwise = 0
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for dh in ops.CA_HEAD_DIMS:
@@ -1033,14 +1124,20 @@ def check_ca_server_cases(torch, np, ops):
                                                   mask=mask)
                         e_f, e_b, ok = check_ca_pair(torch, ops, args, opts,
                                                      do)
-                        if not ok:
+                        e_r, e_g, ok_g, bitwise = check_ca_range_glse(
+                            torch, ops, args, opts, do, gen)
+                        if not (ok and ok_g):
                             raise SystemExit(
                                 f"ca_server disagrees: dtype={dtype} dh={dh}"
                                 f" blk={blk} rep={rep} mask={mask} fwd err "
-                                f"{e_f} grad err {e_b}")
+                                f"{e_f} grad err {e_b} range fwd err {e_r} "
+                                f"g_lse grad err {e_g} range/carry forward "
+                                f"bitwise {bitwise}")
                         w = worst[str(dtype).split(".")[-1]]
-                        w[0], w[1] = max(w[0], e_f), max(w[1], e_b)
+                        for i, e in enumerate((e_f, e_b, e_g, e_r)):
+                            w[i] = max(w[i], e)
                         n += 1
+                        n_bitwise += bitwise
     f32, bf = worst["float32"], worst["bfloat16"]
     log(f"phase 2: ca_server fwd + bwd kernels == plain versions in {n} "
         f"cases, head_dim {'/'.join(map(str, ops.CA_HEAD_DIMS))} (f32 max "
@@ -1048,6 +1145,13 @@ def check_ca_server_cases(torch, np, ops):
         f"{CA_GRAD_RTOL} x max(1, max |grad|); bf16 max |err| out/lse "
         f"{bf[0]:.3e}, grads {bf[1]:.3e}, within atol=rtol={BF16_ATOL}; "
         f"bf16 backward repeated bitwise)")
+    log(f"phase 2: ca_server_fwd_range in ranges of {CA_CHUNKS} kv blocks "
+        f"== plain version (f32 max |err| out/lse {f32[3]:.3e}, bf16 "
+        f"{bf[3]:.3e}, same tolerances) and == the unstreamed kernel "
+        f"bitwise (out and lse) in all {n} cases; the g_lse backward == "
+        f"plain version (f32 grads {f32[2]:.3e}, bf16 {bf[2]:.3e}, same "
+        f"tolerances; bf16 repeated bitwise)")
+    worst["range_bitwise"] = [n_bitwise, n]
     return worst
 
 
@@ -1800,6 +1904,453 @@ def ca_kernel_times(torch, ops, per_server, inp, card, softcap=0.0,
         f"{b_bound[0]:.4f} ms, {b_bound[1]}: {tot['bwd_bytes'] / 1e6:.1f} "
         f"MB, {tot['bwd_flops'] / 1e9:.1f} GFLOP) [{card}]")
     return tot, f_bound, b_bound
+
+
+# ----------------------------------------------------------- phase 17
+# The streamed serve's range sizes at llama3-8b's jmax 32 (and jmax
+# itself: one finalizing range); STREAM_MAIN_CHUNK is the one whose time
+# the kernels line reports.
+STREAM_CHUNKS = (1, 4, 7)
+STREAM_MAIN_CHUNK = 4
+# The ring against CAD on layer 0 in bf16: both serve the same pairs, but
+# the ring rounds each pass's partial output to bf16 before the merge, so
+# the two differ by a few bf16 steps of the output.  The gap is max |ring
+# - CAD| / max |CAD| over the layer's output: 1.016e-3 on an H100 80GB
+# HBM3 (700 W) (the kernels are deterministic and the batch seeded); the
+# limit is 1.5x that.  A fault control (the ring with its second pass
+# dropped: the kv of that shard never attended; 1.199 there) must fall
+# outside it.  The gradients' gaps, max |ring - CAD| / max |CAD| of dq,
+# dk and dv, were 1.786e-3, 4.878e-3 and 5.291e-3 in the same runs; their
+# limit is 1.5x the largest, with the same control required outside it.
+RING_GAP_LIMIT = 1.5e-3
+RING_GRAD_GAP_LIMIT = 8e-3
+RING_REQUIRED_CONTROLS = ("a ring pass dropped",)
+
+
+def _server_lost_blocks(np, dispatch, cfg, plan, server):
+    """[D, NB] boolean: the q blocks whose task runs on ``server``."""
+    plan_np = dispatch._plan_numpy(plan)
+    lost = np.zeros(cfg.n_servers * cfg.nb, bool)
+    for slot in range(plan_np["task_kv_len"].shape[1]):
+        g = dispatch._plan_task_q_block(cfg, plan_np, server, slot)
+        if g is not None:
+            lost[g] = True
+    return lost.reshape(cfg.n_servers, cfg.nb)
+
+
+def _traced_breakdown(fn):
+    """``device_breakdown`` of one call of ``fn`` traced with
+    ``torch.profiler``, after an untraced warm-up call; a window with no
+    device event is traced again (PROFILE_WINDOWS)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        if any(e.device_type == DeviceType.CUDA for e in events):
+            return device_breakdown(events)
+    raise SystemExit(f"phase 17: the profiler recorded no device time in "
+                     f"{PROFILE_WINDOWS} windows")
+
+
+def _carry_bytes(torch, b, chunk, jmax):
+    """Bytes a streamed serve must move for its carries at ``chunk``: at
+    each range boundary inside a task's kv range, the online-softmax
+    state of its live q rows (m, l and dh accumulators in f32 per q head)
+    stored once and loaded once."""
+    kvl = torch.clamp(b["kv_len"].long(), max=jmax)
+    crossings = torch.clamp((kvl + chunk - 1) // chunk - 1, min=0)
+    live_rows = (b["q_pos"] >= 0).sum(1)
+    _, _, hq, dh = b["q_tasks"].shape
+    return int((crossings * live_rows).sum()) * hq * (dh + 2) * 4 * 2
+
+
+def dispatch_and_ring(torch, np, ops, inp, per_server, card):
+    """Phase 17: this slice's path at llama3-8b width, on phase 5's
+    captured layer-0 q/k/v, segment ids and plan (4 servers, jmax 32),
+    through the entry points a user calls: the decomposed dispatch
+    (``build_server_inputs`` -> ``serve_task_batch`` ->
+    ``assemble_step_outputs``) bitwise equal to ``_global_sim``; one
+    server dropped, re-served and merged (``merge_recovered``) bitwise
+    equal to the fault-free output; streamed serves (``stream_chunk``
+    1/4/7 and the explicit call at 32) bitwise equal to unstreamed;
+    ``ring_attention`` bitwise equal to ``ring_global_sim``, forward and
+    gradients, and within RING_GAP_LIMIT of CAD with its control
+    outside.  The launch counts are read around that run.  Then the
+    times: CAD's per-server serves against the ring's passes and merges
+    (fwd, fwd+bwd), the streamed forward at each chunk against the
+    unstreamed one, and the g_lse backward on phase 6's server batches."""
+    from repro_torch.core import dispatch as D
+    cad = inp["ctx"].cad
+    plan, cfg = cad.plan, cad.cfg
+    d, jmax = cfg.n_servers, cad.jmax or cfg.nkv
+    pos = torch.where(inp["segment_ids"] > 0, inp["positions"], -1) \
+        .to(torch.int32)
+    segs = inp["segment_ids"].cpu().numpy().reshape(d, -1)
+    q, k, v = (inp[n].detach() for n in "qkv")
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    g = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
+    checks = {}
+
+    def with_grads(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves)
+        return out, torch.autograd.grad(out, leaves, g)
+
+    ops.reset_launches()
+    with torch.no_grad():
+        inputs, plans_r = D.build_server_inputs(cad, plan, q, k, v, pos)
+        outs = {s: D.serve_task_batch(cad, inputs[s], plans_r[s])
+                for s in range(d)}
+        dec = D.assemble_step_outputs(cfg, plan, outs, q.shape, q.dtype)
+        sim = D._global_sim(q, k, v, pos, plan, cad, 0.0, None)
+        checks["decomposed == _global_sim"] = same_bits(torch, dec, sim)
+        lost = _server_lost_blocks(np, D, cfg, plan, 1)
+        base = D.assemble_step_outputs(
+            cfg, plan, {s: o for s, o in outs.items() if s != 1}, q.shape,
+            q.dtype)
+        again = D.serve_task_batch(cad, inputs[1], plans_r[1])
+        rec = D.assemble_step_outputs(cfg, plan, {1: again}, q.shape,
+                                      q.dtype)
+        checks["merge_recovered (server 1 dropped) == fault-free"] = \
+            same_bits(torch, D.merge_recovered(cfg, base, rec, lost), dec) \
+            and not same_bits(torch, base, dec)
+        for chunk in STREAM_CHUNKS + (jmax,):
+            streamed = {s: (D.serve_task_batch(cad, inputs[s], plans_r[s],
+                                               stream_chunk=chunk)
+                            if chunk < jmax else
+                            D.stream_task_batch(cad, inputs[s], plans_r[s],
+                                                chunk_blocks=chunk))
+                        for s in range(d)}
+            checks[f"streamed at chunk {chunk} == unstreamed"] = all(
+                same_bits(torch, streamed[s], outs[s]) for s in range(d))
+    pass_plans = D.ring_pass_geometry(cfg, segs, plan, mask=cad.mask)
+    ring, ring_g = with_grads(lambda a, b, c: D.ring_attention(
+        cad, plan, segs, a, b, c, pos, pass_plans=pass_plans))
+    rsim, rsim_g = with_grads(lambda a, b, c: D.ring_global_sim(
+        a, b, c, pos, plan, cad, segs, pass_plans=pass_plans))
+    torch.cuda.synchronize()
+    counts = {n: ops.launches[n] for n in ("ca_server_fwd",
+                                           "ca_server_fwd_range",
+                                           "ca_server_bwd_dq",
+                                           "ca_server_bwd_glse",
+                                           "ca_server_bwd_dkv")}
+    checks["ring_attention == ring_global_sim (fwd)"] = same_bits(
+        torch, ring, rsim)
+    checks["ring_attention == ring_global_sim (grads)"] = all(
+        same_bits(torch, a, b) for a, b in zip(ring_g, rsim_g))
+    cad_out, cad_g = with_grads(lambda a, b, c: D._global_sim(
+        a, b, c, pos, plan, cad, 0.0, None))
+    scale = float(cad_out.detach().float().abs().max())
+    gap = float((ring.detach().float()
+                 - cad_out.detach().float()).abs().max()) / scale
+    grad_gaps = [float((a.float() - b.float()).abs().max())
+                 / float(b.float().abs().max()) for a, b in zip(ring_g,
+                                                                cad_g)]
+    dropped = [dict(pp) for pp in pass_plans]
+    dropped[1] = dict(dropped[1], task_kv_len=np.zeros_like(
+        dropped[1]["task_kv_len"]), jmax=0)
+    ctrl, ctrl_g = with_grads(lambda a, b, c: D.ring_attention(
+        cad, plan, segs, a, b, c, pos, pass_plans=dropped))
+    controls = {"a ring pass dropped": float(
+        (ctrl.detach().float() - cad_out.detach().float()).abs().max())
+        / scale}
+    grad_controls = {"a ring pass dropped": min(
+        float((a.float() - b.float()).abs().max())
+        / float(b.float().abs().max()) for a, b in zip(ctrl_g, cad_g))}
+    del ctrl, ctrl_g, rsim, rsim_g, cad_g
+    log(f"phase 17: layer 0 at llama3-8b width, {d} servers, jmax {jmax}, "
+        f"{len(pass_plans)} ring passes (live: "
+        f"{sum(pp['jmax'] > 0 for pp in pass_plans)}): launches {counts}; "
+        + "; ".join(f"{k_} {v_}" for k_, v_ in checks.items()))
+    log(f"phase 17: ring vs CAD in bf16: max |out diff| / max |out| "
+        f"{gap:.3e} (limit {RING_GAP_LIMIT}), grads dq/dk/dv "
+        f"{', '.join(f'{x:.3e}' for x in grad_gaps)} (limit "
+        f"{RING_GRAD_GAP_LIMIT}); controls {controls}, on the grads (the "
+        f"least of dq/dk/dv) {grad_controls} [{card}]")
+    for name, ok in checks.items():
+        if not ok:
+            raise SystemExit(f"phase 17: {name} failed")
+    if counts["ca_server_fwd_range"] == 0 or counts["ca_server_bwd_glse"] \
+            == 0:
+        raise SystemExit(f"phase 17: a kernel of the path was not launched: "
+                         f"{counts}")
+    if not gap <= RING_GAP_LIMIT:
+        raise SystemExit(f"phase 17: ring vs CAD gap {gap} > "
+                         f"{RING_GAP_LIMIT}")
+    if not max(grad_gaps) <= RING_GRAD_GAP_LIMIT:
+        raise SystemExit(f"phase 17: ring vs CAD gradient gaps {grad_gaps}"
+                         f" > {RING_GRAD_GAP_LIMIT}")
+    for name in RING_REQUIRED_CONTROLS:
+        if not (controls[name] > RING_GAP_LIMIT
+                and grad_controls[name] > RING_GRAD_GAP_LIMIT):
+            raise SystemExit(f"phase 17: control '{name}' "
+                             f"{controls[name]} / {grad_controls[name]} "
+                             f"inside a limit")
+
+    # times, on the same simulated servers and batches
+    t = {}
+    with torch.no_grad():
+        t["cad_fwd"] = cuda_ms(lambda: [D.serve_task_batch(
+            cad, inputs[s], plans_r[s]) for s in range(d)], iters=10)
+        t["ring_fwd"] = cuda_ms(lambda: [D._ring_serve_merge(
+            cad, inputs[s], pass_plans, s) for s in range(d)], iters=10)
+        for chunk in STREAM_CHUNKS + (jmax,):
+            t[f"stream_{chunk}"] = cuda_ms(lambda c=chunk: [
+                D.stream_task_batch(cad, inputs[s], plans_r[s],
+                                    chunk_blocks=c) for s in range(d)],
+                iters=10)
+        kws = [D._server_kwargs(cad, inputs[s], plans_r[s])
+               for s in range(d)]
+        t["plain_stream"] = cuda_ms(lambda: [ops.ca_server_fwd_chunked(
+            **kw, chunk_blocks=STREAM_MAIN_CHUNK,
+            fwd_range=ops.ca_server_fwd_range_reference) for kw in kws],
+            iters=2, warmup=1)
+        # the range forward against its plain version at these shapes
+        range_errs = []
+        for kw in kws:
+            got = ops.ca_server_fwd_chunked(**kw,
+                                            chunk_blocks=STREAM_MAIN_CHUNK)
+            plain = ops.ca_server_fwd_chunked(
+                **kw, chunk_blocks=STREAM_MAIN_CHUNK,
+                fwd_range=ops.ca_server_fwd_range_reference)
+            range_errs += [_max_err(torch, got[0], plain[0], q.dtype),
+                           _max_err(torch, got[1], plain[1].float(),
+                                    q.dtype)]
+            del got, plain
+        # where the ring forward's device time goes: one traced call
+        ring_bd = _traced_breakdown(lambda: [D._ring_serve_merge(
+            cad, inputs[s], pass_plans, s) for s in range(d)])
+    dos = [torch.randn(inputs[s][0].shape, generator=gen,
+                       device=DEVICE).to(q.dtype) for s in range(d)]
+    leaves = [[x.detach().clone().requires_grad_() for x in
+               (inputs[s][0], inputs[s][2], inputs[s][3])]
+              for s in range(d)]
+
+    def grads(serve):
+        for s in range(d):
+            qt, kb, vb = leaves[s]
+            ins = (qt, inputs[s][1], kb, vb, inputs[s][4])
+            torch.autograd.grad(serve(ins, s), leaves[s], dos[s])
+
+    t["cad_fwd_bwd"] = cuda_ms(lambda: grads(
+        lambda ins, s: D.serve_task_batch(cad, ins, plans_r[s])), iters=5)
+    t["ring_fwd_bwd"] = cuda_ms(lambda: grads(
+        lambda ins, s: D._ring_serve_merge(cad, ins, pass_plans, s)),
+        iters=5)
+    # the g_lse backward on phase 6's server batches (row 5's shapes)
+    bytes_b = flops_b = bytes_r = flops_r = 0.0
+    t["glse_bwd"] = t["plain_glse_bwd"] = 0.0
+    glse_errs, glse_repeats = [], True
+    for b in per_server:
+        args = {n: b[n] for n in ("q_tasks", "k_buf", "v_buf", "kv_start",
+                                  "kv_len", "q_pos", "kv_pos")}
+        opts = {n: b[n] for n in ("jmax", "window", "sink", "rate")}
+        T, blk, hq, _ = b["q_tasks"].shape
+        out, lse = ops.ca_server_fwd(**args, **opts)
+        do = torch.randn(out.shape, generator=gen, device=DEVICE) \
+            .to(out.dtype)
+        g_lse = torch.randn((T, hq, blk), generator=gen, device=DEVICE)
+        bwd_in = (args["q_tasks"], args["k_buf"], args["v_buf"], out, lse,
+                  do, args["kv_start"], args["kv_len"], args["q_pos"],
+                  args["kv_pos"])
+        t["glse_bwd"] += cuda_ms(lambda: ops.ca_server_bwd(
+            *bwd_in, **opts, g_lse=g_lse), iters=10)
+        t["plain_glse_bwd"] += cuda_ms(lambda: ops.ca_server_bwd_reference(
+            *bwd_in, **opts, g_lse=g_lse), iters=2, warmup=1)
+        # the g_lse backward against its plain version at these shapes,
+        # and repeated bitwise
+        got = ops.ca_server_bwd(*bwd_in, **opts, g_lse=g_lse)
+        ref = ops.ca_server_bwd_reference(*bwd_in, **opts, g_lse=g_lse)
+        glse_repeats &= all(same_bits(torch, a, c) for a, c in zip(
+            got, ops.ca_server_bwd(*bwd_in, **opts, g_lse=g_lse)))
+        glse_errs += [_grad_err(torch, a, c, out.dtype)
+                      for a, c in zip(got, ref)]
+        del got, ref
+        vis, _, fwd_w, bwd_w, _ = _ca_work(torch, b)
+        del vis
+        bytes_b += bwd_w[0] + g_lse.numel() * 4
+        flops_b += bwd_w[1]
+        bytes_r += fwd_w[0] + _carry_bytes(torch, b, STREAM_MAIN_CHUNK,
+                                           b["jmax"])
+        flops_r += fwd_w[1]
+    torch.cuda.empty_cache()
+    range_err = max(e for e, _ in range_errs)
+    glse_err = max(e for e, _ in glse_errs)
+    log(f"phase 17: on layer 0's server batches, ca_server_fwd_range at "
+        f"chunk {STREAM_MAIN_CHUNK} == plain version (max |err| out/lse "
+        f"{range_err:.3e}, within atol=rtol={BF16_ATOL}); the g_lse "
+        f"backward on phase 6's == plain version (grads {glse_err:.3e}, "
+        f"same tolerance), repeated bitwise {glse_repeats} [{card}]")
+    if not all(ok for _, ok in range_errs + glse_errs) or not glse_repeats:
+        raise SystemExit("phase 17: a kernel disagrees with its plain "
+                         "version at llama3-8b width")
+    r_bound = _bound(bytes_r, flops_r)
+    g_bound = _bound(bytes_b, flops_b)
+    log(f"phase 17: layer 0, {d} servers summed: CAD serves fwd "
+        f"{t['cad_fwd']:.3f} ms, fwd+bwd {t['cad_fwd_bwd']:.3f}; ring "
+        f"({len(pass_plans)} passes + merges) fwd {t['ring_fwd']:.3f}, "
+        f"fwd+bwd {t['ring_fwd_bwd']:.3f} [{card}]")
+    fams = {f: ms for f, ms in ring_bd["families"].items() if ms}
+    log(f"phase 17: one ring forward traced: {ring_bd['kernels']} device "
+        f"events, busy {ring_bd['busy_ms']:.3f} ms of a "
+        f"{ring_bd['span_ms']:.3f} ms span; ms by family "
+        + ", ".join(f"{f} {ms:.3f} ({ms / ring_bd['busy_ms']:.4f})"
+                    for f, ms in fams.items()) + f" [{card}]")
+    for kname, ms in ring_bd["top_other"]:
+        log(f"  other: {ms:9.3f} ms  {kname[:100]}")
+    log(f"phase 17: streamed forward (4 servers) by chunk: "
+        + ", ".join(f"{c}: {t[f'stream_{c}']:.3f} ms"
+                    for c in STREAM_CHUNKS + (jmax,))
+        + f"; unstreamed serve {t['cad_fwd']:.3f}; plain at chunk "
+        f"{STREAM_MAIN_CHUNK} {t['plain_stream']:.1f}; bound at chunk "
+        f"{STREAM_MAIN_CHUNK} {r_bound[0]:.4f} ms ({r_bound[1]}: "
+        f"{bytes_r / 1e6:.1f} MB with the carries, {flops_r / 1e9:.1f} "
+        f"GFLOP) [{card}]")
+    log(f"phase 17: g_lse backward on phase 6's batches: {t['glse_bwd']:.3f}"
+        f" ms (bound {g_bound[0]:.4f} {g_bound[1]}: {bytes_b / 1e6:.1f} MB, "
+        f"{flops_b / 1e9:.1f} GFLOP), plain {t['plain_glse_bwd']:.1f} "
+        f"[{card}]")
+    return dict(counts=counts, checks=checks, gap=gap, grad_gaps=grad_gaps,
+                controls=controls, grad_controls=grad_controls, times=t,
+                range_bound=r_bound, glse_bound=g_bound,
+                range_err=range_err, glse_err=glse_err,
+                ring_trace=dict(busy_ms=ring_bd["busy_ms"],
+                                span_ms=ring_bd["span_ms"],
+                                families=fams))
+
+
+# ----------------------------------------------------------- phase 18
+def train_calibrated(torch, np, ops, card, cad_steps):
+    """Phase 18: phase 5's configuration with ``calibrate=True`` and
+    ``calibrate_every=1`` for 3 steps: the probe times each server's batch
+    of the step's plan in bf16 on the card after each step and feeds the
+    calibrator.  Step-0 loss bitwise equal to phase 5's (it is made before
+    any backward, and a forward gives the same loss under any plan);
+    launches = phase 5's + the probe's forwards (a warm-up and one a
+    server); the fitted grid cells logged beside the analytic model's
+    prediction.  Then the steps whose plan calibration moved, and the
+    replay of its batches and plans without calibrator or probe, which
+    must give its losses bitwise: the witness that the plans alone, and
+    not the probes, set its later bf16 losses."""
+    from repro_torch.cad import CADSession
+    from repro_torch.core.plan import PLAN_FIELDS
+    from repro_torch.models.model import Transformer
+    from repro_torch.train.trainer import train
+    cfg, pipe, tc, uncalibrated = _train_setup()
+    n_servers = pipe.n_ranks
+    session = CADSession.for_pipeline(cfg, pipe, plan_policy="balanced",
+                                      prefetch=2, calibrate=True)
+    # each step's batch as the trainer takes it, plan attached (the
+    # session is a frozen dataclass: the hook is set on the instance)
+    taken = []
+
+    def recording(batches, attach=session.attach_plans):
+        gen = attach(batches)
+        try:
+            for b in gen:
+                taken.append(dict(b))
+                yield b
+        finally:
+            gen.close()         # stops the plan-prefetch worker
+    object.__setattr__(session, "attach_plans", recording)
+    tc = dataclasses.replace(tc, calibrate_every=1)
+    probe_fwd = 1 + n_servers
+    expect = {"ca_server_fwd": n_servers * cfg.n_layers * 2 + probe_fwd,
+              "ca_server_bwd_dq": n_servers * cfg.n_layers,
+              "ca_server_bwd_dkv": n_servers * cfg.n_layers}
+    steps = []
+
+    def on_step(step, m):
+        counts = {k: ops.launches[k] for k in expect}
+        ops.reset_launches()
+        steps.append(dict(m, counts=counts))
+        speeds = [round(m.get(f"sched_calib_speed_{s}", float("nan")), 4)
+                  for s in range(n_servers)]
+        log(f"phase 18: step {step} loss {m['loss']:.6f} step "
+            f"{1e3 * m['step_s']:.1f} ms launches {counts} calib_version "
+            f"{m.get('sched_calib_version')} speeds {speeds} [{card}]")
+
+    model = Transformer(cfg, device=DEVICE, seed=0)
+    ops.reset_launches()
+    res = train(cfg, pipe, tc, model=model, session=session, device=DEVICE,
+                on_step=on_step)
+    del res, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cal = session.calibrator
+    for s in steps:
+        if s["counts"] != expect:
+            raise SystemExit(f"phase 18: step {s['step']} launches "
+                             f"{s['counts']} != {expect}")
+    if steps[0]["loss"] != cad_steps[0]["loss"]:
+        raise SystemExit(f"phase 18: step-0 loss {steps[0]['loss']!r} != "
+                         f"phase 5's {cad_steps[0]['loss']!r}")
+    if cal.n_observations == 0 or cal.version == 0:
+        raise SystemExit("phase 18: the calibrator was never fed")
+    if any("sched_calib_version" not in s for s in steps[1:]):
+        raise SystemExit("phase 18: a later plan carries no calib_version")
+    state = cal.state_dict()
+    cells = np.asarray(state["cells"])
+    grid = []
+    for qi, ki in zip(*np.nonzero(~np.isnan(cells))):
+        qg, kvg = float(cal.q_grid[qi]), float(cal.kv_grid[ki])
+        grid.append(dict(q_tokens=qg, kv_tokens=kvg,
+                         measured_s=float(cells[qi, ki]),
+                         analytic_s=float(cal.base.predict(qg, kvg))))
+    speeds = [float(x) for x in cal.speeds()]
+    log(f"phase 18: calibrator version {cal.version}, "
+        f"{cal.n_observations} observations; per-server speeds {speeds} "
+        f"(4 simulated servers on one card: near 1 expected) [{card}]")
+    for c in grid:
+        log(f"  cell q {c['q_tokens']:.0f} x kv {c['kv_tokens']:.0f}: "
+            f"measured {1e6 * c['measured_s']:.2f} us, analytic "
+            f"{1e6 * c['analytic_s']:.2f} us "
+            f"({c['measured_s'] / c['analytic_s']:.2f}x)")
+    log(f"phase 18: launches per step = {expect} (phase 5's + {probe_fwd} "
+        f"probe forwards); step-0 loss bitwise equal to phase 5's")
+
+    # the witness: which plans calibration moved, and that those plans
+    # alone give the calibrated losses (replayed with no calibrator and
+    # no probe, on a fresh model of the same seed)
+    plain = uncalibrated("balanced")
+    moved = [i for i, b in enumerate(taken) if not all(
+        np.array_equal(np.asarray(b["plan"][f]), np.asarray(
+            plain.plan_batch({k: v for k, v in b.items() if k not in (
+                "plan", "schedule_stats")})["plan"][f]))
+        for f in PLAN_FIELDS)]
+    replay = uncalibrated("balanced")
+    object.__setattr__(replay, "attach_plans",
+                       lambda batches: (dict(b) for b in taken))
+    replayed = []
+    model = Transformer(cfg, device=DEVICE, seed=0)
+    train(cfg, pipe, dataclasses.replace(tc, calibrate_every=0),
+          model=model, session=replay, device=DEVICE,
+          on_step=lambda step, m: replayed.append(m["loss"]))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [s["loss"] for s in steps]
+    log(f"phase 18: steps whose calibrated plan differs from the "
+        f"uncalibrated planner's on the same batch: {moved}; the calibrated "
+        f"batches and plans replayed without calibrator or probe: losses "
+        f"{replayed} (calibrated {losses}, phase 5 "
+        f"{[s['loss'] for s in cad_steps]}), bitwise "
+        f"{replayed == losses} [{card}]")
+    if replayed != losses:
+        raise SystemExit("phase 18: the replayed plans do not give the "
+                         "calibrated losses")
+    return dict(loss=[s["loss"] for s in steps],
+                calib_version=[s.get("sched_calib_version") for s in steps],
+                version=cal.version, n_obs=cal.n_observations,
+                speeds=speeds, grid=grid, plans_moved_at_steps=moved,
+                replayed_loss_bitwise=replayed == losses)
 
 
 # ------------------------------------------------------------ phase 7
@@ -3573,6 +4124,24 @@ def main(argv=None) -> int:
               "replaces": "src/repro/kernels/packed_flash/kernel.py:763",
               "max_abs_err": ca_worst["float32"][1],
               "max_abs_err_bf16": ca_worst["bfloat16"][1]}
+    ca_rng = {"name": "ca_server_fwd_range", "route": "cuda",
+              "source": src + "ca_server.cu",
+              "replaces": "src/repro/kernels/packed_flash/kernel.py:610 "
+                          "(as the chunked serve of src/repro/core/"
+                          "dispatch.py:531 runs it: a kv-block range with "
+                          "a carry)",
+              "max_abs_err": ca_worst["float32"][3],
+              "max_abs_err_bf16": ca_worst["bfloat16"][3],
+              "bitwise_vs_unstreamed_phase2": "{}/{} cases".format(
+                  *ca_worst["range_bitwise"])}
+    ca_glse = {"name": "ca_server_bwd_glse", "route": "cuda",
+               "source": src + "ca_server.cu",
+               "replaces": "src/repro/kernels/packed_flash/kernel.py:763 "
+                           "(with the lse cotangent of src/repro/core/"
+                           "dispatch.py:273-276, the ring partial's "
+                           "backward)",
+               "max_abs_err": ca_worst["float32"][2],
+               "max_abs_err_bf16": ca_worst["bfloat16"][2]}
     fl_fwd = {"name": "flash_fwd", "route": "cuda", "source": src + "flash.cu",
               "replaces": "src/repro/kernels/packed_flash/kernel.py:140",
               "max_abs_err": fl_worst["float32"][0],
@@ -3654,7 +4223,6 @@ def main(argv=None) -> int:
                                                 "idle")}
                           for k, v in serve_trace.items()}),
                       launches_gemma2=gemma.pop("launches"), gemma2=gemma)
-
         steps, captured, ca_launches = train_full_width(torch, ops, card)
         batches = captured_batches(torch, captured)
         ca_captured_err = check_captured(torch, ops, captured, batches)
@@ -3677,9 +4245,59 @@ def main(argv=None) -> int:
                       flash_yardstick_ms=tot["flash_bwd"],
                       train={k: [s[k] for s in steps] for k in
                              ("loss", "step_s", "peak_gib")})
+        ring = dispatch_and_ring(torch, np, ops, captured[0], batches[0],
+                                 card)
         del batches, captured
         gc.collect()
         torch.cuda.empty_cache()
+        calib = train_calibrated(torch, np, ops, card, steps)
+        rt = ring["times"]
+        jmax = max(int(c.split("_")[1]) for c in rt if c.startswith(
+            "stream_"))
+        ca_rng.update(launches=ring["counts"]["ca_server_fwd_range"],
+                      ms=rt[f"stream_{STREAM_MAIN_CHUNK}"],
+                      plain_ms=rt["plain_stream"],
+                      bound_ms=ring["range_bound"][0],
+                      bound_by=ring["range_bound"][1],
+                      library_ms=tot["sdpa_fwd"],
+                      library_call="sdpa fwd (the same attention, "
+                                   "unstreamed), efficient backend, boolean "
+                                   "mask, from phase 6",
+                      shape=f"layer 0 of step 0, 4 server batches summed, "
+                            f"ranges of {STREAM_MAIN_CHUNK} kv blocks of "
+                            f"jmax {jmax}; bound counts the carries",
+                      ms_by_chunk={c.split("_")[1]: v for c, v in rt.items()
+                                   if c.startswith("stream_")},
+                      unstreamed_ms=rt["cad_fwd"],
+                      captured_max_abs_err=ring["range_err"],
+                      checks_phase17=ring["checks"])
+        ca_glse.update(launches=ring["counts"]["ca_server_bwd_glse"],
+                       launches_dkv_in_phase17=ring["counts"][
+                           "ca_server_bwd_dkv"],
+                       ms=rt["glse_bwd"], plain_ms=rt["plain_glse_bwd"],
+                       bound_ms=ring["glse_bound"][0],
+                       bound_by=ring["glse_bound"][1], library_ms=None,
+                       library_note="no PyTorch call computes attention's "
+                                    "backward with an lse cotangent",
+                       shape="phase 6's layer-0 server batches (full kv "
+                             "ranges) with a seeded g_lse",
+                       captured_max_abs_err=ring["glse_err"],
+                       ring_vs_cad=dict(
+                           gap=ring["gap"], limit=RING_GAP_LIMIT,
+                           grad_gaps=ring["grad_gaps"],
+                           grad_limit=RING_GRAD_GAP_LIMIT,
+                           controls=ring["controls"],
+                           grad_controls=ring["grad_controls"],
+                           cad_fwd_ms=rt["cad_fwd"],
+                           ring_fwd_ms=rt["ring_fwd"],
+                           cad_fwd_bwd_ms=rt["cad_fwd_bwd"],
+                           ring_fwd_bwd_ms=rt["ring_fwd_bwd"],
+                           ring_note="the ring's times are an upper bound "
+                                     "from an unfused baseline (eager f32 "
+                                     "merges over every task slot), not a "
+                                     "comparison of the two designs",
+                           ring_fwd_trace=ring["ring_trace"]))
+        ca_fwd["calibrated_run"] = calib
         gemma_cad = train_gemma2_cad(torch, ops, card)
         g_t, (g_fb, g_bb) = gemma_cad["times"], gemma_cad["bounds"]
         ca_fwd["gemma2_dh256"] = dict(
@@ -3872,9 +4490,9 @@ def main(argv=None) -> int:
             bound_by=b2_bound[1], library_ms=t2["sdpa_bwd"],
             fwd_bwd_ms=t2["fwd_bwd"], library_fwd_bwd_ms=t2["sdpa_fwd_bwd"],
             shape=shape, captured_max_abs_err=rg_errs["flash"][1])
-    log(json.dumps({"kernels": [kernel, ca_fwd, ca_bwd, fl_fwd, fl_bwd,
-                                fl_rng, ssd_fm, ssd_bm, ssd_f, ssd_b, lru_f,
-                                lru_b]}))
+    log(json.dumps({"kernels": [kernel, ca_fwd, ca_bwd, ca_rng, ca_glse,
+                                fl_fwd, fl_bwd, fl_rng, ssd_fm, ssd_bm,
+                                ssd_f, ssd_b, lru_f, lru_b]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

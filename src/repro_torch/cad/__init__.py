@@ -11,11 +11,14 @@ The port of ``repro.cad``:
   PlanPrefetcher      async host-side plan prefetch (bounded queue)
   PlanCapacityError   static-capacity overflow diagnostics
   PlanMemoryError     no feasible split fits the HBM budgets
+  GridCalibrator      online latency-grid + per-server speed calibration
+                      (the session's ``calibrate=True``)
 """
 from repro_torch.cad.planner import (PlanResult, Planner, available_policies,
                                      get_planner, register_planner)
 from repro_torch.cad.prefetch import PlanPrefetcher
 from repro_torch.cad.session import CADSession
+from repro_torch.core.cost_model import CalibrationSnapshot, GridCalibrator
 from repro_torch.core.plan import (CADConfig, PingPongPlan, PlanCapacityError,
                                    PlanMemoryError, StepPlan)
 
@@ -24,4 +27,5 @@ __all__ = [
     "PlanCapacityError", "PlanMemoryError", "Planner",
     "PlanResult", "register_planner",
     "get_planner", "available_policies", "PlanPrefetcher",
+    "GridCalibrator", "CalibrationSnapshot",
 ]

@@ -10,21 +10,24 @@ plan policy.  From one session you derive:
   session.attach_plans(batches)  a batch stream with plans attached,
                                  planned asynchronously one step ahead
                                  (the paper's scheduler prefetch)
+  session.observe*(...)          measured CA-task timings fed back into
+                                 the runtime calibrator, so batch i+1
+                                 is planned from batch i's costs
 
 Construction::
 
   session = CADSession.for_pipeline(model_cfg, pipe_cfg,
                                     plan_policy="balanced",
-                                    server_speeds=(1.0, 0.5))
+                                    server_speeds=(1.0, 0.5),
+                                    calibrate=True)
   ctx = session.context()
   for batch in session.attach_plans(raw_batches(pipe_cfg)):
       opt_state, metrics = step(opt_state, batch)
+      session.observe_probe(batch["plan"], dtype=torch.bfloat16)
 
-``for_pipeline`` never mutates the pipeline config.  Runtime calibration
-(``calibrate=True``, ``observe_probe``) needs ``probe_plan_times`` and
-chunked KV streaming (``stream_chunk > 0``) needs the streamed dispatch,
-both ROADMAP queue 1 item 7; an elastic pool (``with_pool``) needs the
-runtime, queue 1 item 8.  Each raises ``NotImplementedError``.
+``for_pipeline`` never mutates the pipeline config.  An elastic pool
+(``with_pool``) needs the runtime, ROADMAP queue 1 item 8, and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,10 +36,14 @@ from typing import Any, Dict, Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 
+import torch
+
 from repro_torch.cad.planner import get_planner
 from repro_torch.cad.prefetch import PlanPrefetcher
-from repro_torch.core.cost_model import CommModel
-from repro_torch.core.dispatch import CADContext
+from repro_torch.core.cost_model import (CalibrationSnapshot, CommModel,
+                                         CostModel, GridCalibrator)
+from repro_torch.core.dispatch import (CADContext, iter_plan_tasks,
+                                       probe_plan_times)
 from repro_torch.core.mask import MaskSpec, parse_mask, validate_mask_layout
 from repro_torch.core.plan import CADConfig, PingPongPlan, StepPlan
 from repro_torch.obs import metrics as obs_metrics
@@ -45,17 +52,20 @@ from repro_torch.parallel import ParallelContext
 
 Plan = Union[StepPlan, PingPongPlan]
 
-CALIBRATION = "runtime calibration (probe_plan_times) comes with ROADMAP " \
-    "queue 1 item 7"
-STREAMING = "chunked KV streaming (stream_task_batch) comes with ROADMAP " \
-    "queue 1 item 7"
 ELASTIC = "the elastic server pool (runtime/) comes with ROADMAP queue 1 " \
     "item 8"
 
 
 @dataclasses.dataclass(frozen=True)
 class CADSession:
-    """Immutable description of the attention service for one run."""
+    """Immutable description of the attention service for one run.
+
+    ``calibrator`` (optional) owns the runtime measure → fit → replan
+    loop: every ``plan()`` call consumes one calibration snapshot (cost
+    model + per-server speeds) and records its version in the schedule
+    stats; ``observe*`` feeds measured timings back.  The calibrator is
+    mutable shared state, the one exception to the session's
+    immutability."""
     cfg: CADConfig
     pingpong: bool = False
     tolerance: float = 0.1
@@ -66,6 +76,9 @@ class CADSession:
     prefetch: int = 2              # plan look-ahead depth; 0 = synchronous
     mask: Optional[MaskSpec] = None   # task shape beyond dense causal
                                       # (DESIGN.md §12); None = causal
+    calibrator: Optional[GridCalibrator] = None
+    recalib_threshold: float = 0.05   # speed drift that re-plans a
+                                      # prefetched (stale) plan at pull
 
     # ------------------------------------------------------- constructors
     @classmethod
@@ -73,7 +86,7 @@ class CADSession:
                      tolerance: float = 0.1, plan_policy: str = "balanced",
                      prefetch: int = 2, server_speeds=None,
                      server_hbm=None, stream_chunk: int = 0,
-                     calibrate: bool = False,
+                     calibrate: bool = False, calib_ema: float = 0.5,
                      mask: Union[MaskSpec, str, None] = None) \
             -> "CADSession":
         """Size the attention-server pool for a training pipeline.
@@ -81,14 +94,14 @@ class CADSession:
         ``pipe_cfg`` needs ``n_ranks``, ``global_batch``, ``seq_len`` and
         ``max_doc_len``; it is read, never mutated.  ``server_speeds``
         declares known pool heterogeneity (a 0.5 entry = half-speed
-        server); ``server_hbm`` per-endpoint HBM budgets in bytes
-        (DESIGN.md §11); ``mask`` the step's task shape beyond dense
-        causal (a :class:`~repro_torch.core.mask.MaskSpec` or a
-        ``--mask`` flag string, DESIGN.md §12)."""
-        if calibrate:
-            raise NotImplementedError(CALIBRATION)
-        if stream_chunk:
-            raise NotImplementedError(STREAMING)
+        server); ``calibrate=True`` attaches a :class:`GridCalibrator`
+        (the analytic model and the declared speeds as its prior) that
+        measured timings refine.  ``server_hbm`` declares per-endpoint
+        HBM budgets in bytes (DESIGN.md §11), and ``stream_chunk`` (kv
+        blocks) lets the dispatch serve a task whose kv prefix exceeds
+        every budget by streaming it.  ``mask`` is the step's task shape
+        beyond dense causal (a :class:`~repro_torch.core.mask.MaskSpec`
+        or a ``--mask`` flag string, DESIGN.md §12)."""
         n = pipe_cfg.n_ranks
         rows_per_rank = pipe_cfg.global_batch // n
         tokens_per_rank = rows_per_rank * pipe_cfg.seq_len
@@ -100,11 +113,18 @@ class CADSession:
         cadcfg = CADConfig.default(n, tokens_per_rank,
                                    max_doc_tokens=pipe_cfg.max_doc_len,
                                    server_speeds=server_speeds,
-                                   server_hbm=server_hbm)
-        comm = CommModel(n_heads=getattr(model_cfg, "n_heads", 1) or 1,
-                         head_dim=getattr(model_cfg, "head_dim", 1) or 1,
+                                   server_hbm=server_hbm,
+                                   stream_chunk=stream_chunk)
+        n_heads = getattr(model_cfg, "n_heads", 1) or 1
+        head_dim = getattr(model_cfg, "head_dim", 1) or 1
+        comm = CommModel(n_heads=n_heads, head_dim=head_dim,
                          n_kv_heads=getattr(model_cfg, "n_kv_heads", 1)
                          or 1)
+        calibrator = None
+        if calibrate:
+            calibrator = GridCalibrator(
+                CostModel.analytic(n_heads, head_dim), n, ema=calib_ema,
+                prior_speeds=cadcfg.speeds())
         jmax = max(1, pipe_cfg.max_doc_len // cadcfg.blk)
         if isinstance(mask, str):
             mask = parse_mask(mask)
@@ -112,7 +132,7 @@ class CADSession:
             mask = None
         return cls(cfg=cadcfg, pingpong=pingpong, tolerance=tolerance,
                    plan_policy=plan_policy, jmax=jmax, comm=comm,
-                   prefetch=prefetch, mask=mask)
+                   prefetch=prefetch, mask=mask, calibrator=calibrator)
 
     # ------------------------------------------------------------ context
     def context(self, *, remat: bool = True) -> ParallelContext:
@@ -126,42 +146,182 @@ class CADSession:
     def with_pool(self, pool) -> "CADSession":
         raise NotImplementedError(ELASTIC)
 
-    def observe_probe(self, plan, *, repeats: int = 1,
-                      seed: int = 0) -> None:
-        raise NotImplementedError(CALIBRATION)
+    def _pool_view(self):
+        """The elastic pool's membership view: None until the runtime
+        (ROADMAP queue 1 item 8) brings ``with_pool``."""
+        return None
+
+    # ------------------------------------------------------- calibration
+    def _snapshot(self) -> Optional[CalibrationSnapshot]:
+        return None if self.calibrator is None \
+            else self.calibrator.snapshot()
+
+    def admission_view(self) -> Tuple[CalibrationSnapshot, Optional[Any]]:
+        """One (calibration snapshot, pool view) pair: the pricing basis
+        of one admission round.  Without a calibrator the snapshot wraps
+        the analytic model and the declared speeds at version -1; the
+        pool view is None until the elastic runtime."""
+        snap = self._snapshot()
+        if snap is None:
+            comm = self.comm
+            cm = CostModel.analytic(comm.n_heads if comm else 1,
+                                    comm.head_dim if comm else 8)
+            snap = CalibrationSnapshot(
+                version=-1, cost_model=cm,
+                speeds=tuple(float(s) for s in self.cfg.speeds()))
+        return snap, self._pool_view()
+
+    def snapshot_provider(self):
+        """A ``() -> CalibrationSnapshot`` callable (the serve scheduler's
+        ``SchedulerConfig.snapshot_provider``): admission then prices
+        from the snapshot the planner plans from."""
+        return lambda: self.admission_view()[0]
+
+    def _planner_kwargs(self, snap: Optional[CalibrationSnapshot]) \
+            -> Dict[str, Any]:
+        if snap is None:
+            return {}
+        return {"cost_model": snap.cost_model,
+                "speeds": snap.speeds_array()}
+
+    def _annotate(self, stats: Dict[str, float],
+                  snap: Optional[CalibrationSnapshot],
+                  view=None) -> Dict[str, float]:
+        if snap is not None:
+            stats["calib_version"] = float(snap.version)
+            for s, sp in enumerate(snap.speeds):
+                stats[f"calib_speed_{s}"] = float(sp)
+        if view is not None:
+            stats["pool_epoch"] = float(view.epoch)
+            stats["pool_active"] = float(len(view.active))
+        return stats
+
+    def _plan_stale(self, batch: Dict[str, Any]) -> bool:
+        """True when a prefetched batch's plan was built from a superseded
+        pool epoch, or from speeds that have since drifted beyond
+        ``recalib_threshold``: checked (and re-planned) on the consumer
+        thread at pull time."""
+        st = batch.get("schedule_stats") or {}
+        view = self._pool_view()
+        if view is not None \
+                and int(st.get("pool_epoch", -1)) != view.epoch:
+            return True
+        snap = self._snapshot()
+        if snap is None or "calib_version" not in st:
+            return False
+        if int(st["calib_version"]) == snap.version:
+            return False
+        drift = max(abs(st.get(f"calib_speed_{s}", 1.0) - snap.speeds[s])
+                    for s in range(self.cfg.n_servers))
+        return drift > self.recalib_threshold
+
+    def observe(self, q_tokens: int, kv_tokens: int, seconds: float,
+                server: Optional[int] = None) -> None:
+        """Feed one measured CA-task timing into the calibrator."""
+        if self.calibrator is not None:
+            self.calibrator.observe(q_tokens, kv_tokens, seconds,
+                                    server=server)
+
+    def observe_server(self, server: int, tasks, seconds: float) -> None:
+        """Feed one per-server fused-batch timing (``tasks`` is the
+        server's [(q_tokens, kv_tokens), ...] composition)."""
+        if self.calibrator is not None:
+            self.calibrator.observe_tasks(tasks, seconds, server=server)
+
+    def observe_plan(self, plan, per_server_seconds) -> None:
+        """Feed measured per-server serve times for one executed plan;
+        task shapes come from the plan's arrays.  A ping-pong step's
+        timing covers both halves, so a :class:`PingPongPlan` contributes
+        the tasks of both."""
+        if self.calibrator is None:
+            return
+        halves = list(plan) if isinstance(plan, (tuple, list,
+                                                 PingPongPlan)) \
+            else [plan]
+        by_server: Dict[int, list] = {}
+        for p in halves:
+            # masked tasks key the calibrator by live kv tokens, the unit
+            # the planners price them in (DESIGN.md §12)
+            for s, _slot, qt, kvt in iter_plan_tasks(self.cfg, p,
+                                                     mask=self.mask):
+                by_server.setdefault(s, []).append((qt, kvt))
+        if not isinstance(per_server_seconds, dict):
+            per_server_seconds = dict(enumerate(per_server_seconds))
+        for s, seconds in per_server_seconds.items():
+            if s in by_server:
+                self.calibrator.observe_tasks(by_server[s], float(seconds),
+                                              server=s)
+
+    def observe_probe(self, plan, *, repeats: int = 1, seed: int = 0,
+                      dtype=torch.float32, device="cuda") -> None:
+        """Measure each server's serve time for ``plan`` with the seeded
+        probe (``core.dispatch.probe_plan_times``) on ``device`` in
+        ``dtype`` and feed the timings back: the trainer's
+        ``calibrate_every`` hook, which passes the model's compute dtype
+        and device (the card's bf16 and f32 kernels differ several-fold
+        in speed, so the probe times the one training runs).
+        Ping-pong plans probe both nano-batch halves."""
+        if self.calibrator is None:
+            return
+        comm = self.comm or CommModel(1, 1, 1)
+        plans = list(plan) if isinstance(plan, (tuple, list, PingPongPlan)) \
+            else [plan]
+        for i, p in enumerate(plans):
+            # ping-pong halves may have been planned with a nano-batch
+            # re-sized config; recover the geometry from the arrays
+            nb = int(p["q_home_idx"].shape[1])
+            cfg = self.cfg if nb == self.cfg.nb \
+                else dataclasses.replace(self.cfg, nb=nb)
+            cad = CADContext(cfg=cfg, jmax=self.jmax, mask=self.mask)
+            label = "probe" if len(plans) == 1 else f"probe/half{i}"
+            for s, tasks, seconds in probe_plan_times(
+                    cad, p, n_heads=comm.n_heads, head_dim=comm.head_dim,
+                    n_kv_heads=comm.n_kv_heads, dtype=dtype, seed=seed,
+                    repeats=repeats, trace_label=label, device=device):
+                self.calibrator.observe_tasks(tasks, seconds, server=s)
 
     # ----------------------------------------------------------- planning
     def plan(self, segment_ids: np.ndarray) \
             -> Tuple[Plan, Dict[str, float]]:
         """Plan one step.  ``segment_ids`` is the rank-major [D, T] packed
         layout (T = tokens per rank; 2·nb·blk when ping-pong is on).
+        With a calibrator attached, the whole step (both ping-pong
+        halves) plans from ONE calibration snapshot, recorded in the
+        stats as ``calib_version`` with the per-server speeds used.
         Narrated to the observability layer (DESIGN.md §14): a
         ``plan.build`` span on the ``planner`` track and the plan-quality
-        gauge — both no-ops unless tracing is enabled / read."""
+        gauges — no-ops unless tracing is enabled / read."""
         with obs_trace.get_recorder().span("plan.build", "planner",
                                            args={"policy":
                                                  self.plan_policy}):
             plan, stats = self._plan_impl(segment_ids)
-        obs_metrics.get_registry().gauge(
-            "cad_plan_load_max_over_mean",
-            "planned per-server load max/mean").set(
+        reg = obs_metrics.get_registry()
+        reg.gauge("cad_plan_load_max_over_mean",
+                  "planned per-server load max/mean").set(
             stats.get("load_max_over_mean", 0.0))
+        if "calib_version" in stats:
+            reg.gauge("cad_calib_version",
+                      "calibration snapshot version planned from").set(
+                stats["calib_version"])
         return plan, stats
 
     def _plan_impl(self, segment_ids: np.ndarray) \
             -> Tuple[Plan, Dict[str, float]]:
         segs = np.asarray(segment_ids)
         planner = get_planner(self.plan_policy)
-        kw: Dict[str, Any] = {}
         if self.mask is not None:
             # fail at planning time with the offending segment/task
             # named (MaskSpecError), not as a shape error in a kernel
             validate_mask_layout(self.mask, segs, self.cfg.blk)
+        snap = self._snapshot()
+        view = self._pool_view()
+        kw = self._planner_kwargs(snap)
+        if self.mask is not None:
             kw["mask"] = self.mask
         if not self.pingpong:
             res = planner(self.cfg, segs, comm=self.comm,
                           tolerance=self.tolerance, **kw)
-            return res.plan, dict(res.stats)
+            return res.plan, self._annotate(dict(res.stats), snap, view)
         half = segs.shape[1] // 2
         if half % self.cfg.blk:
             raise ValueError(
@@ -182,7 +342,7 @@ class CADSession:
             stats["load_max_over_mean"] = max(
                 stats["load_max_over_mean"],
                 res.stats["load_max_over_mean"])
-        return PingPongPlan(*halves), stats
+        return PingPongPlan(*halves), self._annotate(stats, snap, view)
 
     def plan_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """Attach ``plan`` + ``schedule_stats`` to one pipeline batch
@@ -205,13 +365,18 @@ class CADSession:
         """Yield batches with plans attached.  With ``prefetch >= 1`` a
         background worker plans batch *i+1* while the caller's device
         computes batch *i* (bounded queue, order-preserving); with
-        ``prefetch=0`` planning happens inline."""
+        ``prefetch=0`` planning happens inline.  With a calibrator
+        attached, a prefetched plan whose speeds have drifted past
+        ``recalib_threshold`` is re-planned at pull time (on the
+        consumer thread)."""
         depth = self.prefetch if prefetch is None else prefetch
         if depth <= 0:
             for batch in batch_iter:
                 yield self.plan_batch(batch)
             return
-        pf = PlanPrefetcher(batch_iter, self.plan_batch, depth=depth)
+        stale = self._plan_stale if self.calibrator is not None else None
+        pf = PlanPrefetcher(batch_iter, self.plan_batch, depth=depth,
+                            is_stale=stale)
         try:
             yield from pf
         finally:

@@ -20,19 +20,35 @@ Windowed and non-causal layers, and calls without a plan, go to
 ``xla_flash_attention`` as in the reference.  The reference's
 ``shard_map`` path over a device mesh (``_rank_fn``) waits for NCCL ranks
 (ROADMAP queue 1 item 4).
+
+The decomposed dispatch (DESIGN.md §9, §11, §13): ``build_server_inputs``
+materializes each server's batch on its own, ``serve_task_batch`` serves
+one (streamed through ``stream_task_batch`` when ``stream_chunk`` is
+set), ``assemble_step_outputs`` scatters the outputs home (missing
+servers give zeros; ``merge_recovered`` selects recovered blocks in).
+``probe_plan_times`` times each server's batch for the runtime
+calibrator.  The ring baseline (DISTFLASHATTN) runs each server's batch
+one ring pass at a time (``ring_attention``; ``ring_global_sim`` is the
+same schedule through the stacked orchestration).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Tuple
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.attention import xla_flash_attention
-from repro_torch.core.mask import live_kv_len, mask_params
+from repro_torch.core.mask import live_block_mask, live_kv_len, mask_params
 from repro_torch.core.plan import CADConfig, PingPongPlan
-from repro_torch.kernels.packed_flash.ops import ca_server_attention
+from repro_torch.kernels.packed_flash.ops import (ca_partial_attention,
+                                                  ca_server_attention,
+                                                  ca_server_fwd_chunked,
+                                                  merge_softmax_partials)
+from repro_torch.obs import server_track
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,20 +125,30 @@ def _server_tasks(qb, kb, vb, posb, recv, plan, cfg: CADConfig):
     return q_tasks, qpos_tasks, k_buf, v_buf, kpos_buf
 
 
+def _server_kwargs(cad, inputs_s, plan_s, window=0):
+    """One server's fused batch ``(q_tasks, qpos_tasks, k_buf, v_buf,
+    kpos_buf)`` and its plan rows as ``ca_server_attention`` keyword
+    arguments, without ``softcap`` and ``scale``."""
+    q_tasks, qpos_tasks, k_buf, v_buf, kpos_buf = inputs_s
+    window, sink, rate = mask_params(cad.mask, window)
+    return dict(q_tasks=q_tasks.contiguous(), k_buf=k_buf.contiguous(),
+                v_buf=v_buf.contiguous(),
+                kv_start=plan_s["task_kv_start"].contiguous(),
+                kv_len=plan_s["task_kv_len"].contiguous(),
+                q_pos=qpos_tasks.contiguous(), kv_pos=kpos_buf.contiguous(),
+                jmax=cad.jmax or cad.cfg.nkv, window=window, sink=sink,
+                rate=rate)
+
+
 def _server_calls(q_tasks, qpos_tasks, k_buf, v_buf, kpos_buf, plan, cad,
                   window=0):
     """Each server's fused batch (inputs with the leading [D] axis) as
     ``ca_server_attention`` keyword arguments, one dict per server,
     without ``softcap`` and ``scale``."""
-    jmax = cad.jmax or cad.cfg.nkv
-    window, sink, rate = mask_params(cad.mask, window)
-    return [dict(q_tasks=q_tasks[s].contiguous(),
-                 k_buf=k_buf[s].contiguous(), v_buf=v_buf[s].contiguous(),
-                 kv_start=plan["task_kv_start"][s].contiguous(),
-                 kv_len=plan["task_kv_len"][s].contiguous(),
-                 q_pos=qpos_tasks[s].contiguous(),
-                 kv_pos=kpos_buf[s].contiguous(), jmax=jmax, window=window,
-                 sink=sink, rate=rate)
+    tasks = (q_tasks, qpos_tasks, k_buf, v_buf, kpos_buf)
+    return [_server_kwargs(cad, tuple(x[s] for x in tasks),
+                           {k: plan[k][s] for k in ("task_kv_start",
+                                                    "task_kv_len")}, window)
             for s in range(q_tasks.shape[0])]
 
 
@@ -205,6 +231,333 @@ def server_batches(q, k, v, pos, plan, cad):
     at the main path's shapes."""
     _, tasks = _task_batches(q, k, v, pos, plan, cad.cfg)
     return _server_calls(*tasks, plan, cad)
+
+
+# ------------------------------------------------- decomposed dispatch
+def _plan_tensors(plan, device) -> Dict[str, torch.Tensor]:
+    """A plan's fields (host arrays or tensors) as int32 tensors on
+    ``device``."""
+    return {k: v.to(device=device, dtype=torch.int32) if torch.is_tensor(v)
+            else torch.as_tensor(np.asarray(v, np.int32), device=device)
+            for k, v in plan.items()}
+
+
+def _plan_numpy(plan) -> Dict[str, np.ndarray]:
+    return {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+            for k, v in plan.items()}
+
+
+def build_server_inputs(cad: CADContext, plan, q, k, v, pos):
+    """Decomposed dispatch: every server's fused CA-task inputs for one
+    plan, each materialized on its own (the port of
+    ``dispatch.build_server_inputs``).  ``q``/``k``/``v`` are the stacked
+    rank-major layout ``[D*Bl, S, H(kv), dh]``, ``pos`` ``[D*Bl, S]``
+    (-1 = padding).  Returns ``(inputs, plans_r)``: ``inputs[s]`` is the
+    ``(q_tasks, qpos_tasks, k_buf, v_buf, kpos_buf)`` batch of server s,
+    ``plans_r[s]`` its plan rows (int32 tensors on q's device).  Each
+    server's serve can then fail, be retried or be re-served alone
+    (DESIGN.md §9), or stream its kv buffer in chunks (§11)."""
+    plan_t = _plan_tensors(plan, q.device)
+    _, tasks = _task_batches(q, k, v, pos, plan_t, cad.cfg)
+    d = cad.cfg.n_servers
+    return ([tuple(x[s] for x in tasks) for s in range(d)],
+            [{key: val[s] for key, val in plan_t.items()}
+             for s in range(d)])
+
+
+def _serve_one(cad, inputs_s, plan_s, softcap, scale):
+    return ca_server_attention(**_server_kwargs(cad, inputs_s, plan_s),
+                               softcap=softcap, scale=scale)
+
+
+def stream_task_batch(cad: CADContext, inputs_s, plan_s, *,
+                      chunk_blocks: Optional[int] = None,
+                      softcap: float = 0.0, scale=None):
+    """Chunked KV streaming serve of ONE server (DESIGN.md §11): the
+    batch walks its kv range ``chunk_blocks`` kv blocks at a time,
+    carrying the online-softmax state across chunks, and normalizes once
+    (``ca_server_fwd_range``: the CA forward kernels with a carry on CUDA
+    tensors, the plain version's split on CPU tensors).  The output is
+    bitwise equal to the unstreamed serve for every chunk size.  Forward
+    only, as every caller of the reference uses it: inputs that require
+    grad raise."""
+    chunk = int(chunk_blocks if chunk_blocks is not None
+                else cad.cfg.stream_chunk)
+    if chunk <= 0:
+        raise ValueError(
+            f"stream_task_batch needs chunk_blocks > 0 kv blocks "
+            f"(or CADConfig.stream_chunk set), got {chunk}")
+    return ca_server_fwd_chunked(**_server_kwargs(cad, inputs_s, plan_s),
+                                 chunk_blocks=chunk, softcap=softcap,
+                                 scale=scale)[0]
+
+
+def serve_task_batch(cad: CADContext, inputs_s, plan_s, *,
+                     softcap: float = 0.0, scale=None,
+                     stream_chunk: Optional[int] = None):
+    """Run ONE server's fused CA-task batch: the unit of work the elastic
+    runtime dispatches, retries and re-serves.  With chunked KV streaming
+    on (``cfg.stream_chunk`` > 0, or ``stream_chunk``) and a kv range of
+    more than one chunk, it goes through :func:`stream_task_batch`."""
+    chunk = cad.cfg.stream_chunk if stream_chunk is None \
+        else int(stream_chunk)
+    if 0 < chunk < (cad.jmax or cad.cfg.nkv):
+        return stream_task_batch(cad, inputs_s, plan_s, chunk_blocks=chunk,
+                                 softcap=softcap, scale=scale)
+    return _serve_one(cad, inputs_s, plan_s, softcap, scale)
+
+
+def assemble_step_outputs(cfg: CADConfig, plan, out_tasks, q_shape, dtype):
+    """Home-rank reassembly of per-server outputs: the return exchange and
+    ``_scatter_outputs``, as ``_global_sim`` runs them.  ``out_tasks``
+    maps server -> its ``[T, blk, H, dh]`` output; a server missing from
+    it (failed, killed) contributes zeros, so its blocks can be recovered
+    and merged in with :func:`merge_recovered`."""
+    d, blk = cfg.n_servers, cfg.blk
+    dev = next(iter(out_tasks.values())).device
+    plan_t = _plan_tensors(plan, dev)
+    nb = plan_t["q_home_idx"].shape[1]
+    cq = plan_t["q_send_idx"].shape[2]
+    n_tasks = plan_t["task_kv_len"].shape[1]
+    hq, dh = q_shape[-2], q_shape[-1]
+    zeros = torch.zeros((n_tasks, blk, hq, dh), dtype=dtype, device=dev)
+    stacked = torch.stack([out_tasks.get(s, zeros) for s in range(d)])
+    ret_send = stacked[:, nb:].reshape((d, d, cq) + tuple(stacked.shape[2:]))
+    out = _scatter_outputs(stacked, _sim_exchange(ret_send), plan_t, cfg,
+                           nb, blk, hq, dh, dtype)
+    return out.reshape(q_shape)
+
+
+def merge_recovered(cfg: CADConfig, base, recovered, lost_blocks):
+    """Exactly-once merge of a recovery's outputs into a step's base
+    outputs: every q block's output is selected (bitwise) from one
+    execution, the blocks of ``lost_blocks`` (boolean ``[D, NB]`` or
+    ``[D*NB]``) from ``recovered``, the rest from ``base``."""
+    d, blk = cfg.n_servers, cfg.blk
+    lost = np.asarray(lost_blocks, bool).reshape(d, -1)
+    tok = np.repeat(lost, blk, axis=1).reshape(base.shape[0], base.shape[1])
+    mask = torch.as_tensor(tok, device=base.device)
+    return torch.where(mask[..., None, None], recovered, base)
+
+
+def probe_plan_times(cad: CADContext, plan, *, n_heads: int = 1,
+                     head_dim: int = 8, n_kv_heads: Optional[int] = None,
+                     dtype=torch.float32, seed: int = 0, repeats: int = 1,
+                     trace_label: str = "probe", device="cuda") \
+        -> List[Tuple[int, List[Tuple[int, int]], float]]:
+    """Time each server's fused CA-task batch for one plan with seeded
+    q/k/v: the runtime calibrator's measurement (DESIGN.md §3).  Kernel
+    time depends on shapes, not values.  One warm-up serve first takes in
+    the library build and the first launch; each server's ``repeats``
+    serves are then timed between two ``torch.cuda.synchronize`` calls,
+    inside a span on the server's own trace track.  Returns one
+    ``(server, [(q_tokens, kv_tokens), ...], seconds)`` per server, ready
+    for ``GridCalibrator.observe_tasks``.  ``device`` defaults to the
+    card; the serve is the one training runs (the CA kernels there, the
+    plain versions on the CPU)."""
+    cfg = cad.cfg
+    d, nb, blk = cfg.n_servers, cfg.nb, cfg.blk
+    s_len = nb * blk
+    hkv = n_kv_heads or n_heads
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(h):
+        return torch.randn((d, s_len, h, head_dim), generator=gen,
+                           device=dev).to(dtype)
+
+    q, k, v = rnd(n_heads), rnd(hkv), rnd(hkv)
+    pos = torch.arange(s_len, dtype=torch.int32, device=dev) \
+        .expand(d, s_len).contiguous()
+    inputs, plans_r = build_server_inputs(cad, plan, q, k, v, pos)
+    by_server: Dict[int, List[Tuple[int, int]]] = {s: [] for s in range(d)}
+    for s, _slot, qt, kvt in iter_plan_tasks(cfg, plan, mask=cad.mask):
+        by_server[s].append((qt, kvt))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    reps = max(1, repeats)
+    rec = obs_trace.get_recorder()
+    results = []
+    with torch.no_grad():
+        _serve_one(cad, inputs[0], plans_r[0], 0.0, None)   # warm-up
+        for s in range(d):
+            # the span lands on the server's own track (``trace_label``
+            # tells ping-pong halves apart)
+            with rec.span(trace_label, server_track(s),
+                          args={"repeats": reps,
+                                "n_tasks": len(by_server[s])}):
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    _serve_one(cad, inputs[s], plans_r[s], 0.0, None)
+                sync()
+                seconds = (time.perf_counter() - t0) / reps
+            results.append((s, by_server[s], seconds))
+    return results
+
+
+# -------------------------------------------- ring baseline (DESIGN.md §13)
+def _plan_task_q_block(cfg: CADConfig, plan_np, server: int,
+                       slot: int) -> Optional[int]:
+    """Global q-block index of task ``slot`` on ``server`` (None for a
+    dead slot): the plan-array inverse ``iter_plan_tasks`` walks."""
+    nb, cq = cfg.nb, cfg.cq
+    if slot < nb:
+        idx = int(plan_np["q_home_idx"][server, slot])
+        return server * nb + idx if idx >= 0 else None
+    src, c = divmod(slot - nb, cq)
+    idx = int(plan_np["q_send_idx"][src, server, c])
+    return src * nb + idx if idx >= 0 else None
+
+
+def ring_pass_geometry(cfg: CADConfig, segment_ids: np.ndarray, plan, *,
+                       n_passes: Optional[int] = None, mask=None) \
+        -> List[Dict[str, Any]]:
+    """Host-side ring pass construction (DESIGN.md §13): each task's kv
+    prefix split into the P contiguous document shards of the
+    DISTFLASHATTN schedule, one pseudo-plan per pass.  At pass ``t`` a
+    task whose q block sits in shard ``i`` reads kv shard ``(i - t) % P``
+    clipped to its causal prefix; causal-dead and mask-dead windows get
+    ``kv_len`` 0.  Returns per pass the ``task_kv_start`` /
+    ``task_kv_len`` ``[D, T]`` int32 arrays and ``jmax`` (0 marks a pass
+    dead on every server)."""
+    from repro_torch.core.scheduler import (layout_from_segments,
+                                            ring_shard_size)
+    docs, doc_of, bi_of = layout_from_segments(
+        np.asarray(segment_ids).reshape(cfg.n_servers, -1), cfg.blk,
+        cfg.n_servers)
+    plan_np = _plan_numpy(plan)
+    kv_start = plan_np["task_kv_start"]
+    kv_len = plan_np["task_kv_len"]
+    d, n_tasks = kv_len.shape
+    P = int(n_passes) if n_passes else cfg.n_servers
+    trivial = mask is None or mask.trivial
+    lbm_cache: Dict[int, np.ndarray] = {}
+
+    def lbm(n):
+        if n not in lbm_cache:
+            lbm_cache[n] = live_block_mask(mask, n, n, cfg.blk)
+        return lbm_cache[n]
+
+    starts = [kv_start.copy() for _ in range(P)]
+    lens = [np.zeros_like(kv_len) for _ in range(P)]
+    for s in range(d):
+        for slot in range(n_tasks):
+            if kv_len[s, slot] <= 0:
+                continue
+            g = _plan_task_q_block(cfg, plan_np, s, slot)
+            bi = int(bi_of[g])
+            n = docs[int(doc_of[g])].n_blocks
+            L = ring_shard_size(n, P)
+            i = bi // L
+            row = None if trivial else lbm(n)[bi]
+            for t in range(P):
+                j = (i - t) % P
+                lo, hi = j * L, min((j + 1) * L, bi + 1)
+                if hi <= lo:
+                    continue                      # causal-dead ring step
+                if row is not None:
+                    live = np.nonzero(row[lo:hi])[0]
+                    if live.size == 0:
+                        continue                  # mask-dead ring step
+                    lo, hi = lo + int(live[0]), lo + int(live[-1]) + 1
+                starts[t][s, slot] = kv_start[s, slot] + lo
+                lens[t][s, slot] = hi - lo
+    return [{"task_kv_start": starts[t], "task_kv_len": lens[t],
+             "jmax": int(lens[t].max(initial=0))} for t in range(P)]
+
+
+def _ring_serve_merge(cad: CADContext, inputs_s, pass_plans, server: int,
+                      *, softcap: float = 0.0, scale=None):
+    """ONE server's ring execution: each live pass's kv window served as a
+    finalized ``(out, lse)`` partial (``ca_partial_attention``), folded
+    in pass order with ``merge_softmax_partials``; dead windows merge as
+    bitwise no-ops, passes dead on every server are not served."""
+    q_tasks, qpos, k_buf, v_buf, kpos = (x.contiguous() for x in inputs_s)
+    window, sink, rate = mask_params(cad.mask, 0)
+    dev = q_tasks.device
+    merged = None
+    for t, pp in enumerate(pass_plans):
+        if t > 0 and pp["jmax"] <= 0:
+            continue                        # dead ring pass: skipped exactly
+        o, lse = ca_partial_attention(
+            q_tasks, k_buf, v_buf,
+            torch.as_tensor(pp["task_kv_start"][server], dtype=torch.int32,
+                            device=dev),
+            torch.as_tensor(pp["task_kv_len"][server], dtype=torch.int32,
+                            device=dev), qpos, kpos,
+            jmax=max(pp["jmax"], 1), window=window, softcap=softcap,
+            scale=scale, sink=sink, rate=rate)
+        merged = (o, lse) if merged is None \
+            else merge_softmax_partials(merged[0], merged[1], o, lse)
+    return merged[0]
+
+
+def ring_attention(cad: CADContext, plan, segment_ids: np.ndarray,
+                   q, k, v, pos, *, n_passes: Optional[int] = None,
+                   softcap: float = 0.0, scale=None, pass_plans=None):
+    """Decomposed ring-attention execution of one step (DESIGN.md §13):
+    the DISTFLASHATTN baseline through CAD's own dispatch.  Each server
+    serves its batch one ring pass at a time, merging the per-pass
+    ``(out, lse)`` partials, and the outputs are reassembled as the
+    standard serve's.  Bitwise equal, forward and backward, to
+    :func:`ring_global_sim`.  Arguments as ``build_server_inputs``;
+    ``segment_ids`` the rank-major ``[D, T]`` layout the plan was built
+    from."""
+    cfg = cad.cfg
+    if pass_plans is None:
+        pass_plans = ring_pass_geometry(cfg, segment_ids, plan,
+                                        n_passes=n_passes, mask=cad.mask)
+    inputs, _ = build_server_inputs(cad, plan, q, k, v, pos)
+    outs = {s: _ring_serve_merge(cad, inputs[s], pass_plans, s,
+                                 softcap=softcap, scale=scale)
+            for s in range(cfg.n_servers)}
+    return assemble_step_outputs(cfg, plan, outs, q.shape, q.dtype)
+
+
+def ring_global_sim(q, k, v, pos, plan, cad: CADContext,
+                    segment_ids: np.ndarray, *,
+                    n_passes: Optional[int] = None,
+                    softcap: float = 0.0, scale=None, pass_plans=None):
+    """Single-pool oracle of the ring schedule: the per-pass partial
+    serves of :func:`ring_attention`, merged on the stacked ``[D, T,
+    ...]`` partials of every server and scattered as :func:`_global_sim`
+    scatters: the same operations in the same order, another
+    orchestration."""
+    cfg = cad.cfg
+    d = cfg.n_servers
+    if pass_plans is None:
+        pass_plans = ring_pass_geometry(cfg, segment_ids, plan,
+                                        n_passes=n_passes, mask=cad.mask)
+    plan_t = _plan_tensors(plan, q.device)
+    nb, tasks = _task_batches(q, k, v, pos, plan_t, cfg)
+    servers = [tuple(x[s].contiguous() for x in tasks) for s in range(d)]
+    window, sink, rate = mask_params(cad.mask, 0)
+    merged = None
+    for t, pp in enumerate(pass_plans):
+        if t > 0 and pp["jmax"] <= 0:
+            continue                        # dead ring pass: skipped exactly
+        st = torch.as_tensor(pp["task_kv_start"], dtype=torch.int32,
+                             device=q.device)
+        ln = torch.as_tensor(pp["task_kv_len"], dtype=torch.int32,
+                             device=q.device)
+        parts = [ca_partial_attention(
+            qt, kb, vb, st[s], ln[s], qp, kp, jmax=max(pp["jmax"], 1),
+            window=window, softcap=softcap, scale=scale, sink=sink,
+            rate=rate) for s, (qt, qp, kb, vb, kp) in enumerate(servers)]
+        o = torch.stack([p[0] for p in parts])
+        lse = torch.stack([p[1] for p in parts])
+        merged = (o, lse) if merged is None \
+            else merge_softmax_partials(merged[0], merged[1], o, lse)
+    out_tasks = merged[0]
+    ret_send = out_tasks[:, nb:].reshape((d, d, cfg.cq)
+                                         + tuple(out_tasks.shape[2:]))
+    out = _scatter_outputs(out_tasks, _sim_exchange(ret_send), plan_t, cfg,
+                           nb, cfg.blk, q.shape[2], q.shape[3], q.dtype)
+    return out.reshape(q.shape)
 
 
 # ----------------------------------------------------- plan inspection

@@ -90,6 +90,16 @@
 // (row, tile) pair with no visible pair.  Dynamic shared memory up to 225
 // KiB, raised once per instantiation.
 //
+// Chunked KV streaming and the ring baseline (DESIGN.md §11, §13) add two
+// uses.  ca_server_fwd_range runs either forward over relative kv blocks
+// [j0, j1) with a carry (struct Range): the state between ranges is
+// stored exactly as the kernel holds it (the bf16 kernel's registers, l
+// still per lane; the f32 kernel's shared-memory rows), so ranges that
+// split [0, jmax) give the unstreamed bits; the unstreamed call takes
+// every new branch the same way in every CTA.  The bf16 dq kernel takes
+// an lse cotangent (g_lse, a ring partial's): delta - g_lse replaces
+// delta in dS = P (dP - delta), for dq and for dk/dv, which reads it.
+//
 // What is left for later: wgmma with TMA loads and a producer warp (FA3's
 // shape), persistent CTAs over the live tasks, and sizing the task buffer
 // to the plan (the dispatch's work: most of the bytes are the outputs of
@@ -109,6 +119,22 @@ struct Mask {
   int sink;    // always-visible leading tokens (with a window)
   int rate;    // dilation over blk-token blocks, 1 = none
   int blk;
+};
+
+// A forward over relative kv blocks [j0, min(j1, jmax)) with a carry: the
+// unit of chunked KV streaming (DESIGN.md §11).  The unstreamed call is
+// {0, jmax, null, 0, 1}, and takes every branch below the same way for
+// every CTA, so it runs the instructions it ran before.  carry: f32, the
+// kernel's whole state between ranges, exactly as it holds it (see each
+// kernel); load: read it first (else start fresh); finalize: write out
+// and lse (else store the state back into carry, in place).  A CTA with
+// no tile in a middle range leaves its carry untouched; a first range
+// with no tile stores the fresh state; a finalizing range with no tile
+// finalizes the carry.
+struct Range {
+  int j0, j1;
+  float* carry;
+  int load, finalize;
 };
 
 // kernel.py _ca_mask on in-document positions, causal always, without
@@ -154,7 +180,8 @@ __global__ void __launch_bounds__(kThreads)
                   const int32_t* __restrict__ q_pos,
                   const int32_t* __restrict__ kv_pos, T* __restrict__ out,
                   float* __restrict__ lse, int N, int blk, int hq, int hkv,
-                  int jmax, Mask mask, float softcap, float scale) {
+                  int jmax, Mask mask, float softcap, float scale,
+                  Range rg) {
   constexpr int KS = DH + 1;
   constexpr int PER_LANE = DH / 32;
   constexpr int kRows = Rows<DH>::kQ;
@@ -178,20 +205,30 @@ __global__ void __launch_bounds__(kThreads)
   const size_t row0 = (size_t)t * blk + r0;
   const T* qb = q + row0 * q_stride + (size_t)h * DH;
   T* ob = out + row0 * q_stride + (size_t)h * DH;
-  float* lb = lse + ((size_t)t * hq + h) * blk + r0;
-
-  for (int r = tid; r < kRows; r += kThreads) {
-    qp_s[r] = q_pos[row0 + r];
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-  stage<T, DH>(q_s, DH, qb, q_stride, kRows);
-  for (int idx = tid; idx < kRows * DH; idx += kThreads) acc_s[idx] = 0.f;
-
+  const size_t stat0 = ((size_t)t * hq + h) * blk + r0;
+  float* lb = lse + stat0;
   const int start = kv_start[t];
   const int n_blk = min(kv_len[t], jmax);
+  const int j_end = min(rg.j1, n_blk);
+  if (rg.load && !rg.finalize && rg.j0 >= j_end) return;  // carry kept
+
+  // the carry: m [T, hq, blk], l like it, acc [T, hq, blk, DH] (the
+  // shared-memory state of each CTA's rows)
+  const size_t plane = (size_t)gridDim.x * hq * blk;
+  float* c_m = rg.carry + stat0;
+  float* c_l = rg.carry + plane + stat0;
+  float* c_acc = rg.carry + 2 * plane + stat0 * DH;
+  for (int r = tid; r < kRows; r += kThreads) {
+    qp_s[r] = q_pos[row0 + r];
+    m_s[r] = rg.load ? c_m[r] : kNegInf;
+    l_s[r] = rg.load ? c_l[r] : 0.f;
+  }
+  stage<T, DH>(q_s, DH, qb, q_stride, kRows);
+  for (int idx = tid; idx < kRows * DH; idx += kThreads)
+    acc_s[idx] = rg.load ? c_acc[idx] : 0.f;
+
   const int tiles = blk / kTile;
-  for (int j = 0; j < n_blk; ++j) {
+  for (int j = rg.j0; j < j_end; ++j) {
     const int b = kv_block(start, j, N);
     for (int tt = 0; tt < tiles; ++tt) {
       const size_t slot0 = (size_t)b * blk + tt * kTile;
@@ -260,6 +297,15 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
+  if (!rg.finalize) {
+    for (int r = tid; r < kRows; r += kThreads) {
+      c_m[r] = m_s[r];
+      c_l[r] = l_s[r];
+    }
+    for (int idx = tid; idx < kRows * DH; idx += kThreads)
+      c_acc[idx] = acc_s[idx];
+    return;
+  }
   for (int r = warp; r < kRows; r += kWarps) {
     const bool alive = m_s[r] > kNegInf * 0.5f;
     const float l = fmaxf(l_s[r], 1e-30f);
@@ -666,7 +712,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                       const int32_t* __restrict__ kv_pos,
                       bf16* __restrict__ out, float* __restrict__ lse, int N,
                       int blk, int hq, int hkv, int jmax, Mask mask,
-                      float softcap, float scale) {
+                      float softcap, float scale, Range rg) {
   using C = FwdCfg<DH, BN>;
   using Stage = KvStage<DH, BN>;
   constexpr int BM = C::BM, NT = BN / 8, DT = DH / 8, PITCH = C::PITCH;
@@ -680,26 +726,34 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int gr0 = blockIdx.x * BM;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int start = kv_start[G.b];
-  const int n_tiles = max(0, min(kv_len[G.b], jmax)) * (blk / BN);
+  // the tiles [i0, i1) of this range (unstreamed: all of the task's)
+  const int kvl = max(0, min(kv_len[G.b], jmax));
+  const int i0 = min(rg.j0, kvl) * (blk / BN);
+  const int i1 = min(rg.j1, kvl) * (blk / BN);
 
   bool live = false;
   for (int r = tid; r < BM; r += kMmaThreads) {
     rpos[r] = q_pos[G.row(gr0 + r)];
     live |= rpos[r] >= 0;
   }
-  if (!__syncthreads_or(live) || n_tiles == 0) {  // dead rows: 0, LSE_DEAD
-    zero_rows<DH, BM>(out, G, gr0);
+  if (!__syncthreads_or(live) || (i0 >= i1 && rg.finalize && !rg.load)) {
+    if (!rg.finalize) return;  // dead rows: nothing carried
+    zero_rows<DH, BM>(out, G, gr0);  // dead rows, no tile: 0, LSE_DEAD
     for (int r = tid; r < BM; r += kMmaThreads) lse[G.stat(gr0 + r)] = kLseDead;
     return;
   }
+  if (i0 >= i1 && rg.load && !rg.finalize) return;  // carry kept
 
-  for (int c = tid; c < BM * CHUNKS; c += kMmaThreads) {
-    const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
-    cp_async16(q_s + r * PITCH + col, q + G.off(gr0 + r, DH) + col, 16);
+  if (i0 < i1) {
+    for (int c = tid; c < BM * CHUNKS; c += kMmaThreads) {
+      const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
+      cp_async16(q_s + r * PITCH + col, q + G.off(gr0 + r, DH) + col, 16);
+    }
+    Stage(ring + (i0 % kStages) * Stage::bytes)
+        .load_rows(k, v, kv_pos, tile_slot0<BN>(start, i0, blk, N), G.g,
+                   hkv);
+    cp_async_commit();
   }
-  Stage(ring).load_rows(k, v, kv_pos, tile_slot0<BN>(start, 0, blk, N), G.g,
-                        hkv);
-  cp_async_commit();
 
   // this thread's rows ra and ra + 8 of the warp's 16; the warp's span
   const int ra = warp * 16 + (lane >> 2);
@@ -713,9 +767,29 @@ __global__ void __launch_bounds__(kMmaThreads)
   float o[DT][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  // the carry: each thread's registers as they are (m and l of its rows
+  // ra and ra + 8, l not yet reduced over the quad, its o fragments),
+  // word e of thread tid of CTA c at [c][e][tid]
+  constexpr int kWords = 4 + 4 * DT;
+  float* cw = nullptr;
+  if (rg.carry != nullptr)
+    cw = rg.carry +
+         ((size_t)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+          blockIdx.x) * (kWords * kMmaThreads) + tid;
+  if (rg.load) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = cw[h * kMmaThreads];
+      l[h] = cw[(2 + h) * kMmaThreads];
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[d][c] = cw[(4 + 4 * d + c) * kMmaThreads];
+  }
 
-  for (int i = 0; i < n_tiles; ++i) {
-    if (i + 1 < n_tiles) {
+  for (int i = i0; i < i1; ++i) {
+    if (i + 1 < i1) {
       Stage(ring + ((i + 1) % kStages) * Stage::bytes)
           .load_rows(k, v, kv_pos, tile_slot0<BN>(start, i + 1, blk, N), G.g,
                      hkv);
@@ -743,6 +817,18 @@ __global__ void __launch_bounds__(kMmaThreads)
     __syncthreads();  // every warp is done with this stage
   }
 
+  if (!rg.finalize) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      cw[h * kMmaThreads] = m[h];
+      cw[(2 + h) * kMmaThreads] = l[h];
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) cw[(4 + 4 * d + c) * kMmaThreads] = o[d][c];
+    return;
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(kFull, l[h], 1);
@@ -786,6 +872,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                      const bf16* __restrict__ out,
                      const float* __restrict__ lse,
                      float* __restrict__ delta,
+                     const float* __restrict__ g_lse,
                      const int32_t* __restrict__ kv_start,
                      const int32_t* __restrict__ kv_len,
                      const int32_t* __restrict__ q_pos,
@@ -839,6 +926,8 @@ __global__ void __launch_bounds__(kMmaThreads)
         sum = fmaf(__high2float(a2[i]), __high2float(b2[i]), sum);
       }
     }
+    // the lse cotangent of a ring partial: ds = p (dp - (delta - g_lse))
+    if (g_lse != nullptr) sum -= g_lse[G.stat(gr0 + r)];
     rdl[r] = sum;
     delta[G.stat(gr0 + r)] = sum;
   }
@@ -1115,12 +1204,13 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 // ------------------------------------------------------------------ launch
 struct Args {
-  const void *q, *k, *v, *dout, *out_in, *lse_in, *delta;
+  const void *q, *k, *v, *dout, *out_in, *lse_in, *delta, *g_lse;
   const void *kv_start, *kv_len, *q_pos, *kv_pos;
   void *out, *lse, *dq, *dk, *dv, *delta_out;
   int T, N, blk, hq, hkv, jmax;
   Mask mask;
   float softcap, scale;
+  Range rg;
   cudaStream_t stream;
 };
 
@@ -1141,7 +1231,7 @@ cudaError_t launch_fwd(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), CA_INS, static_cast<T*>(a.out),
       static_cast<float*>(a.lse), a.N, a.blk, a.hq, a.hkv, a.jmax, a.mask,
-      a.softcap, a.scale);
+      a.softcap, a.scale, a.rg);
   return cudaGetLastError();
 }
 
@@ -1189,7 +1279,7 @@ cudaError_t launch_fwd_mma(const Args& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), CA_INS, static_cast<bf16*>(a.out),
       static_cast<float*>(a.lse), a.N, a.blk, a.hq, a.hkv, a.jmax, a.mask,
-      a.softcap, a.scale);
+      a.softcap, a.scale, a.rg);
   return cudaGetLastError();
 }
 
@@ -1205,7 +1295,8 @@ cudaError_t launch_dq_mma(const Args& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
       static_cast<const bf16*>(a.out_in), static_cast<const float*>(a.lse_in),
-      static_cast<float*>(a.delta_out), CA_INS, static_cast<bf16*>(a.dq),
+      static_cast<float*>(a.delta_out), static_cast<const float*>(a.g_lse),
+      CA_INS, static_cast<bf16*>(a.dq),
       a.N, a.blk, a.hq, a.hkv, a.jmax, a.mask, a.softcap, a.scale);
   return cudaGetLastError();
 }
@@ -1282,6 +1373,7 @@ Args make_args(int T, int N, int blk, int hq, int hkv, int jmax, int window,
   a.mask = Mask{window, sink, rate, blk};
   a.softcap = softcap;
   a.scale = scale;
+  a.rg = Range{0, jmax, nullptr, 0, 1};  // unstreamed
   a.stream = static_cast<cudaStream_t>(stream);
   return a;
 }
@@ -1314,12 +1406,44 @@ extern "C" int ca_server_fwd(const void* q, const void* k, const void* v,
   return dispatch(0, dtype, dh, a);
 }
 
+// The forward over relative kv blocks [j0, min(j1, jmax)) with a carry
+// (struct Range): carry f32, (dh + 8) words per (task, q head, q row),
+// updated in place; load: read it first; finalize: write out and lse
+// (which may be null otherwise).
+extern "C" int ca_server_fwd_range(
+    const void* q, const void* k, const void* v, const void* kv_start,
+    const void* kv_len, const void* q_pos, const void* kv_pos, void* out,
+    void* lse, void* carry, int T, int N, int blk, int hq, int hkv, int dh,
+    int dtype, int jmax, int window, int sink, int rate, float softcap,
+    float scale, int j0, int j1, int load, int finalize, void* stream) {
+  if (j0 < 0 || carry == nullptr || (finalize && (out == nullptr ||
+                                                  lse == nullptr)))
+    return cudaErrorInvalidValue;
+  Args a = make_args(T, N, blk, hq, hkv, jmax, window, sink, rate, softcap,
+                     scale, stream);
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.kv_start = kv_start;
+  a.kv_len = kv_len;
+  a.q_pos = q_pos;
+  a.kv_pos = kv_pos;
+  a.out = out;
+  a.lse = lse;
+  a.rg = Range{j0, j1, static_cast<float*>(carry), load != 0,
+               finalize != 0};
+  return dispatch(0, dtype, dh, a);
+}
+
 // dout and out like q; lse, delta [T, hq, blk] f32; dq like q.  f32
 // reads delta = rowsum(dout * out), which the caller computes; bf16
 // computes it from dout and out and writes it into delta, for dk/dv.
+// g_lse (bf16 only; null for none): the lse cotangent [T, hq, blk] f32,
+// subtracted from delta (the f32 caller subtracts it itself).
 extern "C" int ca_server_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* out,
                                 const void* lse, void* delta,
+                                const void* g_lse,
                                 const void* kv_start, const void* kv_len,
                                 const void* q_pos, const void* kv_pos,
                                 void* dq, int T, int N, int blk, int hq,
@@ -1336,6 +1460,7 @@ extern "C" int ca_server_bwd_dq(const void* q, const void* k, const void* v,
   a.lse_in = lse;
   a.delta = delta;
   a.delta_out = delta;
+  a.g_lse = g_lse;
   a.kv_start = kv_start;
   a.kv_len = kv_len;
   a.q_pos = q_pos;

@@ -8,7 +8,15 @@ plain PyTorch version.
   with its backward (paper §4.1), a ``torch.autograd.Function`` over the
   kernels ``ca_server_fwd``, ``ca_server_bwd_dq`` and
   ``ca_server_bwd_dkv`` of ``csrc/ca_server.cu``; plain versions
-  ``ca_server_fwd_reference`` / ``ca_server_bwd_reference``.
+  ``ca_server_fwd_reference`` / ``ca_server_bwd_reference``.  Beside it
+  ``ca_server_fwd_range`` (the forward over a kv-block range with a
+  carry, chunked KV streaming's unit; plain version
+  ``ca_server_fwd_range_reference`` on ``ca_fwd_init`` /
+  ``ca_fwd_steps`` / ``ca_fwd_finalize``; ``ca_server_fwd_chunked``
+  runs it over a whole kv range) and the ring's
+  ``ca_partial_attention`` (a differentiable (out, lse) whose backward
+  takes the lse cotangent into the kernels) and
+  ``merge_softmax_partials`` (torch ops).
 * ``packed_flash_attention``: packed-document self-attention with its
   backward (the colocated ``attn_impl="pallas"`` route), a
   ``torch.autograd.Function`` over the kernels ``flash_fwd``,
@@ -61,7 +69,8 @@ FLASH_DKV_CTAS_PER_SM = 4
 #: kernel launches made by the wrappers (plain counts a run resets and
 #: reads to show that the main path went through the kernels)
 launches = {"ragged_decode": 0, "ca_server_fwd": 0, "ca_server_bwd_dq": 0,
-            "ca_server_bwd_dkv": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+            "ca_server_bwd_dkv": 0, "ca_server_fwd_range": 0,
+            "ca_server_bwd_glse": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "flash_tile_ranges": 0}
 
 
@@ -366,26 +375,36 @@ def _server_pair(qf, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos, j, *,
     return torch.where(msk, logits, NEG_INF), msk, kj, vj, idx
 
 
-def ca_server_fwd_reference(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
-                            kv_pos, *, jmax=0, window=0, sink=0, rate=1,
-                            softcap=0.0, scale=None):
-    """Plain PyTorch version of ``ca_server_fwd`` (the port of
-    ``dispatch._xla_server_fwd_impl``): an online-softmax loop over the
-    relative kv block index j < jmax, gathering each task's j-th block.
-    Iterations past a task's ``kv_len`` are exact no-ops.  Returns
-    (out like q_tasks, lse [T, Hq, blk] in the accumulation dtype)."""
+def ca_fwd_init(q_tasks, hkv):
+    """A fresh online-softmax carry ``(m, l, acc)`` for a task batch, in
+    the accumulation dtype: m [T, Hkv, rep, blk] at NEG_INF, l zeros like
+    it, acc [T, Hkv, rep, blk, dh] zeros (the port of
+    ``dispatch._accum_init``)."""
     t, blk, hq, dh = q_tasks.shape
-    hkv = k_buf.shape[2]
     rep = hq // hkv
-    jmax = jmax or k_buf.shape[0]
-    scale = scale if scale is not None else dh ** -0.5
     acc_dt = _acc_dtype(q_tasks)
-    qf = q_tasks.to(acc_dt)
     dev = q_tasks.device
-    m_acc = torch.full((t, hkv, rep, blk), NEG_INF, dtype=acc_dt, device=dev)
-    l_acc = torch.zeros((t, hkv, rep, blk), dtype=acc_dt, device=dev)
-    acc = torch.zeros((t, hkv, rep, blk, dh), dtype=acc_dt, device=dev)
-    for j in range(jmax):
+    return (torch.full((t, hkv, rep, blk), NEG_INF, dtype=acc_dt,
+                       device=dev),
+            torch.zeros((t, hkv, rep, blk), dtype=acc_dt, device=dev),
+            torch.zeros((t, hkv, rep, blk, dh), dtype=acc_dt, device=dev))
+
+
+def ca_fwd_steps(carry, q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
+                 kv_pos, j0, j1, *, window=0, sink=0, rate=1, softcap=0.0,
+                 scale=None):
+    """The online-softmax steps over relative kv blocks ``j0 <= j < j1``
+    on a carry from :func:`ca_fwd_init` (the port of
+    ``dispatch._accum_body``).  A step past a task's ``kv_len`` is an
+    exact no-op (its logits are NEG_INF: the carry is multiplied by
+    exp(0) == 1 and incremented by 0), so splitting ``[0, jmax)`` into
+    ranges runs the same operations in the same order as one range."""
+    _, _, hq, dh = q_tasks.shape
+    rep = hq // k_buf.shape[2]
+    scale = scale if scale is not None else dh ** -0.5
+    qf = q_tasks.to(_acc_dtype(q_tasks))
+    m_acc, l_acc, acc = carry
+    for j in range(j0, j1):
         logits, msk, _, vj, _ = _server_pair(
             qf, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos, j,
             softcap=softcap, window=window, scale=scale, rep=rep, sink=sink,
@@ -397,24 +416,70 @@ def ca_server_fwd_reference(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
         acc = acc * corr[..., None] \
             + torch.einsum("tgrqk,tkgd->tgrqd", p, vj)
         m_acc = m_new
+    return m_acc, l_acc, acc
+
+
+def ca_fwd_finalize(carry, dtype):
+    """Normalize a finished carry into (out [T, blk, Hq, dh] in
+    ``dtype``, lse [T, Hq, blk] in the accumulation dtype); rows that saw
+    no visible pair give out 0 and lse LSE_DEAD (the port of
+    ``dispatch._accum_finalize``)."""
+    m_acc, l_acc, acc = carry
+    t, hkv, rep, blk, dh = acc.shape
     live = m_acc > NEG_INF / 2
     out = acc / l_acc.clamp(min=1e-30)[..., None]
     out = torch.where(live[..., None], out, 0.0)
     lse = torch.where(live, m_acc + torch.log(l_acc.clamp(min=1e-30)),
                       LSE_DEAD)
     # [T, g, r, q, d] -> [T, q, g, r, d] -> [T, blk, Hq, dh]
-    out = out.permute(0, 3, 1, 2, 4).reshape(t, blk, hq, dh)
-    return out.to(q_tasks.dtype).contiguous(), lse.reshape(t, hq, blk)
+    out = out.permute(0, 3, 1, 2, 4).reshape(t, blk, hkv * rep, dh)
+    return out.to(dtype).contiguous(), lse.reshape(t, hkv * rep, blk)
+
+
+def ca_server_fwd_reference(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
+                            kv_pos, *, jmax=0, window=0, sink=0, rate=1,
+                            softcap=0.0, scale=None):
+    """Plain PyTorch version of ``ca_server_fwd`` (the port of
+    ``dispatch._xla_server_fwd_impl``): an online-softmax loop over the
+    relative kv block index j < jmax, gathering each task's j-th block:
+    :func:`ca_fwd_init`, :func:`ca_fwd_steps` over ``[0, jmax)`` and
+    :func:`ca_fwd_finalize`.  Returns (out like q_tasks, lse [T, Hq, blk]
+    in the accumulation dtype)."""
+    jmax = jmax or k_buf.shape[0]
+    carry = ca_fwd_steps(ca_fwd_init(q_tasks, k_buf.shape[2]), q_tasks,
+                         k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos, 0,
+                         jmax, window=window, sink=sink, rate=rate,
+                         softcap=softcap, scale=scale)
+    return ca_fwd_finalize(carry, q_tasks.dtype)
+
+
+def ca_server_fwd_range_reference(q_tasks, k_buf, v_buf, kv_start, kv_len,
+                                  q_pos, kv_pos, *, j0, j1, carry=None,
+                                  finalize=True, jmax=0, window=0, sink=0,
+                                  rate=1, softcap=0.0, scale=None):
+    """Plain version of ``ca_server_fwd_range``: the steps over relative kv
+    blocks ``[j0, min(j1, jmax))`` on ``carry`` (a fresh one when None);
+    returns (out, lse) when ``finalize``, else the carry ``(m, l, acc)``."""
+    jmax = jmax or k_buf.shape[0]
+    if carry is None:
+        carry = ca_fwd_init(q_tasks, k_buf.shape[2])
+    carry = ca_fwd_steps(carry, q_tasks, k_buf, v_buf, kv_start, kv_len,
+                         q_pos, kv_pos, j0, min(j1, jmax), window=window,
+                         sink=sink, rate=rate, softcap=softcap, scale=scale)
+    return ca_fwd_finalize(carry, q_tasks.dtype) if finalize else carry
 
 
 def ca_server_bwd_reference(q_tasks, k_buf, v_buf, out, lse, do, kv_start,
                             kv_len, q_pos, kv_pos, *, jmax=0, window=0,
-                            sink=0, rate=1, softcap=0.0, scale=None):
+                            sink=0, rate=1, softcap=0.0, scale=None,
+                            g_lse=None):
     """Plain PyTorch version of ``ca_server_bwd`` (the port of
-    ``dispatch._xla_server_bwd_impl`` without the lse cotangent): p is
-    rebuilt from the saved lse block by block; dk/dv fold the GQA group
-    and add into the kv buffer rows each task read.  Returns (dq, dk, dv)
-    in the dtypes of q_tasks, k_buf, v_buf."""
+    ``dispatch._xla_server_bwd_impl``): p is rebuilt from the saved lse
+    block by block; dk/dv fold the GQA group and add into the kv buffer
+    rows each task read.  ``g_lse`` [T, Hq, blk] is the cotangent of the
+    lse output (a ring partial's): it joins the score gradient as
+    ``ds = p * (dp - (delta - g_lse))``.  Returns (dq, dk, dv) in the
+    dtypes of q_tasks, k_buf, v_buf."""
     t, blk, hq, dh = q_tasks.shape
     n, _, hkv, _ = k_buf.shape
     rep = hq // hkv
@@ -427,6 +492,8 @@ def ca_server_bwd_reference(q_tasks, k_buf, v_buf, out, lse, do, kv_start,
     delta = torch.einsum("tqgrd,tqgrd->tgrq", g5,
                          out.to(acc_dt).reshape(t, blk, hkv, rep, dh))
     lse5 = lse.to(acc_dt).reshape(t, hkv, rep, blk)
+    if g_lse is not None:
+        delta = delta - g_lse.to(acc_dt).reshape(t, hkv, rep, blk)
     dq = torch.zeros((t, blk, hkv, rep, dh), dtype=acc_dt,
                      device=q_tasks.device)
     dk = torch.zeros((n, blk, hkv, dh), dtype=acc_dt, device=k_buf.device)
@@ -533,7 +600,7 @@ def ca_server_fwd(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos,
 
 def ca_server_bwd(q_tasks, k_buf, v_buf, out, lse, do, kv_start, kv_len,
                   q_pos, kv_pos, *, jmax=0, window=0, sink=0, rate=1,
-                  softcap=0.0, scale=None):
+                  softcap=0.0, scale=None, g_lse=None):
     """The backward from the saved (out, lse): the dq kernel and the dk/dv
     kernel on the current stream, with ``delta = rowsum(do * out)`` in
     f32.  Returns (dq, dk, dv) in the dtypes of q_tasks and k_buf.  CUDA
@@ -541,17 +608,26 @@ def ca_server_bwd(q_tasks, k_buf, v_buf, out, lse, do, kv_start, kv_len,
     computes delta for its rows and writes it for dk/dv, which lists each
     kv block's covering tasks itself, on the card.  f32 takes the exact
     FMA kernels, with delta a torch op outside them as in the
-    reference."""
+    reference.  ``g_lse`` [T, Hq, blk] f32, the cotangent of the lse
+    output (a ring partial's), makes delta ``rowsum(do * out) - g_lse``:
+    in the bf16 dq kernel, or in the f32 path's torch op."""
+    extra = (("out", out), ("lse", lse), ("do", do))
+    if g_lse is not None:
+        extra += (("g_lse", g_lse),)
     _check_ca_inputs(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos,
-                     extra=(("out", out), ("lse", lse), ("do", do)))
+                     extra=extra)
     t, blk, hq, _ = q_tasks.shape
     if do.shape != q_tasks.shape or do.dtype != q_tasks.dtype \
             or out.shape != q_tasks.shape or out.dtype != q_tasks.dtype \
-            or lse.shape != (t, hq, blk) or lse.dtype != torch.float32:
+            or lse.shape != (t, hq, blk) or lse.dtype != torch.float32 \
+            or (g_lse is not None and (g_lse.shape != lse.shape
+                                       or g_lse.dtype != torch.float32)):
         raise ValueError(f"ca_server_bwd: do {tuple(do.shape)} {do.dtype}, "
                          f"out {tuple(out.shape)} {out.dtype}, lse "
-                         f"{tuple(lse.shape)} {lse.dtype} do not fit q_tasks "
-                         f"{tuple(q_tasks.shape)} {q_tasks.dtype}")
+                         f"{tuple(lse.shape)} {lse.dtype}, g_lse "
+                         f"{None if g_lse is None else tuple(g_lse.shape)} "
+                         f"do not fit q_tasks {tuple(q_tasks.shape)} "
+                         f"{q_tasks.dtype}")
     lib = load_ca_server_library()
     if q_tasks.dtype == torch.bfloat16:     # written by the dq kernel
         delta = torch.empty((t, hq, blk), dtype=torch.float32,
@@ -559,6 +635,8 @@ def ca_server_bwd(q_tasks, k_buf, v_buf, out, lse, do, kv_start, kv_len,
     else:
         delta = torch.einsum("tqhd,tqhd->thq", do.float(),
                              out.float()).contiguous()
+        if g_lse is not None:
+            delta = (delta - g_lse).contiguous()
     dq = torch.empty_like(q_tasks)
     dk = torch.empty_like(k_buf)
     dv = torch.empty_like(v_buf)
@@ -570,10 +648,13 @@ def ca_server_bwd(q_tasks, k_buf, v_buf, out, lse, do, kv_start, kv_len,
            kv_pos.data_ptr())
     with torch.cuda.device(q_tasks.device):
         stream = torch.cuda.current_stream(q_tasks.device).cuda_stream
-        err = lib.ca_server_bwd_dq(*ins[:4], out.data_ptr(), *ins[4:],
-                                   dq.data_ptr(), *scalars, stream)
+        g_ptr = _ptr(g_lse) if q_tasks.dtype == torch.bfloat16 else 0
+        err = lib.ca_server_bwd_dq(*ins[:4], out.data_ptr(), *ins[4:6],
+                                   g_ptr, *ins[6:], dq.data_ptr(), *scalars,
+                                   stream)
         _raise_on(err, "ca_server_bwd_dq")
-        launches["ca_server_bwd_dq"] += 1
+        launches["ca_server_bwd_dq" if g_lse is None
+                 else "ca_server_bwd_glse"] += 1
         err = lib.ca_server_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
                                     *scalars, stream)
         _raise_on(err, "ca_server_bwd_dkv")
@@ -631,17 +712,217 @@ def ca_server_attention(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
                                   q_pos, kv_pos, kernels, opts)
 
 
+def ca_carry_floats(t: int, hq: int, blk: int, dh: int) -> int:
+    """f32 words of a kernel carry for a task batch: per (task, q head, q
+    row) dh accumulators and 8 words of running max and sum (the bf16
+    kernel keeps each thread's registers as they are: m and l of its two
+    rows, l summed per lane and reduced over the quad only when
+    finalized; the f32 kernel keeps m, l and the row's accumulators)."""
+    return t * hq * blk * (dh + 8)
+
+
+def ca_server_fwd_range(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
+                        kv_pos, *, j0, j1, carry=None, finalize=True, jmax=0,
+                        window=0, sink=0, rate=1, softcap=0.0, scale=None):
+    """The CA forward over relative kv blocks ``[j0, min(j1, jmax))`` with
+    a carry: chunked KV streaming's unit (DESIGN.md §11).  ``carry`` None
+    starts a fresh one.  Returns (out, lse) when ``finalize``, else the
+    carry, which the next range takes.  Ranges that split ``[0, jmax)``
+    give out and lse bitwise equal to the unstreamed forward.
+
+    CUDA tensors launch ``ca_server_fwd_range`` of ``csrc/ca_server.cu``
+    (the forward kernels with their state stored to and loaded from the
+    carry, an f32 tensor of :func:`ca_carry_floats` words, updated in
+    place); CPU tensors run the plain version, whose carry is the tuple
+    ``(m, l, acc)``.  Forward only: inputs that require grad raise while
+    grad mode is on."""
+    if torch.is_grad_enabled() \
+            and any(x.requires_grad for x in (q_tasks, k_buf, v_buf)):
+        raise ValueError("ca_server_fwd_range: the streamed forward has no "
+                         "backward (every streamed serve is forward only); "
+                         "call it under torch.no_grad() or on detached "
+                         "inputs")
+    opts = dict(jmax=jmax, window=window, sink=sink, rate=rate,
+                softcap=softcap, scale=scale)
+    if not q_tasks.is_cuda:
+        if q_tasks.device.type != "cpu":
+            raise ValueError(f"ca_server_fwd_range: no kernel for device "
+                             f"{q_tasks.device}")
+        return ca_server_fwd_range_reference(
+            q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos, j0=j0,
+            j1=j1, carry=carry, finalize=finalize, **opts)
+    _check_ca_inputs(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos)
+    t, blk, hq, dh = q_tasks.shape
+    words = ca_carry_floats(t, hq, blk, dh)
+    load = carry is not None
+    if load and (not torch.is_tensor(carry) or carry.dtype != torch.float32
+                 or carry.numel() != words or carry.device != q_tasks.device
+                 or not carry.is_contiguous()):
+        raise ValueError(f"ca_server_fwd_range: carry must be a contiguous "
+                         f"f32 tensor of {words} words on {q_tasks.device}")
+    if not load:
+        carry = torch.empty(words, dtype=torch.float32, device=q_tasks.device)
+    out = lse = None
+    if finalize:
+        out = torch.empty_like(q_tasks)
+        lse = torch.empty((t, hq, blk), dtype=torch.float32,
+                          device=q_tasks.device)
+    lib = load_ca_server_library()
+    scalars = _ca_scalars(q_tasks, k_buf, jmax, window, sink, rate, softcap,
+                          scale)
+    with torch.cuda.device(q_tasks.device):
+        stream = torch.cuda.current_stream(q_tasks.device).cuda_stream
+        err = lib.ca_server_fwd_range(
+            q_tasks.data_ptr(), k_buf.data_ptr(), v_buf.data_ptr(),
+            kv_start.data_ptr(), kv_len.data_ptr(), q_pos.data_ptr(),
+            kv_pos.data_ptr(), _ptr(out), _ptr(lse), carry.data_ptr(),
+            *scalars, int(j0), int(j1), int(load), int(finalize), stream)
+    _raise_on(err, "ca_server_fwd_range")
+    launches["ca_server_fwd_range"] += 1
+    return (out, lse) if finalize else carry
+
+
+def ca_server_fwd_chunked(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
+                          kv_pos, *, chunk_blocks, jmax=0,
+                          fwd_range=ca_server_fwd_range, **opts):
+    """The CA forward as ranges of ``chunk_blocks`` kv blocks with the
+    carry threaded through: a streamed serve's launches (DESIGN.md §11).
+    Returns (out, lse), bitwise equal to the unstreamed forward.
+    ``fwd_range`` is :func:`ca_server_fwd_range`, or its plain version to
+    run the plain ranges on the same tensors; ``opts`` are the mask and
+    score options."""
+    jmax = jmax or k_buf.shape[0]
+    args = (q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos, kv_pos)
+    carry = None
+    for j0 in range(0, jmax, chunk_blocks):
+        last = j0 + chunk_blocks >= jmax
+        res = fwd_range(*args, j0=j0, j1=j0 + chunk_blocks, carry=carry,
+                        finalize=last, jmax=jmax, **opts)
+        if last:
+            return res
+        carry = res
+
+
+class _PartialAttention(torch.autograd.Function):
+    """A CA forward returning (out, lse), both differentiable: backward
+    takes the lse cotangent into the score gradient (``g_lse``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i0, i1, i2, i3, opts):
+        fwd = ca_server_fwd if q.is_cuda else ca_server_fwd_reference
+        out, lse = fwd(q, k, v, i0, i1, i2, i3, **opts)
+        ctx.save_for_backward(q, k, v, i0, i1, i2, i3, out, lse)
+        ctx.opts = opts
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, *index, out, lse = ctx.saved_tensors
+        bwd = ca_server_bwd if q.is_cuda else ca_server_bwd_reference
+        dq, dk, dv = bwd(q, k, v, out, lse, g_out.contiguous(), *index,
+                         **ctx.opts, g_lse=g_lse.float().contiguous())
+        return dq, dk, dv, None, None, None, None, None
+
+
+def ca_partial_attention(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
+                         kv_pos, *, jmax=0, window=0, softcap=0.0,
+                         scale=None, sink=0, rate=1):
+    """One ring pass of a fused CA-task batch (DESIGN.md §13): attention
+    over the pass's kv range ``[kv_start, kv_start + min(kv_len, jmax))``
+    returning the finalized ``(out, lse)`` partial, both differentiable,
+    so :func:`merge_softmax_partials` chains across passes.  ``kv_len``
+    0 rows give a dead partial (out 0, lse LSE_DEAD) that merges as a
+    bitwise no-op.  The port of ``ops.ca_partial_attention``: the CA
+    kernels on CUDA tensors (backward with the lse cotangent, ``g_lse``),
+    their plain versions on CPU tensors."""
+    if not q_tasks.is_cuda and q_tasks.device.type != "cpu":
+        raise ValueError(f"ca_partial_attention: no kernel for device "
+                         f"{q_tasks.device}")
+    opts = dict(jmax=jmax, window=window, sink=sink, rate=rate,
+                softcap=softcap, scale=scale)
+    return _PartialAttention.apply(q_tasks, k_buf, v_buf, kv_start, kv_len,
+                                   q_pos, kv_pos, opts)
+
+
+def _lse_dead(lse):
+    """Rows whose partial saw no live kv (the LSE_DEAD marker)."""
+    return lse >= LSE_DEAD / 2
+
+
+def _merge_weights(lse_a, lse_b, lse):
+    """Softmax merge weights, zeroed on dead partials; with one side live
+    its weight is exp(0) == 1 exactly."""
+    w_a = torch.where(_lse_dead(lse_a), 0.0, torch.exp(lse_a - lse))
+    w_b = torch.where(_lse_dead(lse_b), 0.0, torch.exp(lse_b - lse))
+    return w_a, w_b
+
+
+def _broadcast_rows(w):
+    """[..., hq, blk] row weights -> [..., blk, hq, 1]."""
+    return w.transpose(-1, -2)[..., None]
+
+
+class _MergePartials(torch.autograd.Function):
+    """The port of ``ops.merge_softmax_partials``' custom VJP."""
+
+    @staticmethod
+    def forward(ctx, out_a, lse_a, out_b, lse_b):
+        dead_a, dead_b = _lse_dead(lse_a), _lse_dead(lse_b)
+        # dead sentinels neutralized before the max-stabilized logaddexp
+        la = torch.where(dead_a, -LSE_DEAD, lse_a)
+        lb = torch.where(dead_b, -LSE_DEAD, lse_b)
+        m = torch.maximum(la, lb)
+        lse_m = m + torch.log(torch.exp(la - m) + torch.exp(lb - m))
+        w_a, w_b = _merge_weights(lse_a, lse_b, lse_m)
+        out_m = (_broadcast_rows(w_a) * out_a.float()
+                 + _broadcast_rows(w_b) * out_b.float()).to(out_a.dtype)
+        # bitwise select: a dead partial must not perturb the live side
+        # (0.0 * x + 1.0 * y is not bitwise y when y holds -0.0)
+        out = torch.where(_broadcast_rows(dead_b), out_a,
+                          torch.where(_broadcast_rows(dead_a), out_b, out_m))
+        lse = torch.where(dead_b, lse_a, torch.where(dead_a, lse_b, lse_m))
+        ctx.save_for_backward(out_a, lse_a, out_b, lse_b, out, lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        out_a, lse_a, out_b, lse_b, out, lse = ctx.saved_tensors
+        gf = g_out.float()
+        of = out.float()
+        w_a, w_b = _merge_weights(lse_a, lse_b, lse)
+        d_out_a = (_broadcast_rows(w_a) * gf).to(out_a.dtype)
+        d_out_b = (_broadcast_rows(w_b) * gf).to(out_b.dtype)
+        # d lse_i = w_i * (sum_dh g_out * (out_i - out) + g_lse)
+        da = (gf * (out_a.float() - of)).sum(-1).transpose(-1, -2)
+        db = (gf * (out_b.float() - of)).sum(-1).transpose(-1, -2)
+        return d_out_a, w_a * (da + g_lse), d_out_b, w_b * (db + g_lse)
+
+
+def merge_softmax_partials(out_a, lse_a, out_b, lse_b):
+    """Online-softmax merge of two finalized attention partials (the port
+    of ``ops.merge_softmax_partials``).  ``out_*`` [..., blk, hq, dh]
+    (normalized), ``lse_*`` [..., hq, blk]; leading dims broadcast
+    elementwise, so per-server [T, ...] and stacked [D, T, ...] layouts
+    merge with the same operations.  A dead partial (lse LSE_DEAD) is a
+    bitwise no-op: the live side is selected, not blended.  Both outputs
+    are differentiable.  Plain torch ops on either device."""
+    return _MergePartials.apply(out_a, lse_a, out_b, lse_b)
+
+
 def load_ca_server_library() -> ctypes.CDLL:
     lib = build.load("ca_server", _CA_SOURCE)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     scalars = [i32] * 11 + [f32, f32, ptr]    # ints, softcap, scale, stream
-    signatures = {"ca_server_fwd": [ptr] * 9,
-                  "ca_server_bwd_dq": [ptr] * 12,
-                  "ca_server_bwd_dkv": [ptr] * 12}
-    for name, ptrs in signatures.items():
+    signatures = {"ca_server_fwd": [ptr] * 9 + scalars,
+                  "ca_server_bwd_dq": [ptr] * 13 + scalars,
+                  "ca_server_bwd_dkv": [ptr] * 12 + scalars,
+                  # + carry; j0, j1, load, finalize after the scalars
+                  "ca_server_fwd_range": [ptr] * 10 + scalars[:-1]
+                  + [i32] * 4 + [ptr]}
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = ptrs + scalars
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
 

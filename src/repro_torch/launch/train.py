@@ -10,7 +10,11 @@ per_doc_cp | balanced | ring), --pingpong (nano-batch split), --tolerance
 (scheduler imbalance budget), --prefetch (async plan look-ahead; 0 =
 synchronous), --strategy fixed|variable (packing baseline),
 --server-speeds (heterogeneous pool: comma-separated per-rank speed
-factors), --server-hbm (per-rank HBM budgets in bytes), --mask
+factors), --server-hbm (per-rank HBM budgets in bytes), --stream-chunk
+(kv blocks a streamed serve holds at once), --calibrate (runtime
+cost-model calibration: each server's batch is probed every
+--calibrate-every steps and the timings fed back, so later batches are
+planned from measured costs), --mask
 (attention task shape beyond dense causal: "sliding:window=256,sink=16"
 or "dilated:rate=4").  ``--device`` (default ``cuda``) picks the card;
 without one, ``cuda`` raises.  Without --cad the model trains with
@@ -23,9 +27,9 @@ ops with or without --cad (the ``lru_scan`` kernels are the ``pallas``
 route, which the launcher does not pick), and with --cad its local
 layers, all windowed, take the dispatch's blockwise fallback.  The
 reference's --kernel is not carried over: CUDA tensors run the
-hand-written kernels.  --calibrate, --stream-chunk,
---fault-schedule, --ckpt-dir/--ckpt-every and --trace are accepted and
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+hand-written kernels.  --fault-schedule, --ckpt-dir/--ckpt-every and
+--trace are accepted and raise ``NotImplementedError`` naming the ROADMAP
+item that brings them.
 """
 import argparse
 
@@ -37,9 +41,6 @@ from repro_torch.parallel import ParallelContext
 from repro_torch.train.trainer import TrainConfig, train
 
 NOT_PORTED = {
-    "calibrate": "runtime calibration probes come with ROADMAP queue 1 "
-                 "item 7",
-    "stream_chunk": "chunked KV streaming comes with ROADMAP queue 1 item 7",
     "fault_schedule": "fault schedules need the elastic runtime, ROADMAP "
                       "queue 1 item 8",
     "ckpt_dir": "checkpoints (checkpoint/ckpt.py) come with a later PR of "
@@ -82,8 +83,14 @@ def parse_args(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' only when asked for")
-    ap.add_argument("--calibrate", action="store_true")
-    ap.add_argument("--stream-chunk", type=int, default=0)
+    ap.add_argument("--calibrate", action="store_true",
+                    help="runtime cost-model calibration: probe "
+                         "per-server kernel times and re-plan from them")
+    ap.add_argument("--calibrate-every", type=int, default=5,
+                    help="steps between calibration probes")
+    ap.add_argument("--stream-chunk", type=int, default=0,
+                    help="kv blocks resident per streamed chunk; "
+                         "0 = no streaming")
     ap.add_argument("--fault-schedule", default="")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
@@ -121,18 +128,24 @@ def main(argv=None):
         session = CADSession.for_pipeline(
             cfg, pipe, pingpong=args.pingpong, tolerance=args.tolerance,
             plan_policy=args.plan_policy, prefetch=args.prefetch,
-            server_speeds=speeds, server_hbm=hbm, mask=args.mask or None)
+            server_speeds=speeds, server_hbm=hbm,
+            stream_chunk=args.stream_chunk, calibrate=args.calibrate,
+            mask=args.mask or None)
     else:
         if args.cad:
             print(f"note: {cfg.arch_id} is attention-free; CAD is "
                   f"inapplicable (DESIGN.md §5) — training without it")
-        if speeds or hbm or args.mask:
-            print("note: --server-speeds/--server-hbm/--mask only apply "
-                  "to the CAD attention service — ignored")
+        if speeds or hbm or args.mask or args.calibrate \
+                or args.stream_chunk:
+            print("note: --server-speeds/--server-hbm/--mask/--calibrate/"
+                  "--stream-chunk only apply to the CAD attention service "
+                  "— ignored")
         ctx = ParallelContext(attn_impl="xla", remat=True)
     tc = TrainConfig(steps=args.steps, peak_lr=args.lr,
                      warmup=max(1, args.steps // 10),
-                     log_every=max(1, args.steps // 20))
+                     log_every=max(1, args.steps // 20),
+                     calibrate_every=args.calibrate_every
+                     if args.calibrate else 0)
     res = train(cfg, pipe, tc, ctx=ctx, session=session, device=device)
     h = res["history"]
     print(f"done: loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}")

@@ -1,12 +1,12 @@
 """Trainer: the host loop that owns the data pipeline, the CAD attention
 service (plans prefetched asynchronously one step ahead — the paper's
 "scheduler prefetches the upcoming batch"), the model on its device, the
-optimizer and the metrics.  The port of ``repro.train.trainer``.
+optimizer, the metrics and the runtime calibration probes
+(``calibrate_every``).  The port of ``repro.train.trainer``.
 
-The reference's checkpoints (``ckpt_every``), calibration probes
-(``calibrate_every``) and fault schedules (``fault_schedule``) are not
-ported: ``checkpoint/ckpt.py`` comes with a later PR, the probes with
-ROADMAP queue 1 item 7, the elastic runtime with item 8.
+The reference's checkpoints (``ckpt_every``) and fault schedules
+(``fault_schedule``) are not ported: ``checkpoint/ckpt.py`` comes with a
+later PR, the elastic runtime with ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -33,6 +33,8 @@ class TrainConfig:
     weight_decay: float = 0.1
     log_every: int = 10
     seed: int = 0                 # the model's weights when none is given
+    calibrate_every: int = 0      # probe + feed CA timings every N steps
+                                  # (0 = off; needs a session calibrator)
 
 
 def _sync(device: torch.device) -> None:
@@ -61,7 +63,13 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
     are drawn from ``train_cfg.seed``.  ``on_step(step, metrics)`` is
     called after every step with the metrics as floats, the step's
     host-clock seconds (``step_s``, ended by a device synchronize) and the
-    schedule stats."""
+    schedule stats.
+
+    With ``train_cfg.calibrate_every`` > 0 and a session calibrator, every
+    that many steps the step's plan is probed after the step (seeded q/k/v
+    in the model's compute dtype on its device, each server's batch
+    timed) and the timings fed back, so later batches plan from measured
+    costs (DESIGN.md §3)."""
     if model is None:
         model = Transformer(cfg, device=resolve_device(device),
                             seed=train_cfg.seed)
@@ -78,6 +86,8 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
     params = list(model.parameters())
     opt_state = opt.init(params)
     step_fn = make_train_step(model, ctx, opt, decay_mask(model))
+    calibrating = (session is not None and session.calibrator is not None
+                   and train_cfg.calibrate_every > 0)
 
     history = []
     t0 = time.time()
@@ -85,12 +95,20 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
         for step in range(train_cfg.steps):
             batch = next(gen)
             stats = batch.pop("schedule_stats", None)
+            plan = batch.get("plan") if calibrating else None
             _sync(dev)
             ts = time.perf_counter()
             opt_state, metrics = step_fn(opt_state, batch)
             _sync(dev)
             m = {k: float(v) for k, v in metrics.items()}
             m["step_s"] = time.perf_counter() - ts
+            if plan is not None and step % train_cfg.calibrate_every == 0:
+                # measure -> fit: the per-server timings feed the
+                # calibrator, so the (prefetched) plan of a later batch
+                # is built from them
+                session.observe_probe(plan, seed=train_cfg.seed + step,
+                                      dtype=model.cfg.cdtype,
+                                      device=dev)
             m["step"] = step
             m["wall_s"] = time.time() - t0
             if stats:

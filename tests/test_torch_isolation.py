@@ -48,6 +48,29 @@ def test_importing_every_port_module_loads_no_jax():
     _probe(_PORT)
 
 
+# the decomposed dispatch, streaming, calibration and ring functions, each
+# from the module that defines it
+_NEW_FUNCTIONS = """
+from repro_torch.core.dispatch import (
+    build_server_inputs, serve_task_batch, stream_task_batch,
+    assemble_step_outputs, merge_recovered, probe_plan_times,
+    ring_pass_geometry, ring_attention, ring_global_sim)
+from repro_torch.kernels.packed_flash.ops import (
+    ca_server_fwd_range, ca_server_fwd_range_reference, ca_server_fwd_chunked,
+    ca_partial_attention, merge_softmax_partials, ca_fwd_init, ca_fwd_steps,
+    ca_fwd_finalize)
+from repro_torch.cad.session import CADSession
+from repro_torch.cad import GridCalibrator, CalibrationSnapshot
+from repro_torch.train.trainer import TrainConfig
+assert callable(CADSession.observe_probe) and callable(CADSession._plan_stale)
+assert TrainConfig().calibrate_every == 0
+"""
+
+
+def test_dispatch_streaming_calibration_and_ring_load_no_jax():
+    _probe(_NEW_FUNCTIONS)
+
+
 def test_importing_chip_smoke_loads_no_jax():
     _probe(_SMOKE)
 

@@ -223,7 +223,11 @@ def test_launcher_runs_on_the_cpu():
     assert len(lines) == 2 and "done: loss" in proc.stdout
 
 
-@pytest.mark.parametrize("flag", [["--calibrate"], ["--stream-chunk", "4"],
+# --calibrate and --stream-chunk (the first two cases until queue 1 item
+# 7 was ported) work now (tests/test_torch_calibration.py); their places
+# hold --ckpt-dir and a fault schedule under --cad, which still raise
+@pytest.mark.parametrize("flag", [["--ckpt-dir", "ckpt"],
+                                  ["--cad", "--fault-schedule", "kill:0@1"],
                                   ["--fault-schedule", "kill:1@1"],
                                   ["--ckpt-every", "1"], ["--trace", "t"]])
 def test_launcher_raises_for_what_is_not_ported(flag):
@@ -234,10 +238,13 @@ def test_launcher_raises_for_what_is_not_ported(flag):
 
 @pytest.mark.parametrize("kw", [{"calibrate": True}, {"stream_chunk": 4}])
 def test_session_raises_for_what_is_not_ported(kw):
+    """Calibration and streaming sessions build (they raised until queue 1
+    item 7 was ported; the name is kept so the test's history stays one
+    line); the elastic pool still raises, naming its item."""
     _, cfg_t, _, pipe = _setup()
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        CADSession.for_pipeline(cfg_t, PipelineConfig(**pipe), **kw)
-    sess = CADSession.for_pipeline(cfg_t, PipelineConfig(**pipe))
+    sess = CADSession.for_pipeline(cfg_t, PipelineConfig(**pipe), **kw)
+    assert (sess.calibrator is not None) == bool(kw.get("calibrate"))
+    assert sess.cfg.stream_chunk == kw.get("stream_chunk", 0)
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         sess.with_pool(None)
 
