@@ -203,7 +203,27 @@ Phases, each of which fails the run:
    uncalibrated planner's on the same batch are listed, and the
    calibrated run's batches and plans replayed through an uncalibrated
    session (no calibrator, no probe) must give its losses bitwise: the
-   plans alone decide them.
+   plans alone decide them;
+19. (run after phase 17, and after phase 18) the elastic runtime: the
+   ``ElasticExecutor`` on phase 5's captured layer-0 q/k/v and segment
+   ids (4 servers, ``balanced``, bf16), with the launch counts read
+   around each step: fault-free bitwise equal to ``_global_sim``;
+   ELASTIC_KILL over 3 steps bitwise equal to the fault-free output and,
+   at steps 1 and 2, to an executor whose pool lacks server 2;
+   ELASTIC_FLAP rejoining at step 2; ELASTIC_SLOW with speculation
+   speculating server 3; the kill streamed in ranges of
+   ELASTIC_STREAM_CHUNK kv blocks and traced, each bitwise; the trace
+   report naming the killed and the speculated server; CA-forward
+   launches = served + recovery servers (x ranges streamed); no
+   serve-error; the kill under the ``wall`` timer, each server's
+   synchronized serve and recovery ms beside the model's.  Then phase
+   5's run under TRAIN_KILL (step-0 loss bitwise phase 5's, a later
+   epoch and 3 active servers after it, no later plan giving server 1 a
+   task, launches as phase 5's), and CKPT_ARCH at full width and depth
+   in bf16 trained 2 CAD steps with a calibrator and ``ckpt_every=1``:
+   the checkpoint restored into a fresh model and ``AdamWState`` on the
+   card bitwise, dtypes kept, the calibration equal; its size and the
+   save and restore seconds.
 
 Kernels timed twice (the forward kernels, before and after the library
 call) report the first median as ``ms`` and the second as ``ms_repeat``.
@@ -2353,6 +2373,350 @@ def train_calibrated(torch, np, ops, card, cad_steps):
                 replayed_loss_bitwise=replayed == losses)
 
 
+# ----------------------------------------------------------- phase 19
+# Phase 19's fault schedules on phase 5's captured layer 0 (4 servers):
+# the kill and its reduced-pool witness, a flap, a straggler the executor
+# speculates, and the streamed kill's range size.
+ELASTIC_KILL = "kill:2@1"
+ELASTIC_FLAP = "flap:1@0+2"
+ELASTIC_SLOW = "slow:3x4@0"
+ELASTIC_SPECULATE_PCT = 0.9
+ELASTIC_STREAM_CHUNK = 4
+ELASTIC_STEPS = 3
+# phase 19(b): the fused trainer under a kill
+TRAIN_KILL = "kill:1@1"
+# phase 19(c): smollm-360m checkpointed in bf16
+CKPT_ARCH = "smollm-360m"
+
+
+def _fwd_launches(ops):
+    return {n: ops.launches[n] for n in ("ca_server_fwd",
+                                         "ca_server_fwd_range")}
+
+
+def elastic_runtime(torch, np, ops, inp, card):
+    """Phase 19(a): the elastic executor at llama3-8b width on phase 5's
+    captured layer-0 q/k/v, segment ids and plan (4 servers, balanced),
+    with the launch counts read around each step.  Bitwise: fault-free ==
+    ``_global_sim``; ELASTIC_KILL's step 1 == the fault-free output and
+    == a fresh executor whose pool lacks server 2, at steps 1 and 2;
+    ELASTIC_FLAP rejoins at step 2 with the fault-free bits;
+    ELASTIC_SLOW with speculation speculates server 3 with the fault-free
+    bits; the kill streamed in ranges of ELASTIC_STREAM_CHUNK kv blocks
+    gives the kill's bits; traced == untraced, and ``trace_report``
+    attributes the kill and the speculation to their servers.  Every
+    step's CA-forward launches = its served plus its recovery servers
+    (x ranges when streamed); a step reporting a serve-error fails the
+    run (none is injected).  Then the kill under the ``wall`` timer: each
+    server's synchronized serve and recovery ms beside the model's
+    prediction, the outputs again bitwise."""
+    from repro_torch.core import dispatch as D
+    from repro_torch.launch import trace_report
+    from repro_torch.obs import MetricsRegistry, TraceRecorder
+    from repro_torch.runtime import ElasticExecutor, FaultSchedule, \
+        ServerPool
+    cad = inp["ctx"].cad
+    cfg = cad.cfg
+    d, jmax = cfg.n_servers, cad.jmax or cfg.nkv
+    pos = torch.where(inp["segment_ids"] > 0, inp["positions"], -1) \
+        .to(torch.int32)
+    segs = inp["segment_ids"].cpu().numpy().reshape(d, -1)
+    q, k, v = (inp[n].detach() for n in "qkv")
+    base = dataclasses.replace(_train_setup()[3]("balanced"), prefetch=0)
+    checks, launches, bad_counts, serve_errors = {}, {}, [], []
+
+    def executor(spec="", pool=None, stream_chunk=0, **kw):
+        sess = base if not stream_chunk else dataclasses.replace(
+            base, cfg=dataclasses.replace(cfg, stream_chunk=stream_chunk))
+        return ElasticExecutor(sess.with_pool(pool or ServerPool(d)),
+                               faults=FaultSchedule.parse(spec), **kw)
+
+    def run(name, ex, steps, ranges=1):
+        outs, reps = [], []
+        for step in steps:
+            ops.reset_launches()
+            out, rep = ex.run_step(step, q, k, v, pos, segs)
+            torch.cuda.synchronize()
+            counts = _fwd_launches(ops)
+            served = len(rep.server_seconds) + len(rep.recovery_seconds)
+            want = ({"ca_server_fwd": served, "ca_server_fwd_range": 0}
+                    if ranges == 1 else
+                    {"ca_server_fwd": 0, "ca_server_fwd_range":
+                     served * ranges})
+            if counts != want:
+                bad_counts.append((name, step, counts, want))
+            serve_errors.extend(e for e in rep.events if "serve-error" in e)
+            launches[f"{name} step {step}"] = counts
+            outs.append(out)
+            reps.append(rep)
+        return outs, reps
+
+    t0 = time.perf_counter()
+    (free,), (free_rep,) = run("fault-free", executor(), [0])
+    plan, _ = base.plan(segs)
+    sim = D._global_sim(q, k, v, pos, plan.to(DEVICE),
+                        D.CADContext(cfg=cfg, jmax=jmax), 0.0, None)
+    checks["fault-free == _global_sim"] = same_bits(torch, free, sim)
+    del sim
+    kill, kill_reps = run("kill", executor(ELASTIC_KILL),
+                          range(ELASTIC_STEPS))
+    reduced = ServerPool(d)
+    reduced.remove(2)
+    red, _ = run("reduced pool", executor(pool=reduced), [1, 2])
+    checks["kill: step 1 failed server 2, blocks recovered"] = \
+        kill_reps[1].failed == (2,) and kill_reps[1].recovered_blocks > 0
+    checks["kill == fault-free (steps 0-2)"] = all(
+        same_bits(torch, o, free) for o in kill)
+    checks["kill == reduced pool (steps 1, 2)"] = all(
+        same_bits(torch, a, b) for a, b in zip(kill[1:], red))
+    flap, flap_reps = run("flap", executor(ELASTIC_FLAP),
+                          range(ELASTIC_STEPS))
+    checks["flap: servers served 3, 3, 4 (rejoin at step 2)"] = \
+        [len(r.server_seconds) for r in flap_reps] == [3, 3, 4] \
+        and flap_reps[0].failed == (1,) \
+        and flap_reps[1].epoch < flap_reps[2].epoch
+    checks["flap == fault-free"] = all(same_bits(torch, o, free)
+                                       for o in flap)
+    spec_rec = TraceRecorder(capacity=4096)
+    (slow,), (slow_rep,) = run("slow + speculation", executor(
+        ELASTIC_SLOW, speculate_pct=ELASTIC_SPECULATE_PCT,
+        recorder=spec_rec, metrics=MetricsRegistry()), [0])
+    checks["slow: server 3 speculated"] = slow_rep.speculated == (3,)
+    checks["speculated == fault-free"] = same_bits(torch, slow, free)
+    ranges = -(-jmax // ELASTIC_STREAM_CHUNK)
+    streamed, _ = run("kill streamed", executor(
+        ELASTIC_KILL, stream_chunk=ELASTIC_STREAM_CHUNK),
+        range(ELASTIC_STEPS), ranges=ranges)
+    checks[f"kill streamed at {ELASTIC_STREAM_CHUNK} == unstreamed"] = all(
+        same_bits(torch, a, b) for a, b in zip(streamed, kill))
+    rec = TraceRecorder(capacity=4096)
+    traced, _ = run("kill traced", executor(
+        ELASTIC_KILL, recorder=rec, metrics=MetricsRegistry()),
+        range(ELASTIC_STEPS))
+    checks["traced == untraced"] = all(
+        same_bits(torch, a, b) for a, b in zip(traced, kill))
+    kill_at = trace_report.attribute_step(
+        trace_report.load_steps(rec.to_chrome_trace())[1])
+    spec_at = trace_report.load_steps(spec_rec.to_chrome_trace())[0]
+    checks["trace_report: kill on server 2 at step 1"] = \
+        "kill" in kill_at["events"] and [
+            e.track for e in rec.events() if e.name == "kill"] \
+        == ["server/2"]
+    checks["trace_report: speculation on server 3 at step 0"] = \
+        spec_at.get(3, {}).get("events") == ["speculate"]
+    del streamed, traced, flap, red
+    model_s = time.perf_counter() - t0
+
+    # the wall timer: each serve timed between two synchronizes
+    wall, wall_reps = run("kill wall", executor(ELASTIC_KILL, timer="wall"),
+                          range(ELASTIC_STEPS))
+    checks["wall timer: the same bits"] = all(
+        same_bits(torch, a, b) for a, b in zip(wall, kill))
+    del wall, kill
+    for step, (w, m) in enumerate(zip(wall_reps, kill_reps)):
+        serve = {s: (round(1e3 * w.server_seconds[s], 4),
+                     round(1e3 * m.server_seconds[s], 4))
+                 for s in sorted(w.server_seconds)}
+        recov = {s: (round(1e3 * w.recovery_seconds[s], 4),
+                     round(1e3 * m.recovery_seconds[s], 4))
+                 for s in sorted(w.recovery_seconds)}
+        log(f"phase 19: wall step {step}: serve ms (measured, model) "
+            f"{serve}; recovery ms {recov}; step {1e3 * w.step_seconds:.3f}"
+            f" ms (model {1e3 * m.step_seconds:.3f}); launches "
+            f"{launches[f'kill wall step {step}']} [{card}]")
+    log(f"phase 19: layer 0 at llama3-8b width, {d} servers, jmax {jmax}: "
+        f"kill recovered {kill_reps[1].recovered_blocks} blocks on "
+        f"{sorted(kill_reps[1].recovery_seconds)}; speculated "
+        f"{slow_rep.speculated} (deadline {1e3 * slow_rep.deadline:.3f} "
+        f"model ms); model-timer runs {model_s:.2f} s; launches {launches}")
+    for name, ok in checks.items():
+        log(f"  {name}: {ok}")
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"phase 19: failed: {failed}")
+    if bad_counts:
+        raise SystemExit(f"phase 19: CA-forward launches != served + "
+                         f"recovery servers: {bad_counts}")
+    if serve_errors:
+        raise SystemExit(f"phase 19: serve errors nobody injected: "
+                         f"{serve_errors}")
+    def ms(reps):
+        return [{f"{kind} {s}": 1e3 * sec
+                 for kind, secs in (("server", r.server_seconds),
+                                    ("recovery", r.recovery_seconds))
+                 for s, sec in sorted(secs.items())} for r in reps]
+    return dict(checks=checks, launches=launches,
+                fwd_launches=sum(c["ca_server_fwd"]
+                                 for c in launches.values()),
+                range_launches=sum(c["ca_server_fwd_range"]
+                                   for c in launches.values()),
+                recovered_blocks=kill_reps[1].recovered_blocks,
+                wall_ms=ms(wall_reps), model_ms=ms(kill_reps))
+
+
+def train_with_faults(torch, np, ops, card, cad_steps):
+    """Phase 19(b): phase 5's configuration under TRAIN_KILL for 3 steps
+    on the fused path.  The step-0 loss is bitwise phase 5's; steps 1-2
+    carry a higher ``pool_epoch`` and ``pool_active`` 3, and their plans
+    give server 1 no task: the batches the worker had prefetched under
+    epoch 0 were re-planned at pull.  Launches as phase 5's: the fused
+    dispatch serves every server slot, server 1's with no live task."""
+    from repro_torch.models.model import Transformer
+    from repro_torch.runtime import ServerPool
+    from repro_torch.train.trainer import train
+    cfg, pipe, tc, session = _train_setup()
+    n_servers = pipe.n_ranks
+    # the trainer attaches a pool when the session has none; one given
+    # here lets the plans be recorded on this instance
+    sess = session("balanced").with_pool(ServerPool(n_servers))
+    taken = []
+
+    def recording(batches, attach=sess.attach_plans):
+        gen = attach(batches)
+        try:
+            for b in gen:
+                taken.append(b["plan"])
+                yield b
+        finally:
+            gen.close()
+    object.__setattr__(sess, "attach_plans", recording)
+    expect = {"ca_server_fwd": n_servers * cfg.n_layers * 2,
+              "ca_server_bwd_dq": n_servers * cfg.n_layers,
+              "ca_server_bwd_dkv": n_servers * cfg.n_layers}
+    steps = []
+
+    def on_step(step, m):
+        counts = {k: ops.launches[k] for k in expect}
+        ops.reset_launches()
+        steps.append(dict(m, counts=counts))
+        log(f"phase 19: fused step {step} loss {m['loss']:.6f} step "
+            f"{1e3 * m['step_s']:.1f} ms launches {counts} pool epoch "
+            f"{m.get('sched_pool_epoch')} active "
+            f"{m.get('sched_pool_active')} events "
+            f"{m.get('pool_events', '-')} (phase 5: loss "
+            f"{cad_steps[step]['loss']:.6f}, step "
+            f"{1e3 * cad_steps[step]['step_s']:.1f} ms) [{card}]")
+
+    model = Transformer(cfg, device=DEVICE, seed=0)
+    ops.reset_launches()
+    train(cfg, pipe, dataclasses.replace(tc, fault_schedule=TRAIN_KILL),
+          model=model, session=sess, device=DEVICE, on_step=on_step)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dead = [int(np.asarray(p["task_kv_len"])[1].sum()) for p in taken]
+    checks = {
+        "step-0 loss bitwise phase 5's": steps[0]["loss"]
+        == cad_steps[0]["loss"],
+        "finite losses": all(math.isfinite(s["loss"]) for s in steps),
+        "epoch bumps at step 1": all(
+            s["sched_pool_epoch"] > steps[0]["sched_pool_epoch"]
+            for s in steps[1:]),
+        "3 active servers after the kill": all(
+            s["sched_pool_active"] == n_servers - 1 for s in steps[1:]),
+        "no plan after the kill gives server 1 a task": dead[1:]
+        == [0] * (len(dead) - 1) and dead[0] > 0,
+        "launches as phase 5's": all(s["counts"] == expect
+                                     for s in steps),
+    }
+    for name, ok in checks.items():
+        log(f"  {name}: {ok}")
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"phase 19: fused trainer under {TRAIN_KILL}: "
+                         f"failed {failed}")
+    return dict(loss=[s["loss"] for s in steps],
+                step_s=[s["step_s"] for s in steps],
+                pool_epoch=[s["sched_pool_epoch"] for s in steps],
+                launches=steps[1]["counts"], checks=checks)
+
+
+def checkpoint_roundtrip(torch, np, card):
+    """Phase 19(c): smollm-360m at full width and depth in bf16, CAD with
+    a calibrator (a probe every step), 2 steps with ``ckpt_every=1`` into
+    a temporary directory deleted afterwards; the step-1 checkpoint
+    restored into a fresh model and a fresh ``AdamWState`` on the card:
+    every tensor bitwise equal in its dtype, the calibrator's state
+    equal.  Logs the file size and the save and restore seconds."""
+    import tempfile
+    from repro_torch.cad import CADSession
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import GridCalibrator
+    from repro_torch.data.pipeline import PipelineConfig
+    from repro_torch.models.model import Transformer
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.trainer import TrainConfig, train
+    cfg = get_config(CKPT_ARCH)
+    pipe = PipelineConfig(distribution="prolong", max_doc_len=4096,
+                          seq_len=4096, global_batch=4, n_ranks=4,
+                          vocab_size=cfg.vocab_size, seed=0)
+    sess = CADSession.for_pipeline(cfg, pipe, calibrate=True, prefetch=2)
+    saves = []
+    save = ckpt.save
+
+    def timed_save(*args, **kw):        # the trainer's save, timed
+        t0 = time.perf_counter()
+        out = save(*args, **kw)
+        saves.append(time.perf_counter() - t0)
+        return out
+    ckpt.save = timed_save
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = TrainConfig(steps=2, peak_lr=3e-4, warmup=1, log_every=1,
+                         ckpt_every=1, ckpt_dir=tmp, calibrate_every=1)
+        try:
+            res = train(cfg, pipe, tc, session=sess, device=DEVICE)
+        finally:
+            ckpt.save = save
+        save_s = saves[0]
+        step = ckpt.latest_step(tmp)
+        size = Path(f"{tmp}/ckpt_{step:08d}.npz").stat().st_size
+        want = res["model"].state_dict()
+        state = res["opt_state"]
+        model = Transformer(cfg, device=DEVICE, seed=1)
+        opt = AdamW().init(list(model.parameters()))
+        t0 = time.perf_counter()
+        got = ckpt.restore(tmp, step, {"params": model.state_dict(),
+                                       "opt_state": opt})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        calib = GridCalibrator(sess.calibrator.base, pipe.n_ranks)
+        restored_calib = ckpt.restore_calibration(tmp, step, calib)
+    model.load_state_dict(got["params"])
+    have = model.state_dict()
+    params_ok = all(have[k].dtype == want[k].dtype
+                    and have[k].device == want[k].device
+                    and same_bits(torch, have[k], want[k]) for k in want)
+    opt_ok = got["opt_state"].step == state.step and all(
+        a.dtype == b.dtype and a.device == b.device and same_bits(torch, a, b)
+        for a, b in zip(got["opt_state"].mu + got["opt_state"].nu,
+                        state.mu + state.nu))
+    a, b = calib.state_dict(), sess.calibrator.state_dict()
+    calib_ok = restored_calib and a.keys() == b.keys() and all(
+        np.array_equal(np.asarray(a[x], float), np.asarray(b[x], float),
+                       equal_nan=True) if isinstance(a[x], list)
+        else a[x] == b[x] for x in a)
+    n_params = sum(t.numel() for t in want.values())
+    dtypes = sorted({str(t.dtype) for t in want.values()})
+    log(f"phase 19: {CKPT_ARCH} ({n_params / 1e6:.1f} M params, {dtypes}, "
+        f"{cfg.n_layers} layers), 2 CAD steps with a calibrator, losses "
+        f"{[m['loss'] for m in res['history']]}; checkpoint of step {step}: "
+        f"{size / 2 ** 20:.1f} MiB, save {save_s:.3f} s, restore "
+        f"{restore_s:.3f} s; params bitwise {params_ok}, AdamWState "
+        f"bitwise {opt_ok}, calibration {calib_ok} (n_obs "
+        f"{b['n_obs']}) [{card}]")
+    del res, model, got, want, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (step == 1 and len(saves) == 1 and params_ok and opt_ok
+            and calib_ok):
+        raise SystemExit(f"phase 19: checkpoint round trip: step {step}, "
+                         f"params {params_ok}, optimizer {opt_ok}, "
+                         f"calibration {calib_ok}")
+    return dict(arch=CKPT_ARCH, params=n_params, mib=size / 2 ** 20,
+                save_s=save_s, restore_s=restore_s)
+
+
 # ------------------------------------------------------------ phase 7
 # The colocated step-0 loss against CAD's, on the same weights and batch.
 # While ca_server's bf16 path ran FMA kernels on f32-staged tiles, the
@@ -4247,10 +4611,18 @@ def main(argv=None) -> int:
                              ("loss", "step_s", "peak_gib")})
         ring = dispatch_and_ring(torch, np, ops, captured[0], batches[0],
                                  card)
+        t19 = time.perf_counter()
+        elastic = elastic_runtime(torch, np, ops, captured[0], card)
+        t19 = time.perf_counter() - t19
         del batches, captured
         gc.collect()
         torch.cuda.empty_cache()
         calib = train_calibrated(torch, np, ops, card, steps)
+        t19b = time.perf_counter()
+        faulted = train_with_faults(torch, np, ops, card, steps)
+        ckpt_run = checkpoint_roundtrip(torch, np, card)
+        t19 += time.perf_counter() - t19b
+        log(f"phase 19: {t19:.1f} s in all")
         rt = ring["times"]
         jmax = max(int(c.split("_")[1]) for c in rt if c.startswith(
             "stream_"))
@@ -4298,6 +4670,15 @@ def main(argv=None) -> int:
                                      "comparison of the two designs",
                            ring_fwd_trace=ring["ring_trace"]))
         ca_fwd["calibrated_run"] = calib
+        ca_fwd["elastic_phase19"] = dict(
+            launches=elastic["fwd_launches"],
+            range_launches=elastic["range_launches"],
+            launches_by_run=elastic["launches"],
+            checks=elastic["checks"],
+            recovered_blocks=elastic["recovered_blocks"],
+            wall_ms=elastic["wall_ms"], model_ms=elastic["model_ms"],
+            checkpoint=ckpt_run, seconds=t19)
+        ca_bwd["fused_under_kill_phase19"] = faulted
         gemma_cad = train_gemma2_cad(torch, ops, card)
         g_t, (g_fb, g_bb) = gemma_cad["times"], gemma_cad["bounds"]
         ca_fwd["gemma2_dh256"] = dict(

@@ -25,9 +25,9 @@ Construction::
       opt_state, metrics = step(opt_state, batch)
       session.observe_probe(batch["plan"], dtype=torch.bfloat16)
 
-``for_pipeline`` never mutates the pipeline config.  An elastic pool
-(``with_pool``) needs the runtime, ROADMAP queue 1 item 8, and raises
-``NotImplementedError``.
+``for_pipeline`` never mutates the pipeline config.  ``with_pool``
+attaches an elastic :class:`~repro_torch.runtime.ServerPool`
+(DESIGN.md §9).
 """
 from __future__ import annotations
 
@@ -51,9 +51,6 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.parallel import ParallelContext
 
 Plan = Union[StepPlan, PingPongPlan]
-
-ELASTIC = "the elastic server pool (runtime/) comes with ROADMAP queue 1 " \
-    "item 8"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +76,8 @@ class CADSession:
     calibrator: Optional[GridCalibrator] = None
     recalib_threshold: float = 0.05   # speed drift that re-plans a
                                       # prefetched (stale) plan at pull
+    pool: Any = None               # ServerPool: elastic membership; like
+                                   # the calibrator, mutable shared state
 
     # ------------------------------------------------------- constructors
     @classmethod
@@ -143,13 +142,21 @@ class CADSession:
         return ParallelContext(attn_impl="cad", cad=cad, remat=remat,
                                pingpong=self.pingpong)
 
+    # --------------------------------------------------------- elasticity
     def with_pool(self, pool) -> "CADSession":
-        raise NotImplementedError(ELASTIC)
+        """Attach a :class:`repro_torch.runtime.ServerPool`: planning then
+        runs against the pool's surviving members only, every plan's
+        stats record the membership epoch it was built from, and
+        prefetched plans from a superseded epoch are re-planned at pull
+        (DESIGN.md §9)."""
+        if pool is not None and pool.n_slots != self.cfg.n_servers:
+            raise ValueError(
+                f"pool has {pool.n_slots} slots, session pool geometry "
+                f"is {self.cfg.n_servers} servers")
+        return dataclasses.replace(self, pool=pool)
 
     def _pool_view(self):
-        """The elastic pool's membership view: None until the runtime
-        (ROADMAP queue 1 item 8) brings ``with_pool``."""
-        return None
+        return None if self.pool is None else self.pool.view()
 
     # ------------------------------------------------------- calibration
     def _snapshot(self) -> Optional[CalibrationSnapshot]:
@@ -159,8 +166,8 @@ class CADSession:
     def admission_view(self) -> Tuple[CalibrationSnapshot, Optional[Any]]:
         """One (calibration snapshot, pool view) pair: the pricing basis
         of one admission round.  Without a calibrator the snapshot wraps
-        the analytic model and the declared speeds at version -1; the
-        pool view is None until the elastic runtime."""
+        the analytic model and the declared speeds at version -1; without
+        a pool the view is None."""
         snap = self._snapshot()
         if snap is None:
             comm = self.comm
@@ -303,6 +310,9 @@ class CADSession:
             reg.gauge("cad_calib_version",
                       "calibration snapshot version planned from").set(
                 stats["calib_version"])
+        if "pool_epoch" in stats:
+            reg.gauge("cad_pool_epoch", "pool membership epoch").set(
+                stats["pool_epoch"])
         return plan, stats
 
     def _plan_impl(self, segment_ids: np.ndarray) \
@@ -318,6 +328,11 @@ class CADSession:
         kw = self._planner_kwargs(snap)
         if self.mask is not None:
             kw["mask"] = self.mask
+        if view is not None:
+            # ONE membership view per step: both ping-pong halves plan
+            # against the same surviving-endpoint set, and the epoch is
+            # recorded so prefetched plans invalidate on change
+            kw["exclude"] = view.excluded
         if not self.pingpong:
             res = planner(self.cfg, segs, comm=self.comm,
                           tolerance=self.tolerance, **kw)
@@ -368,13 +383,16 @@ class CADSession:
         ``prefetch=0`` planning happens inline.  With a calibrator
         attached, a prefetched plan whose speeds have drifted past
         ``recalib_threshold`` is re-planned at pull time (on the
-        consumer thread)."""
+        consumer thread); with a pool attached, a plan prefetched under a
+        superseded membership epoch always is: a plan that routes tasks
+        to a dead server must never reach the dispatch."""
         depth = self.prefetch if prefetch is None else prefetch
         if depth <= 0:
             for batch in batch_iter:
                 yield self.plan_batch(batch)
             return
-        stale = self._plan_stale if self.calibrator is not None else None
+        stale = self._plan_stale if (self.calibrator is not None
+                                     or self.pool is not None) else None
         pf = PlanPrefetcher(batch_iter, self.plan_batch, depth=depth,
                             is_stale=stale)
         try:

@@ -16,8 +16,17 @@ cost-model calibration: each server's batch is probed every
 --calibrate-every steps and the timings fed back, so later batches are
 planned from measured costs), --mask
 (attention task shape beyond dense causal: "sliding:window=256,sink=16"
-or "dilated:rate=4").  ``--device`` (default ``cuda``) picks the card;
-without one, ``cuda`` raises.  Without --cad the model trains with
+or "dilated:rate=4"), --fault-schedule (elastic pool membership: a
+deterministic FaultSchedule spec like "kill:1@5" or "flap:0@3+2,
+slow:2x4@4-8" — killed/drained servers are excluded from subsequent
+plans and flapped servers rejoin, DESIGN.md §9), --speculate-pct
+(straggler-speculation percentile for the elastic executor),
+--ckpt-dir/--ckpt-every (checkpoints of the model, the optimizer and the
+calibration), --trace/--trace-capacity (a Chrome-trace JSON of the run,
+one track per attention server, read by
+``python -m repro_torch.launch.trace_report``) and --metrics (the
+metrics registry's JSON at exit).  ``--device`` (default ``cuda``) picks
+the card; without one, ``cuda`` raises.  Without --cad the model trains with
 colocated blockwise ``xla`` attention, as in the reference; an
 attention-free arch (mamba2-370m) trains the same way with --cad, after
 the reference's note that CAD does not apply, its SSD layers on the
@@ -27,29 +36,18 @@ ops with or without --cad (the ``lru_scan`` kernels are the ``pallas``
 route, which the launcher does not pick), and with --cad its local
 layers, all windowed, take the dispatch's blockwise fallback.  The
 reference's --kernel is not carried over: CUDA tensors run the
-hand-written kernels.  --fault-schedule, --ckpt-dir/--ckpt-every and
---trace are accepted and raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+hand-written kernels.
 """
 import argparse
+import json
 
 from repro_torch.cad import CADSession, available_policies
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import PipelineConfig
 from repro_torch.models.model import resolve_device
+from repro_torch.obs import enable_tracing, get_recorder, get_registry
 from repro_torch.parallel import ParallelContext
 from repro_torch.train.trainer import TrainConfig, train
-
-NOT_PORTED = {
-    "fault_schedule": "fault schedules need the elastic runtime, ROADMAP "
-                      "queue 1 item 8",
-    "ckpt_dir": "checkpoints (checkpoint/ckpt.py) come with a later PR of "
-                "the port",
-    "ckpt_every": "checkpoints (checkpoint/ckpt.py) come with a later PR "
-                  "of the port",
-    "trace": "trace export of the training run (launch/trace_report.py) "
-             "comes with ROADMAP queue 1 item 8",
-}
 
 
 def parse_args(argv=None):
@@ -91,10 +89,29 @@ def parse_args(argv=None):
     ap.add_argument("--stream-chunk", type=int, default=0,
                     help="kv blocks resident per streamed chunk; "
                          "0 = no streaming")
-    ap.add_argument("--fault-schedule", default="")
-    ap.add_argument("--ckpt-dir", default="")
-    ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--trace", default="")
+    ap.add_argument("--fault-schedule", default="",
+                    help="deterministic fault injection spec, e.g. "
+                         "'kill:1@5' or 'flap:0@3+2,slow:2x4@4-8' "
+                         "(elastic pool membership, DESIGN.md §9)")
+    ap.add_argument("--speculate-pct", type=float, default=0.0,
+                    help="straggler-speculation deadline percentile "
+                         "(0 = off; task-level speculation runs in the "
+                         "elastic executor)")
+    ap.add_argument("--ckpt-dir", default=TrainConfig().ckpt_dir,
+                    help="checkpoint directory (default: %(default)s)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save a checkpoint every N steps (0 = never)")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome-trace/Perfetto JSON of the run "
+                         "to this path (one track per attention server; "
+                         "DESIGN.md §14)")
+    ap.add_argument("--trace-capacity", type=int, default=65536,
+                    help="trace ring-buffer capacity (oldest events "
+                         "are overwritten past it)")
+    ap.add_argument("--metrics", default="",
+                    help="write the metrics-registry JSON snapshot "
+                         "(counters/gauges/histograms) to this path "
+                         "at exit")
     return ap.parse_args(argv)
 
 
@@ -109,10 +126,9 @@ def _per_rank(text, ranks, flag):
 
 def main(argv=None):
     args = parse_args(argv)
-    for name, why in NOT_PORTED.items():
-        if getattr(args, name):
-            raise NotImplementedError(f"--{name.replace('_', '-')}: {why}")
     device = resolve_device(args.device)
+    if args.trace:
+        enable_tracing(capacity=args.trace_capacity)
     cfg = get_config(args.arch)
     print(f"arch={cfg.arch_id} params={cfg.n_params()/1e6:.1f}M "
           f"family={cfg.family} device={device}")
@@ -136,19 +152,33 @@ def main(argv=None):
             print(f"note: {cfg.arch_id} is attention-free; CAD is "
                   f"inapplicable (DESIGN.md §5) — training without it")
         if speeds or hbm or args.mask or args.calibrate \
-                or args.stream_chunk:
+                or args.stream_chunk or args.fault_schedule:
             print("note: --server-speeds/--server-hbm/--mask/--calibrate/"
-                  "--stream-chunk only apply to the CAD attention service "
-                  "— ignored")
+                  "--stream-chunk/--fault-schedule only apply to the CAD "
+                  "attention service — ignored")
         ctx = ParallelContext(attn_impl="xla", remat=True)
     tc = TrainConfig(steps=args.steps, peak_lr=args.lr,
                      warmup=max(1, args.steps // 10),
                      log_every=max(1, args.steps // 20),
+                     ckpt_every=args.ckpt_every,
                      calibrate_every=args.calibrate_every
-                     if args.calibrate else 0)
+                     if args.calibrate else 0,
+                     fault_schedule=args.fault_schedule
+                     if session is not None else "",
+                     ckpt_dir=args.ckpt_dir,
+                     speculate_pct=args.speculate_pct)
     res = train(cfg, pipe, tc, ctx=ctx, session=session, device=device)
     h = res["history"]
     print(f"done: loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}")
+    if args.trace:
+        rec = get_recorder()
+        rec.save(args.trace)
+        print(f"trace: {len(rec)} events -> {args.trace} "
+              f"({rec.n_dropped} dropped)")
+    if args.metrics:
+        with open(args.metrics, "w") as f:
+            json.dump(get_registry().to_dict(), f, indent=2)
+        print(f"metrics: -> {args.metrics}")
     return res
 
 

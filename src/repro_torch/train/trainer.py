@@ -1,22 +1,22 @@
 """Trainer: the host loop that owns the data pipeline, the CAD attention
 service (plans prefetched asynchronously one step ahead — the paper's
 "scheduler prefetches the upcoming batch"), the model on its device, the
-optimizer, the metrics and the runtime calibration probes
-(``calibrate_every``).  The port of ``repro.train.trainer``.
-
-The reference's checkpoints (``ckpt_every``) and fault schedules
-(``fault_schedule``) are not ported: ``checkpoint/ckpt.py`` comes with a
-later PR, the elastic runtime with ROADMAP queue 1 item 8.
+optimizer, checkpointing, the metrics, the runtime calibration probes
+(``calibrate_every``) and the fault schedule's membership events
+(``fault_schedule``).  The port of ``repro.train.trainer``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from repro_torch.cad.session import CADSession
+from repro_torch.checkpoint import ckpt
 from repro_torch.data.pipeline import PipelineConfig, raw_batches
 from repro_torch.models.convert import decay_mask
 from repro_torch.models.model import Transformer, resolve_device
@@ -32,9 +32,23 @@ class TrainConfig:
     warmup: int = 20
     weight_decay: float = 0.1
     log_every: int = 10
+    ckpt_every: int = 0
+    ckpt_dir: str = dataclasses.field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "repro_ckpt"))
     seed: int = 0                 # the model's weights when none is given
     calibrate_every: int = 0      # probe + feed CA timings every N steps
                                   # (0 = off; needs a session calibrator)
+    fault_schedule: str = ""      # FaultSchedule spec applied to the
+                                  # session's ServerPool (one is attached
+                                  # if missing): membership events take
+                                  # effect at step granularity here —
+                                  # a killed server is excluded from the
+                                  # next plan; prefetched plans from the
+                                  # dead epoch re-plan at pull
+    speculate_pct: float = 0.0    # straggler-speculation percentile;
+                                  # consumed by the task-level elastic
+                                  # executor — the fused path only
+                                  # records it
 
 
 def _sync(device: torch.device) -> None:
@@ -69,12 +83,37 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
     that many steps the step's plan is probed after the step (seeded q/k/v
     in the model's compute dtype on its device, each server's batch
     timed) and the timings fed back, so later batches plan from measured
-    costs (DESIGN.md §3)."""
+    costs (DESIGN.md §3).
+
+    With ``train_cfg.fault_schedule`` (a CAD session only) the session
+    gets a :class:`~repro_torch.runtime.ServerPool` when it has none, and
+    before each step the schedule's membership events are applied to it:
+    a killed or drained server is excluded from the plans from that step
+    on, prefetched plans of an older epoch are re-planned at pull, and
+    the step's metrics carry ``pool_events``.  Every ``ckpt_every`` steps
+    the model's tensors, the optimizer state and the calibrator's state
+    are saved into ``ckpt_dir``; a calibrator starts from the newest
+    checkpoint's calibration state.  Like the reference, the loop does
+    not resume the parameters."""
     if model is None:
         model = Transformer(cfg, device=resolve_device(device),
                             seed=train_cfg.seed)
     dev = model.device
+    faults = pool = None
     if session is not None:
+        if train_cfg.fault_schedule:
+            from repro_torch.runtime import FaultSchedule, ServerPool
+            faults = FaultSchedule.parse(train_cfg.fault_schedule)
+            if session.pool is None:
+                session = session.with_pool(ServerPool(
+                    session.cfg.n_servers,
+                    calibrator=session.calibrator))
+            if train_cfg.speculate_pct > 0:
+                print("note: --speculate-pct drives task-level "
+                      "speculation in the elastic executor "
+                      "(runtime.ElasticExecutor); the fused train step "
+                      "applies membership events only")
+        pool = session.pool
         ctx = session.context()
         gen = session.attach_plans(raw_batches(pipe_cfg))
     else:
@@ -88,11 +127,33 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
     step_fn = make_train_step(model, ctx, opt, decay_mask(model))
     calibrating = (session is not None and session.calibrator is not None
                    and train_cfg.calibrate_every > 0)
+    if session is not None and session.calibrator is not None \
+            and train_cfg.ckpt_every:
+        # calibration survives restarts: pick up the measured grid from
+        # the newest checkpoint (no-op when none carries calibration)
+        last = ckpt.latest_step(train_cfg.ckpt_dir)
+        if last is not None and ckpt.restore_calibration(
+                train_cfg.ckpt_dir, last, session.calibrator):
+            print(f"restored calibration state from step {last}")
 
     history = []
     t0 = time.time()
     try:
         for step in range(train_cfg.steps):
+            pool_events = []
+            if faults is not None:
+                # membership events land at step granularity on the
+                # fused path: the planner is re-invoked against the
+                # survivors and stale prefetched plans re-plan at pull
+                # (kills apply before the step — the fused step cannot
+                # lose a server mid-flight; same shared semantics as
+                # the elastic executor)
+                pool_events = faults.apply_pre_step(pool, step) \
+                    + faults.apply_failures(pool, step)
+                if pool_events:
+                    print(f"step {step:5d} pool: "
+                          f"{', '.join(pool_events)} "
+                          f"(epoch {pool.epoch})", flush=True)
             batch = next(gen)
             stats = batch.pop("schedule_stats", None)
             plan = batch.get("plan") if calibrating else None
@@ -113,6 +174,8 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
             m["wall_s"] = time.time() - t0
             if stats:
                 m.update({f"sched_{k}": v for k, v in stats.items()})
+            if pool_events:
+                m["pool_events"] = ";".join(pool_events)
             if on_step is not None:
                 on_step(step, m)
             if step % train_cfg.log_every == 0 \
@@ -121,6 +184,12 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
                 print(f"step {step:5d} loss {m['loss']:.4f} "
                       f"gnorm {m['grad_norm']:.3f} ({m['wall_s']:.1f}s)",
                       flush=True)
+            if train_cfg.ckpt_every and step and \
+                    step % train_cfg.ckpt_every == 0:
+                ckpt.save(train_cfg.ckpt_dir, step, model.state_dict(),
+                          opt_state,
+                          calibrator=None if session is None
+                          else session.calibrator)
     finally:
         gen.close()      # stops the plan-prefetch worker, if any
     return {"model": model, "opt_state": opt_state, "history": history}

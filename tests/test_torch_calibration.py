@@ -251,7 +251,8 @@ def test_prefetcher_stale_refresh():
 def test_for_pipeline_calibrates_and_streams():
     """``calibrate=True`` attaches a calibrator seeded with the declared
     speeds; ``stream_chunk`` reaches the pool config; ``with_pool``
-    still waits for the elastic runtime."""
+    attaches an elastic pool of the session's size (it raised until the
+    runtime was ported)."""
     cfg = get_config(ARCH)
     sess = CADSession.for_pipeline(cfg, PipelineConfig(**PIPE),
                                    calibrate=True, calib_ema=0.25,
@@ -259,8 +260,9 @@ def test_for_pipeline_calibrates_and_streams():
     assert sess.calibrator is not None and sess.calibrator.ema == 0.25
     np.testing.assert_allclose(sess.calibrator.speeds(), [1.0, 0.5])
     assert sess.cfg.stream_chunk == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        sess.with_pool(None)
+    from repro_torch.runtime import ServerPool
+    pooled = sess.with_pool(ServerPool(2, calibrator=sess.calibrator))
+    assert pooled.pool.calibrator is sess.calibrator and sess.pool is None
 
 
 def test_calibrated_training_losses_bitwise_equal_uncalibrated(

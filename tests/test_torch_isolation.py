@@ -71,6 +71,29 @@ def test_dispatch_streaming_calibration_and_ring_load_no_jax():
     _probe(_NEW_FUNCTIONS)
 
 
+# the elastic runtime, checkpoints and the trace report, each from the
+# module that defines it, and the trainer and launcher that use them
+_ELASTIC = """
+from repro_torch.runtime import (
+    ServerPool, PoolView, PoolExhaustedError, ServerLostError, FaultSchedule,
+    FaultEvent, RecoveryPlan, build_recovery_plan, lost_block_mask,
+    assignment_of_plan, recovery_tasks, ElasticExecutor, StepReport)
+from repro_torch.runtime.executor import StepState, TIMERS
+from repro_torch.checkpoint.ckpt import (
+    save, restore, read_meta, restore_calibration, latest_step)
+from repro_torch.launch.trace_report import (
+    load_steps, attribute_step, report_lines, main)
+from repro_torch.launch.train import parse_args
+from repro_torch.train.trainer import TrainConfig
+assert TrainConfig().fault_schedule == "" and TrainConfig().ckpt_every == 0
+assert parse_args(["--arch", "x", "--trace", "t"]).trace_capacity > 0
+"""
+
+
+def test_runtime_checkpoint_and_trace_report_load_no_jax():
+    _probe(_ELASTIC)
+
+
 def test_importing_chip_smoke_loads_no_jax():
     _probe(_SMOKE)
 

@@ -224,29 +224,59 @@ def test_launcher_runs_on_the_cpu():
 
 
 # --calibrate and --stream-chunk (the first two cases until queue 1 item
-# 7 was ported) work now (tests/test_torch_calibration.py); their places
-# hold --ckpt-dir and a fault schedule under --cad, which still raise
+# 7 was ported) work (tests/test_torch_calibration.py); their places held
+# --ckpt-dir and a fault schedule under --cad, which raised until queue 1
+# items 5 and 8 were ported.  The name is kept so the test's history stays
+# one line: each flag now reaches the trainer's config (the run itself is
+# in tests/test_torch_elastic.py).
 @pytest.mark.parametrize("flag", [["--ckpt-dir", "ckpt"],
                                   ["--cad", "--fault-schedule", "kill:0@1"],
                                   ["--fault-schedule", "kill:1@1"],
                                   ["--ckpt-every", "1"], ["--trace", "t"]])
-def test_launcher_raises_for_what_is_not_ported(flag):
-    from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="ROADMAP|later PR"):
-        main(["--arch", ARCH, "--device", "cpu", "--steps", "1", *flag])
+def test_launcher_raises_for_what_is_not_ported(flag, monkeypatch,
+                                                tmp_path):
+    import repro_torch.launch.train as launch
+    from repro_torch.obs import get_recorder, set_recorder
+    seen = {}
+
+    def fake_train(cfg, pipe, tc, ctx=None, session=None, device=None):
+        seen.update(tc=tc, session=session)
+        return {"history": [{"loss": 1.0}]}
+    monkeypatch.setattr(launch, "train", fake_train)
+    monkeypatch.chdir(tmp_path)            # the trace file lands here
+    prev = get_recorder()
+    try:
+        launch.main(["--arch", ARCH, "--device", "cpu", "--steps", "1",
+                     *flag])
+        tracing = get_recorder().enabled
+    finally:
+        set_recorder(prev)
+    tc, cad = seen["tc"], "--cad" in flag
+    assert tc.ckpt_dir == ("ckpt" if "--ckpt-dir" in flag
+                           else TrainConfig().ckpt_dir)
+    assert tc.ckpt_every == (1 if "--ckpt-every" in flag else 0)
+    assert (seen["session"] is not None) == cad
+    # a schedule reaches the trainer only with a CAD session
+    assert tc.fault_schedule == (flag[-1] if cad else "")
+    assert tracing == ("--trace" in flag)
+    assert (tmp_path / "t").exists() == ("--trace" in flag)
 
 
 @pytest.mark.parametrize("kw", [{"calibrate": True}, {"stream_chunk": 4}])
 def test_session_raises_for_what_is_not_ported(kw):
     """Calibration and streaming sessions build (they raised until queue 1
-    item 7 was ported; the name is kept so the test's history stays one
-    line); the elastic pool still raises, naming its item."""
+    item 7 was ported), and so does an elastic pool (until item 8); the
+    name is kept so the test's history stays one line.  A pool of another
+    size than the session's geometry raises."""
+    from repro_torch.runtime import ServerPool
     _, cfg_t, _, pipe = _setup()
     sess = CADSession.for_pipeline(cfg_t, PipelineConfig(**pipe), **kw)
     assert (sess.calibrator is not None) == bool(kw.get("calibrate"))
     assert sess.cfg.stream_chunk == kw.get("stream_chunk", 0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        sess.with_pool(None)
+    pool = ServerPool(2, calibrator=sess.calibrator)
+    assert sess.with_pool(pool).pool is pool and sess.pool is None
+    with pytest.raises(ValueError, match="slots"):
+        sess.with_pool(ServerPool(3))
 
 
 def test_cuda_without_a_card_raises():
