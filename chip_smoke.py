@@ -223,7 +223,44 @@ Phases, each of which fails the run:
    in bf16 trained 2 CAD steps with a calibrator and ``ckpt_every=1``:
    the checkpoint restored into a fresh model and ``AdamWState`` on the
    card bitwise, dtypes kept, the calibration equal; its size and the
-   save and restore seconds.
+   save and restore seconds;
+20. (last, with 21-23) nemotron-4-340b served at every width, depth cut
+   to NEMOTRON_LAYERS of 96 (head_dim 192, 96 q over 8 kv heads, relu²
+   MLP, vocab 256000; bf16, seed 0), 4 slots x 2048, 4 prompts of
+   1500-1900 tokens in 512-token chunks, 16 new tokens: launches =
+   layers x device calls, the kernel on layer 0's captured first prefill
+   chunk and decode step against its plain version, prefill tokens/s,
+   decode ms a step, one decode step traced (host against busy ms), peak
+   memory, and the kernel timed at this head_dim as phase 4 times it;
+21. mamba2-370m served at full width and depth (48 ssd layers), 4 slots,
+   prompts of 200-600 tokens prefilled a token a step, 32 new tokens: no
+   kernel launch (its SSD layers decode in torch ops, as the
+   reference's), the concurrent run's tokens equal to those of its SOLO
+   shortest prompts served alone (which idled through the others'
+   prefill steps), rates at the middle of its prompt lengths (4 x 400),
+   one decode step traced, peak memory; then an f32 copy of 2 layers:
+   per-token serve logits against ``Transformer.forward``'s within
+   SERVE_FWD_REL_BOUND, the controls SERVE_FWD_CONTROLS outside it (TF32
+   matmuls, the state reset at every token), a third (the recurrent
+   state stored in bf16) recorded;
+22. recurrentgemma-9b served at full width and depth (38 layers, 12 of
+   them local), as phase 21 with prompts of 100-400 tokens (rates at 4 x
+   250) and 16 new: the ragged kernel once a local layer a device call,
+   held against its plain version on a captured decode step of layer 2,
+   and timed as phase 4 times it at the local layers' decode shape with
+   kv 3000, past the window; the f32 check at 3 layers (rglru, rglru,
+   local);
+23. llama3-34b (the paper's 34B) trained under CAD at every width, depth
+   cut to LLAMA34_LAYERS of 48, 4 simulated servers, 4 x LLAMA34_SEQ
+   ``prolong`` tokens, ``balanced``, 3 steps: launches = servers x
+   layers x {2, 1, 1}, finite losses, the step-0 loss bitwise equal
+   under ``identity``,
+   the CA kernels on layer 0's captured server batches against their
+   plain versions, step ms, tokens/s, peak memory.
+
+Phase 2 also runs the ragged kernel over long caches (LONG_RAGGED):
+head_dim 192 with windows 0 and 4096 past 4096 slots, and
+recurrentgemma's rep 16 over one kv head of 256 with window 2048.
 
 Kernels timed twice (the forward kernels, before and after the library
 call) report the first median as ``ms`` and the second as ``ms_repeat``.
@@ -447,6 +484,89 @@ def check_ragged_decode_cases(torch, ops):
     return worst[torch.float32]
 
 
+# phase 2's long-cache cases: (name, dh, hq, hkv, windows, softcaps, S,
+# kv_len per request).  nemotron-4-340b's head_dim 192 with the windows 0
+# and 4096 (past 4096 slots, so the window binds) and softcaps 0 and 50;
+# recurrentgemma-9b's local layers: 16 q heads over one kv head of 256,
+# window 2048, kv lengths past it.  The bf16 decode cases are cut in
+# split-kv parts (10 CTAs in 24 parts at dh 192, 5 in 12 at rep 16), and
+# so is the dh-192 prefill (80 CTAs in 3 parts; rep 16's 160 are not).
+LONG_RAGGED = (
+    ("dh 192", 192, 8, 2, (0, 4096), (0.0, 50.0), 6144,
+     (5000, 4300, 0, 4200)),
+    ("rep 16 / hkv 1 / dh 256", 256, 16, 1, (2048,), (0.0,), 3072,
+     (3000, 2049, 0, 2500)),
+)
+
+
+def _long_case(torch, gen, *, dtype, dh, hq, hkv, blk_q, window, softcap, S,
+               kv):
+    """A dead block, a request at kv_len 0, padded rows inside a block,
+    and the others' rows at the end of kv lengths past the window."""
+    dev = "cuda"
+    R = len(kv)
+    k = torch.randn(R, S, hkv, dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(R, S, hkv, dh, generator=gen, device=dev).to(dtype)
+    kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
+    block_req = torch.tensor([0, 1, -1, 2, 3], dtype=torch.int32,
+                             device=dev)
+    if blk_q == 1:
+        pos = torch.tensor([kv[0] - 1, kv[1] - 1, -1, 0, kv[3] - 1],
+                           dtype=torch.int32, device=dev)
+    else:
+        rows = [torch.arange(n - 128, n) for n in (kv[0], kv[1])]
+        rows[1][100:] = -1                     # padded rows inside a block
+        rows += [-torch.ones(128, dtype=torch.long), torch.arange(0, 128),
+                 torch.arange(kv[3] - 128, kv[3])]
+        pos = torch.cat(rows).to(device=dev, dtype=torch.int32)
+    t = block_req.shape[0] * blk_q
+    q = torch.randn(t, hq, dh, generator=gen, device=dev).to(dtype)
+    return dict(q=q, k_cache=k, v_cache=v, block_req=block_req, q_pos=pos,
+                kv_len=kv_len, window=window, softcap=softcap)
+
+
+def check_ragged_long_cases(torch, ops):
+    """Phase 2: the kernel against ragged_decode_reference on long caches
+    at the shapes of nemotron-4-340b (head_dim 192) and recurrentgemma-9b
+    (rep 16 over one kv head); bf16 repeats bitwise, dead blocks zero.
+    Returns the worst error by case name and dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = {}
+    n = 0
+    for name, dh, hq, hkv, windows, softcaps, S, kv in LONG_RAGGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            for blk_q in (128, 1):
+                for window in windows:
+                    for softcap in softcaps:
+                        case = _long_case(torch, gen, dtype=dtype, dh=dh,
+                                          hq=hq, hkv=hkv, blk_q=blk_q,
+                                          window=window, softcap=softcap,
+                                          S=S, kv=kv)
+                        out = ops.ragged_decode_attention(**case)
+                        again = ops.ragged_decode_attention(**case) \
+                            if dtype == torch.bfloat16 else out
+                        torch.cuda.synchronize()
+                        ref = ops.ragged_decode_reference(**case)
+                        torch.cuda.synchronize()
+                        err, ok = _max_err(torch, out, ref, dtype)
+                        dead = out.reshape(5, blk_q, -1)[2]
+                        if not ok or bool(dead.ne(0).any()) \
+                                or not torch.equal(out, again):
+                            raise SystemExit(
+                                f"ragged_decode disagrees ({name}): dtype="
+                                f"{dtype} blk_q={blk_q} window={window} "
+                                f"softcap={softcap} max_err={err} repeat "
+                                f"bitwise {torch.equal(out, again)}")
+                        key = f"{name} {str(dtype).split('.')[-1]}"
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        n += 1
+    log(f"phase 2: ragged_decode kernel == plain version in {n} long-cache "
+        f"cases ({', '.join(c[0] for c in LONG_RAGGED)}; blk_q 128/1, kv "
+        f"past the window, split-kv; every bf16 repeat bitwise equal): "
+        + ", ".join(f"{k} max |err| {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
 # ------------------------------------------------------------ phase 3
 def _post(url, body, timeout=600):
     req = urllib.request.Request(url, data=json.dumps(body).encode())
@@ -649,6 +769,18 @@ RAGGED_SHAPES = {
     "gemma2-2b local": dict(R=4, S=6144, hq=8, hkv=4, dh=256, window=4096,
                             softcap=50.0, prefill=(4480, 4608), decode=4607,
                             kv=(4608, 4608)),
+    # nemotron-4-340b (head_dim 192, 96 q over 8 kv heads; phase 20):
+    # llama3-8b's positions, for a like-for-like row
+    "nemotron-4-340b": dict(R=4, S=2048, hq=96, hkv=8, dh=192, window=0,
+                            softcap=0.0, prefill=(1920, 2048), decode=1999,
+                            kv=(2048, 2000)),
+    # recurrentgemma-9b's local layers (phase 22): 16 q heads over one kv
+    # head of 256, window 2048; decode rows only (its prompts are
+    # prefilled a token a step), a 4-request step at kv 3000, past the
+    # window as in phase 2's LONG_RAGGED
+    "recurrentgemma-9b local": dict(R=4, S=3072, hq=16, hkv=1, dh=256,
+                                    window=2048, softcap=0.0, prefill=None,
+                                    decode=2999, kv=(None, 3000)),
 }
 
 
@@ -657,7 +789,7 @@ TIMED_KEYS = ("ms", "ms_repeat", "device_ms", "ms_single", "plain_ms",
               "library_ms_single")
 
 
-def kernel_times(torch, ops, card, arch="llama3-8b"):
+def kernel_times(torch, ops, card, arch="llama3-8b", phase=4):
     """Phase 4a: the kernel at the main path's shapes, with its bound, the
     plain version and scaled_dot_product_attention as a yardstick (with a
     boolean mask for the causal window; SDPA has no softcap), each timed
@@ -670,15 +802,15 @@ def kernel_times(torch, ops, card, arch="llama3-8b"):
     window, softcap = sh["window"], sh["softcap"]
     k = torch.randn(R, S, hkv, dh, generator=gen, device=dev).to(dt)
     v = torch.randn(R, S, hkv, dh, generator=gen, device=dev).to(dt)
-    p0, p1 = sh["prefill"]
-    shapes = {
-        "prefill": (torch.arange(R, dtype=torch.int32),
-                    torch.arange(p0, p1).repeat(R),
-                    torch.full((R,), sh["kv"][0])),
-        "decode": (torch.arange(R, dtype=torch.int32),
-                   torch.full((R,), sh["decode"]),
-                   torch.full((R,), sh["kv"][1])),
-    }
+    shapes = {}
+    if sh["prefill"]:
+        p0, p1 = sh["prefill"]
+        shapes["prefill"] = (torch.arange(R, dtype=torch.int32),
+                             torch.arange(p0, p1).repeat(R),
+                             torch.full((R,), sh["kv"][0]))
+    shapes["decode"] = (torch.arange(R, dtype=torch.int32),
+                        torch.full((R,), sh["decode"]),
+                        torch.full((R,), sh["kv"][1]))
     out = {}
     for name, (block_req, pos, kv_len) in shapes.items():
         block_req = block_req.to(dev)
@@ -728,7 +860,8 @@ def kernel_times(torch, ops, card, arch="llama3-8b"):
                          library_ms=lib_ms, library_device_ms=lib_dev_ms,
                          library_ms_single=lib_single_ms, bytes=nbytes,
                          flops=flops)
-        log(f"phase 4: ragged_decode {arch} {name} (q {tuple(q.shape)}, "
+        log(f"phase {phase}: ragged_decode {arch} {name} (q "
+            f"{tuple(q.shape)}, "
             f"cache {tuple(k.shape)} bf16, kv {kl}, window {window}, "
             f"softcap {softcap}): kernel {ms:.4f} / {ms2:.4f} ms back to "
             f"back, {dev_ms:.4f} ms on the device, {single_ms:.4f} ms a "
@@ -4402,7 +4535,529 @@ def train_gemma2_cad(torch, ops, card):
                 bounds=(f_bound, b_bound), shape=shape)
 
 
+# ------------------------------------------------------- phases 20-23
+def _engine_rates(torch, np, engine, card, phase, n_prefill, n_ctx):
+    """Prefill tokens/s of a [slots, n_prefill] batch; decode ms a step,
+    the median of the decode device calls (the last max_new - 1) of a
+    generate from an n_ctx-token prompt, each timed on the host from a
+    synchronize to a synchronize (a prefill's time, a token a step on
+    recurrent archs, would drown the difference of two generate
+    timings); and one more decode step, at kv n_ctx + max_new, traced:
+    host ms against the device's busy ms."""
+    cfg, b = engine.cfg, engine.batch_size
+    rng = np.random.default_rng(phase)
+    prompt = rng.integers(1, cfg.vocab_size, (b, n_prefill))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.prefill(prompt)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    short = prompt[:, :n_ctx]
+    orig, calls = engine._chunk, []
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg = orig(*a)
+        torch.cuda.synchronize()
+        calls.append(time.perf_counter() - t)
+        return lg
+    engine._chunk = timed
+    try:
+        gen = engine.generate(short)
+    finally:
+        engine._chunk = orig
+    steps = engine.scfg.max_new_tokens - 1
+    decode = sorted(calls[-steps:])
+    decode_ms = 1e3 * decode[steps // 2]
+    at = n_ctx + steps
+    tr = _trace_chunk_call(torch, engine, lambda: engine._chunk_call(
+        gen[:, -1].cpu().numpy(), np.full(b, at, np.int32),
+        np.arange(b, dtype=np.int32), np.full(b, at + 1, np.int32)), 1)
+    bd = tr["bd"]
+    out = dict(prefill_tokens_per_s=b * n_prefill / t_prefill,
+               prefill_shape=f"{b} x {n_prefill}",
+               decode_ms=decode_ms, decode_kv=n_ctx,
+               traced_decode_kv=at + 1, traced_decode_host_ms=tr["host_ms"],
+               traced_decode_busy_ms=bd["busy_ms"],
+               traced_decode_idle=1 - bd["busy_ms"] / tr["host_ms"],
+               traced_decode_families={k: v for k, v in
+                                       bd["families"].items() if v})
+    log(f"phase {phase}: prefill {b} x {n_prefill} tokens in "
+        f"{t_prefill:.3f} s = {out['prefill_tokens_per_s']:.0f} tokens/s "
+        f"({'fused chunks' if engine.fused_ok else 'a token a step'}); "
+        f"decode {decode_ms:.2f} ms per step at batch {b}, kv ~{n_ctx} "
+        f"(median of {steps} steps, {1e3 * decode[0]:.2f}-"
+        f"{1e3 * decode[-1]:.2f}); one decode step at kv {at + 1} traced: "
+        f"host {tr['host_ms']:.3f} ms, device busy {bd['busy_ms']:.3f} ms (idle "
+        f"{out['traced_decode_idle']:.4f}), {bd['kernels']} device events, "
+        f"ms by family {out['traced_decode_families']} [{card}]")
+    return out
+
+
+def _check_captured_ragged(torch, ops, captured, phase):
+    """The kernel against its plain version on each captured input."""
+    worst = 0.0
+    for key in sorted(captured):
+        inputs = captured[key]
+        out = ops.ragged_decode_attention(**inputs)
+        ref = ops.ragged_decode_reference(**inputs)
+        torch.cuda.synchronize()
+        err, ok = _max_err(torch, out, ref, out.dtype)
+        log(f"  captured {key}: q {tuple(inputs['q'].shape)}, cache "
+            f"{tuple(inputs['k_cache'].shape)}, window {inputs['window']}, "
+            f"positions up to {int(inputs['q_pos'].max())}, max |err| "
+            f"{err:.3e}")
+        if not ok:
+            raise SystemExit(f"phase {phase}: kernel disagrees on captured "
+                             f"{key}")
+        worst = max(worst, err)
+    return worst
+
+
+NEMOTRON_LAYERS = 4            # of 96: 46.4 GB of bf16 weights on one card
+NEMOTRON_PROMPTS = (1500, 1901)
+
+
+def serve_nemotron(torch, np, ops, launch, card):
+    """Phase 20: nemotron-4-340b at every width (d_model 18432, 96 q over
+    8 kv heads of 192, relu² MLP of 73728, vocab 256000), depth cut to 4 of
+    96 layers, bf16 from seed 0, through ``launch/serve.py``'s engine: 4
+    slots x 2048, 4 prompts of 1500-1900 tokens in 512-token chunks, 16
+    new tokens each.  Launches = layers x device calls; the kernel on
+    layer 0's captured first prefill chunk and first decode step against
+    its plain version; prefill tokens/s, decode ms a step, peak memory;
+    then the kernel timed at this shape (row 3c)."""
+    t_phase = time.perf_counter()
+    args = launch.parse_args([
+        "--arch", "nemotron-4-340b", "--no-reduced", "--device", "cuda",
+        "--slots", "4", "--max-seq", "2048", "--chunk-tokens", "512",
+        "--max-new", "16", "--seed", "0"])
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("nemotron-4-340b"),
+                              n_layers=NEMOTRON_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = launch.build_engine(args, cfg)
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    log(f"phase 20: built {cfg.arch_id} ({n_params / 1e9:.3f} B params, "
+        f"{cfg.n_layers} of 96 layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff} ({cfg.activation}, gated {cfg.gated_mlp}), vocab "
+        f"{cfg.vocab_size}, {engine.model.embed.dtype}; cache 4 x "
+        f"{engine.scfg.max_seq}) in {time.perf_counter() - t0:.1f} s")
+    captured = {}
+
+    def capture(layer, inputs):
+        blk_q = inputs["q"].shape[0] // inputs["block_req"].shape[0]
+        key = ("prefill" if blk_q > 1 else "decode", layer)
+        if layer == 0 and key not in captured:
+            captured[key] = {k: v.clone() if torch.is_tensor(v) else v
+                             for k, v in inputs.items()}
+
+    rng = np.random.default_rng(20)
+    lens = rng.integers(*NEMOTRON_PROMPTS, 4)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)) for n in lens]
+    engine.model.attn_hook = capture
+    try:
+        ops.reset_launches()
+        engine.n_chunk_calls = 0
+        t0 = time.perf_counter()
+        res = engine.serve(prompts, max_new_tokens=16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launches["ragged_decode"]
+        calls = engine.n_chunk_calls
+    finally:
+        engine.model.attn_hook = None
+    toks = [res.get(i, np.zeros(0, np.int32)) for i in range(len(prompts))]
+    if any(len(t) != 16 or not ((t >= 0) & (t < cfg.vocab_size)).all()
+           for t in toks):
+        raise SystemExit(f"phase 20: generated {toks}")
+    if launches != cfg.n_layers * calls or calls == 0:
+        raise SystemExit(f"phase 20: {launches} kernel launches for {calls} "
+                         f"device calls of {cfg.n_layers} layers")
+    log(f"phase 20: served {len(prompts)} requests (prompts "
+        f"{sorted(int(n) for n in lens)}, {int(lens.sum())} prompt tokens, "
+        f"16 new each) in {wall:.2f} s; {calls} device calls, ragged_decode "
+        f"launches {launches} = {cfg.n_layers} x {calls}")
+    if sorted(captured) != [("decode", 0), ("prefill", 0)]:
+        raise SystemExit(f"phase 20: captured {sorted(captured)}")
+    err = _check_captured_ragged(torch, ops, captured, 20)
+    del captured
+    rates = _engine_rates(torch, np, engine, card, 20, 1900, 1884)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = kernel_times(torch, ops, card, "nemotron-4-340b", phase=20)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 20: peak memory {peak:.2f} GiB; {seconds:.1f} s in all "
+        f"[{card}]")
+    return dict(launches=launches, calls=calls, params=n_params,
+                captured_max_abs_err=err, serve_s=wall, peak_gib=peak,
+                seconds=seconds, times=times, **rates)
+
+
+# the f32 check of phases 21-22: per-token serve logits against
+# Transformer.forward's on the same 2 x 512 tokens, as max |logit diff| /
+# std(logits) (PREFILL_REL_BOUND's measure).  The two sum in other orders
+# (one token a step against chunked scans and blockwise attention), each
+# f32 rounding ~6e-8 relative.  Most positions' logit vectors differ by
+# ~6e-6 relative (mamba2's 2 layers on the CPU, seed 121's prompt); the
+# worst positions' by ~8e-5, where the gated out norm divides a y that
+# cancelled to a tenth of its usual size (errors scale with the summed
+# terms, not with y); and the max over 2 x 512 x 50k logits is ~5 of the
+# worst vector's rms: 4.2e-4 there, 2.4e-4 / 1.4e-4 on the H100.  The
+# bound sits between the largest of those readings and the nearest
+# control that must land outside it (SERVE_FWD_CONTROLS): the serve path
+# with TF32 matmuls (10-bit mantissas), 2.0e-2 / 3.5e-3 on the H100, and
+# every slot's state reset before every token.  A third control, the
+# recurrent state stored in bf16, is recorded, not required: an rglru
+# state decays and is gated, and recurrentgemma's landed at 7.9e-4 on
+# the CPU (3 layers at full width, the vocabulary cut to 32000, 256
+# tokens) and 1.7e-3 on the H100 (mamba2's 2.3e-2).
+SERVE_FWD_REL_BOUND = 1e-3
+SERVE_FWD_CONTROLS = ("TF32 matmuls", "state reset every token")
+SERVE_FWD_TOKENS = 512
+
+
+def _serve_vs_forward(torch, np, cfg, phase):
+    """An f32 copy of ``cfg`` on the card: per-token serve logits (the
+    engine's prefill) and the controls' against the training forward's.
+    Returns (gap, {control: gap})."""
+    from repro_torch.models.model import Transformer
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    model = Transformer(cfg, device=DEVICE, seed=0)
+    engine = Engine(model, ServeConfig(max_seq=SERVE_FWD_TOKENS),
+                    batch_size=2, device=DEVICE)
+    rng = np.random.default_rng(100 + phase)
+    prompt = rng.integers(1, cfg.vocab_size, (2, SERVE_FWD_TOKENS))
+    _, served = engine.prefill(prompt, return_logits=True)
+    controls = {}
+    # every slot's recurrent state zeroed before each token
+    block_req = np.arange(2, dtype=np.int32)
+    reset = []
+    for t in range(SERVE_FWD_TOKENS):
+        engine._reset(np.ones(2, bool))
+        reset.append(engine._chunk_call(
+            prompt[:, t], np.full(2, t, np.int32), block_req,
+            np.full(2, t + 1, np.int32)))
+    controls["state reset every token"] = torch.stack(reset, 1)
+    del reset
+    # the serve path's matmuls in TF32
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        controls["TF32 matmuls"] = engine.prefill(prompt,
+                                                  return_logits=True)[1]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    # the recurrent state (ssd ``state``, rglru ``h``) stored in bf16
+    for slot in engine.cache["slots"]:
+        for name in ("state", "h"):
+            if name in slot:
+                slot[name] = slot[name].to(torch.bfloat16)
+    controls["bf16 recurrent state"] = engine.prefill(
+        prompt, return_logits=True)[1]
+    dev = model.device
+    batch = {"tokens": torch.tensor(prompt, dtype=torch.int32, device=dev),
+             "segment_ids": torch.ones(prompt.shape, dtype=torch.int32,
+                                       device=dev),
+             "positions": torch.arange(SERVE_FWD_TOKENS, dtype=torch.int32,
+                                       device=dev).expand(2, -1)
+             .contiguous()}
+    with torch.no_grad():
+        logits, _ = model(batch, ParallelContext(attn_impl="xla",
+                                                 remat=False))
+    scale = float(logits.std())
+    gap = float((served - logits).abs().max()) / scale
+    ctrl = {k: float((c - logits).abs().max()) / scale
+            for k, c in controls.items()}
+    del model, engine, served, controls, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gap, ctrl
+
+
+SOLO = 2          # prompts of phases 21-22 served alone again
+RECURRENT_SERVE = {
+    # phase: (arch, prompt lengths, new tokens, max_seq, the f32 check's
+    #         layer pattern and depth)
+    21: ("mamba2-370m", (200, 601), 32, 640, ("ssd",), 2),
+    22: ("recurrentgemma-9b", (100, 401), 16, 512,
+         ("rglru", "rglru", "local"), 3),
+}
+
+
+def serve_recurrent(torch, np, ops, launch, card, phase):
+    """Phases 21-22: mamba2-370m / recurrentgemma-9b at full width and
+    depth, bf16 from seed 0, through ``launch/serve.py``'s engine: 4
+    slots, 4 prompts prefilled a token a step (decode-mode chunks), greedy.
+    Launches: the ragged kernel once a local layer a device call (none in
+    mamba2; its SSD layers decode in torch ops, as the reference's
+    ``ssd_decode``); recurrentgemma's kernel on a captured decode step of
+    its first local layer against its plain version.  Concurrent serving
+    equals solo serving token for token at the same slot count for the
+    SOLO shortest prompts (the device shapes are the same: every step is
+    one row a slot).  Rates,
+    one decode step traced, peak memory; then the f32 serve-vs-forward
+    check at a cut depth with its control."""
+    from repro_torch.configs import get_config
+    arch, plens, new, max_seq, pattern, depth = RECURRENT_SERVE[phase]
+    t_phase = time.perf_counter()
+    args = launch.parse_args([
+        "--arch", arch, "--no-reduced", "--device", "cuda", "--slots", "4",
+        "--max-seq", str(max_seq), "--max-new", str(new), "--seed", "0"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = launch.build_engine(args)
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    kinds = [cfg.layer_pattern[i % cfg.period] for i in range(cfg.n_layers)]
+    local = [i for i, k in enumerate(kinds) if k in ("local", "global")]
+    log(f"phase {phase}: built {cfg.arch_id} ({n_params / 1e9:.3f} B "
+        f"params, {cfg.n_layers} layers: {kinds.count('ssd')} ssd, "
+        f"{kinds.count('rglru')} rglru, {len(local)} local; d_model "
+        f"{cfg.d_model}, {engine.model.embed.dtype}; cache 4 x {max_seq}) in "
+        f"{time.perf_counter() - t0:.1f} s; fused prefill "
+        f"{engine.fused_ok}")
+    captured = {}
+
+    def capture(layer, inputs):
+        if local and layer == local[0] and not captured \
+                and int((inputs["q_pos"] >= 0).sum()) == 4 \
+                and int(inputs["q_pos"].min()) >= 90:
+            captured[("decode", layer)] = {
+                k: v.clone() if torch.is_tensor(v) else v
+                for k, v in inputs.items()}
+
+    rng = np.random.default_rng(phase)
+    lens = rng.integers(*plens, 4)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)) for n in lens]
+    engine.model.attn_hook = capture
+    try:
+        ops.reset_launches()
+        engine.n_chunk_calls = 0
+        t0 = time.perf_counter()
+        together = engine.serve(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        calls = engine.n_chunk_calls
+    finally:
+        engine.model.attn_hook = None
+    toks = [together.get(i, np.zeros(0, np.int32))
+            for i in range(len(prompts))]
+    if any(len(t) != new or not ((t >= 0) & (t < cfg.vocab_size)).all()
+           for t in toks):
+        raise SystemExit(f"phase {phase}: generated {toks}")
+    others = {k: n for k, n in launches.items()
+              if n and k != "ragged_decode"}
+    if launches["ragged_decode"] != len(local) * calls or calls == 0 \
+            or others:
+        raise SystemExit(f"phase {phase}: launches {launches} for {calls} "
+                         f"device calls of {len(local)} local layers")
+    log(f"phase {phase}: served {len(prompts)} requests (prompts "
+        f"{sorted(int(n) for n in lens)}, {int(lens.sum())} prompt tokens "
+        f"a token a step, {new} new each) in {wall:.2f} s; {calls} device "
+        f"calls, ragged_decode launches {launches['ragged_decode']} = "
+        f"{len(local)} x {calls}")
+    # the two shortest prompts alone: each spent prefill steps of the
+    # others idle in the concurrent run (a step took 46-88 ms of host time
+    # at these depths on the H100 host, so all four would double the
+    # phase)
+    t0 = time.perf_counter()
+    alone = sorted(range(len(prompts)), key=lambda i: lens[i])[:SOLO]
+    solo = {i: engine.serve([prompts[i]], max_new_tokens=new)[0]
+            for i in alone}
+    t_solo = time.perf_counter() - t0
+    same = {i: bool(np.array_equal(solo[i], toks[i])) for i in alone}
+    log(f"phase {phase}: prompts {[int(lens[i]) for i in alone]} each "
+        f"served alone through the 4 slots ({t_solo:.1f} s): tokens equal "
+        f"to the concurrent run's: {same}")
+    if not all(same.values()):
+        raise SystemExit(f"phase {phase}: concurrent != solo: {toks} vs "
+                         f"{solo}")
+    err = None
+    if local:
+        if sorted(captured) != [("decode", local[0])]:
+            raise SystemExit(f"phase {phase}: captured {sorted(captured)}")
+        err = _check_captured_ragged(torch, ops, captured, phase)
+    del captured
+    # the rates at the middle of the phase's prompt lengths
+    n_prefill = (plens[0] + plens[1] - 1) // 2
+    rates = _engine_rates(torch, np, engine, card, phase, n_prefill,
+                          n_prefill - 16)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = kernel_times(torch, ops, card, f"{arch} local", phase=phase) \
+        if local else None
+    small = dataclasses.replace(get_config(arch), layer_pattern=pattern,
+                                n_layers=depth)
+    gap, ctrl = _serve_vs_forward(torch, np, small, phase)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase {phase}: f32 copy at {depth} layers {pattern}: per-token "
+        f"serve logits against Transformer.forward's on 2 x "
+        f"{SERVE_FWD_TOKENS} tokens: max |diff| / std {gap:.3e} (bound "
+        f"{SERVE_FWD_REL_BOUND}); controls "
+        + ", ".join(f"'{k}' {v:.3e}" for k, v in ctrl.items())
+        + f"; peak memory {peak:.2f} GiB; {seconds:.1f} s in all [{card}]")
+    if not gap <= SERVE_FWD_REL_BOUND < min(ctrl[k]
+                                            for k in SERVE_FWD_CONTROLS):
+        raise SystemExit(f"phase {phase}: serve vs forward gap {gap} / "
+                         f"controls {ctrl} against {SERVE_FWD_REL_BOUND}")
+    return dict(params=n_params, launches=launches["ragged_decode"],
+                calls=calls, serve_s=wall, solo_equal=same,
+                captured_max_abs_err=err, peak_gib=peak, times=times,
+                serve_vs_forward=dict(gap=gap, controls=ctrl,
+                                      bound=SERVE_FWD_REL_BOUND,
+                                      layers=list(pattern)),
+                seconds=seconds, **rates)
+
+
+LLAMA34_LAYERS = 2             # of 48: ~42 GB of bf16 weights and f32
+LLAMA34_STEPS = 3              # AdamW moments on one card
+# 4 x 4096 tokens peaked at 74.11 GiB in step 0 and ran out of the card's
+# memory in step 1's backward (the f32 logits over 128256 words are 8.4 GB
+# a copy); 2 x 4096 rows cannot be split over 4 servers (a rank holds
+# whole rows), so the cut keeps 4 rows: 4 x 2048, the same 8192 tokens
+LLAMA34_SEQ = 2048
+
+
+def train_llama34_cad(torch, ops, card):
+    """Phase 23: the paper's llama3-34b at every width (d_model 8192, 64 q
+    over 16 kv heads of 128, d_ff 22016, vocab 128256), depth cut to 2 of
+    48, CAD on 4 simulated servers, 4 x LLAMA34_SEQ ``prolong`` tokens,
+    ``balanced``, 3 steps.  Launches each step = servers x layers x {2
+    forwards with remat, 1 dq, 1 dk/dv}; finite losses; the step-0 loss
+    bitwise equal under ``identity`` and ``balanced``; the kernels on
+    layer 0's captured server batches against their plain versions."""
+    from repro_torch.cad import CADSession
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig
+    from repro_torch.models.model import Transformer
+    from repro_torch.train.trainer import TrainConfig, train
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama3-34b"),
+                              n_layers=LLAMA34_LAYERS)
+    pipe = PipelineConfig(distribution="prolong", max_doc_len=LLAMA34_SEQ,
+                          seq_len=LLAMA34_SEQ, global_batch=4, n_ranks=4,
+                          vocab_size=cfg.vocab_size, seed=0)
+    tc = TrainConfig(steps=LLAMA34_STEPS, peak_lr=3e-4, warmup=1,
+                     log_every=1, seed=0)
+
+    def session(policy):
+        return CADSession.for_pipeline(cfg, pipe, plan_policy=policy,
+                                       prefetch=2)
+    n_servers = pipe.n_ranks
+    tokens = pipe.global_batch * pipe.seq_len
+    res = train(cfg, pipe, dataclasses.replace(tc, steps=1),
+                session=session("identity"), device=DEVICE)
+    loss_identity = res["history"][0]["loss"]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Transformer(cfg, device=DEVICE, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    captured = {}
+
+    def capture(layer, inputs):
+        if layer == 0 and layer not in captured:
+            captured[layer] = {k: v.detach().clone() if torch.is_tensor(v)
+                               else v for k, v in inputs.items()}
+
+    expect = {"ca_server_fwd": n_servers * cfg.n_layers * 2,   # + remat
+              "ca_server_bwd_dq": n_servers * cfg.n_layers,
+              "ca_server_bwd_dkv": n_servers * cfg.n_layers}
+    steps = []
+
+    def on_step(step, m):
+        counts = {k: ops.launches[k] for k in expect}
+        others = sum(n for k, n in ops.launches.items() if k not in expect)
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        model.attn_hook = None              # capture step 0 only
+        steps.append(dict(m, counts=counts, others=others, peak_gib=mem))
+        log(f"phase 23: step {step} loss {m['loss']:.6f} gnorm "
+            f"{m['grad_norm']:.4f} step {1e3 * m['step_s']:.1f} ms "
+            f"{tokens / m['step_s']:.0f} tokens/s peak {mem:.2f} GiB "
+            f"launches {counts} [{card}]")
+
+    log(f"phase 23: llama3-34b at every width, {cfg.n_layers} of 48 layers "
+        f"({n_params / 1e9:.3f} B params, bf16, f32 AdamW moments), CAD on "
+        f"{n_servers} simulated servers, {pipe.global_batch} x "
+        f"{pipe.seq_len} tokens ({pipe.distribution}); step-0 identity "
+        f"loss {loss_identity!r}")
+    model.attn_hook = capture
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    train(cfg, pipe, tc, model=model, session=session("balanced"),
+          device=DEVICE, on_step=on_step)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for st in steps:
+        if st["counts"] != expect or st["others"]:
+            raise SystemExit(f"phase 23: step {st['step']} launches "
+                             f"{st['counts']} (+{st['others']} of other "
+                             f"kernels) != {expect}")
+        if not math.isfinite(st["loss"]):
+            raise SystemExit(f"phase 23: step {st['step']} loss "
+                             f"{st['loss']}")
+    if steps[0]["loss"] != loss_identity:
+        raise SystemExit(f"phase 23: step-0 loss {steps[0]['loss']!r} under "
+                         f"balanced != {loss_identity!r} under identity")
+    if sorted(captured) != [0]:
+        raise SystemExit(f"phase 23: captured layers {sorted(captured)}")
+    batches = captured_batches(torch, captured)
+    err = check_captured(torch, ops, captured, batches, phase=23)
+    del batches, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 23: launches per step = {expect} (servers x layers x {{2 "
+        f"forwards with remat, 1 backward}}); step-0 loss bitwise equal "
+        f"under identity and balanced; {seconds:.1f} s in all")
+    return dict(launches=steps[0]["counts"], params=n_params,
+                loss=[st["loss"] for st in steps],
+                step_s=[st["step_s"] for st in steps],
+                tokens_per_s=[tokens / st["step_s"] for st in steps],
+                peak_gib=[st["peak_gib"] for st in steps],
+                captured_max_abs_err=err, seconds=seconds,
+                shape=f"{pipe.global_batch} x {pipe.seq_len} tokens, "
+                      f"{n_servers} servers, {cfg.n_layers} of 48 layers")
+
+
 # ---------------------------------------------------------------- main
+def _kernel_symbol(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel symbol: the first
+    length-prefixed name of its nested name (``_ZN<len><name>...``) that
+    ends in ``_kernel``, with its template arguments as mangled
+    (``ILi192ELi4ELi64E``: 192, 4, 64)."""
+    import re
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while m := re.match(r"\d+", mangled[pos:]):
+        start = pos + m.end()
+        name = mangled[start:start + int(m.group())]
+        pos = start + len(name)
+        if name.endswith("_kernel"):
+            rest = mangled[pos:]
+            return name + (rest[:rest.find("EE") + 1]
+                           if rest.startswith("I") else "")
+    return mangled
+
+
 def build_kernels(build, ops, ssd, rg):
     """Phase 1: build every kernel source, one nvcc each, all at once."""
     loaders = {"ragged_decode": ops.load_library,
@@ -4429,12 +5084,25 @@ def build_kernels(build, ops, ssd, rg):
         raise SystemExit("phase 1: kernel build failed: " + "; ".join(errors))
     log(f"phase 1: built {len(loaders)} kernel sources in "
         f"{time.perf_counter() - t0:.2f} s")
+    import re
     for name in loaders:
         seconds, report = build.build_info[name]
         log(f"  {name}.cu: nvcc {seconds:.2f} s")
+        # one line a kernel instantiation: its name and template
+        # arguments from the mangled symbol, registers and spills
+        entry = spill = None
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log("  ptxas: " + line.strip())
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = _kernel_symbol(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                log(f"  ptxas: {entry}: {m.group(1)} registers, {spill} "
+                    f"bytes spill stores")
+                entry = spill = None
 
 
 def parse_args(argv=None):
@@ -4468,6 +5136,7 @@ def main(argv=None) -> int:
     build_kernels(build, ops, ssd, rg)
 
     f32_err = check_ragged_decode_cases(torch, ops)
+    long_worst = check_ragged_long_cases(torch, ops)
     ca_worst = check_ca_server_cases(torch, np, ops)
     fl_worst = check_flash_cases(torch, np, ops)
     ssd_worst = check_ssd_cases(torch, np, ssd)
@@ -4477,7 +5146,7 @@ def main(argv=None) -> int:
     kernel = {"name": "ragged_decode", "route": "cuda",
               "source": src + "ragged_decode.cu",
               "replaces": "src/repro/kernels/packed_flash/kernel.py:457",
-              "max_abs_err": f32_err}
+              "max_abs_err": f32_err, "long_cache_phase2": long_worst}
     ca_fwd = {"name": "ca_server_fwd", "route": "cuda",
               "source": src + "ca_server.cu",
               "replaces": "src/repro/kernels/packed_flash/kernel.py:610",
@@ -4871,6 +5540,37 @@ def main(argv=None) -> int:
             bound_by=b2_bound[1], library_ms=t2["sdpa_bwd"],
             fwd_bwd_ms=t2["fwd_bwd"], library_fwd_bwd_ms=t2["sdpa_fwd_bwd"],
             shape=shape, captured_max_abs_err=rg_errs["flash"][1])
+
+        # phases 20-23: nemotron-4-340b served at head_dim 192, mamba2 and
+        # recurrentgemma served, llama3-34b's CAD step
+        nemo = serve_nemotron(torch, np, ops, launch, card)
+        m_serve = serve_recurrent(torch, np, ops, launch, card, 21)
+        rg_serve = serve_recurrent(torch, np, ops, launch, card, 22)
+        big = train_llama34_cad(torch, ops, card)
+        nt = nemo.pop("times")
+        m_serve.pop("times")
+        rt = rg_serve.pop("times")
+        kernel.update(
+            launches_nemotron=nemo["launches"],
+            launches_recurrentgemma=rg_serve["launches"],
+            dh192={name: dict({k: nt[name][k] for k in TIMED_KEYS},
+                              shape=f"nemotron-4-340b {name}: 96 q over 8 "
+                                    f"kv heads of 192, phase 4's positions")
+                   for name in ("prefill", "decode")},
+            rep16=dict({k: rt["decode"][k] for k in TIMED_KEYS},
+                       shape="recurrentgemma-9b local decode: 4 rows, 16 q "
+                             "over 1 kv head of 256, window 2048, kv 3000"),
+            nemotron=nemo, mamba2_serving=m_serve,
+            recurrentgemma_serving=rg_serve)
+        ca_fwd["llama3_34b"] = dict(
+            launches=big["launches"]["ca_server_fwd"],
+            captured_max_abs_err=big["captured_max_abs_err"],
+            train={k: big[k] for k in ("loss", "step_s", "tokens_per_s",
+                                       "peak_gib", "params", "shape",
+                                       "seconds")})
+        ca_bwd["llama3_34b"] = dict(
+            launches=big["launches"]["ca_server_bwd_dq"],
+            launches_dkv=big["launches"]["ca_server_bwd_dkv"])
     log(json.dumps({"kernels": [kernel, ca_fwd, ca_bwd, ca_rng, ca_glse,
                                 fl_fwd, fl_bwd, fl_rng, ssd_fm, ssd_bm,
                                 ssd_f, ssd_b, lru_f, lru_b]}))

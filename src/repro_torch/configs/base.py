@@ -287,5 +287,6 @@ def list_archs():
 
 
 def _load_all():
-    from . import (gemma2_2b, llama3_8b, mamba2_370m,  # noqa: F401
+    from . import (gemma2_2b, llama3_8b, llama3_34b,  # noqa: F401
+                   mamba2_370m, mistral_large, nemotron4_340b,
                    recurrentgemma_9b, smollm_360m)

@@ -58,10 +58,13 @@
 //     found through an int atomic on a counter (wrapper-allocated zeros,
 //     reset by that CTA), merges the parts in split order.  No float
 //     atomics: a repeated call is bitwise equal.  One launch per call.
-//   * head_dim 64, 128 and 256.  At 256 the accumulators are 128 f32
-//     registers a thread; prefill then walks 32-slot tiles to keep the
-//     score fragment small.  Shared memory per CTA: 85 / 99 KiB (prefill
-//     dh 128 / 256), 73 / 140 KiB (decode), set once per instantiation.
+//   * head_dim 64, 128, 192 and 256.  At 256 the accumulators are 128
+//     f32 registers a thread; prefill then walks 32-slot tiles to keep the
+//     score fragment small.  At 192 they are 96, and with the 32 of a
+//     64-slot score fragment fit beside them (128 in all, as at 256 with
+//     32-slot tiles' 16 fewer), so prefill keeps 64-slot tiles.  Shared
+//     memory per CTA: 85 / 125 / 99 KiB (prefill dh 128 / 192 / 256),
+//     73 / 106 / 140 KiB (decode), set once per instantiation.
 //   * epilogue: a prefill warp owns its rows whole and writes the output
 //     (or its part's state) from registers; decode's warps, which share
 //     rows, merge their states through shared memory in warp order.
@@ -759,6 +762,7 @@ extern "C" int ragged_decode_fwd(const void* q, const void* k, const void* v,
                              blk_q, hq, hkv, S, window, softcap, scale, s)
     if (dh == 64) RD_F32(64);
     if (dh == 128) RD_F32(128);
+    if (dh == 192) RD_F32(192);
     if (dh == 256) RD_F32(256);
 #undef RD_F32
     return cudaErrorInvalidValue;
@@ -772,10 +776,12 @@ extern "C" int ragged_decode_fwd(const void* q, const void* k, const void* v,
   if (blk_q == 1) {  // decode: 16 rows, 4 warps over a tile's slots
     if (dh == 64) RD_MMA(64, 1, 64);
     if (dh == 128) RD_MMA(128, 1, 64);
+    if (dh == 192) RD_MMA(192, 1, 64);
     if (dh == 256) RD_MMA(256, 1, 64);
   } else {           // prefill: 64 rows, a warp's 16 over the whole tile
     if (dh == 64) RD_MMA(64, 4, 64);
     if (dh == 128) RD_MMA(128, 4, 64);
+    if (dh == 192) RD_MMA(192, 4, 64);
     if (dh == 256) RD_MMA(256, 4, 32);
   }
 #undef RD_MMA

@@ -49,7 +49,7 @@ _SOURCE = _CSRC / "ragged_decode.cu"
 _CA_SOURCE = _CSRC / "ca_server.cu"
 _FLASH_SOURCE = _CSRC / "flash.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-RAGGED_HEAD_DIMS = (64, 128, 256)  # the ragged_decode kernel
+RAGGED_HEAD_DIMS = (64, 128, 192, 256)  # the ragged_decode kernel
 FLASH_HEAD_DIMS = (64, 128, 192, 256)  # the flash kernels
 CA_HEAD_DIMS = FLASH_HEAD_DIMS    # the CA-server kernels
 _BLK_Q = (1, 128)
@@ -197,7 +197,8 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_req, q_pos, kv_len,
 def ragged_tiling(blk_q: int, dh: int):
     """(rows a CTA, kv slots a tile) of the bf16 kernel: decode (blk_q 1)
     16 rows over 64-slot tiles, prefill 64 rows over 64-slot tiles (32 at
-    head_dim 256)."""
+    head_dim 256; 64 at 192, whose 96 accumulators a thread leave room for
+    the score fragment)."""
     if blk_q == 1:
         return 16, 64
     return 64, 32 if dh == 256 else 64
@@ -306,7 +307,7 @@ def ragged_decode_attention(q, k_cache, v_cache, block_req, q_pos, kv_len,
     q_pos    [T] int32    absolute positions (-1 = padded row)
     kv_len   [R] int32    visibility bound per request
 
-    CUDA tensors launch the kernel (f32 or bf16, head_dim 64, 128 or 256,
+    CUDA tensors launch the kernel (f32 or bf16, head_dim 64, 128, 192 or 256,
     blk_q 1 or 128, any Hq / Hkv); anything it does not cover raises.  CPU
     tensors run ``ragged_decode_reference``.
     """

@@ -35,6 +35,8 @@ cannot be turned off).
 
 Run: PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
          --no-reduced --port 8080
+(``--arch`` takes every arch of ``configs.SERVE_ARCHS``: the dense ones,
+mamba2-370m and recurrentgemma-9b.)
 Try: curl -d '{"prompt": [3, 14, 15, 92]}' localhost:8080/generate
 """
 from __future__ import annotations
@@ -49,7 +51,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from repro_torch.configs import get_config
+from repro_torch.configs import SERVE_ARCHS, get_config
 from repro_torch.core.cost_model import GridCalibrator
 from repro_torch.models.model import Transformer
 from repro_torch.obs import metrics as obs_metrics
@@ -264,10 +266,13 @@ def make_server(daemon: EngineDaemon, host: str, port: int) \
 
 
 # ------------------------------------------------------------------ launch
-def build_engine(args) -> Engine:
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+def build_engine(args, cfg=None) -> Engine:
+    """The engine ``args`` describe, serving ``cfg`` if given (a config cut
+    in depth, say) and else ``--arch``'s (reduced unless ``--no-reduced``)."""
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     model = Transformer(cfg, device=args.device, seed=args.seed)
     scfg = ServeConfig(max_seq=args.max_seq,
                        max_new_tokens=args.max_new,
@@ -282,7 +287,7 @@ def build_engine(args) -> Engine:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--arch", default="llama3-8b")
+    p.add_argument("--arch", default="llama3-8b", choices=SERVE_ARCHS)
     p.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="use the reduced config (default); --no-reduced "

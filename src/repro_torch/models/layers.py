@@ -1,7 +1,9 @@
 """Layer implementations: init, norms, RoPE, GQA projections,
 self-attention over packed documents, the MLP, the Mamba-2 SSD block
 (chunked scan, packed-document aware) and the RecurrentGemma RG-LRU block
-(linear recurrence with document resets).
+(linear recurrence with document resets), and their one-token decode
+steps (``_causal_conv`` with its state, ``ssd_decode``,
+``rglru_decode``).
 
 The port of the matching functions of ``repro.models.layers``, with the
 same weight names and layouts: weights are stored ``[in, out]`` and
@@ -177,22 +179,31 @@ def ssd_init(gen: torch.Generator, cfg, device=None) -> nn.ParameterDict:
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 first: torch.Tensor) -> torch.Tensor:
+                 state: Optional[torch.Tensor] = None,
+                 first: Optional[torch.Tensor] = None):
     """x [B,S,C]; w [W,C] depthwise causal conv, as shifted sums (not
     ``F.conv1d``: cuDNN runs f32 convolutions in TF32 by default).
-    ``first`` [B,S] marks document starts: taps reaching across a
-    boundary are zeroed so packed documents do not leak into each other.
-    Returns silu(conv + b).  The reference's decode state (its second
-    output) comes with mamba2 serving."""
+    ``state`` [B,W-1,C], if given, is the previous W-1 inputs (decode);
+    without it the sequence starts from zeros.  ``first`` [B,S] marks
+    document starts: taps reaching across a boundary are zeroed so packed
+    documents do not leak into each other.  Returns (silu(conv + b), the
+    last W-1 inputs: the next decode state)."""
     width = w.shape[0]
     s = x.shape[1]
-    xp = F.pad(x, (0, 0, width - 1, 0))
-    nr = torch.cumsum(first.to(torch.int32), dim=1)              # [B,S]
-    nrp = F.pad(nr, (width - 1, 0), value=-1)
-    ys = sum(xp[:, i:i + s, :] * w[i]
-             * (nrp[:, i:i + s] == nr)[..., None].to(x.dtype)
-             for i in range(width))
-    return F.silu(ys + b)
+    if state is None:
+        xp = F.pad(x, (0, 0, width - 1, 0))
+    else:
+        xp = torch.cat([state, x], dim=1)
+    if first is not None:
+        nr = torch.cumsum(first.to(torch.int32), dim=1)          # [B,S]
+        nrp = F.pad(nr, (width - 1, 0), value=-1)
+        ys = sum(xp[:, i:i + s, :] * w[i]
+                 * (nrp[:, i:i + s] == nr)[..., None].to(x.dtype)
+                 for i in range(width))
+    else:
+        ys = sum(xp[:, i:i + s, :] * w[i] for i in range(width))
+    new_state = xp[:, -(width - 1):, :] if width > 1 else None
+    return F.silu(ys + b), new_state
 
 
 def _ssd_split(p: Mapping[str, torch.Tensor], h: torch.Tensor, cfg):
@@ -219,7 +230,7 @@ def ssd_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, batch, cfg,
     first = torch.cat([torch.ones_like(seg[:, :1], dtype=torch.bool),
                        seg[:, 1:] != seg[:, :-1]], dim=1)
     z, xbc, dt, d_in, nh, gn = _ssd_split(p, h, cfg)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"], first=first)
+    xbc, _ = _causal_conv(xbc, p["conv_w"], p["conv_b"], first=first)
     x = xbc[..., :d_in].reshape(b, S, nh, s.head_dim)
     B_ = xbc[..., d_in:d_in + gn].reshape(b, S, s.n_groups, s.d_state)
     C_ = xbc[..., d_in + gn:].reshape(b, S, s.n_groups, s.d_state)
@@ -340,7 +351,7 @@ def rglru_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, batch, cfg,
                        seg[:, 1:] != seg[:, :-1]], dim=1)
     gate_br = F.gelu(h @ p["w_gate_br"], approximate="tanh")
     x = h @ p["w_x"]
-    x = _causal_conv(x, p["conv_w"], p["conv_b"], first=first)
+    x, _ = _causal_conv(x, p["conv_w"], p["conv_b"], first=first)
     y = _rglru_scan(p, x, first, ctx=ctx, hook=hook)
     y = y * gate_br
     return y @ p["w_out"]
@@ -380,3 +391,45 @@ def _rglru_scan(p, x, first, ctx=None, hook=None):
             hook(dict(a=a, bterm=bterm))
         return rglru_ops.lru_scan(a, bterm).to(x.dtype)
     return rglru_ops.lru_scan_fwd_reference(a, bterm).to(x.dtype)
+
+
+# ------------------------------------------------------ recurrent decoding
+def rglru_decode(p: Mapping[str, torch.Tensor], x_t: torch.Tensor,
+                 h_prev: torch.Tensor,
+                 reset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One RG-LRU step: x_t [B,1,W] (after the conv), h_prev [B,W] f32;
+    ``reset`` [B] bool zeroes the decay (a document start), as the packed
+    forward does at segment boundaries.  Returns h [B,W] f32."""
+    log_a, ig = _rglru_gates(p, x_t)
+    a = torch.exp(log_a[:, 0])
+    if reset is not None:
+        a = torch.where(reset[:, None], 0.0, a)
+    beta = torch.sqrt(_clip01(1.0 - a * a))
+    return a * h_prev + beta * ig[:, 0] * x_t[:, 0].float()
+
+
+def ssd_decode(p: Mapping[str, torch.Tensor], h_t: torch.Tensor,
+               conv_state: torch.Tensor, ssm_state: torch.Tensor, cfg):
+    """One SSD step.  h_t [B,1,D]; conv_state [B,W-1,C]; ssm_state
+    [B,H,N,P] f32.  Returns (out [B,1,D], conv_state, ssm_state)."""
+    s = cfg.ssm
+    b = h_t.shape[0]
+    z, xbc, dt, d_in, nh, gn = _ssd_split(p, h_t, cfg)
+    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
+    x = xbc[:, 0, :d_in].reshape(b, nh, s.head_dim)
+    rep = nh // s.n_groups
+    B_ = xbc[:, 0, d_in:d_in + gn].reshape(b, s.n_groups, s.d_state) \
+        .repeat_interleave(rep, dim=1)                         # [B,H,N]
+    C_ = xbc[:, 0, d_in + gn:].reshape(b, s.n_groups, s.d_state) \
+        .repeat_interleave(rep, dim=1)
+    A = -torch.exp(p["A_log"].float())
+    dtv = F.softplus(dt[:, 0].float() + p["dt_bias"].float())  # [B,H]
+    a = torch.exp(dtv * A)                                     # [B,H]
+    upd = (dtv[..., None] * B_.float())[..., None] \
+        * x.float()[:, :, None, :]                             # [B,H,N,P]
+    ssm_state = ssm_state * a[..., None, None] + upd
+    y = torch.einsum("bhn,bhnp->bhp", C_.float(), ssm_state)
+    y = y + x.float() * p["D_skip"].float()[None, :, None]
+    y = y.reshape(b, 1, d_in).to(h_t.dtype)
+    y = norm_apply(p["out_norm"], y * F.silu(z))
+    return y @ p["out_proj"], conv_state, ssm_state

@@ -14,9 +14,10 @@ Mamba-2 SSD block; the RecurrentGemma RG-LRU block), under every
 windowed fallback, ``xla_flash_attention``; ``ssd`` layers run their
 intra-chunk step and ``rglru`` layers their recurrence in the CUDA
 kernels under ``pallas`` and in torch ops otherwise).  What serves: the
-attention-only patterns.  Serving ``ssd`` and ``rglru`` layers
-(``ssd_decode``, ``rglru_decode`` and their recurrent caches, ROADMAP
-queue 1 item 10), MoE layers, cross-attention, the encoder and the
+same patterns, from the ragged serving cache; ``ssd`` and ``rglru``
+layers keep their conv window and recurrent state in it and run
+decode-mode steps only (one token a request, ``ssd_decode`` /
+``rglru_decode``).  MoE layers, cross-attention, the encoder and the
 legacy ``layout="decode"`` cache raise ``NotImplementedError`` naming
 what brings them.
 """
@@ -25,6 +26,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
@@ -46,19 +48,17 @@ def resolve_device(device) -> torch.device:
 
 
 _LATER = {"cross": "the cross-attention slice (whisper, llama3.2-vision)"}
-_RECURRENT_SERVING = {
-    "ssd": "mamba2 serving (ssd_decode and the recurrent cache, ROADMAP "
-           "queue 1 item 10)",
-    "rglru": "recurrentgemma serving (rglru_decode and the recurrent "
-             "cache, ROADMAP queue 1 item 10)"}
+_RECURRENT = ("ssd", "rglru")
 
 
-def _check_arch(cfg, kinds, later) -> None:
+def check_arch(cfg) -> None:
+    """Raise for what the port cannot build, train and serve yet (every
+    arch that trains serves: recurrent layers in decode-mode steps)."""
     for kind in cfg.layer_pattern:
-        if kind not in kinds:
+        if kind not in _ATTN_KINDS + _RECURRENT:
             raise NotImplementedError(
                 f"{cfg.arch_id}: {kind!r} layers come with "
-                f"{later.get(kind, 'a later slice')}")
+                f"{_LATER.get(kind, 'a later slice')}")
     if cfg.moe and cfg.moe.n_experts:
         raise NotImplementedError(f"{cfg.arch_id}: MoE layers come with the "
                                   f"MoE slice (qwen2-moe, llama4-maverick)")
@@ -69,14 +69,12 @@ def _check_arch(cfg, kinds, later) -> None:
         raise NotImplementedError(f"{cfg.arch_id}: qk_norm is not ported")
 
 
-def check_training_arch(cfg) -> None:
-    """Raise for what the port cannot build and train yet."""
-    _check_arch(cfg, _ATTN_KINDS + ("ssd", "rglru"), _LATER)
-
-
-def check_serving_arch(cfg) -> None:
-    """Raise for what the port cannot serve yet."""
-    _check_arch(cfg, _ATTN_KINDS, dict(_LATER, **_RECURRENT_SERVING))
+def fused_prefill_ok(cfg) -> bool:
+    """Whether prompts may be prefilled in fused chunks (blk_q 128): only
+    attention-only patterns.  Recurrent mixers are sequential, so their
+    archs prefill a token a request per step (decode-mode chunks)."""
+    return all(kind in _ATTN_KINDS for kind in cfg.layer_pattern) \
+        and not (cfg.moe and cfg.moe.n_experts)
 
 
 class Block(nn.Module):
@@ -131,7 +129,7 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, device="cuda", seed: int = 0):
         super().__init__()
-        check_training_arch(cfg)
+        check_arch(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         # on the meta device the weights are shapes only (no memory), e.g.
@@ -235,36 +233,65 @@ class Transformer(nn.Module):
     # -------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_seq: int,
                    layout: str = "serve") -> Dict:
-        """The ragged serving cache (DESIGN.md §8): per layer ``k``/``v``
-        of ``[B, S_pad, Hkv, dh]`` where slot index == absolute position
-        (local layers too: the window is the kernel's mask), ``S_pad`` =
-        ``max_seq`` rounded up to the 128-token block, plus the
+        """The ragged serving cache (DESIGN.md §8), one slot dict a layer:
+        an attention layer's ``k``/``v`` of ``[B, S_pad, Hkv, dh]`` where
+        slot index == absolute position (local layers too: the window is
+        the kernel's mask), ``S_pad`` = ``max_seq`` rounded up to the
+        128-token block; an ssd layer's ``conv`` [B, W-1, d_in + 2·G·N]
+        (compute dtype) and ``state`` [B, H, N, P] f32; an rglru layer's
+        ``conv`` [B, W-1, lru_width] and ``h`` [B, lru_width] f32; plus the
         per-request visibility bound ``kv_len [B]``."""
         if layout == "decode":
             raise NotImplementedError(
-                "the legacy dense decode cache (layout='decode') is not "
-                "ported; the serving engine uses layout='serve'")
+                f"{self.cfg.arch_id}: the legacy dense decode cache "
+                f"(layout='decode') is not ported (ROADMAP queue 1 item 10, "
+                f"with item 12); the serving engine uses layout='serve'")
         if layout != "serve":
             raise ValueError(f"unknown cache layout {layout!r}")
         cfg = self.cfg
-        check_serving_arch(cfg)
+        check_arch(cfg)
+        dev, cdt, f32 = self.device, cfg.cdtype, torch.float32
         s_pad = -(-max_seq // SERVE_BLOCK) * SERVE_BLOCK
-        shape = (batch_size, s_pad, cfg.n_kv_heads, cfg.head_dim)
+        b = batch_size
+
+        def slot(kind):
+            if kind == "ssd":
+                s = cfg.ssm
+                d_in = s.expand * cfg.d_model
+                conv_ch = d_in + 2 * s.n_groups * s.d_state
+                return {"conv": torch.zeros((b, s.conv_width - 1, conv_ch),
+                                            dtype=cdt, device=dev),
+                        "state": torch.zeros((b, d_in // s.head_dim,
+                                              s.d_state, s.head_dim),
+                                             dtype=f32, device=dev)}
+            if kind == "rglru":
+                w = cfg.rglru.lru_width or cfg.d_model
+                return {"conv": torch.zeros((b, cfg.rglru.conv_width - 1, w),
+                                            dtype=cdt, device=dev),
+                        "h": torch.zeros((b, w), dtype=f32, device=dev)}
+            shape = (b, s_pad, cfg.n_kv_heads, cfg.head_dim)
+            return {"k": torch.zeros(shape, dtype=cdt, device=dev),
+                    "v": torch.zeros(shape, dtype=cdt, device=dev)}
+
         slots: List[Dict[str, torch.Tensor]] = [
-            {"k": torch.zeros(shape, dtype=cfg.cdtype, device=self.device),
-             "v": torch.zeros(shape, dtype=cfg.cdtype, device=self.device)}
-            for _ in self.layers]
+            slot(blk.kind) for blk in self.layers]
         return {"slots": slots,
-                "kv_len": torch.zeros(batch_size, dtype=torch.int32,
-                                      device=self.device)}
+                "kv_len": torch.zeros(b, dtype=torch.int32, device=dev)}
 
     @staticmethod
     def reset_serve_slots(cache: Dict, reset_mask: torch.Tensor) -> Dict:
         """Recycle request slots for continuous-batching admission.
         Attention kv needs no clearing: visibility is bounded by
-        ``kv_len``, which drops to 0.  In place; returns ``cache``."""
-        cache["kv_len"] = torch.where(reset_mask.to(cache["kv_len"].device),
-                                      0, cache["kv_len"])
+        ``kv_len``, which drops to 0.  Recurrent states and conv windows
+        persist across tokens, so the masked rows are zeroed.  In place;
+        returns ``cache``."""
+        mask = reset_mask.to(cache["kv_len"].device)
+        for slot in cache["slots"]:
+            if "conv" in slot:
+                for x in slot.values():
+                    x.masked_fill_(mask.reshape((-1,) + (1,) * (x.ndim - 1)),
+                                   0)
+        cache["kv_len"] = torch.where(mask, 0, cache["kv_len"])
         return cache
 
     # ------------------------------------------------------------ serving
@@ -304,12 +331,48 @@ class Transformer(nn.Module):
             f = L.norm_apply(blk.pnorm2, f, cfg.norm)
         return h + f
 
-    def _block_serve(self, li: int, blk: Block, h, cache_slot, pos,
+    def _block_serve(self, li: int, blk: nn.Module, h, cache_slot, pos,
                      writes, block_req, kv_len_next):
+        if blk.kind in _RECURRENT:
+            return self._recurrent_serve(blk, h, cache_slot, pos)
         a_in = L.norm_apply(blk.norm1, h, self.cfg.norm)
         a = self._serve_attn(li, blk.attn, a_in, cache_slot, pos, writes,
                              block_req, kv_len_next, blk.kind)
         return self._attn_residual_tail(blk, h, a)
+
+    def _recurrent_serve(self, blk: nn.Module, h, cache_slot, pos):
+        """A recurrent layer in a decode-mode step (reference
+        ``models/model.py:343-372``): row i of the packed [1, T, D] stream
+        is request slot i's one token.  Rows with pos == -1 are idle slots
+        (e.g. a request waiting while another prefills): their conv window
+        and state are kept bit for bit, written back by a masked select;
+        the rglru reset at pos == 0 is theirs only when live."""
+        cfg = self.cfg
+        hb = h[0][:, None]                                   # [B,1,D]
+        xin = L.norm_apply(blk.norm1, hb, cfg.norm)
+        if blk.kind == "ssd":
+            y, conv, state = L.ssd_decode(blk.mixer, xin, cache_slot["conv"],
+                                          cache_slot["state"], cfg)
+            hb = hb + y
+            new = {"conv": conv, "state": state}
+        else:
+            mixer = blk.mixer
+            gate_br = F.gelu(xin @ mixer["w_gate_br"], approximate="tanh")
+            x, conv = L._causal_conv(xin @ mixer["w_x"], mixer["conv_w"],
+                                     mixer["conv_b"], cache_slot["conv"])
+            hstate = L.rglru_decode(mixer, x, cache_slot["h"],
+                                    reset=pos.clamp(min=0) == 0)
+            hb = hb + (hstate[:, None].to(hb.dtype) * gate_br) \
+                @ mixer["w_out"]
+            hb = hb + L.ffn_apply(blk.ffn,
+                                  L.norm_apply(blk.norm2, hb, cfg.norm), cfg)
+            new = {"conv": conv, "h": hstate}
+        live = pos >= 0
+        for name, x in new.items():
+            old = cache_slot[name]
+            old.copy_(torch.where(
+                live.reshape((-1,) + (1,) * (x.ndim - 1)), x, old))
+        return hb[:, 0][None]
 
     def serve_chunk_step(self, cache: Dict, tokens: torch.Tensor,
                          pos: torch.Tensor, block_req: torch.Tensor,
@@ -323,20 +386,38 @@ class Transformer(nn.Module):
         kv_len_next [B] int32, each request's visibility bound after this
         step's cache writes.
 
+        Recurrent (ssd / rglru) layers take decode-mode steps only (blk_q
+        1, row i = request slot i, T = the cache's batch); a prefill
+        chunk on a recurrent pattern raises.
+
         Returns logits [T, V] f32.  The cache is updated in place (k/v
-        written, ``kv_len`` set to ``kv_len_next``)."""
+        written, recurrent states advanced for live rows, ``kv_len`` set
+        to ``kv_len_next``)."""
         cfg = self.cfg
         t = tokens.shape[0]
         nq = block_req.shape[0]
         if t % nq:
             raise ValueError(f"{t} tokens do not split into {nq} q blocks")
-        # the rows every layer writes into its cache, found once per step
-        # (nonzero waits for the device)
-        live = torch.nonzero(pos >= 0).squeeze(1)
-        token_req = block_req.repeat_interleave(t // nq)
-        writes = (live, token_req[live].long(), pos[live].long())
+        if not fused_prefill_ok(cfg):
+            if t != nq:
+                raise ValueError(
+                    f"{cfg.arch_id}: fused chunked prefill needs an "
+                    f"attention-only pattern, got {cfg.layer_pattern}; "
+                    f"recurrent layers take decode-mode steps (blk_q 1)")
+            if t != cache["kv_len"].shape[0]:
+                raise ValueError(
+                    f"{cfg.arch_id}: a decode-mode step of a recurrent "
+                    f"pattern has one row a cache slot ({t} rows, "
+                    f"{cache['kv_len'].shape[0]} slots)")
+        writes = None
+        if cfg.has_attention():
+            # the rows every layer writes into its cache, found once per
+            # step (nonzero waits for the device)
+            live = torch.nonzero(pos >= 0).squeeze(1)
+            token_req = block_req.repeat_interleave(t // nq)
+            writes = (live, token_req[live].long(), pos[live].long())
         h = self._embed(tokens[None])
-        if not cfg.use_rope:
+        if not cfg.use_rope and cfg.has_attention():
             h = h + L.sinusoidal_pos(pos.clamp(min=0)[None], cfg.d_model,
                                      cfg.cdtype)
         for li, (blk, slot) in enumerate(zip(self.layers, cache["slots"])):

@@ -14,6 +14,11 @@ per-token loop survives as ``prefill="loop"``, the baseline.
 token budget, while the device sees two shapes, the prefill chunk and the
 decode batch.
 
+Recurrent archs (mamba2's ``ssd``, recurrentgemma's ``rglru`` with its
+local attention layers) use the same cache layout but prefill a token a
+request per step (decode-mode chunks): their mixers are sequential, so
+``fused_ok`` is false for them and ``prefill(mode="fused")`` raises.
+
 The reference's ``decode_impl`` switch does not carry over: on the card
 attention always runs the kernel, on the CPU its plain version.
 """
@@ -26,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.packed_flash import ops as pf_ops
-from repro_torch.models.model import check_serving_arch, resolve_device
+from repro_torch.models.model import (check_arch, fused_prefill_ok,
+                                      resolve_device)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.scheduler import (DECODE, DONE, ContinuousScheduler,
@@ -66,14 +72,17 @@ class Engine:
     def __init__(self, model, serve_cfg: ServeConfig,
                  batch_size: int = 1, device="cuda"):
         cfg = model.cfg
-        check_serving_arch(cfg)
+        check_arch(cfg)
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model weights are on {model.device}, the "
                              f"engine runs on {self.device}")
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and cfg.has_attention():
             check_kernel_head_dim(cfg)
         self.cfg, self.model = cfg, model
+        # fused chunked prefill needs an attention-only pattern; recurrent
+        # archs prefill through decode-mode chunks
+        self.fused_ok = fused_prefill_ok(cfg)
         self.scfg = serve_cfg
         self.batch_size = batch_size
         self.cache = model.init_cache(batch_size, serve_cfg.max_seq,
@@ -89,9 +98,11 @@ class Engine:
     # ----------------------------------------------------- chunk dispatch
     def _chunk_call(self, tokens, pos, block_req, kv_len_next):
         """All device calls go through here.  Returns logits [T, V] f32.
-        The reference pads single-row calls with a dead row to keep XLA's
-        CPU gemv out of its bit-parity contract; the port makes no bitwise
-        promise across batch shapes and sends rows as they are."""
+        The reference pads single-row calls of attention-only archs with a
+        dead row to keep XLA's CPU gemv out of its bit-parity contract;
+        the port makes no bitwise promise across batch shapes and sends
+        rows as they are (a recurrent arch's rows are its cache slots, so
+        they could not be padded anyway)."""
         self.n_chunk_calls += 1
         return self._chunk(self.cache, self._tensor(tokens),
                            self._tensor(pos), self._tensor(block_req),
@@ -106,20 +117,25 @@ class Engine:
                 return_logits: bool = False):
         """Prefill a dense [B, P] prompt batch into the cache.
 
-        mode "fused" (default): chunked packed prefill, one
-        ``serve_chunk_step`` per ``chunk_tokens`` over the ragged batch.
-        mode "loop": the per-token baseline.  Returns the last-position
-        logits [B, V] (and, with ``return_logits``, the full
-        teacher-forced [B, P, V])."""
+        mode "fused" (the default where ``fused_ok``): chunked packed
+        prefill, one ``serve_chunk_step`` per ``chunk_tokens`` over the
+        ragged batch.  mode "loop" (the default of recurrent archs): the
+        per-token steps.  Returns the last-position logits [B, V] (and,
+        with ``return_logits``, the full teacher-forced [B, P, V])."""
         tokens = np.asarray(tokens, np.int32)
         if tokens.shape[1] > self.scfg.max_seq:
             raise ValueError(
                 f"prompt length {tokens.shape[1]} exceeds max_seq "
                 f"{self.scfg.max_seq}")
-        mode = mode or self.scfg.prefill
-        # a prefill starts a fresh generation for every slot
+        mode = mode or (self.scfg.prefill if self.fused_ok else "loop")
+        # a prefill starts a fresh generation for every slot: kv visibility
+        # drops and recurrent states are zeroed
         self._reset(np.ones(self.batch_size, bool))
         if mode == "fused":
+            if not self.fused_ok:
+                raise ValueError(
+                    f"fused prefill unsupported for {self.cfg.arch_id} "
+                    f"(pattern {self.cfg.layer_pattern})")
             return self._prefill_fused(tokens, return_logits)
         if mode == "loop":
             return self._prefill_loop(tokens, return_logits)
@@ -242,7 +258,7 @@ class Engine:
             for r in newly:
                 mask[r.slot] = True
             self._reset(mask)
-        fused = self.scfg.prefill == "fused"
+        fused = self.fused_ok and self.scfg.prefill == "fused"
         if sched.has_prefill():
             chunk = sched.next_prefill_chunk(fused=fused)
             lg = self._chunk_call(chunk.tokens, chunk.pos, chunk.block_req,

@@ -94,6 +94,30 @@ def test_runtime_checkpoint_and_trace_report_load_no_jax():
     _probe(_ELASTIC)
 
 
+# the App. A bound, the configs of this slice and recurrent serving, each
+# from the module that defines it
+_SERVING = """
+from repro_torch.core.analysis import (
+    max_partition_size, context_independent_time_per_token)
+from repro_torch.configs import get_config, SERVE_ARCHS, PAPER_ARCHS
+from repro_torch.models.layers import ssd_decode, rglru_decode, _causal_conv
+from repro_torch.models.model import Transformer, fused_prefill_ok
+from repro_torch.serve.engine import Engine, check_kernel_head_dim
+from repro_torch.launch.serve import parse_args
+for arch in ("llama3-34b", "mistral-large-123b", "nemotron-4-340b",
+             "mamba2-370m", "recurrentgemma-9b"):
+    assert arch in SERVE_ARCHS, arch
+    assert parse_args(["--arch", arch]).arch == arch
+assert max_partition_size(get_config("llama3-34b")) > 1
+assert not fused_prefill_ok(get_config("mamba2-370m"))
+check_kernel_head_dim(get_config("nemotron-4-340b"))
+"""
+
+
+def test_analysis_configs_and_recurrent_serving_load_no_jax():
+    _probe(_SERVING)
+
+
 def test_importing_chip_smoke_loads_no_jax():
     _probe(_SMOKE)
 

@@ -5,6 +5,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_config
 from repro.models import layers as JL
@@ -99,3 +100,80 @@ def test_dense_init_scale_and_dtype():
     w = TL.dense_init(gen, 256, (256, 512), torch.bfloat16, "cpu")
     assert w.dtype == torch.bfloat16 and w.shape == (256, 512)
     assert abs(float(w.float().std()) - 256 ** -0.5) < 2e-3
+
+
+# ----------------------------------------------------- recurrent decoding
+def _tree(p, fn):
+    return {k: _tree(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in p.items()}
+
+
+@pytest.mark.parametrize("steps", [1, 5])
+def test_causal_conv_with_state(steps):
+    """The decode form of the depthwise conv: the previous W-1 inputs as
+    state in, the last W-1 out, over one token and over five."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, steps, 8)).astype(np.float32)
+    w = rng.normal(size=(4, 8)).astype(np.float32)
+    b = rng.normal(size=8).astype(np.float32)
+    state = rng.normal(size=(2, 3, 8)).astype(np.float32)
+    want_y, want_s = JL._causal_conv(*(jnp.asarray(a)
+                                       for a in (x, w, b, state)))
+    got_y, got_s = TL._causal_conv(*(to_torch(a) for a in (x, w, b, state)))
+    np.testing.assert_allclose(to_numpy(got_y), np.asarray(want_y),
+                               **MODEL_TOL)
+    np.testing.assert_array_equal(to_numpy(got_s), np.asarray(want_s))
+
+
+def test_ssd_decode_matches_reference():
+    """Three one-token SSD steps from a random conv window and f32 state
+    (mamba2-370m-reduced, 16 heads over one B/C group): out, conv state and
+    SSM state each step."""
+    import jax
+    cfg_j, cfg_t = _configs("mamba2-370m")
+    p = JL.ssd_init(jax.random.PRNGKey(1), cfg_j)
+    pt = _tree(p, lambda v: to_torch(np.asarray(v)))
+    s = cfg_j.ssm
+    d_in = s.expand * cfg_j.d_model
+    rng = np.random.default_rng(5)
+    conv = rng.normal(size=(3, s.conv_width - 1,
+                            d_in + 2 * s.n_groups * s.d_state))
+    state = rng.normal(size=(3, d_in // s.head_dim, s.d_state, s.head_dim))
+    conv_j, state_j = jnp.asarray(conv, jnp.float32), jnp.asarray(
+        state, jnp.float32)
+    conv_t, state_t = to_torch(conv, torch.float32), to_torch(
+        state, torch.float32)
+    for step in range(3):
+        h = rng.normal(size=(3, 1, cfg_j.d_model)).astype(np.float32)
+        y_j, conv_j, state_j = JL.ssd_decode(p, jnp.asarray(h), conv_j,
+                                             state_j, cfg_j)
+        y_t, conv_t, state_t = TL.ssd_decode(pt, to_torch(h), conv_t,
+                                             state_t, cfg_t)
+        for got, want in ((y_t, y_j), (conv_t, conv_j), (state_t, state_j)):
+            np.testing.assert_allclose(to_numpy(got), np.asarray(want),
+                                       err_msg=f"step {step}", **MODEL_TOL)
+    assert state_t.dtype == torch.float32
+
+
+def test_rglru_decode_matches_reference():
+    """One RG-LRU step of three rows, the first reset (a document start:
+    its decay is zeroed) and the others carrying their state."""
+    import jax
+    cfg_j, _ = _configs("recurrentgemma-9b")
+    p = JL.rglru_init(jax.random.PRNGKey(2), cfg_j)
+    pt = _tree(p, lambda v: to_torch(np.asarray(v)))
+    w = cfg_j.rglru.lru_width
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(3, 1, w)).astype(np.float32)
+    h = rng.normal(size=(3, w)).astype(np.float32)
+    reset = np.array([True, False, False])
+    want = JL.rglru_decode(p, jnp.asarray(x), jnp.asarray(h),
+                           reset=jnp.asarray(reset))
+    got = TL.rglru_decode(pt, to_torch(x), to_torch(h),
+                          reset=to_torch(reset))
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), **MODEL_TOL)
+    # the reset row forgets h: it equals the step from a zero state
+    zero = TL.rglru_decode(pt, to_torch(x), torch.zeros(3, w),
+                           reset=to_torch(reset))
+    assert torch.equal(got[0], zero[0])
+    assert not torch.equal(got[1], zero[1])

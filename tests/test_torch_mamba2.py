@@ -211,8 +211,11 @@ def test_transformer_on_cuda_raises_without_a_card():
 
 
 def test_serving_mamba2_raises():
-    """Training admits ssd layers; serving them (``ssd_decode`` and the
-    recurrent cache) is still to come."""
+    """Serving admits ssd layers now (``ssd_decode`` and the recurrent
+    cache, ``tests/test_torch_recurrent_serve.py``); what still raises is
+    the legacy dense decode cache."""
     model = Transformer(torch_config(ARCH), device="cpu")
-    with pytest.raises(NotImplementedError, match="mamba2 serving"):
-        model.init_cache(2, 256)
+    assert set(model.init_cache(2, 256)["slots"][0]) == {"conv", "state"}
+    with pytest.raises(NotImplementedError,
+                       match="layout='decode'.*queue 1 item 10"):
+        model.init_cache(2, 256, layout="decode")

@@ -14,14 +14,15 @@ from repro.configs import get_config as jax_config
 from repro.models import model as JM
 from repro.parallel import ParallelContext
 from repro.train.step import make_serve_chunk_step as jax_chunk_step
-from repro_torch.configs import ModelConfig, MoEConfig, RGLRUConfig, SSMConfig
+from repro_torch.configs import ModelConfig, MoEConfig, SSMConfig
 from repro_torch.configs import get_config as torch_config
 from repro_torch.models import convert
-from repro_torch.models.model import Transformer, check_serving_arch
+from repro_torch.models.model import Transformer, check_arch
 from repro_torch.train.step import make_serve_chunk_step
 from test_torch_helpers import MODEL_TOL, load_jax_params, to_numpy, to_torch
 
-ARCHS = ["llama3-8b", "smollm-360m", "gemma2-2b"]
+ARCHS = ["llama3-8b", "smollm-360m", "gemma2-2b", "llama3-34b",
+         "mistral-large-123b", "nemotron-4-340b"]
 
 # (arch, n_kv_heads override, JAX decode impl).  The reduced configs all
 # have rep = 1, so the llama3 variant with 2 kv heads covers GQA.
@@ -96,7 +97,8 @@ def test_configs_match_reference(arch, reduced):
     assert cfg_t.n_params() == cfg_j.n_params()
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma2-2b", "llama3-34b",
+                                  "mistral-large-123b", "nemotron-4-340b"])
 def test_convert_shapes_at_full_width(arch):
     """The full-width layout, by shape only: the reference's init through
     ``jax.eval_shape`` against the port built on the meta device."""
@@ -123,39 +125,47 @@ def _tiny(**over):
 
 @pytest.mark.parametrize("over,match", [
     ({"layer_pattern": ("ssd",), "family": "ssm",
-      "ssm": SSMConfig(d_state=16, head_dim=16, chunk_size=16)}, "mamba2"),
-    ({"layer_pattern": ("rglru", "local"), "rglru": RGLRUConfig()},
-     "recurrentgemma"),
+      "ssm": SSMConfig(d_state=16, head_dim=16, chunk_size=16)},
+     "layout='decode'"),
+    ({"qk_norm": True}, "qk_norm"),
     ({"layer_pattern": ("cross",)}, "cross-attention"),
     ({"moe": MoEConfig(n_experts=4, top_k=2, d_ff_expert=32)}, "MoE"),
 ])
 def test_outside_the_slice_raises(over, match):
-    """Serving raises for every arch outside the serving slice.  Building
-    a model raises for all but mamba2 and recurrentgemma, whose recurrent
-    layers train and whose serving cache raises."""
+    """Serving raises for every arch outside the port.  mamba2 and
+    recurrentgemma serve from the ragged cache (their legacy dense decode
+    cache still raises); qk_norm, cross-attention and MoE layers raise
+    when the serving arch is checked and when a model is built."""
     cfg = _tiny(**over)
-    with pytest.raises(NotImplementedError, match=match):
-        check_serving_arch(cfg)
     if {"ssd", "rglru"} & set(cfg.layer_pattern):
+        check_arch(cfg)
         model = Transformer(cfg, device="cpu")
+        assert "conv" in model.init_cache(2, 64)["slots"][0]
         with pytest.raises(NotImplementedError, match=match):
-            model.init_cache(2, 64)
+            model.init_cache(2, 64, layout="decode")
     else:
+        with pytest.raises(NotImplementedError, match=match):
+            check_arch(cfg)
         with pytest.raises(NotImplementedError, match=match):
             Transformer(cfg, device="cpu")
 
 
 def test_engine_head_dim_guard_reads_the_kernel_set(monkeypatch):
     """On the card the engine serves a config only if the ragged
-    cache-attention kernel takes its head_dim: gemma2-2b's 256 now, 192
-    not; the guard reads ``ops.RAGGED_HEAD_DIMS``."""
+    cache-attention kernel takes its head_dim: gemma2-2b's 256 and
+    nemotron-4-340b's 192 now, an uncovered 96 not; the guard reads
+    ``ops.RAGGED_HEAD_DIMS``."""
     from repro_torch.kernels.packed_flash import ops
     from repro_torch.serve import engine
     gemma = torch_config("gemma2-2b")
     assert gemma.head_dim == 256
     engine.check_kernel_head_dim(gemma)
-    with pytest.raises(NotImplementedError, match=r"\(64, 128, 256\)"):
-        engine.check_kernel_head_dim(_tiny(head_dim=192))
+    nemotron = torch_config("nemotron-4-340b")
+    assert nemotron.head_dim == 192
+    engine.check_kernel_head_dim(nemotron)
+    with pytest.raises(NotImplementedError,
+                       match=r"head_dim 96 .*\(64, 128, 192, 256\)"):
+        engine.check_kernel_head_dim(_tiny(head_dim=96))
     monkeypatch.setattr(ops, "RAGGED_HEAD_DIMS", (64, 128))
     with pytest.raises(NotImplementedError, match="head_dim 256"):
         engine.check_kernel_head_dim(gemma)

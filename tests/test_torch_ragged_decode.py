@@ -102,6 +102,56 @@ def test_head_dim_256_matches_jax_kernel_paths(blk_q, impl):
     assert 256 in ops.RAGGED_HEAD_DIMS
 
 
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("blk_q", [128, 1])
+def test_head_dim_192_matches_jax_kernel_paths(blk_q, impl):
+    """nemotron-4-340b's head_dim 192, cut down: rep 2 over 2 kv heads, a
+    window and softcap 50, on a 256-slot cache."""
+    q, k, v, block_req, pos, kv_len = _inputs(blk_q, 2, seed=4, dh=192)
+    want = jax_ops.ragged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(block_req), jnp.asarray(pos), jnp.asarray(kv_len),
+        window=50, softcap=50.0, impl=impl)
+    got = _port(q, k, v, block_req, pos, kv_len, 50, 50.0)
+    np.testing.assert_allclose(got, np.asarray(want), **KERNEL_TOL)
+    assert 192 in ops.RAGGED_HEAD_DIMS
+
+
+def _mqa_decode_inputs(seed, S=2304, dh=256):
+    """recurrentgemma-9b's local-layer decode step: 16 q heads over one kv
+    head of 256, kv lengths past its 2048 window, a dead row."""
+    rng = np.random.default_rng(seed)
+    R = 3
+    k = rng.normal(size=(R, S, 1, dh)).astype(np.float32)
+    v = rng.normal(size=(R, S, 1, dh)).astype(np.float32)
+    kv_len = np.array([2200, 2049, 700], np.int32)
+    block_req = np.array([0, -1, 1, 2], np.int32)
+    pos = np.array([2199, -1, 2048, 699], np.int32)
+    q = rng.normal(size=(4, 16, dh)).astype(np.float32)
+    return q, k, v, block_req, pos, kv_len
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_mqa_rep16_window_2048_matches_jax_kernel_paths(impl):
+    """All 16 rows of the kernel's decode tile from one request's group:
+    rep 16 over 1 kv head, head_dim 256, window 2048, against the TPU
+    kernel in interpret mode and the XLA path."""
+    q, k, v, block_req, pos, kv_len = _mqa_decode_inputs(5)
+    want = jax_ops.ragged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(block_req), jnp.asarray(pos), jnp.asarray(kv_len),
+        window=2048, impl=impl)
+    got = _port(q, k, v, block_req, pos, kv_len, 2048, 0.0)
+    np.testing.assert_allclose(got, np.asarray(want), **KERNEL_TOL)
+    assert (got[1] == 0).all(), "a dead row writes zeros"
+    # the window binds: slots older than 2048 positions change nothing
+    k2, v2 = k.copy(), v.copy()
+    k2[0, :152] = 7.0
+    v2[0, :152] = -7.0
+    got2 = _port(q, k2, v2, block_req, pos, kv_len, 2048, 0.0)
+    np.testing.assert_array_equal(got2[0], got[0])
+
+
 @pytest.mark.parametrize("n_split", [1, 2, 3, 8, 17, 32])
 def test_kv_splits_cover_every_live_tile_once_in_order(n_split):
     """The kernel's cut of a CTA's live tiles into split-kv parts: the
@@ -136,6 +186,14 @@ def test_split_plan_and_scratch_sizing():
     assert (base, n_split) == (2, ops.MAX_SPLITS)
     assert ops.ragged_tiling(1, 256) == (16, 64)
     assert ops.ragged_tiling(128, 256) == (64, 32)
+    # head_dim 192: 64-slot tiles both ways, scratch rows of dh + 2;
+    # nemotron's decode step (96 q over 8 kv heads, 4 slots of 2048)
+    assert ops.ragged_tiling(1, 192) == (16, 64)
+    assert ops.ragged_tiling(128, 192) == (64, 64)
+    assert plan(4, 1, 96, 8, 2048, 192, 132) == (32, 8, 32 * 8 * 16 * 194)
+    assert plan(4, 128, 96, 8, 2048, 192, 132) == (768, 1, 0)
+    # recurrentgemma's local decode step: rep 16 fills one 16-row tile
+    assert plan(4, 1, 16, 1, 2048, 256, 132) == (4, 8, 4 * 8 * 16 * 258)
 
 
 def test_kv_len_zero_and_padded_rows_write_zeros():

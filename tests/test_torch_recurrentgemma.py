@@ -30,7 +30,7 @@ from repro_torch.configs import get_config as torch_config
 from repro_torch.data.pipeline import PipelineConfig, raw_batches
 from repro_torch.models import convert
 from repro_torch.models import layers as TL
-from repro_torch.models.model import Transformer, check_serving_arch
+from repro_torch.models.model import Transformer, check_arch
 from repro_torch.parallel import ParallelContext
 from repro_torch.train.step import batch_to_device
 from repro_torch.train.trainer import TrainConfig, train
@@ -229,11 +229,14 @@ def test_transformer_on_cuda_raises_without_a_card():
 
 
 def test_serving_recurrentgemma_raises():
-    """Training admits rglru layers; serving them (``rglru_decode`` and
-    the recurrent cache) is ROADMAP queue 1 item 10."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        check_serving_arch(torch_config("recurrentgemma-9b"))
+    """Serving admits rglru layers now (``rglru_decode`` and the
+    recurrent cache, ``tests/test_torch_recurrent_serve.py``); what still
+    raises is the legacy dense decode cache (ROADMAP queue 1 item 10's
+    last bullet)."""
+    check_arch(torch_config("recurrentgemma-9b"))
     model = Transformer(torch_config(ARCH), device="cpu")
+    slots = model.init_cache(2, 256)["slots"]
+    assert [set(s) for s in slots] == [{"conv", "h"}, {"k", "v"}]
     with pytest.raises(NotImplementedError,
-                       match="recurrentgemma serving.*queue 1 item 10"):
-        model.init_cache(2, 256)
+                       match="layout='decode'.*queue 1 item 10"):
+        model.init_cache(2, 256, layout="decode")

@@ -177,6 +177,11 @@ def test_daemon_http_round_trip():
         drained = json.loads(_http(url + "/health"))["status"]
         with pytest.raises(urllib.error.HTTPError) as late:
             _http(url + "/generate", {"prompt": [1, 2, 3]})
+        # the error holds the response's socket; left open, it is closed
+        # whenever the garbage collector gets to it, in whichever later
+        # test of this worker that is, and its ResourceWarning (an error
+        # under this suite's filterwarnings) fails that test
+        late.value.close()
     finally:
         srv.shutdown()
         srv.server_close()

@@ -249,14 +249,15 @@ def test_causal_conv_gates_document_boundaries():
     first[1, 5] = True
     want, _ = JL._causal_conv(*(jnp.asarray(a) for a in (x, w, b)),
                               first=jnp.asarray(first))
-    got = TL._causal_conv(*(to_torch(a) for a in (x, w, b)),
-                          first=to_torch(first))
+    got, _ = TL._causal_conv(*(to_torch(a) for a in (x, w, b)),
+                             first=to_torch(first))
     np.testing.assert_allclose(to_numpy(got), np.asarray(want), **MODEL_TOL)
     # row 1 from position 5 on equals the conv of that document alone (to
     # rounding: silu's vectorised and scalar paths may differ in the last
     # bit)
-    alone = TL._causal_conv(to_torch(x[1:, 5:]), to_torch(w), to_torch(b),
-                            first=torch.tensor([[True] + [False] * 10]))
+    alone, _ = TL._causal_conv(to_torch(x[1:, 5:]), to_torch(w),
+                               to_torch(b),
+                               first=torch.tensor([[True] + [False] * 10]))
     np.testing.assert_allclose(to_numpy(got[1:, 5:]), to_numpy(alone),
                                rtol=1e-6, atol=1e-7)
 
