@@ -256,7 +256,28 @@ Phases, each of which fails the run:
    layers x {2, 1, 1}, finite losses, the step-0 loss bitwise equal
    under ``identity``,
    the CA kernels on layer 0's captured server batches against their
-   plain versions, step ms, tokens/s, peak memory.
+   plain versions, step ms, tokens/s, peak memory;
+24. (last) CAD across ranks and the fabric, on phase 5's
+   captured layer 0: (a) this process joins an NCCL group of world size
+   1 on cuda:0 and trains phase 5's configuration with a 1-server plan
+   and ping-pong on (RANKS_STEPS steps), once over the group and once
+   through ``_global_sim`` on the same batches and weights: the step-0
+   losses bitwise equal, launches = 2 nano-batches x layers x {2, 1, 1}
+   a step in both; one layer-0 forward of the group run traced
+   (nano-batch 1's send starts before nano-batch 0's CA forward ends,
+   the overlap logged) and its backward (the exchanges' overlap with the
+   CA backward kernels logged); (b) RANKS_GLOO processes on the one card
+   joined under gloo, each taking its rows of the captured q/k/v through
+   the group's ``cad_attention``, forward and backward: out, dq, dk and
+   dv bitwise equal to ``_global_sim``'s on the card (a gloo whose
+   ``all_to_all`` refuses CUDA tensors, GLOO_REFUSAL, is recorded and (b)
+   dropped; any other error fails the phase); (c) ``FabricExecutor``
+   with requests of FABRIC_PROMPTS tokens and FABRIC_NEW decode steps at
+   llama3-8b's heads, until all complete: every step's training output
+   bitwise phase 19's fault-free output, CA-forward launches = train and
+   recovery serves + serve batches, FABRIC_KILL (a server lost
+   mid-decode) giving the fault-free digests; serve ms (wall timer) and
+   the admitted and deferred counts logged.
 
 Phase 2 also runs the ragged kernel over long caches (LONG_RAGGED):
 head_dim 192 with windows 0 and 4096 past 4096 slots, and
@@ -272,7 +293,8 @@ is timed).
 
 The line before the card line lists every ported kernel as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after
-phase 2: the short first call for a new kernel.
+phase 2: the short first call for a new kernel; ``--only ranks`` runs
+phases 1, 5 and 24.
 """
 from __future__ import annotations
 
@@ -370,9 +392,14 @@ def cuda_ms_back_to_back(fn, n=100, reps=5, warmup=3):
 # calls of a 0.05 ms kernel, a window came back with no device event at
 # all (its cause is not known; every other window of that run and of the
 # runs before and after had them), so an empty window is profiled again.
-# Every run logs how many windows came back empty (kernel_times).
+# In two later runs all three windows of phase 22's timing came back
+# empty: that device time is then not measured (None), and the run goes
+# on with the same call's CUDA-event times beside it.  Every run logs how
+# many windows came back empty and how many timings got none
+# (kernel_times).
 PROFILE_WINDOWS = 3
-EMPTY_PROFILE_WINDOWS = [0, 0]      # [empty windows, windows profiled]
+# [empty windows, windows profiled, timings with no device time]
+EMPTY_PROFILE_WINDOWS = [0, 0, 0]
 
 
 def profiled_device_ms(fn, n=20):
@@ -380,8 +407,8 @@ def profiled_device_ms(fn, n=20):
     kernels ``n`` calls launched, summed and divided by ``n``, in ms (the
     host's time between launches is not in it).  A window in which the
     profiler delivered no device event is profiled again, up to
-    PROFILE_WINDOWS windows, and counted in EMPTY_PROFILE_WINDOWS; none
-    with device time fails the run."""
+    PROFILE_WINDOWS windows, and counted in EMPTY_PROFILE_WINDOWS; when
+    none has device time the result is None: not measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -399,8 +426,14 @@ def profiled_device_ms(fn, n=20):
         if us:
             return us / 1e3 / n
         EMPTY_PROFILE_WINDOWS[0] += 1
-    raise SystemExit(f"phase 4: the profiler recorded no device time in "
-                     f"{PROFILE_WINDOWS} windows")
+    EMPTY_PROFILE_WINDOWS[2] += 1
+    log(f"  the profiler recorded no device time in {PROFILE_WINDOWS} "
+        f"windows: device time not measured")
+    return None
+
+
+def _ms4(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 # ------------------------------------------------------------ phase 2
@@ -864,14 +897,15 @@ def kernel_times(torch, ops, card, arch="llama3-8b", phase=4):
             f"{tuple(q.shape)}, "
             f"cache {tuple(k.shape)} bf16, kv {kl}, window {window}, "
             f"softcap {softcap}): kernel {ms:.4f} / {ms2:.4f} ms back to "
-            f"back, {dev_ms:.4f} ms on the device, {single_ms:.4f} ms a "
+            f"back, {_ms4(dev_ms)} ms on the device, {single_ms:.4f} ms a "
             f"lone call; plain {plain_ms:.4f} ms; sdpa {lib_ms:.4f} / "
-            f"{lib_dev_ms:.4f} / {lib_single_ms:.4f} ms; bound "
+            f"{_ms4(lib_dev_ms)} / {lib_single_ms:.4f} ms; bound "
             f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.3f} GFLOP) [{card}]")
     log(f"phase 4: profiler windows with no device time: "
         f"{EMPTY_PROFILE_WINDOWS[0]} of {EMPTY_PROFILE_WINDOWS[1]} "
-        f"(each profiled again, up to {PROFILE_WINDOWS} windows)")
+        f"(each profiled again, up to {PROFILE_WINDOWS} windows); timings "
+        f"left with none: {EMPTY_PROFILE_WINDOWS[2]}")
     return out
 
 
@@ -2590,6 +2624,7 @@ def elastic_runtime(torch, np, ops, inp, card):
     sim = D._global_sim(q, k, v, pos, plan.to(DEVICE),
                         D.CADContext(cfg=cfg, jmax=jmax), 0.0, None)
     checks["fault-free == _global_sim"] = same_bits(torch, free, sim)
+    free_digest = _bits_digest(torch, free)
     del sim
     kill, kill_reps = run("kill", executor(ELASTIC_KILL),
                           range(ELASTIC_STEPS))
@@ -2679,6 +2714,7 @@ def elastic_runtime(torch, np, ops, inp, card):
                                     ("recovery", r.recovery_seconds))
                  for s, sec in sorted(secs.items())} for r in reps]
     return dict(checks=checks, launches=launches,
+                free_digest=free_digest,
                 fwd_launches=sum(c["ca_server_fwd"]
                                  for c in launches.values()),
                 range_launches=sum(c["ca_server_fwd_range"]
@@ -5058,6 +5094,506 @@ def _kernel_symbol(mangled: str) -> str:
     return mangled
 
 
+# ----------------------------------------------------------- phase 24
+# (a): NCCL at world size 1 in this process, phase 5's configuration with a
+# 1-server plan and ping-pong on; (b): RANKS_GLOO processes on the one card
+# under gloo; (c): the fabric on phase 5's captured layer 0.
+RANKS_STEPS = 2
+RANKS_GLOO = 4
+# what ProcessGroupGloo::alltoall_base raises for a device it has no
+# all_to_all for: the one error that drops (b)
+GLOO_REFUSAL = "ProcessGroupGloo::alltoall_base: unsupported device type"
+# a traced window's opening spin (GPU cycles, ~1 ms at 1.98 GHz)
+TRACE_LEAD_IN_CYCLES = 2_000_000
+FABRIC_PROMPTS = (256, 512, 768, 1024, 1280, 1536, 1792, 2048)
+FABRIC_NEW = 16
+FABRIC_SLOTS = 8
+# mid-decode: the 768- to 2048-token prompts prefill in 6-16 steps and
+# decode 16 steps after, so six requests are decoding at step 20
+FABRIC_KILL = "kill:1@20"
+FABRIC_INTERVAL = 5e-3      # s: a step's cadence, ~30x a server's load
+FABRIC_MAX_STEPS = 64
+
+
+def _bits_digest(torch, t) -> str:
+    import hashlib
+    return hashlib.sha1(t.detach().contiguous().view(torch.uint8).cpu()
+                        .numpy().tobytes()).hexdigest()
+
+
+def _exchanges(ev, n):
+    """The ``n`` exchanges of a ping-pong layer in issue order: NCCL's
+    own kernels if the trace has them a multiple of ``n`` times, else the
+    profiler's ``nccl:...`` spans of the collectives on the
+    communicator's stream.  Returns (every NCCL event, the exchanges,
+    events an exchange), or None when neither count is a multiple of
+    ``n``."""
+    nccl = [e for e in ev if "nccl" in e[0].lower()]
+    kern = [e for e in nccl if not e[0].startswith("nccl:")]
+    xch = kern if kern and len(kern) % n == 0 else \
+        [e for e in nccl if e[0].startswith("nccl:")]
+    if not xch or len(xch) % n:
+        return None
+    return nccl, xch, len(xch) // n
+
+
+def _traced_exchanges(torch, fn, n, ca_names, n_ca):
+    """One call of ``fn`` traced with ``torch.profiler`` after an
+    untraced warm-up call: (its device events as (name, start us, end us)
+    in start order, ``_exchanges(events, n)``, the ``n_ca`` CA kernels,
+    named by one of ``ca_names``).  A window that lost events (a count
+    of exchanges or CA kernels off) is traced again, up to
+    PROFILE_WINDOWS: late in a run the profiler has dropped device events
+    (section 7 of PERF.md), in one run the same first ones of every
+    window, so each window opens with a spin kernel (TRACE_LEAD_IN_CYCLES)
+    before ``fn``.  Returns (None, what each window held) when none was
+    whole."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    held = []
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(TRACE_LEAD_IN_CYCLES)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        ev = sorted(((e.name, e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda x: x[1])
+        xch = _exchanges(ev, n)
+        ca = [e for e in ev if any(c in e[0] for c in ca_names)]
+        if xch is not None and len(ca) == n_ca:
+            return ev, xch, ca
+        held.append(dict(
+            events=len(ev), first=[e[0][:40] for e in ev[:4]],
+            nccl_events=sum("nccl" in e[0].lower() for e in ev),
+            ca=len(ca)))
+    return None, held
+
+
+def _overlap_us(spans, others) -> float:
+    return sum(max(0.0, min(e, f) - max(s, t))
+               for _, s, e in spans for _, t, f in others)
+
+
+def _pingpong_trace(torch, inp):
+    """One layer-0 forward of the ping-pong dispatch over the group, and
+    then its backward, each traced.  Forward: the exchanges in issue
+    order (5 sends of nano-batch 0, 5 of nano-batch 1, then the two
+    returns) against the CA forward kernels: whether nano-batch 1's first
+    send started before nano-batch 0's CA forward ended, and the overlap
+    of 1's sends with that forward in ms.  Backward: the overlap of its
+    (synchronous) exchanges with the CA backward kernels."""
+    from repro_torch.core import dispatch as D
+    q, k, v = (inp[n].detach() for n in "qkv")
+    seg, pos = inp["segment_ids"], inp["positions"]
+
+    def fwd():
+        with torch.no_grad():
+            D.cad_attention(q, k, v, seg, pos, seg, pos, ctx=inp["ctx"])
+    # a nano-batch's 5 sends (q, its positions, k, v, theirs) and return
+    got = _traced_exchanges(torch, fwd, 12, ("ca_fwd",), 2)
+    if got[0] is None:
+        raise SystemExit(f"phase 24: no traced ping-pong forward held 12 "
+                         f"exchanges and 2 CA forwards: {got[1]}")
+    ev, (nccl, xch, per), ca = got
+    sends1 = xch[5 * per:10 * per]
+    # device events within the exchanges' spans: NCCL's copies, and
+    # kernels of the compute stream running meanwhile
+    inner = sorted({e[0][:60] for e in ev if e not in nccl and any(
+        s <= e[1] and e[2] <= t for _, s, t in xch)})
+    compute = [e for e in ev if e not in nccl and "Memcpy" not in e[0]]
+    s0, e0 = ca[0][1], ca[0][2]
+
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    g = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
+    out = D.cad_attention(qg, kg, vg, seg, pos, seg, pos, ctx=inp["ctx"])
+    # the positions carry no gradient: 3 sends and a return a nano-batch;
+    # a dq and a dk/dv kernel a nano-batch
+    got_b = _traced_exchanges(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), g, retain_graph=True), 8, ("ca_dq", "ca_dkv"), 4)
+    del out
+    if got_b[0] is None:
+        # logged only: no check reads the backward's trace
+        log(f"phase 24(a): no traced backward held 8 exchanges and 4 CA "
+            f"kernels ({got_b[1]}): its overlap not measured")
+        bwd = dict(bwd_exchanges=None, bwd_exchange_ms=None,
+                   bwd_ca_kernels=None, bwd_overlap_ms=None)
+    else:
+        _, (_, xch_b, _), ca_b = got_b
+        bwd = dict(bwd_exchanges=len(xch_b),
+                   bwd_exchange_ms=sum(e - s for _, s, e in xch_b) / 1e3,
+                   bwd_ca_kernels=len(ca_b),
+                   bwd_overlap_ms=_overlap_us(xch_b, ca_b) / 1e3)
+    return dict(nano1_send_starts_before_ca0_ends=sends1[0][1] < e0,
+                overlap_ms=_overlap_us(sends1, [ca[0]]) / 1e3,
+                overlap_compute_ms=_overlap_us(sends1, compute) / 1e3,
+                ca0_ms=(e0 - s0) / 1e3,
+                nano1_sends_ms=[(e - s) / 1e3 for _, s, e in sends1],
+                nano1_first_send_to_ca0_end_ms=(e0 - sends1[0][1]) / 1e3,
+                exchange_kernel=xch[0][0][:80], exchange_kernels=len(xch),
+                nccl_names=sorted({e[0][:80] for e in nccl}),
+                within_exchanges=inner, ca_kernel=ca[0][0][:60], **bwd)
+
+
+def ranks_nccl_world1(torch, ops, card):
+    """Phase 24(a): the rank path under NCCL at world size 1, in this
+    process on cuda:0: phase 5's llama3-8b width and depth, 4 x 4096
+    tokens, a 1-server plan (``n_ranks=1``) with ping-pong on,
+    RANKS_STEPS steps through ``trainer.train`` with a group session,
+    and the same run through ``_global_sim`` (no group) on the same
+    batches and weights: the step-0 losses bitwise equal, the later ones
+    reported, launches = 2 nano-batches x layers x {2, 1, 1} a step in
+    both; then one layer-0 forward of the group run traced
+    (``_pingpong_trace``)."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.cad import CADSession
+    from repro_torch.launch import mesh
+    from repro_torch.models.model import Transformer
+    from repro_torch.train.trainer import train
+    cfg, pipe5, tc5, _ = _train_setup()
+    pipe = dataclasses.replace(pipe5, n_ranks=1)
+    tc = dataclasses.replace(tc5, steps=RANKS_STEPS)
+    tokens = pipe.global_batch * pipe.seq_len
+    expect = {"ca_server_fwd": 2 * cfg.n_layers * 2,
+              "ca_server_bwd_dq": 2 * cfg.n_layers,
+              "ca_server_bwd_dkv": 2 * cfg.n_layers}
+    # one process on one host: NCCL's bootstrap stays on the loopback,
+    # and the group meets in a file store
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
+    info = mesh.join_group("cuda", backend="nccl", rank=0, world=1,
+                           local_rank=0,
+                           init_method=f"file://{tmp / 'store'}")
+    runs, captured = {}, {}
+    try:
+        for name, group in (("_global_sim", None), ("nccl", info.group)):
+            model = Transformer(cfg, device=DEVICE, seed=0)
+            if group is not None:
+                model.attn_hook = lambda layer, inp: captured.setdefault(
+                    layer, {k: v.detach().clone() if torch.is_tensor(v)
+                            else v for k, v in inp.items()}) \
+                    if layer == 0 else None
+            steps = []
+
+            def on_step(step, m, name=name, model=model):
+                counts = {k: ops.launches[k] for k in expect}
+                ops.reset_launches()
+                model.attn_hook = None
+                steps.append(dict(m, counts=counts))
+                log(f"phase 24(a): {name} step {step} loss {m['loss']!r} "
+                    f"step {1e3 * m['step_s']:.1f} ms "
+                    f"{tokens / m['step_s']:.0f} tokens/s launches {counts}"
+                    f" [{card}]")
+            session = CADSession.for_pipeline(cfg, pipe, pingpong=True,
+                                              plan_policy="balanced",
+                                              prefetch=2, group=group)
+            ops.reset_launches()
+            train(cfg, pipe, tc, model=model, session=session,
+                  device=DEVICE, on_step=on_step)
+            runs[name] = steps
+            del model, session
+            gc.collect()
+            torch.cuda.empty_cache()
+        trace = _pingpong_trace(torch, captured[0])
+    finally:
+        captured.clear()
+        mesh.leave_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    sim, grp = runs["_global_sim"], runs["nccl"]
+    checks = {
+        "step-0 loss bitwise": grp[0]["loss"] == sim[0]["loss"],
+        "finite losses": all(math.isfinite(s["loss"]) for s in sim + grp),
+        f"launches {expect} a step": all(s["counts"] == expect
+                                          for s in sim + grp),
+        "nano-batch 1's send starts before nano-batch 0's CA forward ends":
+            trace["nano1_send_starts_before_ca0_ends"],
+    }
+    seconds = time.perf_counter() - t0
+    log(f"phase 24(a): NCCL world 1, llama3-8b width, {cfg.n_layers} "
+        f"layers, 1 server, ping-pong: losses {[s['loss'] for s in grp]} "
+        f"(_global_sim {[s['loss'] for s in sim]}); traced layer-0 "
+        f"forward: exchange kernel {trace['exchange_kernel']!r} x "
+        f"{trace['exchange_kernels']} (NCCL events {trace['nccl_names']}, "
+        f"device events within them {trace['within_exchanges']}), "
+        f"CA forward of nano-batch 0 "
+        f"{trace['ca0_ms']:.4f} ms, nano-batch 1's sends "
+        f"{[round(x, 4) for x in trace['nano1_sends_ms']]} ms, first send "
+        f"starts {trace['nano1_first_send_to_ca0_end_ms']:.4f} ms before "
+        f"that forward ends, overlap {trace['overlap_ms']:.4f} ms with it, "
+        f"{trace['overlap_compute_ms']:.4f} ms with any compute kernel; its "
+        f"backward: {trace['bwd_exchanges']} exchanges "
+        f"({_ms4(trace['bwd_exchange_ms'])} ms), {trace['bwd_ca_kernels']} "
+        f"CA backward kernels, overlap {_ms4(trace['bwd_overlap_ms'])} ms; "
+        f"{seconds:.1f} s [{card}]")
+    for name, ok in checks.items():
+        log(f"  {name}: {ok}")
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"phase 24(a): failed: {failed}")
+    return dict(losses=[s["loss"] for s in grp],
+                global_sim_losses=[s["loss"] for s in sim],
+                step_s=[s["step_s"] for s in grp],
+                global_sim_step_s=[s["step_s"] for s in sim],
+                launches=grp[0]["counts"], checks=checks, trace=trace,
+                seconds=seconds)
+
+
+def _gloo_refusal(torch, dist, group, device):
+    """Probe ``dist.all_to_all_single`` on ``device`` over ``group``:
+    None when it runs, the error's text when gloo refuses the device
+    (GLOO_REFUSAL).  Any other error (a transport fault, a timeout) is
+    raised."""
+    probe = torch.arange(RANKS_GLOO * 2, device=device).to(torch.bfloat16)
+    got = torch.empty_like(probe)
+    try:
+        dist.all_to_all_single(got, probe, group=group)
+    except RuntimeError as e:
+        if GLOO_REFUSAL not in str(e):
+            raise
+        return repr(e)
+    return None
+
+
+def _gloo_rank(rank, tmp):
+    """Phase 24(b)'s rank ``rank`` (a process of its own, on cuda:0): its
+    rows of the captured layer 0 through ``cad_attention`` over a gloo
+    group, forward and backward; writes out, dq, dk and dv (or gloo's
+    refusal of CUDA tensors, ``_gloo_refusal``) under ``tmp``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import dispatch as D
+    from repro_torch.launch import mesh
+    from repro_torch.parallel import ParallelContext
+    tmp = Path(tmp)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    info = mesh.join_group(DEVICE, backend="gloo", rank=rank,
+                           world=RANKS_GLOO, local_rank=0,
+                           init_method=f"file://{tmp / 'store'}",
+                           timeout_s=300)
+    try:
+        refused = _gloo_refusal(torch, dist, info.group, info.device)
+        if refused is not None:
+            torch.save({"refused": refused}, tmp / f"rank{rank}.pt")
+            return
+        data = torch.load(tmp / "inputs.pt", weights_only=False)
+        rows = data["q"].shape[0] // RANKS_GLOO
+        sl = slice(rank * rows, (rank + 1) * rows)
+        q, k, v = (data[n][sl].to(info.device).requires_grad_()
+                   for n in "qkv")
+        seg, pos, g = (data[n][sl].to(info.device)
+                       for n in ("seg", "positions", "g"))
+        cad = D.CADContext(cfg=data["cfg"], plan=data["plan"].to(
+            info.device), jmax=data["jmax"])
+        out = D.cad_attention(q, k, v, seg, pos, seg, pos,
+                              ctx=ParallelContext(attn_impl="cad", cad=cad,
+                                                  group=info.group))
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        torch.save({n: t.detach().cpu() for n, t in
+                    (("out", out), ("dq", dq), ("dk", dk), ("dv", dv))},
+                   tmp / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        mesh.leave_group()
+
+
+def ranks_gloo_on_card(torch, inp, card):
+    """Phase 24(b): RANKS_GLOO processes on the one card, joined under
+    gloo (whose ``all_to_all`` stages CUDA tensors through the host, so
+    its times mean nothing), each taking its rows of phase 5's captured
+    layer-0 q/k/v, segment ids and 4-server plan through the group's
+    ``cad_attention``, forward and backward with a seeded cotangent.
+    Gathered here and held against ``_global_sim`` on the card: out, dq,
+    dk and dv bitwise (each kv block sums its sends in ``_global_sim``'s
+    order).  A rank's error other than gloo's refusal of CUDA tensors
+    ends the spawn, and the phase, with it.  The kernel libraries are
+    built once, in this process, before the spawn: the ranks load them."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.core import dispatch as D
+    from repro_torch.core.plan import StepPlan
+    cad = inp["ctx"].cad
+    if cad.cfg.n_servers != RANKS_GLOO:
+        raise SystemExit(f"phase 24(b): the captured plan has "
+                         f"{cad.cfg.n_servers} servers")
+    q, k, v = (inp[n].detach() for n in "qkv")
+    seg = inp["segment_ids"]
+    pos = torch.where(seg > 0, inp["positions"], -1).to(torch.int32)
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    g = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    t0 = time.perf_counter()
+    try:
+        torch.save(dict(q=q.cpu(), k=k.cpu(), v=v.cpu(), seg=seg.cpu(),
+                        positions=inp["positions"].cpu(), g=g.cpu(),
+                        plan=StepPlan.from_dict({
+                            k: v.cpu() for k, v in cad.plan.items()}),
+                        cfg=cad.cfg,
+                        jmax=cad.jmax), tmp / "inputs.pt")
+        mp.spawn(_gloo_rank, args=(str(tmp),),
+                 nprocs=RANKS_GLOO, join=True)
+        parts = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(RANKS_GLOO)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    if any("refused" in p for p in parts):
+        why = next(p["refused"] for p in parts if "refused" in p)
+        log(f"phase 24(b): gloo refuses CUDA tensors in all_to_all on this "
+            f"torch ({why}); dropped")
+        return dict(refused=why, seconds=seconds)
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    ref = D._global_sim(qq, kk, vv, pos, cad.plan, cad, 0.0, None)
+    grads = torch.autograd.grad(ref, (qq, kk, vv), g)
+    got = {n: torch.cat([p[n] for p in parts]).to(DEVICE)
+           for n in ("out", "dq", "dk", "dv")}
+    want = dict(zip(("out", "dq", "dk", "dv"), (ref.detach(), *grads)))
+    bitwise = {n: same_bits(torch, got[n], want[n]) for n in got}
+    diff = {n: float((got[n].float() - want[n].float()).abs().max())
+            for n in got}
+    checks = {f"{n} bitwise": bitwise[n] for n in got}
+    log(f"phase 24(b): {RANKS_GLOO} gloo ranks on the card, layer 0 of "
+        f"phase 5 (q {tuple(q.shape)} {q.dtype}): bitwise {bitwise}, max "
+        f"|diff| {diff}; {seconds:.1f} s with the spawn [{card}]")
+    for name, ok in checks.items():
+        log(f"  {name}: {ok}")
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"phase 24(b): failed: {failed}")
+    return dict(bitwise=bitwise, max_abs_diff=diff, checks=checks,
+                seconds=seconds)
+
+
+def fabric_on_card(torch, np, ops, inp, card, free_digest=None):
+    """Phase 24(c): ``FabricExecutor`` on phase 5's captured layer 0 (4
+    servers, ``balanced``, bf16) with the serve tenant's requests of
+    FABRIC_PROMPTS tokens and FABRIC_NEW decode steps each at llama3-8b's
+    heads (32 q over 8 kv heads of 128, bf16), one mixed step at a time
+    until every request completes, at FABRIC_INTERVAL: every step's
+    training output bitwise equal to phase 19's fault-free executor
+    output (``free_digest``; recomputed here either way), CA-forward
+    launches = train serves + recovery serves + serve batches, and the
+    run under FABRIC_KILL (a server lost mid-decode, its serve tasks
+    re-admitted the same step) giving every request the digests of the
+    fault-free run.  The fault-free run times each serve between two
+    synchronizes (the ``wall`` timer): serve ms and the admitted and
+    deferred counts are logged."""
+    from repro_torch.fabric import FabricExecutor, ServeWorkload
+    from repro_torch.runtime import ElasticExecutor, FaultSchedule, \
+        ServerPool
+    cad = inp["ctx"].cad
+    cfg = cad.cfg
+    d = cfg.n_servers
+    pos = torch.where(inp["segment_ids"] > 0, inp["positions"], -1) \
+        .to(torch.int32)
+    segs = inp["segment_ids"].cpu().numpy().reshape(d, -1)
+    q, k, v = (inp[n].detach() for n in "qkv")
+    base = dataclasses.replace(_train_setup()[3]("balanced"), prefetch=0)
+    t0 = time.perf_counter()
+    free, _ = ElasticExecutor(base.with_pool(ServerPool(d))).run_step(
+        0, q, k, v, pos, segs)
+    free_here = _bits_digest(torch, free)
+    arrivals = [(0, p, FABRIC_NEW) for p in FABRIC_PROMPTS]
+
+    def run(spec, timer):
+        wl = ServeWorkload(arrivals, n_heads=32, n_kv_heads=8, head_dim=128,
+                           blk=cfg.blk, slots=FABRIC_SLOTS, seed=0,
+                           dtype=torch.bfloat16)
+        batches = [0]
+        build = wl.build_batch
+
+        def counted(tasks, device="cuda"):
+            batches[0] += 1
+            return build(tasks, device=device)
+        wl.build_batch = counted
+        ex = FabricExecutor(base.with_pool(ServerPool(d)), wl,
+                            faults=FaultSchedule.parse(spec), timer=timer)
+        reps, same, step = [], True, 0
+        ops.reset_launches()
+        while not wl.all_done() and step < FABRIC_MAX_STEPS:
+            out, rep = ex.run_mixed_step(step, q, k, v, pos, segs,
+                                         interval=FABRIC_INTERVAL)
+            same = same and same_bits(torch, out, free)
+            reps.append(rep)
+            step += 1
+        torch.cuda.synchronize()
+        served = sum(len(r.train.server_seconds)
+                     + len(r.train.recovery_seconds) for r in reps)
+        return dict(wl=wl, reps=reps, same=same,
+                    fwd=ops.launches["ca_server_fwd"],
+                    want_fwd=served + batches[0], batches=batches[0])
+
+    clean = run("", "wall")
+    kill = run(FABRIC_KILL, "model")
+    at = int(FABRIC_KILL.split("@")[1])
+    krep = kill["reps"][at] if len(kill["reps"]) > at else None
+    serve_ms = [1e3 * sum(r.serve_seconds.values()) for r in clean["reps"]]
+    checks = {
+        "fault-free executor == phase 19's": free_digest is None
+        or free_here == free_digest,
+        "train outputs == fault-free executor (every step)": clean["same"],
+        "killed run's train outputs == fault-free (every step)":
+            kill["same"],
+        "every request completes": clean["wl"].all_done()
+        and kill["wl"].all_done(),
+        f"{FABRIC_KILL}: server lost, its serve tasks re-admitted":
+            krep is not None and krep.train.failed == (1,)
+            and krep.lost_serve > 0
+            and krep.readmitted == krep.lost_serve,
+        "kill mid-decode: the fault-free digests":
+            kill["wl"].digest_map() == clean["wl"].digest_map(),
+        "CA-forward launches = train + recovery serves + serve batches":
+            clean["fwd"] == clean["want_fwd"]
+            and kill["fwd"] == kill["want_fwd"],
+    }
+    seconds = time.perf_counter() - t0
+    adm = [r.admitted for r in clean["reps"]]
+    dfr = [r.deferred for r in clean["reps"]]
+    log(f"phase 24(c): fabric on layer 0 ({d} servers) with "
+        f"{len(arrivals)} requests (prompts {FABRIC_PROMPTS[0]}-"
+        f"{FABRIC_PROMPTS[-1]}, {FABRIC_NEW} new, 32/8/128 heads, bf16): "
+        f"{len(clean['reps'])} steps fault-free, {len(kill['reps'])} under "
+        f"{FABRIC_KILL} (lost {krep.lost_serve if krep else '-'}, "
+        f"readmitted {krep.readmitted if krep else '-'}); admitted {adm}; "
+        f"deferred {dfr}; serve ms a step (wall) "
+        f"{[round(x, 4) for x in serve_ms]}; CA-forward launches "
+        f"{clean['fwd']} / {kill['fwd']} ({clean['batches']} / "
+        f"{kill['batches']} serve batches); {seconds:.1f} s [{card}]")
+    for name, ok in checks.items():
+        log(f"  {name}: {ok}")
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"phase 24(c): failed: {failed}")
+    return dict(checks=checks, steps=len(clean["reps"]),
+                kill_steps=len(kill["reps"]), admitted=adm, deferred=dfr,
+                serve_ms=serve_ms, launches=clean["fwd"],
+                kill_launches=kill["fwd"],
+                lost=krep.lost_serve, readmitted=krep.readmitted,
+                seconds=seconds)
+
+
+def ranks_phase(torch, np, ops, layer0, card, free_digest):
+    """Phase 24: (a), (b) and (c) on phase 5's captured layer 0."""
+    t0 = time.perf_counter()
+    out = dict(nccl_world1=ranks_nccl_world1(torch, ops, card),
+               gloo_on_card=ranks_gloo_on_card(torch, layer0, card),
+               fabric=fabric_on_card(torch, np, ops, layer0, card,
+                                     free_digest))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 24: {out['seconds']:.1f} s in all")
+    return out
+
+
 def build_kernels(build, ops, ssd, rg):
     """Phase 1: build every kernel source, one nvcc each, all at once."""
     loaders = {"ragged_decode": ops.load_library,
@@ -5107,8 +5643,9 @@ def build_kernels(build, ops, ssd, rg):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--only", choices=("kernels",), default=None,
-                   help="stop after the kernel checks (phases 1-2)")
+    p.add_argument("--only", choices=("kernels", "ranks"), default=None,
+                   help="'kernels': stop after the kernel checks (phases "
+                        "1-2); 'ranks': phases 1, 5 and 24 alone")
     return p.parse_args(argv)
 
 
@@ -5221,7 +5758,11 @@ def main(argv=None) -> int:
                          "src/repro/kernels/rglru/ops.py:32-44, reruns the "
                          "kernel on reversed inputs)",
              "max_abs_err": lru_bwd_err, "bitwise_phase2": lru_bitwise}
-    if args.only != "kernels":
+    if args.only == "ranks":
+        _steps, captured, _ = train_full_width(torch, ops, card)
+        ca_fwd["ranks_phase24"] = ranks_phase(torch, np, ops, captured[0],
+                                              card, None)
+    elif args.only != "kernels":
         engine, launches, captured_err = serve_full_width(torch, np, ops,
                                                           launch)
         times = kernel_times(torch, ops, card)
@@ -5283,6 +5824,7 @@ def main(argv=None) -> int:
         t19 = time.perf_counter()
         elastic = elastic_runtime(torch, np, ops, captured[0], card)
         t19 = time.perf_counter() - t19
+        layer0 = captured[0]           # phase 24's
         del batches, captured
         gc.collect()
         torch.cuda.empty_cache()
@@ -5571,6 +6113,10 @@ def main(argv=None) -> int:
         ca_bwd["llama3_34b"] = dict(
             launches=big["launches"]["ca_server_bwd_dq"],
             launches_dkv=big["launches"]["ca_server_bwd_dkv"])
+        # last: the only phase that joins a process group and spawns
+        ca_fwd["ranks_phase24"] = ranks_phase(
+            torch, np, ops, layer0, card, elastic["free_digest"])
+        del layer0
     log(json.dumps({"kernels": [kernel, ca_fwd, ca_bwd, ca_rng, ca_glse,
                                 fl_fwd, fl_bwd, fl_rng, ssd_fm, ssd_bm,
                                 ssd_f, ssd_b, lru_f, lru_b]}))

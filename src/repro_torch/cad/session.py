@@ -28,18 +28,29 @@ Construction::
 ``for_pipeline`` never mutates the pipeline config.  ``with_pool``
 attaches an elastic :class:`~repro_torch.runtime.ServerPool`
 (DESIGN.md §9).
+
+Across ranks (``for_pipeline(..., group=g)``, one rank per attention
+server): every rank reads the same seeded global batch and runs the same
+host planner on its global segment ids; ``plan_batch`` returns this
+rank's rows with the global plan, and ``attach_plans`` holds the ranks
+to one plan (a digest of its arrays, gathered across the group, at every
+plan).  Calibration, fault schedules, speculation and streaming stay
+single-process: under a group they raise (ROADMAP queue 1 item 15).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Dict, Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.cad.planner import get_planner
 from repro_torch.cad.prefetch import PlanPrefetcher
+from repro_torch.data.pipeline import global_token_count, rank_rows
 from repro_torch.core.cost_model import (CalibrationSnapshot, CommModel,
                                          CostModel, GridCalibrator)
 from repro_torch.core.dispatch import (CADContext, iter_plan_tasks,
@@ -78,6 +89,8 @@ class CADSession:
                                       # prefetched (stale) plan at pull
     pool: Any = None               # ServerPool: elastic membership; like
                                    # the calibrator, mutable shared state
+    group: Any = None              # the CAD process group (one rank per
+                                   # server), None = one process
 
     # ------------------------------------------------------- constructors
     @classmethod
@@ -86,8 +99,8 @@ class CADSession:
                      prefetch: int = 2, server_speeds=None,
                      server_hbm=None, stream_chunk: int = 0,
                      calibrate: bool = False, calib_ema: float = 0.5,
-                     mask: Union[MaskSpec, str, None] = None) \
-            -> "CADSession":
+                     mask: Union[MaskSpec, str, None] = None,
+                     group=None) -> "CADSession":
         """Size the attention-server pool for a training pipeline.
 
         ``pipe_cfg`` needs ``n_ranks``, ``global_batch``, ``seq_len`` and
@@ -100,8 +113,19 @@ class CADSession:
         blocks) lets the dispatch serve a task whose kv prefix exceeds
         every budget by streaming it.  ``mask`` is the step's task shape
         beyond dense causal (a :class:`~repro_torch.core.mask.MaskSpec`
-        or a ``--mask`` flag string, DESIGN.md §12)."""
+        or a ``--mask`` flag string, DESIGN.md §12).  ``group`` (a
+        ``torch.distributed`` process group) runs the servers as the
+        group's ranks: its size must be ``pipe_cfg.n_ranks``."""
         n = pipe_cfg.n_ranks
+        if group is not None:
+            if dist.get_world_size(group) != n:
+                raise ValueError(f"the CAD group has "
+                                 f"{dist.get_world_size(group)} ranks, "
+                                 f"the pipeline {n}")
+            if calibrate:
+                _single_process("runtime calibration")
+            if stream_chunk:
+                _single_process("chunked KV streaming")
         rows_per_rank = pipe_cfg.global_batch // n
         tokens_per_rank = rows_per_rank * pipe_cfg.seq_len
         if pingpong:
@@ -131,7 +155,8 @@ class CADSession:
             mask = None
         return cls(cfg=cadcfg, pingpong=pingpong, tolerance=tolerance,
                    plan_policy=plan_policy, jmax=jmax, comm=comm,
-                   prefetch=prefetch, mask=mask, calibrator=calibrator)
+                   prefetch=prefetch, mask=mask, calibrator=calibrator,
+                   group=group)
 
     # ------------------------------------------------------------ context
     def context(self, *, remat: bool = True) -> ParallelContext:
@@ -140,7 +165,7 @@ class CADSession:
         cad = CADContext(cfg=self.cfg, jmax=self.jmax,
                          pingpong=self.pingpong, mask=self.mask)
         return ParallelContext(attn_impl="cad", cad=cad, remat=remat,
-                               pingpong=self.pingpong)
+                               group=self.group)
 
     # --------------------------------------------------------- elasticity
     def with_pool(self, pool) -> "CADSession":
@@ -149,6 +174,9 @@ class CADSession:
         stats record the membership epoch it was built from, and
         prefetched plans from a superseded epoch are re-planned at pull
         (DESIGN.md §9)."""
+        if pool is not None and self.group is not None:
+            _single_process("an elastic server pool (fault schedules, "
+                            "speculation)")
         if pool is not None and pool.n_slots != self.cfg.n_servers:
             raise ValueError(
                 f"pool has {pool.n_slots} slots, session pool geometry "
@@ -361,7 +389,12 @@ class CADSession:
 
     def plan_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """Attach ``plan`` + ``schedule_stats`` to one pipeline batch
-        (rows are rank-major: rank r owns rows [r·rpr, (r+1)·rpr))."""
+        (rows are rank-major: rank r owns rows [r·rpr, (r+1)·rpr)).
+        Under a group the global batch is planned and this rank's rows
+        are returned with the global plan, the batch's global count of
+        loss tokens (``n_tokens_global``) and the plan's digest
+        (``plan_digest``; ``check_plan_agreement`` compares it across
+        the group).  Host work only: it may run on the prefetch worker."""
         segs = np.asarray(batch["segment_ids"])
         if self.pingpong:
             rpr = segs.shape[0] // self.cfg.n_servers
@@ -370,9 +403,28 @@ class CADSession:
                                  f"per rank, got {rpr}")
         plan, stats = self.plan(segs.reshape(self.cfg.n_servers, -1))
         out = dict(batch)
+        if self.group is not None:
+            out = rank_rows(batch, dist.get_rank(self.group),
+                            self.cfg.n_servers)
+            out["n_tokens_global"] = global_token_count(batch)
+            out["plan_digest"] = plan_digest(plan)
         out["plan"] = plan
         out["schedule_stats"] = stats
         return out
+
+    def check_plan_agreement(self, batch: Dict[str, Any]) -> None:
+        """Under a group: gather every rank's ``plan_digest`` and raise
+        unless all are equal (the ranks planned different batches, and
+        their exchanges would not match).  A collective: call it on the
+        thread that runs the step, never on the prefetch worker."""
+        if self.group is None:
+            return
+        got = [None] * dist.get_world_size(self.group)
+        dist.all_gather_object(got, batch["plan_digest"], group=self.group)
+        if len(set(got)) != 1:
+            raise RuntimeError(
+                f"CAD ranks disagree on the step's plan (digests by rank: "
+                f"{got}): every rank must read the same global batch")
 
     def attach_plans(self, batch_iter: Iterable[Dict[str, Any]], *,
                      prefetch: Optional[int] = None) \
@@ -389,13 +441,39 @@ class CADSession:
         depth = self.prefetch if prefetch is None else prefetch
         if depth <= 0:
             for batch in batch_iter:
-                yield self.plan_batch(batch)
+                out = self.plan_batch(batch)
+                self.check_plan_agreement(out)
+                yield out
             return
         stale = self._plan_stale if (self.calibrator is not None
                                      or self.pool is not None) else None
         pf = PlanPrefetcher(batch_iter, self.plan_batch, depth=depth,
                             is_stale=stale)
         try:
-            yield from pf
+            for out in pf:
+                self.check_plan_agreement(out)
+                yield out
         finally:
             pf.close()
+
+
+def plan_digest(plan) -> str:
+    """SHA-1 over every field of a StepPlan (both halves of a
+    PingPongPlan), in field order: equal plans give equal digests."""
+    h = hashlib.sha1()
+    halves = list(plan) if isinstance(plan, (tuple, list, PingPongPlan)) \
+        else [plan]
+    for p in halves:
+        for key in p.keys():
+            a = p[key]
+            a = a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+            h.update(key.encode())
+            h.update(str(a.shape).encode())
+            h.update(np.ascontiguousarray(a, np.int32).tobytes())
+    return h.hexdigest()
+
+
+def _single_process(what: str):
+    raise NotImplementedError(
+        f"{what} under a CAD process group is ROADMAP queue 1 item 15; it "
+        f"runs in one process (group=None)")

@@ -93,11 +93,15 @@ def _from_numpy(arr: np.ndarray, dtype: str, like):
 
 
 def save(path: str, step: int, params: Any, opt_state: Any = None,
-         extra: Optional[dict] = None, calibrator: Any = None) -> str:
+         extra: Optional[dict] = None, calibrator: Any = None,
+         rank: int = 0) -> Optional[str]:
     """Write step ``step``: ``params`` (the model's named tensors) and
     ``opt_state`` (an ``AdamWState``, or any tree) into the ``.npz``,
     ``extra`` and the calibrator's state into the metadata json.
-    Returns the ``.npz`` path."""
+    Returns the ``.npz`` path.  The ranks of a CAD group hold the same
+    state: only ``rank`` 0 writes, the others return None."""
+    if rank != 0:
+        return None
     os.makedirs(path, exist_ok=True)
     tree = {"params": params}
     if opt_state is not None:

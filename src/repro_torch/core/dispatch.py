@@ -8,18 +8,34 @@ transformer layer (paper §4.1, Figure 2):
       --fused CA kernel over each server's task batch--> outputs
       --exchange (transposed)--> home ranks --scatter--> local layout
 
-``_global_sim`` runs every rank in one process: the reference's ``vmap``
-over ranks is a leading ``[D]`` axis written out, and the exchange is a
-transpose of ``[D_src, D_dst, ...]`` buffers.  Each server's batch is one
-``ca_server_attention`` call (the CUDA kernels on CUDA tensors, their
-plain versions on CPU tensors).  Everything around the kernels is
-gather, concatenation and scatter, so autograd mirrors the communication
-in the backward (the paper's "backward reuses the schedule").
+Two execution paths with the same arithmetic (shared helpers):
+
+* ``_rank_fn``, the port of the reference's ``shard_map`` body: one
+  process per rank in a ``torch.distributed`` group (``ctx.group``, one
+  rank per attention server; NCCL on the card, gloo on the CPU).  Each
+  rank gathers its sends from its own rows and plan row, exchanges them
+  with ``all_to_all_single`` (``_Exchange``: its backward is the same
+  exchange of the gradient, the transpose JAX derives), serves its fused
+  batch and brings the outputs home with a second exchange.
+* ``_global_sim``: every rank in one process.  The reference's ``vmap``
+  over ranks is a leading ``[D]`` axis written out, and the exchange is a
+  transpose of ``[D_src, D_dst, ...]`` buffers.
+
+Each server's batch is one ``ca_server_attention`` call (the CUDA
+kernels on CUDA tensors, their plain versions on CPU tensors), given the
+same inputs on both paths, so their outputs are bitwise equal.
+Everything around the kernels is gather, concatenation, exchange and
+scatter, so autograd mirrors the communication in the backward (the
+paper's "backward reuses the schedule").
+
+Ping-pong (paper §4.1, Figure 7) splits each rank's rows into two
+nano-batches with their own plans.  Under a group the exchanges are
+issued asynchronously in the order of ``_pingpong_ranks``, so nano-batch
+1's exchange is in flight while nano-batch 0 is served; in one process
+the two halves run one after the other.
 
 Windowed and non-causal layers, and calls without a plan, go to
-``xla_flash_attention`` as in the reference.  The reference's
-``shard_map`` path over a device mesh (``_rank_fn``) waits for NCCL ranks
-(ROADMAP queue 1 item 4).
+``xla_flash_attention`` as in the reference.
 
 The decomposed dispatch (DESIGN.md §9, §11, §13): ``build_server_inputs``
 materializes each server's batch on its own, ``serve_task_batch`` serves
@@ -80,15 +96,41 @@ def _to_blocks(x, blk):
     return x.reshape((d, bl * s // blk, blk) + tuple(x.shape[3:]))
 
 
+class _GatherRows(torch.autograd.Function):
+    """``x[idx]`` over dim 0 whose backward sums repeated rows in a fixed
+    order: ``index_add`` (serial over the index) on the CPU, where the
+    backward of ``x[idx]`` adds with atomics once torch has several
+    threads; ``index_put(accumulate=True)`` (sorted, deterministic) on
+    CUDA, where ``index_add`` adds with atomics."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = x.shape
+        return x[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        gx = g.new_zeros(ctx.shape)
+        if g.is_cuda:
+            gx.index_put_((idx,), g, accumulate=True)
+        else:
+            gx.index_add_(0, idx, g)
+        return gx, None
+
+
 def _gather_blocks(xb, idx, fill=0.0):
     """xb [D, NB, ...]; idx [D, ...] with -1 padding -> [D, ..., ...],
     each rank gathering from its own blocks; pad rows = ``fill``."""
-    d = xb.shape[0]
-    safe = idx.long().clamp(min=0)
-    ranks = torch.arange(d, device=xb.device).reshape(
-        (d,) + (1,) * (idx.dim() - 1))
-    out = xb[ranks, safe]
-    mask = (idx >= 0).reshape(tuple(idx.shape) + (1,) * (xb.dim() - 2))
+    d, nb = xb.shape[:2]
+    tail = tuple(xb.shape[2:])
+    base = torch.arange(d, device=xb.device).reshape(
+        (d,) + (1,) * (idx.dim() - 1)) * nb
+    rows = (idx.long().clamp(min=0) + base).reshape(-1)
+    out = _GatherRows.apply(xb.reshape((d * nb,) + tail), rows)
+    out = out.reshape(tuple(idx.shape) + tail)
+    mask = (idx >= 0).reshape(tuple(idx.shape) + (1,) * len(tail))
     return torch.where(mask, out, fill)
 
 
@@ -188,6 +230,46 @@ def _scatter_outputs(out_tasks, ret_recv, plan, cfg: CADConfig, nb, blk,
     return out.to(dtype).reshape((d, nb, blk, hq, dh))
 
 
+class _Exchange(torch.autograd.Function):
+    """``all_to_all_single`` over ``group`` with even splits on dim 0:
+    ``x [D_dst, C, ...]`` (this rank's sends) -> ``[D_src, C, ...]`` (what
+    every rank sent here).  The backward exchanges the gradient the same
+    way, which is its transpose.  With ``works`` (a list) the forward is
+    issued asynchronously and its work handle appended: the output must
+    not be read before ``work.wait()``.  The backward's exchange is
+    synchronous.  (Not ``torch.distributed.nn.functional``'s, which warns
+    on import of its symbols in recent torch.)"""
+
+    @staticmethod
+    def forward(ctx, x, group, works):
+        import torch.distributed as dist
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        work = dist.all_to_all_single(out, x, group=group,
+                                      async_op=works is not None)
+        if works is not None:
+            works.append(work)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous()
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g, group=ctx.group)
+        return out, None, None
+
+
+def _exchange(x, group, works=None):
+    return _Exchange.apply(x, group, works)
+
+
+def _wait(works) -> None:
+    for w in works:
+        w.wait()
+
+
 def _sim_exchange(x):
     """Single-process all_to_all: [D_src, D_dst, C, ...] ->
     [D_dst, D_src, C, ...]."""
@@ -222,6 +304,95 @@ def _global_sim(q, k, v, pos, plan, cad, softcap, scale):
     out = _scatter_outputs(out_tasks, _sim_exchange(ret_send), plan, cfg,
                            nb, cfg.blk, q.shape[2], q.shape[3], q.dtype)
     return out.reshape(q.shape)
+
+
+def _plan_row(plan, rank: int, device) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s row of every plan field, keeping a leading axis of
+    1 (the helpers' ``[D]`` axis with one rank)."""
+    return {k: v[rank:rank + 1] for k, v in _plan_tensors(plan,
+                                                          device).items()}
+
+
+def _rank_sends(q, k, v, pos, plan_r, cfg: CADConfig, group, works=None):
+    """This rank's blocks and the five exchanges of its sends: returns
+    ((qb, kb, vb, posb), recv), the received buffers ``[1, D_src, C, ...]``
+    (valid once ``works`` are waited on, when given)."""
+    blocks = tuple(_to_blocks(x[None], cfg.blk) for x in (q, k, v, pos))
+    recv = tuple(_exchange(x[0], group, works)[None]
+                 for x in _make_sends(*blocks, plan_r))
+    return blocks, recv
+
+
+def _rank_serve(blocks, recv, plan_r, cad, softcap, scale, group,
+                works=None):
+    """Serve this rank's fused batch and exchange the remote outputs
+    home: returns (out_tasks [1, T, ...], ret_recv [1, D_src, CQ, ...])."""
+    cfg = cad.cfg
+    out_tasks = _serve(*_server_tasks(*blocks, recv, plan_r, cfg), plan_r,
+                       cad, softcap, 0, scale)
+    nb = blocks[0].shape[1]
+    ret_send = out_tasks[0, nb:].reshape((cfg.n_servers, cfg.cq)
+                                         + tuple(out_tasks.shape[2:]))
+    return out_tasks, _exchange(ret_send, group, works)[None]
+
+
+def _rank_scatter(out_tasks, ret_recv, plan_r, cfg: CADConfig, q):
+    nb = q.shape[0] * q.shape[1] // cfg.blk
+    out = _scatter_outputs(out_tasks, ret_recv, plan_r, cfg, nb, cfg.blk,
+                           q.shape[2], q.shape[3], q.dtype)
+    return out.reshape(q.shape)
+
+
+def _rank_fn(q, k, v, pos, plan_r, cad, softcap, scale, group):
+    """One rank of the group (the reference's ``shard_map`` body,
+    ``src/repro/core/dispatch.py:338-361``).  q/k/v ``[Bl, S, H(kv),
+    dh]`` are this rank's rows, ``pos`` ``[Bl, S]``, ``plan_r`` its plan
+    row (``_plan_row``)."""
+    blocks, recv = _rank_sends(q, k, v, pos, plan_r, cad.cfg, group)
+    out_tasks, ret_recv = _rank_serve(blocks, recv, plan_r, cad, softcap,
+                                      scale, group)
+    return _rank_scatter(out_tasks, ret_recv, plan_r, cad.cfg, q)
+
+
+def _pingpong_ranks(nanos, plans_r, cad, softcap, scale, group):
+    """Two nano-batches of one rank, their exchanges overlapping the other
+    half's serve.  Issue order: 0's sends, then 1's (both asynchronous);
+    wait on 0, serve 0 and start its return; wait on 1, serve 1 and start
+    its return; then scatter 0 and 1.  On NCCL an asynchronous collective
+    runs on the communicator's stream and ``wait`` only makes the compute
+    stream wait for it, so 1's exchange is in flight while 0's CA forward
+    runs.  The backward's exchanges are synchronous (``_Exchange``): it
+    overlaps nothing."""
+    cfg = cad.cfg
+    sent = []
+    for (q, k, v, pos), plan_r in zip(nanos, plans_r):
+        works = []
+        sent.append((_rank_sends(q, k, v, pos, plan_r, cfg, group, works),
+                     works))
+    served = []
+    for ((blocks, recv), works), plan_r in zip(sent, plans_r):
+        _wait(works)
+        ret_works = []
+        served.append((_rank_serve(blocks, recv, plan_r, cad, softcap,
+                                   scale, group, ret_works), ret_works))
+    outs = []
+    for ((out_tasks, ret_recv), ret_works), plan_r, nano in zip(
+            served, plans_r, nanos):
+        _wait(ret_works)
+        outs.append(_rank_scatter(out_tasks, ret_recv, plan_r, cfg,
+                                  nano[0]))
+    return outs
+
+
+def check_cad_group(cad: "CADContext", group) -> int:
+    """This process's rank in ``group``; raises unless the group has one
+    rank per attention server of ``cad.cfg``."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    if n != cad.cfg.n_servers:
+        raise ValueError(f"the CAD group has {n} ranks, the plan "
+                         f"{cad.cfg.n_servers} attention servers")
+    return dist.get_rank(group)
 
 
 def server_batches(q, k, v, pos, plan, cad):
@@ -608,15 +779,32 @@ def cad_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv, *, ctx,
                                    softcap=softcap, scale=scale)
     # padding tokens -> position -1 so the server kernels mask them
     pos = torch.where(seg_q > 0, pos_q, -1).to(torch.int32)
+    pingpong = cad.pingpong and isinstance(cad.plan, (tuple, list,
+                                                      PingPongPlan))
+    group = getattr(ctx, "group", None)
+    if group is not None:
+        # this rank's rows and plan row (the reference's P(bspec) inputs
+        # and plan_[0]); never the single-process simulation
+        rank = check_cad_group(cad, group)
+        if pingpong:
+            h = q.shape[0] // 2
+            nanos = [tuple(x[:h] for x in (q, k, v, pos)),
+                     tuple(x[h:] for x in (q, k, v, pos))]
+            plans_r = [_plan_row(p, rank, q.device) for p in cad.plan]
+            return torch.cat(_pingpong_ranks(nanos, plans_r, cad, softcap,
+                                             scale, group), dim=0)
+        plan = cad.plan[0] if isinstance(cad.plan, (tuple, list,
+                                                    PingPongPlan)) \
+            else cad.plan
+        return _rank_fn(q, k, v, pos, _plan_row(plan, rank, q.device), cad,
+                        softcap, scale, group)
 
     def run(qq, kk, vv, pp, plan):
         return _global_sim(qq, kk, vv, pp, plan, cad, softcap, scale)
 
-    if cad.pingpong and isinstance(cad.plan, (tuple, list, PingPongPlan)):
+    if pingpong:
         # nano-batch split within each rank's rows (rank-major layout);
-        # on one card the two halves run one after the other — overlapping
-        # one half's exchange with the other's serve needs NCCL ranks and
-        # streams (ROADMAP queue 1 item 4)
+        # in one process the two halves run one after the other
         d = cad.cfg.n_servers
         b = q.shape[0]
         rpr = b // d

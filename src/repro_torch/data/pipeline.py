@@ -71,3 +71,27 @@ def raw_batches(cfg: PipelineConfig) -> Iterator[dict]:
             "segment_ids": segs,
             "positions": poss,
         }
+
+
+ROW_KEYS = ("tokens", "labels", "segment_ids", "positions")
+
+
+def rank_rows(batch: dict, rank: int, n_ranks: int) -> dict:
+    """Rank ``rank``'s rows of a global batch (rank-major: rank r owns
+    rows ``[r·rpr, (r+1)·rpr)``, rpr = rows / ``n_ranks``); fields other
+    than the row arrays are left out."""
+    rows = np.asarray(batch["tokens"]).shape[0]
+    if rows % n_ranks:
+        raise ValueError(f"{rows} rows do not split over {n_ranks} ranks")
+    rpr = rows // n_ranks
+    return {k: np.asarray(batch[k])[rank * rpr:(rank + 1) * rpr]
+            for k in ROW_KEYS if k in batch}
+
+
+def global_token_count(batch: dict) -> int:
+    """The loss tokens of a whole batch (labels >= 0 on live segments, at
+    least 1): the divisor of every rank's share of the loss, known on
+    every rank from the global batch without a collective."""
+    lab = np.asarray(batch["labels"])
+    seg = np.asarray(batch["segment_ids"])
+    return max(1, int(((lab >= 0) & (seg > 0)).sum()))

@@ -37,6 +37,20 @@ route, which the launcher does not pick), and with --cad its local
 layers, all windowed, take the dispatch's blockwise fallback.  The
 reference's --kernel is not carried over: CUDA tensors run the
 hand-written kernels.
+
+Across processes, one rank per attention server::
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch smollm-360m-reduced --steps 3 --seq 256 --batch 8 --ranks 4 \
+      --cad --device cpu
+
+Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) each process joins
+the group (gloo for ``--device cpu``, NCCL on ``cuda:LOCAL_RANK``
+otherwise; ``launch/mesh.py``), reads the same global batches, trains its
+rows and exchanges q/kv blocks and outputs with the other ranks; rank 0
+prints and writes checkpoints, traces and metrics.  ``--ranks`` must
+equal ``WORLD_SIZE`` there, and --cad is required.  Without ``torchrun``
+the launcher keeps the single-process simulated pool.
 """
 import argparse
 import json
@@ -44,6 +58,7 @@ import json
 from repro_torch.cad import CADSession, available_policies
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import PipelineConfig
+from repro_torch.launch import mesh
 from repro_torch.models.model import resolve_device
 from repro_torch.obs import enable_tracing, get_recorder, get_registry
 from repro_torch.parallel import ParallelContext
@@ -124,14 +139,39 @@ def _per_rank(text, ranks, flag):
     return vals
 
 
+def _join(args):
+    """Under torchrun: join the CAD group; returns (RankInfo or None,
+    the training device)."""
+    if not mesh.launched_by_torchrun():
+        return None, resolve_device(args.device)
+    info = mesh.join_group(resolve_device(args.device).type)
+    if not args.cad:
+        raise SystemExit("under torchrun the launcher trains with --cad: "
+                         "the ranks are the attention servers")
+    if args.ranks != info.world:
+        raise SystemExit(f"--ranks {args.ranks} != WORLD_SIZE {info.world}")
+    return info, info.device
+
+
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    if args.trace:
+    info, device = _join(args)
+    try:
+        return _main(args, info, device)
+    finally:
+        if info is not None:
+            mesh.leave_group()
+
+
+def _main(args, info, device):
+    lead = info is None or info.rank == 0
+    if args.trace and lead:
         enable_tracing(capacity=args.trace_capacity)
     cfg = get_config(args.arch)
-    print(f"arch={cfg.arch_id} params={cfg.n_params()/1e6:.1f}M "
-          f"family={cfg.family} device={device}")
+    if lead:
+        print(f"arch={cfg.arch_id} params={cfg.n_params()/1e6:.1f}M "
+              f"family={cfg.family} device={device}"
+              + ("" if info is None else f" ranks={info.world}"))
     pipe = PipelineConfig(
         distribution=args.dist, max_doc_len=args.max_doc or args.seq,
         seq_len=args.seq, global_batch=args.batch, n_ranks=args.ranks,
@@ -146,7 +186,8 @@ def main(argv=None):
             plan_policy=args.plan_policy, prefetch=args.prefetch,
             server_speeds=speeds, server_hbm=hbm,
             stream_chunk=args.stream_chunk, calibrate=args.calibrate,
-            mask=args.mask or None)
+            mask=args.mask or None,
+            group=None if info is None else info.group)
     else:
         if args.cad:
             print(f"note: {cfg.arch_id} is attention-free; CAD is "
@@ -157,6 +198,9 @@ def main(argv=None):
                   "--stream-chunk/--fault-schedule only apply to the CAD "
                   "attention service — ignored")
         ctx = ParallelContext(attn_impl="xla", remat=True)
+        if info is not None:
+            raise SystemExit(f"{cfg.arch_id} has no attention for the "
+                             f"ranks to serve: no CAD group to train in")
     tc = TrainConfig(steps=args.steps, peak_lr=args.lr,
                      warmup=max(1, args.steps // 10),
                      log_every=max(1, args.steps // 20),
@@ -169,6 +213,8 @@ def main(argv=None):
                      speculate_pct=args.speculate_pct)
     res = train(cfg, pipe, tc, ctx=ctx, session=session, device=device)
     h = res["history"]
+    if not lead:
+        return res
     print(f"done: loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}")
     if args.trace:
         rec = get_recorder()

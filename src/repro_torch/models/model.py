@@ -164,7 +164,10 @@ class Transformer(nn.Module):
     # ------------------------------------------------------ embed/unembed
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        h = self.embed[tokens.long()].to(cfg.cdtype)
+        # F.embedding, not self.embed[tokens]: the backward of advanced
+        # indexing on the CPU sums repeated rows with atomic adds when
+        # torch has several threads, in no fixed order
+        h = F.embedding(tokens.long(), self.embed).to(cfg.cdtype)
         if cfg.scale_embed:
             h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype,
                                  device=h.device)

@@ -1,10 +1,19 @@
 """Parallelism context for the port's training step.
 
-The port of ``repro.parallel.ParallelContext``, cut to one card: the
-attention implementation, the CAD context, rematerialization and the
-ping-pong flag.  The reference's mesh and sharding rules (``ctx.cons``)
-have nothing to shard on one card and come with the multi-card slice
-(ROADMAP queue 1 items 4 and 12).
+The port of ``repro.parallel.ParallelContext``: the attention
+implementation, the CAD context, rematerialization and the CAD group.
+The reference names its ranks by a device mesh and the sharding rules'
+``cad_axis``; here the ranks of the dispatch are a ``torch.distributed``
+process group (``group``), one rank per attention server, joined by
+:func:`repro_torch.launch.mesh.join_group`.  ``group=None`` is the
+single-process pool (``core.dispatch._global_sim``).
+
+Tensor-parallel head sharding over a ``"model"`` axis (the reference's
+``ShardingRules`` and ``ctx.cons``) is ROADMAP queue 1 item 12: the port
+has no such axis, and every rank of the group holds every head.
+
+The ping-pong flag lives in one place, ``CADContext.pingpong`` (the
+reference also keeps ``ParallelContext.pingpong``, which nothing reads).
 """
 from __future__ import annotations
 
@@ -23,9 +32,11 @@ class ParallelContext:
     remat:     re-run each layer's forward in the backward
                (``torch.utils.checkpoint``) instead of keeping its
                activations
-    pingpong:  split each rank's rows into two nano-batches (paper §4.1)
+    group:     the CAD process group (one rank per attention server), or
+               None: every server simulated in this process
     """
     attn_impl: str = "ref"
     cad: Any = None
-    pingpong: bool = False
     remat: bool = True
+    group: Any = None
+

@@ -4,7 +4,15 @@ the serving step.  The port of ``repro.train.step``.
 The reference jits pure functions of ``(params, opt_state, batch)``; here
 the parameters live in the ``Transformer`` and the optimizer updates them
 in place, so a train step maps ``(opt_state, batch)`` to
-``(opt_state, metrics)``."""
+``(opt_state, metrics)``.
+
+Under a CAD process group (``ctx.group``) each rank holds its rows of
+the global batch: its loss is its own ``nll_sum`` over the global batch's
+loss-token count (``batch["n_tokens_global"]``, known on every rank, no
+collective), the gradients are summed across the ranks in flat buckets
+(``allreduce_grads``) before the update, so every rank applies the same
+update, and AdamW's clipping sees the global norm.  Auxiliary losses
+(MoE's, ROADMAP queue 1 item 12) raise under a group."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -15,6 +23,8 @@ import torch
 from repro_torch.train.loss import lm_loss
 
 BATCH_KEYS = ("tokens", "labels", "segment_ids", "positions")
+# elements of one all-reduce bucket: bounds the flat copy of the grads
+BUCKET_ELEMS = 1 << 26
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
@@ -25,6 +35,47 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
     if batch.get("plan") is not None:
         out["plan"] = batch["plan"].to(device)
     return out
+
+
+def _buckets(tensors):
+    """Runs of consecutive same-dtype tensors of at most BUCKET_ELEMS
+    elements (a larger tensor is a bucket of its own)."""
+    run, n = [], 0
+    for t in tensors:
+        if run and (t.dtype != run[0].dtype or n + t.numel() > BUCKET_ELEMS):
+            yield run
+            run, n = [], 0
+        run.append(t)
+        n += t.numel()
+    if run:
+        yield run
+
+
+def _flat_collective(tensors, op) -> None:
+    """Run ``op(flat)`` on each flat bucket of ``tensors`` and copy the
+    result back in place."""
+    for run in _buckets(tensors):
+        flat = torch.cat([t.reshape(-1) for t in run])
+        op(flat)
+        off = 0
+        for t in run:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
+
+def allreduce_grads(grads, group) -> None:
+    """Sum ``grads`` across ``group`` in place, in flat buckets; every
+    rank ends with the same bits."""
+    import torch.distributed as dist
+    _flat_collective(grads, lambda f: dist.all_reduce(f, group=group))
+
+
+@torch.no_grad()
+def broadcast_params(params, group, src: int = 0) -> None:
+    """Every rank takes rank ``src``'s parameters (flat buckets)."""
+    import torch.distributed as dist
+    _flat_collective(list(params),
+                     lambda f: dist.broadcast(f, src=src, group=group))
 
 
 def _bind(ctx, batch):
@@ -41,16 +92,36 @@ def make_train_step(model, ctx, optimizer, decay):
     under 'plan'; it is data, consumed by the dispatch through the ctx.
     The model's parameters are updated in place."""
     params = list(model.parameters())
+    group = getattr(ctx, "group", None)
 
     def train_step(opt_state, batch):
         b = batch_to_device(batch, model.device)
         logits, aux = model(b, _bind(ctx, b))
+        if group is not None and aux:
+            raise NotImplementedError(
+                "auxiliary losses under a CAD process group (the gradient "
+                "all-reduce would sum each rank's in full): they come with "
+                "MoE, ROADMAP queue 1 item 12")
         loss, stats = lm_loss(logits, b["labels"], b["segment_ids"])
         del logits
+        if group is not None:
+            # this rank's share of the global mean, divided as lm_loss
+            # divides (by an integer tensor: a Python float divisor takes
+            # CUDA's multiply-by-reciprocal path, other bits)
+            loss = stats["nll_sum"] / torch.as_tensor(
+                int(batch["n_tokens_global"]), device=model.device)
         total = loss
         for v in aux.values():
             total = total + v
         grads = torch.autograd.grad(total, params)
+        if group is not None:
+            import torch.distributed as dist
+            allreduce_grads(grads, group)
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=group)       # the global loss
+            total = loss
+            stats = dict(stats, n_tokens=torch.tensor(
+                batch["n_tokens_global"]))
         opt_state, gnorm = optimizer.update(grads, opt_state, params,
                                             decay)
         metrics = {"loss": loss.detach(), "total_loss": total.detach(),

@@ -4,6 +4,13 @@ service (plans prefetched asynchronously one step ahead — the paper's
 optimizer, checkpointing, the metrics, the runtime calibration probes
 (``calibrate_every``) and the fault schedule's membership events
 (``fault_schedule``).  The port of ``repro.train.trainer``.
+
+With a session over a CAD process group (``CADSession.for_pipeline(...,
+group=g)``) every rank runs this loop on its rows of the same global
+batches: the parameters start from rank 0's, the gradients are summed
+across the ranks before each update, rank 0 alone logs and writes
+checkpoints, every rank synchronizes its own device around a step, and
+tokens/s counts the global batch.
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.cad.session import CADSession
 from repro_torch.checkpoint import ckpt
@@ -22,7 +30,7 @@ from repro_torch.models.convert import decay_mask
 from repro_torch.models.model import Transformer, resolve_device
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.parallel import ParallelContext
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import broadcast_params, make_train_step
 
 
 @dataclasses.dataclass
@@ -100,6 +108,13 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
                             seed=train_cfg.seed)
     dev = model.device
     faults = pool = None
+    group = None if session is None else session.group
+    rank = 0 if group is None else dist.get_rank(group)
+    if group is not None and (train_cfg.fault_schedule
+                              or train_cfg.calibrate_every):
+        raise NotImplementedError(
+            "fault schedules and calibration probes under a CAD process "
+            "group are ROADMAP queue 1 item 15; they run in one process")
     if session is not None:
         if train_cfg.fault_schedule:
             from repro_torch.runtime import FaultSchedule, ServerPool
@@ -123,7 +138,10 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
                                    train_cfg.steps),
                 weight_decay=train_cfg.weight_decay)
     params = list(model.parameters())
+    if group is not None:
+        broadcast_params(params, group)      # one set of weights
     opt_state = opt.init(params)
+    tokens = pipe_cfg.global_batch * pipe_cfg.seq_len
     step_fn = make_train_step(model, ctx, opt, decay_mask(model))
     calibrating = (session is not None and session.calibrator is not None
                    and train_cfg.calibrate_every > 0)
@@ -163,6 +181,7 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
             _sync(dev)
             m = {k: float(v) for k, v in metrics.items()}
             m["step_s"] = time.perf_counter() - ts
+            m["tokens_per_s"] = tokens / m["step_s"]
             if plan is not None and step % train_cfg.calibrate_every == 0:
                 # measure -> fit: the per-server timings feed the
                 # calibrator, so the (prefetched) plan of a later batch
@@ -181,15 +200,16 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
             if step % train_cfg.log_every == 0 \
                     or step == train_cfg.steps - 1:
                 history.append(m)
-                print(f"step {step:5d} loss {m['loss']:.4f} "
-                      f"gnorm {m['grad_norm']:.3f} ({m['wall_s']:.1f}s)",
-                      flush=True)
+                if rank == 0:
+                    print(f"step {step:5d} loss {m['loss']:.4f} "
+                          f"gnorm {m['grad_norm']:.3f} "
+                          f"({m['wall_s']:.1f}s)", flush=True)
             if train_cfg.ckpt_every and step and \
                     step % train_cfg.ckpt_every == 0:
                 ckpt.save(train_cfg.ckpt_dir, step, model.state_dict(),
                           opt_state,
                           calibrator=None if session is None
-                          else session.calibrator)
+                          else session.calibrator, rank=rank)
     finally:
         gen.close()      # stops the plan-prefetch worker, if any
     return {"model": model, "opt_state": opt_state, "history": history}

@@ -165,7 +165,7 @@ def test_pingpong_matches_reference():
 
     cfg = CADConfig(**geo)
     plans = tuple(StepPlan.from_dict(p.to_dict()).to("cpu") for p in jplans)
-    ctx = ParallelContext(attn_impl="cad", pingpong=True, cad=D.CADContext(
+    ctx = ParallelContext(attn_impl="cad", cad=D.CADContext(
         cfg=cfg, plan=plans, jmax=JMAX, pingpong=True))
     seg_t, pos_t = to_torch(segs), to_torch(poss)
     got, got_g = _torch_sim_and_grads(

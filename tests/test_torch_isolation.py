@@ -118,6 +118,34 @@ def test_analysis_configs_and_recurrent_serving_load_no_jax():
     _probe(_SERVING)
 
 
+# the rank path (group, join, exchange, per-rank plans, the data-parallel
+# step) and the fabric, each from the module that defines it; importing
+# them creates no process group and touches no device
+_RANKS_AND_FABRIC = """
+import torch
+from repro_torch.parallel import ParallelContext
+from repro_torch.launch.mesh import (join_group, leave_group, RankInfo,
+                                     launched_by_torchrun)
+from repro_torch.core.dispatch import (
+    _Exchange, _rank_fn, _pingpong_ranks, check_cad_group)
+from repro_torch.cad.session import plan_digest, CADSession
+from repro_torch.data.pipeline import rank_rows, global_token_count
+from repro_torch.train.step import allreduce_grads, broadcast_params
+from repro_torch.fabric import (
+    AdmissionPolicy, AdmissionRound, FabricExecutor, FabricStepReport,
+    LATENCY, SERVE, ServeRequest, ServeTaskReq, ServeWorkload, THROUGHPUT,
+    TRAIN, TenantClass, admit_serve)
+import torch.distributed as dist
+assert not dist.is_initialized()
+assert torch.cuda.is_initialized() is False
+assert ParallelContext().group is None
+"""
+
+
+def test_rank_path_and_fabric_load_no_jax():
+    _probe(_RANKS_AND_FABRIC)
+
+
 def test_importing_chip_smoke_loads_no_jax():
     _probe(_SMOKE)
 
