@@ -291,10 +291,40 @@ card sustains), ``device_ms`` from the profiler (the kernel alone) and
 ``ms_single`` for a lone call between two events (how every other kernel
 is timed).
 
+25. (after phase 23, before 24) qwen2-moe-a2.7b (MHA: 16 q over 16 kv
+   heads, rep 1; 60 routed experts top-4 and 4 shared) trained at every
+   width, depth cut to MOE_LAYERS of 24, bf16, 4 x MOE_SEQ ``prolong``
+   tokens: under CAD on 4 simulated servers the step-0 loss bitwise equal
+   under ``identity`` and ``balanced``, the same forward and backward run
+   twice bitwise (loss, aux losses, every gradient), MOE_STEPS steps with
+   launches = servers x layers x {2, 1, 1} and finite loss, ``moe_lb``
+   and ``moe_z``; the CA kernels on layer 0's captured server batches
+   against their plain versions and timed beside flash on the same
+   layer (phase 6's way); then colocated (``pallas``) on the same weights
+   and batches, launches layers x {2, 1, 1} and 3 prunes a layer, the
+   step-0 loss bitwise CAD's with phase 7's controls outside
+   CO_LOSS_LIMIT, the flash kernels on the captured q/k/v; step ms,
+   tokens/s, peak memory;
+26. (after 25) the MoE archs served through ``launch/serve.py``'s engine
+   at every width, a token a step (MOE_SERVE): qwen2-moe-a2.7b at all 24
+   layers, 4 slots, prompts of 200-600 tokens, 16 new: launches = layers
+   x device calls, the kernel on a captured decode step, the concurrent
+   run's tokens equal to its SOLO shortest prompts' served alone, rates
+   and one decode step traced; an f32 copy of MOE_FWD_LAYERS layers:
+   per-token serve logits within SERVE_FWD_REL_BOUND of
+   ``Transformer.forward``'s (at a capacity factor that drops nothing;
+   the drops the config's own factor would make logged), the TF32
+   control outside; llama4-maverick-400b-a17b at 1 of 48 layers (128
+   experts top-1 and a shared one, the kernel at rep 5) the same way
+   without the solo and f32 checks; then the ragged kernel timed at both
+   archs' decode shapes as phase 4 times it.
+
 The line before the card line lists every ported kernel as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after
 phase 2: the short first call for a new kernel; ``--only ranks`` runs
-phases 1, 5 and 24.
+phases 1, 5 and 24; ``--only moe`` phases 1, 25 and 26.  Every traced
+or profiled window opens with a ~1 ms spin kernel (TRACE_LEAD_IN_CYCLES),
+not counted.
 """
 from __future__ import annotations
 
@@ -400,6 +430,10 @@ def cuda_ms_back_to_back(fn, n=100, reps=5, warmup=3):
 PROFILE_WINDOWS = 3
 # [empty windows, windows profiled, timings with no device time]
 EMPTY_PROFILE_WINDOWS = [0, 0, 0]
+# a traced window's opening spin (GPU cycles, ~1 ms at 1.98 GHz), and the
+# name of the kernel ``torch.cuda._sleep`` launches for it
+TRACE_LEAD_IN_CYCLES = 2_000_000
+SPIN_KERNEL = "spin_kernel"
 
 
 def profiled_device_ms(fn, n=20):
@@ -417,11 +451,16 @@ def profiled_device_ms(fn, n=20):
     for _ in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # the window opens with a spin kernel, not counted: late in a
+            # run the profiler has dropped a window's first events
+            torch.cuda._sleep(TRACE_LEAD_IN_CYCLES)
+            torch.cuda.synchronize()
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
         us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
+                 if e.device_type == DeviceType.CUDA
+                 and SPIN_KERNEL not in e.name)
         EMPTY_PROFILE_WINDOWS[1] += 1
         if us:
             return us / 1e3 / n
@@ -814,6 +853,15 @@ RAGGED_SHAPES = {
     "recurrentgemma-9b local": dict(R=4, S=3072, hq=16, hkv=1, dh=256,
                                     window=2048, softcap=0.0, prefill=None,
                                     decode=2999, kv=(None, 3000)),
+    # the MoE archs (phase 26), decode rows only (their prompts are
+    # prefilled a token a step) at llama3-8b's decode kv: qwen2-moe's 16 q
+    # over 16 kv heads of 128 (rep 1), llama4-maverick's 40 over 8 (rep 5)
+    "qwen2-moe-a2.7b": dict(R=4, S=2048, hq=16, hkv=16, dh=128, window=0,
+                            softcap=0.0, prefill=None, decode=1999,
+                            kv=(None, 2000)),
+    "llama4-maverick-400b-a17b": dict(R=4, S=2048, hq=40, hkv=8, dh=128,
+                                      window=0, softcap=0.0, prefill=None,
+                                      decode=1999, kv=(None, 2000)),
 }
 
 
@@ -2923,16 +2971,17 @@ def _step0_loss(torch, model, ctx, batch):
                              batch["segment_ids"])[0])
 
 
-def colocated_controls(torch, ops, cad_loss):
-    """Phase 7: the colocated forward loss on phase 5's first batch and
-    weights, plain and with one fault put in each time (each row's
-    documents merged into one; attention without the causal mask), against
-    CAD's step-0 loss.  Returns {name: loss}."""
+def colocated_controls(torch, ops, cad_loss, setup=None):
+    """Phase 7 (and 25, with ``setup=_moe_setup``): the colocated forward
+    loss on phase 5's first batch and weights, plain and with one fault
+    put in each time (each row's documents merged into one; attention
+    without the causal mask), against CAD's step-0 loss.  Returns {name:
+    loss}."""
     from repro_torch.data.pipeline import raw_batches
     from repro_torch.models.model import Transformer
     from repro_torch.parallel import ParallelContext
     from repro_torch.train.step import batch_to_device
-    cfg, pipe, tc, _ = _train_setup()
+    cfg, pipe, tc, _ = (setup or _train_setup)()
     ctx = ParallelContext(attn_impl="pallas", remat=True)
     model = Transformer(cfg, device=DEVICE, seed=tc.seed)
     gen = raw_batches(pipe)
@@ -3101,10 +3150,11 @@ def flash_inputs(torch, inp):
             inp["v"].contiguous(), seg, pos, seg, pos]
 
 
-def check_captured_flash(torch, ops, captured):
-    """Phase 7: the flash kernels against their plain versions on the q/k/v
-    captured at layers 0 and 7 (bf16), the dk/dv kernel repeated bitwise,
-    and the blockwise ``xla`` route against the kernel on layer 0."""
+def check_captured_flash(torch, ops, captured, phase=7):
+    """Phase 7 (and 25): the flash kernels against their plain versions on
+    the q/k/v captured at layers 0 and 7 (bf16), the dk/dv kernel repeated
+    bitwise, and the blockwise ``xla`` route against the kernel on layer
+    0."""
     from repro_torch.core.attention import xla_flash_attention
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     worst = 0.0
@@ -3117,7 +3167,7 @@ def check_captured_flash(torch, ops, captured):
             f"{tuple(args[1].shape)} {args[0].dtype}: fwd max |err| "
             f"{e_f:.3e}, grads {e_b:.3e}")
         if not ok:
-            raise SystemExit(f"phase 7: flash kernels disagree on captured "
+            raise SystemExit(f"phase {phase}: flash kernels disagree on captured "
                              f"layer {layer}")
         worst = max(worst, e_f)
     args = flash_inputs(torch, captured[0])
@@ -3130,12 +3180,12 @@ def check_captured_flash(torch, ops, captured):
     xla = xla_flash_attention(*args)
     torch.cuda.synchronize()
     e_xla, ok_xla = _max_err(torch, out, xla, out.dtype)
-    log(f"phase 7: flash backward on layer 0 repeated: bitwise {bitwise}; "
+    log(f"phase {phase}: flash backward on layer 0 repeated: bitwise {bitwise}; "
         f"the xla route vs the flash kernel on layer 0: max |err| "
         f"{e_xla:.3e}")
     if not bitwise or not ok_xla:
-        raise SystemExit("phase 7: the flash backward is not deterministic "
-                         "or the xla route disagrees")
+        raise SystemExit(f"phase {phase}: the flash backward is not "
+                         f"deterministic or the xla route disagrees")
     return worst
 
 
@@ -5075,6 +5125,444 @@ def train_llama34_cad(torch, ops, card):
                       f"{n_servers} servers, {cfg.n_layers} of 48 layers")
 
 
+# ------------------------------------------------------- phases 25-26
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_LAYERS = 4            # of 24: ~2.9 B params, their f32 AdamW moments
+MOE_STEPS = 2             # and f32 logits over 151936 words on one card
+# 4 x 4096 tokens peaked at 74.30 GiB in step 0 and ran out of the card's
+# memory in step 1's backward (9.27 GiB asked for, 4.22 free, 9.19
+# reserved and unallocated); as phase 23, the cut keeps 4 rows: 4 x 2048
+MOE_SEQ = 2048
+
+
+def _moe_setup():
+    from repro_torch.cad import CADSession
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig
+    from repro_torch.train.trainer import TrainConfig
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    pipe = PipelineConfig(distribution="prolong", max_doc_len=MOE_SEQ,
+                          seq_len=MOE_SEQ, global_batch=4, n_ranks=4,
+                          vocab_size=cfg.vocab_size, seed=0)
+    tc = TrainConfig(steps=MOE_STEPS, peak_lr=3e-4, warmup=1, log_every=1,
+                     seed=0)
+
+    def session(policy):
+        return CADSession.for_pipeline(cfg, pipe, plan_policy=policy,
+                                       prefetch=2)
+    return cfg, pipe, tc, session
+
+
+def _moe_step_twice(torch, cfg, pipe, session):
+    """One CAD forward and backward (lm loss + aux) of a fresh seed-0
+    model on the first batch and its ``balanced`` plan, run twice: the
+    loss, the aux losses and every gradient must repeat bit for bit (an
+    atomic add in the MoE dispatch or combine would break it).  Returns
+    (bitwise, the first run's aux losses)."""
+    from repro_torch.data.pipeline import raw_batches
+    from repro_torch.models.model import Transformer
+    from repro_torch.train.loss import lm_loss
+    from repro_torch.train.step import batch_to_device
+    model = Transformer(cfg, device=DEVICE, seed=0)
+    sess = session("balanced")
+    gen = sess.attach_plans(raw_batches(pipe))
+    batch = next(gen)
+    gen.close()
+    b = batch_to_device(batch, DEVICE)
+    ctx = sess.context()
+    ctx = ctx.cad.bind_plan(ctx, b["plan"])
+    params = list(model.parameters())
+    first, same = None, True
+    for _ in range(2):
+        logits, aux = model(b, ctx)
+        loss, _ = lm_loss(logits, b["labels"], b["segment_ids"])
+        del logits
+        total = loss + aux["moe_lb"] + aux["moe_z"]
+        grads = torch.autograd.grad(total, params)
+        got = [total.detach(), aux["moe_lb"].detach(),
+               aux["moe_z"].detach(), *grads]
+        del grads
+        if first is None:
+            first = got
+        else:
+            same = all(torch.equal(a, c) for a, c in zip(first, got))
+        del got
+    out = {k: float(v) for k, v in zip(("total", "moe_lb", "moe_z"),
+                                       first)}
+    del first, model, b, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return same, out
+
+
+def train_moe(torch, ops, card):
+    """Phase 25: qwen2-moe-a2.7b at every width (d_model 2048, 16 q over
+    16 kv heads of 128: MHA, rep 1; 60 routed experts top-4 of 1408 and 4
+    shared; vocab 151936), depth cut to MOE_LAYERS of 24, bf16, 4 x
+    MOE_SEQ ``prolong`` tokens.  CAD on 4 simulated servers: the step-0
+    loss under ``identity``, the same step run twice bitwise, MOE_STEPS
+    steps under ``balanced`` (launches servers x layers x {2, 1, 1},
+    finite losses and aux losses, the step-0 loss bitwise the identity
+    one), the CA kernels on layer 0's captured server batches, CA timed
+    beside flash on that layer; then colocated (``pallas``) on the same
+    weights and batches: launches layers x {2, 1, 1} and 3 prunes a
+    layer, the step-0 loss bitwise CAD's with phase 7's controls outside
+    CO_LOSS_LIMIT, the flash kernels on captured q/k/v."""
+    from repro_torch.models.model import Transformer
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.train.trainer import train
+    t_phase = time.perf_counter()
+    cfg, pipe, tc, session = _moe_setup()
+    n_servers = pipe.n_ranks
+    tokens = pipe.global_batch * pipe.seq_len
+    res = train(cfg, pipe, dataclasses.replace(tc, steps=1),
+                session=session("identity"), device=DEVICE)
+    loss_identity = res["history"][0]["loss"]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    repeat, aux0 = _moe_step_twice(torch, cfg, pipe, session)
+    log(f"phase 25: one CAD forward and backward of step 0 run twice: loss,"
+        f" aux losses and every gradient bitwise {repeat} (total "
+        f"{aux0['total']!r}, moe_lb {aux0['moe_lb']!r}, moe_z "
+        f"{aux0['moe_z']!r})")
+
+    def run(ctx, sess, expect, tag):
+        model = Transformer(cfg, device=DEVICE, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        captured, steps = {}, []
+
+        def capture(layer, inputs):
+            if layer == 0 and layer not in captured:
+                captured[layer] = {k: v.detach().clone()
+                                   if torch.is_tensor(v) else v
+                                   for k, v in inputs.items()}
+
+        def on_step(step, m):
+            counts = {k: ops.launches[k] for k in expect}
+            others = sum(n for k, n in ops.launches.items()
+                         if k not in expect)
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            ops.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            model.attn_hook = None          # capture step 0 only
+            steps.append(dict(m, counts=counts, others=others,
+                              peak_gib=mem))
+            log(f"phase 25: {tag} step {step} loss {m['loss']:.6f} moe_lb "
+                f"{m['moe_lb']:.6e} moe_z {m['moe_z']:.6e} gnorm "
+                f"{m['grad_norm']:.4f} step {1e3 * m['step_s']:.1f} ms "
+                f"{tokens / m['step_s']:.0f} tokens/s peak {mem:.2f} GiB "
+                f"launches {counts} [{card}]")
+        model.attn_hook = capture
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        train(cfg, pipe, tc, model=model, ctx=ctx, session=sess,
+              device=DEVICE, on_step=on_step)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        for st in steps:
+            if st["counts"] != expect or st["others"]:
+                raise SystemExit(f"phase 25: {tag} step {st['step']} "
+                                 f"launches {st['counts']} (+{st['others']} "
+                                 f"of other kernels) != {expect}")
+            if not all(math.isfinite(st[k]) for k in ("loss", "moe_lb",
+                                                      "moe_z")):
+                raise SystemExit(f"phase 25: {tag} step {st['step']}: "
+                                 f"{st}")
+        if sorted(captured) != [0]:
+            raise SystemExit(f"phase 25: {tag} captured {sorted(captured)}")
+        return steps, captured, n_params
+
+    log(f"phase 25: {MOE_ARCH} at every width, {cfg.n_layers} of 24 layers"
+        f" (d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+        f"{cfg.head_dim}, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k} of {cfg.moe.d_ff_expert} + "
+        f"{cfg.moe.n_shared_experts} shared, capacity factor "
+        f"{cfg.moe.capacity_factor}, vocab {cfg.vocab_size}; bf16), CAD on "
+        f"{n_servers} simulated servers, {pipe.global_batch} x "
+        f"{pipe.seq_len} tokens ({pipe.distribution}); step-0 identity loss "
+        f"{loss_identity!r}")
+    cad_expect = {"ca_server_fwd": n_servers * cfg.n_layers * 2,  # + remat
+                  "ca_server_bwd_dq": n_servers * cfg.n_layers,
+                  "ca_server_bwd_dkv": n_servers * cfg.n_layers}
+    steps, captured, n_params = run(None, session("balanced"), cad_expect,
+                                    "CAD")
+    if steps[0]["loss"] != loss_identity:
+        raise SystemExit(f"phase 25: step-0 loss {steps[0]['loss']!r} under "
+                         f"balanced != {loss_identity!r} under identity")
+    if not repeat:
+        raise SystemExit("phase 25: the same CAD step run twice gave other "
+                         "bits")
+    batches = captured_batches(torch, captured)
+    ca_err = check_captured(torch, ops, captured, batches, phase=25)
+    tot, f_bound, b_bound = ca_kernel_times(torch, ops, batches[0],
+                                            captured[0], card, phase=25)
+    del batches, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    co_expect = {"flash_fwd": cfg.n_layers * 2,            # + remat
+                 "flash_bwd_dq": cfg.n_layers,
+                 "flash_bwd_dkv": cfg.n_layers,
+                 "flash_tile_ranges": cfg.n_layers * 3}
+    co_steps, co_captured, _ = run(
+        ParallelContext(attn_impl="pallas", remat=True), None, co_expect,
+        "colocated")
+    co, cad = co_steps[0]["loss"], steps[0]["loss"]
+    gap = abs(co - cad)
+    controls = colocated_controls(torch, ops, cad, setup=_moe_setup)
+    c_diff = {k: abs(v - cad) for k, v in controls.items()}
+    log(f"phase 25: colocated step-0 loss {co!r} vs CAD's {cad!r}: |diff| "
+        f"{gap:.3e} (bitwise equal {co == cad}; controls "
+        + ", ".join(f"'{k}' {v:.3e}" for k, v in c_diff.items())
+        + f" against CO_LOSS_LIMIT {CO_LOSS_LIMIT:.2e})")
+    if co != cad or not all(c_diff[k] > CO_LOSS_LIMIT
+                            for k in CO_REQUIRED_CONTROLS):
+        raise SystemExit("phase 25: the colocated step-0 loss is not bitwise "
+                         "equal to CAD's, or a required control is within "
+                         "the limit")
+    fl_err = check_captured_flash(torch, ops, co_captured, phase=25)
+    del co_captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 25: launches per step: CAD {cad_expect}, colocated "
+        f"{co_expect}; {seconds:.1f} s in all [{card}]")
+
+    def rec(st):
+        return {k: [s[k] for s in st] for k in
+                ("loss", "moe_lb", "moe_z", "step_s", "peak_gib")} | {
+            "tokens_per_s": [tokens / s["step_s"] for s in st]}
+    return dict(params=n_params, ca_launches=steps[0]["counts"],
+                flash_launches=co_steps[0]["counts"], times=tot,
+                bounds=(f_bound, b_bound), ca_captured_max_abs_err=ca_err,
+                flash_captured_max_abs_err=fl_err, cad=rec(steps),
+                colocated=rec(co_steps), step0_repeat_bitwise=repeat,
+                colocated_vs_cad=dict(gap=gap, controls=controls,
+                                      control_diffs=c_diff,
+                                      limit=CO_LOSS_LIMIT),
+                seconds=seconds,
+                shape=f"{pipe.global_batch} x {pipe.seq_len} tokens, "
+                      f"{n_servers} servers, {cfg.n_layers} of 24 layers")
+
+
+# phase 26: (arch, depth, prompt lengths, new tokens, max_seq)
+MOE_SERVE = {"qwen2-moe-a2.7b": (24, (200, 601), 16, 640),
+             # 1 of 48 layers: 18.4 B params, 36.8 GB of bf16 weights (one
+             # layer's 128 experts are 32 GB); two would not leave room
+             "llama4-maverick-400b-a17b": (1, (64, 161), 16, 192)}
+MOE_FWD_LAYERS = 2        # the f32 serve-vs-forward copy's depth
+MOE_FWD_CONTROLS = ("TF32 matmuls",)
+
+
+def _moe_serve_vs_forward(torch, np, cfg):
+    """An f32 copy of ``cfg`` at MOE_FWD_LAYERS layers on the card: the
+    per-token serve logits (no drops) and the TF32 control's against
+    ``Transformer.forward``'s on 2 x SERVE_FWD_TOKENS tokens.  The forward
+    drops nothing only with ``capacity_factor >= E / top_k`` (cap >= the
+    token count): the copy takes twice that, a choice of test data; how
+    many (token, choice) pairs the config's own factor would have dropped
+    is counted on the forward's MoE inputs.  Returns (gap, {control:
+    gap}, dropped at the config's factor)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Transformer
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.serve import Engine, ServeConfig
+    e = cfg.moe
+    cfg = dataclasses.replace(
+        cfg, n_layers=MOE_FWD_LAYERS, param_dtype="float32",
+        compute_dtype="float32",
+        moe=dataclasses.replace(e, capacity_factor=2.0 * e.n_experts
+                                / e.top_k))
+    model = Transformer(cfg, device=DEVICE, seed=0)
+    engine = Engine(model, ServeConfig(max_seq=SERVE_FWD_TOKENS),
+                    batch_size=2, device=DEVICE)
+    rng = np.random.default_rng(126)
+    prompt = rng.integers(1, cfg.vocab_size, (2, SERVE_FWD_TOKENS))
+    _, served = engine.prefill(prompt, return_logits=True)
+    controls = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        controls["TF32 matmuls"] = engine.prefill(prompt,
+                                                  return_logits=True)[1]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    dev = model.device
+    batch = {"tokens": torch.tensor(prompt, dtype=torch.int32, device=dev),
+             "segment_ids": torch.ones(prompt.shape, dtype=torch.int32,
+                                       device=dev),
+             "positions": torch.arange(SERVE_FWD_TOKENS, dtype=torch.int32,
+                                       device=dev).expand(2, -1)
+             .contiguous()}
+    dropped, moe_apply = [], L.moe_apply
+
+    def count(p, h, c, **kw):
+        # the config's own capacity on these inputs
+        n_tok = h.shape[0] * h.shape[1]
+        idx = L._top_k(torch.softmax((h.reshape(n_tok, -1) @ p["router"])
+                                     .float(), -1), e.top_k)[1]
+        cap = max(1, int(n_tok * e.top_k / e.n_experts * e.capacity_factor))
+        n = torch.bincount(idx.reshape(-1), minlength=e.n_experts)
+        dropped.append(int((n - cap).clamp(min=0).sum()))
+        return moe_apply(p, h, c, **kw)
+    L.moe_apply = count
+    try:
+        with torch.no_grad():
+            logits, _ = model(batch, ParallelContext(attn_impl="xla",
+                                                     remat=False))
+    finally:
+        L.moe_apply = moe_apply
+    scale = float(logits.std())
+    gap = float((served - logits).abs().max()) / scale
+    ctrl = {k: float((c - logits).abs().max()) / scale
+            for k, c in controls.items()}
+    del model, engine, served, controls, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gap, ctrl, dropped
+
+
+def serve_moe(torch, np, ops, launch, card, arch):
+    """Phase 26: an MoE arch at every width through ``launch/serve.py``'s
+    engine (``--no-reduced``), bf16 from seed 0, depth as MOE_SERVE says,
+    4 slots, 4 prompts prefilled a token a step (decode-mode chunks, as
+    the reference's engine gates MoE archs), greedy: ragged_decode
+    launches = layers x device calls and no other kernel, the kernel on
+    layer 0's captured decode step against its plain version, rates and
+    one decode step traced, peak memory.  qwen2-moe also: the concurrent
+    run's tokens equal to its SOLO shortest prompts' served alone, and
+    the f32 serve-vs-forward check at MOE_FWD_LAYERS layers."""
+    from repro_torch.configs import get_config
+    depth, plens, new, max_seq = MOE_SERVE[arch]
+    t_phase = time.perf_counter()
+    args = launch.parse_args([
+        "--arch", arch, "--no-reduced", "--device", "cuda", "--slots", "4",
+        "--max-seq", str(max_seq), "--max-new", str(new), "--seed", "0"])
+    full = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = launch.build_engine(args, dataclasses.replace(full,
+                                                           n_layers=depth))
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    log(f"phase 26: built {arch} ({n_params / 1e9:.3f} B params, "
+        f"{cfg.n_layers} of {full.n_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+        f"{cfg.moe.d_ff_expert} + {cfg.moe.n_shared_experts} shared, vocab "
+        f"{cfg.vocab_size}, {engine.model.embed.dtype}; cache 4 x "
+        f"{max_seq}) in {time.perf_counter() - t0:.1f} s; fused prefill "
+        f"{engine.fused_ok}")
+    captured = {}
+
+    def capture(layer, inputs):
+        if layer == 0 and not captured \
+                and int((inputs["q_pos"] >= 0).sum()) == 4 \
+                and int(inputs["q_pos"].min()) >= 60:
+            captured[("decode", layer)] = {
+                k: v.clone() if torch.is_tensor(v) else v
+                for k, v in inputs.items()}
+
+    rng = np.random.default_rng(26)
+    lens = rng.integers(*plens, 4)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)) for n in lens]
+    engine.model.attn_hook = capture
+    try:
+        ops.reset_launches()
+        engine.n_chunk_calls = 0
+        t0 = time.perf_counter()
+        together = engine.serve(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        calls = engine.n_chunk_calls
+    finally:
+        engine.model.attn_hook = None
+    toks = [together.get(i, np.zeros(0, np.int32))
+            for i in range(len(prompts))]
+    if any(len(t) != new or not ((t >= 0) & (t < cfg.vocab_size)).all()
+           for t in toks):
+        raise SystemExit(f"phase 26: {arch} generated {toks}")
+    others = {k: n for k, n in launches.items()
+              if n and k != "ragged_decode"}
+    if launches["ragged_decode"] != cfg.n_layers * calls or calls == 0 \
+            or others:
+        raise SystemExit(f"phase 26: {arch} launches {launches} for "
+                         f"{calls} device calls of {cfg.n_layers} layers")
+    log(f"phase 26: {arch} served {len(prompts)} requests (prompts "
+        f"{sorted(int(n) for n in lens)}, {int(lens.sum())} prompt tokens "
+        f"a token a step, {new} new each) in {wall:.2f} s; {calls} device "
+        f"calls, ragged_decode launches {launches['ragged_decode']} = "
+        f"{cfg.n_layers} x {calls}")
+    same = None
+    if arch == MOE_ARCH:
+        t0 = time.perf_counter()
+        alone = sorted(range(len(prompts)), key=lambda i: lens[i])[:SOLO]
+        solo = {i: engine.serve([prompts[i]], max_new_tokens=new)[0]
+                for i in alone}
+        same = {i: bool(np.array_equal(solo[i], toks[i])) for i in alone}
+        log(f"phase 26: prompts {[int(lens[i]) for i in alone]} each "
+            f"served alone through the 4 slots "
+            f"({time.perf_counter() - t0:.1f} s): tokens equal to the "
+            f"concurrent run's: {same}")
+        if not all(same.values()):
+            raise SystemExit(f"phase 26: concurrent != solo: {toks} vs "
+                             f"{solo}")
+    if sorted(captured) != [("decode", 0)]:
+        raise SystemExit(f"phase 26: captured {sorted(captured)}")
+    err = _check_captured_ragged(torch, ops, captured, 26)
+    del captured
+    n_prefill = (plens[0] + plens[1] - 1) // 2
+    rates = _engine_rates(torch, np, engine, card, 26, n_prefill,
+                          n_prefill - 16)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(params=n_params, layers=cfg.n_layers,
+               launches=launches["ragged_decode"], calls=calls,
+               serve_s=wall, solo_equal=same, captured_max_abs_err=err,
+               peak_gib=peak, **rates)
+    if arch == MOE_ARCH:
+        gap, ctrl, dropped = _moe_serve_vs_forward(torch, np, full)
+        log(f"phase 26: f32 copy at {MOE_FWD_LAYERS} layers: per-token "
+            f"serve logits against Transformer.forward's (capacity factor "
+            f"2 E / top_k, nothing dropped) on 2 x {SERVE_FWD_TOKENS} "
+            f"tokens: max |diff| / std {gap:.3e} (bound "
+            f"{SERVE_FWD_REL_BOUND}); controls "
+            + ", ".join(f"'{k}' {v:.3e}" for k, v in ctrl.items())
+            + f"; at the config's factor {full.moe.capacity_factor} the "
+            f"forward's layers would have dropped {dropped} (token, choice) "
+            f"pairs of {2 * SERVE_FWD_TOKENS * full.moe.top_k}")
+        if not gap <= SERVE_FWD_REL_BOUND < min(ctrl[k]
+                                                for k in MOE_FWD_CONTROLS):
+            raise SystemExit(f"phase 26: serve vs forward gap {gap} / "
+                             f"controls {ctrl} against "
+                             f"{SERVE_FWD_REL_BOUND}")
+        out["serve_vs_forward"] = dict(gap=gap, controls=ctrl,
+                                       bound=SERVE_FWD_REL_BOUND,
+                                       layers=MOE_FWD_LAYERS,
+                                       dropped_at_default_factor=dropped)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 26: {arch}: peak memory {peak:.2f} GiB; "
+        f"{out['seconds']:.1f} s in all [{card}]")
+    return out
+
+
+def moe_phases(torch, np, ops, launch, card):
+    """Phases 25 and 26, then the ragged kernel timed at the two MoE
+    archs' decode shapes (phase 4's way)."""
+    train = train_moe(torch, ops, card)
+    serving = {arch: serve_moe(torch, np, ops, launch, card, arch)
+               for arch in MOE_SERVE}
+    times = {arch: kernel_times(torch, ops, card, arch, phase=26)["decode"]
+             for arch in MOE_SERVE}
+    return train, serving, times
+
+
 # ---------------------------------------------------------------- main
 def _kernel_symbol(mangled: str) -> str:
     """``name<args>`` of a mangled kernel symbol: the first
@@ -5103,8 +5591,6 @@ RANKS_GLOO = 4
 # what ProcessGroupGloo::alltoall_base raises for a device it has no
 # all_to_all for: the one error that drops (b)
 GLOO_REFUSAL = "ProcessGroupGloo::alltoall_base: unsupported device type"
-# a traced window's opening spin (GPU cycles, ~1 ms at 1.98 GHz)
-TRACE_LEAD_IN_CYCLES = 2_000_000
 FABRIC_PROMPTS = (256, 512, 768, 1024, 1280, 1536, 1792, 2048)
 FABRIC_NEW = 16
 FABRIC_SLOTS = 8
@@ -5594,6 +6080,51 @@ def ranks_phase(torch, np, ops, layer0, card, free_digest):
     return out
 
 
+def _record_moe(kernel, ca_fwd, ca_bwd, fl_fwd, fl_bwd, moe):
+    """Phases 25-26's numbers into the kernels' JSON entries."""
+    train, serving, times = moe
+    t, (f_bound, b_bound) = train["times"], train["bounds"]
+    shape = ("qwen2-moe-a2.7b layer 0 of step 0 (16 q over 16 kv heads of "
+             "128: rep 1), 4 server batches summed; " + train["shape"])
+    ca_fwd["qwen2_moe"] = dict(
+        launches=train["ca_launches"]["ca_server_fwd"], ms=t["fwd"],
+        ms_repeat=t["fwd_repeat"], plain_ms=t["plain_fwd"],
+        bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=t["sdpa_fwd"],
+        library_call="sdpa fwd, efficient attention, boolean mask",
+        flash_yardstick_ms=t["flash_fwd"], shape=shape,
+        captured_max_abs_err=train["ca_captured_max_abs_err"],
+        train=dict(train["cad"], params=train["params"],
+                   step0_repeat_bitwise=train["step0_repeat_bitwise"],
+                   seconds=train["seconds"]))
+    ca_bwd["qwen2_moe"] = dict(
+        launches=train["ca_launches"]["ca_server_bwd_dq"],
+        launches_dkv=train["ca_launches"]["ca_server_bwd_dkv"],
+        ms=t["bwd"], plain_ms=t["plain_bwd"], bound_ms=b_bound[0],
+        bound_by=b_bound[1], library_ms=t["sdpa_fwd_bwd"],
+        library_call="sdpa fwd+bwd, efficient attention, boolean mask",
+        flash_yardstick_ms=t["flash_bwd"], shape=shape)
+    fl_fwd["qwen2_moe"] = dict(
+        launches=train["flash_launches"]["flash_fwd"],
+        ms_on_ca_layer=t["flash_fwd"],
+        captured_max_abs_err=train["flash_captured_max_abs_err"],
+        train=dict(train["colocated"], vs_cad=train["colocated_vs_cad"]),
+        shape=f"qwen2-moe-a2.7b layer 0, q/k/v [4, {MOE_SEQ}, 16, 128] "
+              f"bf16")
+    fl_bwd["qwen2_moe"] = dict(
+        launches=train["flash_launches"]["flash_bwd_dq"],
+        launches_dkv=train["flash_launches"]["flash_bwd_dkv"],
+        ms_on_ca_layer=t["flash_bwd"])
+    names = {MOE_ARCH: ("qwen2_moe", "16 q over 16 kv heads of 128 (rep 1)"),
+             "llama4-maverick-400b-a17b": (
+                 "llama4_maverick", "40 q over 8 kv heads of 128 (rep 5)")}
+    for arch, (key, heads) in names.items():
+        kernel[key] = dict(
+            launches=serving[arch]["launches"],
+            decode=dict({k: times[arch][k] for k in TIMED_KEYS},
+                        shape=f"{arch} decode: 4 rows, {heads}, kv 2000"),
+            serving=serving[arch])
+
+
 def build_kernels(build, ops, ssd, rg):
     """Phase 1: build every kernel source, one nvcc each, all at once."""
     loaders = {"ragged_decode": ops.load_library,
@@ -5643,9 +6174,11 @@ def build_kernels(build, ops, ssd, rg):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--only", choices=("kernels", "ranks"), default=None,
+    p.add_argument("--only", choices=("kernels", "ranks", "moe"),
+                   default=None,
                    help="'kernels': stop after the kernel checks (phases "
-                        "1-2); 'ranks': phases 1, 5 and 24 alone")
+                        "1-2); 'ranks': phases 1, 5 and 24 alone; 'moe': "
+                        "phases 1, 25 and 26")
     return p.parse_args(argv)
 
 
@@ -5762,6 +6295,9 @@ def main(argv=None) -> int:
         _steps, captured, _ = train_full_width(torch, ops, card)
         ca_fwd["ranks_phase24"] = ranks_phase(torch, np, ops, captured[0],
                                               card, None)
+    elif args.only == "moe":
+        _record_moe(kernel, ca_fwd, ca_bwd, fl_fwd, fl_bwd,
+                    moe_phases(torch, np, ops, launch, card))
     elif args.only != "kernels":
         engine, launches, captured_err = serve_full_width(torch, np, ops,
                                                           launch)
@@ -6113,6 +6649,9 @@ def main(argv=None) -> int:
         ca_bwd["llama3_34b"] = dict(
             launches=big["launches"]["ca_server_bwd_dq"],
             launches_dkv=big["launches"]["ca_server_bwd_dkv"])
+        # phases 25-26: the MoE archs
+        _record_moe(kernel, ca_fwd, ca_bwd, fl_fwd, fl_bwd,
+                    moe_phases(torch, np, ops, launch, card))
         # last: the only phase that joins a process group and spawns
         ca_fwd["ranks_phase24"] = ranks_phase(
             torch, np, ops, layer0, card, elastic["free_digest"])

@@ -3,11 +3,13 @@
 from .base import (EncoderConfig, ModelConfig, MoEConfig, RGLRUConfig,
                    SSMConfig, get_config, list_archs, register)
 
-# the architectures the port serves: the dense stacks and the recurrent
-# hybrids (mamba2's SSD, recurrentgemma's RG-LRU with local attention)
+# the architectures the port serves: the dense stacks, the recurrent
+# hybrids (mamba2's SSD, recurrentgemma's RG-LRU with local attention) and
+# the MoE stacks (routed experts with shared ones)
 SERVE_ARCHS = ("llama3-8b", "llama3-34b", "smollm-360m", "gemma2-2b",
                "mistral-large-123b", "nemotron-4-340b", "mamba2-370m",
-               "recurrentgemma-9b")
+               "recurrentgemma-9b", "qwen2-moe-a2.7b",
+               "llama4-maverick-400b-a17b")
 # the paper's own models (Table 2)
 PAPER_ARCHS = ("llama3-8b", "llama3-34b")
 

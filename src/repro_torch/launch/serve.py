@@ -36,7 +36,8 @@ cannot be turned off).
 Run: PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
          --no-reduced --port 8080
 (``--arch`` takes every arch of ``configs.SERVE_ARCHS``: the dense ones,
-mamba2-370m and recurrentgemma-9b.)
+mamba2-370m and recurrentgemma-9b, and the MoE archs qwen2-moe-a2.7b and
+llama4-maverick-400b-a17b, which prefill a token a step.)
 Try: curl -d '{"prompt": [3, 14, 15, 92]}' localhost:8080/generate
 """
 from __future__ import annotations

@@ -34,9 +34,12 @@ einsum route in torch ops.  recurrentgemma trains as the reference's
 launcher trains it: its rglru layers run the plain recurrence in torch
 ops with or without --cad (the ``lru_scan`` kernels are the ``pallas``
 route, which the launcher does not pick), and with --cad its local
-layers, all windowed, take the dispatch's blockwise fallback.  The
-reference's --kernel is not carried over: CUDA tensors run the
-hand-written kernels.
+layers, all windowed, take the dispatch's blockwise fallback.  The MoE
+archs (qwen2-moe-a2.7b, llama4-maverick-400b-a17b, and their -reduced
+widths) train with their auxiliary losses in the loss, logged beside it;
+under ``torchrun`` each rank routes its own tokens, and an arch with
+expert parallelism (maverick) raises there.  The reference's --kernel is
+not carried over: CUDA tensors run the hand-written kernels.
 
 Across processes, one rank per attention server::
 

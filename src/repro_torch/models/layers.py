@@ -1,5 +1,6 @@
 """Layer implementations: init, norms, RoPE, GQA projections,
-self-attention over packed documents, the MLP, the Mamba-2 SSD block
+self-attention over packed documents, the MLP, the capacity-routed MoE
+with shared experts, the Mamba-2 SSD block
 (chunked scan, packed-document aware) and the RecurrentGemma RG-LRU block
 (linear recurrence with document resets), and their one-token decode
 steps (``_causal_conv`` with its state, ``ssd_decode``,
@@ -18,10 +19,12 @@ from __future__ import annotations
 from typing import Mapping, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.attention import core_attention
+from repro_torch.core.dispatch import _GatherRows
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 
@@ -152,6 +155,137 @@ def ffn_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor,
     else:
         inner = act(h @ p["w_up"])
     return inner @ p["w_down"]
+
+
+# --------------------------------------------------------------------- moe
+def moe_init(gen: torch.Generator, cfg, device=None) -> nn.ParameterDict:
+    """Routed experts stacked on a leading [E] axis, the router, and the
+    shared experts as one gated MLP of width ``d_ff_expert x
+    n_shared_experts`` (the reference's names and layouts)."""
+    e = cfg.moe
+    d, f = cfg.d_model, e.d_ff_expert
+    dt = cfg.pdtype
+    p = dict(router=dense_init(gen, d, (d, e.n_experts), dt, device),
+             experts_gate=dense_init(gen, d, (e.n_experts, d, f), dt,
+                                     device),
+             experts_up=dense_init(gen, d, (e.n_experts, d, f), dt, device),
+             experts_down=dense_init(gen, f, (e.n_experts, f, d), dt,
+                                     device))
+    if e.n_shared_experts:
+        fs = f * e.n_shared_experts
+        p.update(w_gate=dense_init(gen, d, (d, fs), dt, device),
+                 w_up=dense_init(gen, d, (d, fs), dt, device),
+                 w_down=dense_init(gen, fs, (fs, d), dt, device))
+    return _params(**p)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest, in descending
+    order, the lower index first among equal values (a stable sort;
+    ``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, cfg,
+              no_drop: bool = False, group=None):
+    """Capacity-based MoE (reference ``models/layers.py:228-331``): each
+    token picks its top-k experts, each expert takes at most ``cap``
+    tokens, in token order (a stable sort of the flat expert ids; the
+    rest are dropped), and the shared experts are added after the routed
+    ones.  ``cap = max(1, int(n_tok * top_k / E * capacity_factor))``, or
+    ``n_tok`` under ``no_drop`` (serving: routing is then row-independent).
+
+    Dispatch and combine are gathers: each expert slot gathers its
+    token's row (``_GatherRows``: its backward sums a token's slots in a
+    fixed order), and each token gathers its k slot outputs, a dropped
+    choice reading zero, summed over k in order.  Nothing is added with
+    atomics, so a step repeats bit for bit on the card.
+
+    Under a CAD process group (``group``) each rank routes its own tokens
+    with the capacity of its own count, as the reference routes each data
+    shard's tokens; the auxiliary losses are this rank's shares of the
+    global values (every rank holds the same number of tokens): the top-1
+    counts are summed across the group inside this call, and summed over
+    the ranks the shares are the reference's means over all tokens.
+
+    h [B, S, D].  Returns (out [B, S, D], {"moe_lb", "moe_z"} f32)."""
+    e = cfg.moe
+    b, s, d = h.shape
+    act = activation_fn(cfg.activation)
+    n_tok, k, n_e = b * s, e.top_k, e.n_experts
+    world = 1
+    if group is not None:
+        if e.expert_parallel:
+            raise NotImplementedError(
+                f"{cfg.arch_id}: expert parallelism under a CAD process "
+                f"group (experts sharded over the ranks, routed globally) "
+                f"comes with the sharding rules, ROADMAP queue 1 item 12")
+        world = dist.get_world_size(group)
+    x = h.reshape(n_tok, d)
+    dev = x.device
+
+    logits = (x @ p["router"]).float()                        # [T, E]
+    probs = torch.softmax(logits, -1)
+    gate_vals, idx = _top_k(probs, k)                         # [T, k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    cap = n_tok if no_drop else max(
+        1, int(n_tok * k / n_e * e.capacity_factor))
+    tk = n_tok * k
+    flat_e = idx.reshape(tk)
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    grp_start = torch.searchsorted(sorted_e, torch.arange(n_e, device=dev))
+    rank_sorted = torch.arange(tk, device=dev) - grp_start[sorted_e]
+    pos = torch.empty_like(flat_e).scatter_(0, order, rank_sorted)
+    in_cap = pos < cap
+    n_slots = n_e * cap
+    # a dropped choice points past the last slot (the reference's spare
+    # slot): its token id lands there and is cut off
+    slot = torch.where(in_cap, flat_e * cap + pos, n_slots)   # [Tk]
+    token_id = torch.arange(n_tok, device=dev).repeat_interleave(k)
+    token_of_slot = torch.full((n_slots + 1,), -1, dtype=torch.long,
+                               device=dev)
+    token_of_slot[slot] = token_id
+    token_of_slot = token_of_slot[:-1]
+    live = (token_of_slot >= 0).to(h.dtype)[:, None]
+
+    xs = _GatherRows.apply(x, token_of_slot.clamp(min=0)) * live
+    xs = xs.reshape(n_e, cap, d)
+    inner = act(torch.bmm(xs, p["experts_gate"])) \
+        * torch.bmm(xs, p["experts_up"])
+    ys = torch.bmm(inner, p["experts_down"]).reshape(n_slots, d)
+    # combine: token t's k choices, each its slot's output times its gate
+    # (in h's dtype), summed in the order of the choices
+    w = torch.where(in_cap, gate_vals.reshape(tk).to(h.dtype), 0)
+    picked = _GatherRows.apply(ys, slot.clamp(max=n_slots - 1)) \
+        * w[:, None]
+    picked = picked.reshape(n_tok, k, d)
+    out = picked[:, 0]
+    for j in range(1, k):
+        out = out + picked[:, j]
+
+    if e.n_shared_experts and "w_gate" in p:
+        out = out + ((act(x @ p["w_gate"]) * (x @ p["w_up"]))
+                     @ p["w_down"])
+
+    # aux losses: Switch-style load balance and the router z-loss
+    lse2 = torch.logsumexp(logits, -1) ** 2
+    top1 = F.one_hot(idx[:, 0], n_e)
+    if group is None:
+        me = probs.mean(0)
+        ce = top1.float().mean(0)
+        lb = n_e * torch.sum(me * ce) * e.load_balance_loss
+        z = lse2.mean() * e.router_z_loss
+    else:
+        counts = top1.sum(0)
+        dist.all_reduce(counts, group=group)
+        n_glob = n_tok * world
+        ce = counts.float() / n_glob
+        lb = n_e * torch.sum(probs.sum(0) / n_glob * ce) \
+            * e.load_balance_loss
+        z = lse2.sum() / n_glob * e.router_z_loss
+    return out.reshape(b, s, d).to(h.dtype), {"moe_lb": lb, "moe_z": z}
 
 
 # -------------------------------------------------------------- mamba2 SSD

@@ -8,18 +8,22 @@ Python loop.  Layer ``l`` is pattern slot ``l % period`` of group
 ``l // period``.
 
 What trains: patterns of ``global``, ``local``, ``ssd`` and ``rglru``
-layers (dense MLPs, optional post-norms, softcaps, tied embeddings; the
-Mamba-2 SSD block; the RecurrentGemma RG-LRU block), under every
-``attn_impl`` (with ``cad``, ``local`` layers take the dispatch's
-windowed fallback, ``xla_flash_attention``; ``ssd`` layers run their
-intra-chunk step and ``rglru`` layers their recurrence in the CUDA
-kernels under ``pallas`` and in torch ops otherwise).  What serves: the
-same patterns, from the ragged serving cache; ``ssd`` and ``rglru``
-layers keep their conv window and recurrent state in it and run
-decode-mode steps only (one token a request, ``ssd_decode`` /
-``rglru_decode``).  MoE layers, cross-attention, the encoder and the
-legacy ``layout="decode"`` cache raise ``NotImplementedError`` naming
-what brings them.
+layers (dense MLPs or routed experts with shared ones, optional
+post-norms, softcaps, tied embeddings; the Mamba-2 SSD block; the
+RecurrentGemma RG-LRU block), under every ``attn_impl`` (with ``cad``,
+``local`` layers take the dispatch's windowed fallback,
+``xla_flash_attention``; ``ssd`` layers run their intra-chunk step and
+``rglru`` layers their recurrence in the CUDA kernels under ``pallas``
+and in torch ops otherwise).  An MoE layer routes with capacity drops in
+training and without (``no_drop``) in serving, and ``forward`` returns
+its auxiliary losses summed over the layers.  What serves: the same
+patterns, from the ragged serving cache; ``ssd`` and ``rglru`` layers
+keep their conv window and recurrent state in it and run decode-mode
+steps only (one token a request, ``ssd_decode`` / ``rglru_decode``), and
+MoE archs prefill a token a request per step too (the reference's engine
+gates them so).  Cross-attention, the encoder and the legacy
+``layout="decode"`` cache raise ``NotImplementedError`` naming what
+brings them.
 """
 from __future__ import annotations
 
@@ -59,9 +63,6 @@ def check_arch(cfg) -> None:
             raise NotImplementedError(
                 f"{cfg.arch_id}: {kind!r} layers come with "
                 f"{_LATER.get(kind, 'a later slice')}")
-    if cfg.moe and cfg.moe.n_experts:
-        raise NotImplementedError(f"{cfg.arch_id}: MoE layers come with the "
-                                  f"MoE slice (qwen2-moe, llama4-maverick)")
     if cfg.encoder and cfg.encoder.n_layers:
         raise NotImplementedError(f"{cfg.arch_id}: the encoder comes with the "
                                   f"cross-attention slice")
@@ -71,15 +72,17 @@ def check_arch(cfg) -> None:
 
 def fused_prefill_ok(cfg) -> bool:
     """Whether prompts may be prefilled in fused chunks (blk_q 128): only
-    attention-only patterns.  Recurrent mixers are sequential, so their
-    archs prefill a token a request per step (decode-mode chunks)."""
+    attention-only patterns without MoE.  Recurrent mixers are sequential
+    and MoE routing batch-global, so those archs prefill a token a request
+    per step (decode-mode chunks)."""
     return all(kind in _ATTN_KINDS for kind in cfg.layer_pattern) \
         and not (cfg.moe and cfg.moe.n_experts)
 
 
 class Block(nn.Module):
     """One attention layer: norm1 -> attn -> [pnorm1] -> residual ->
-    norm2 -> ffn -> [pnorm2] -> residual."""
+    norm2 -> ffn (or moe, with ``cfg.moe.n_experts``) -> [pnorm2] ->
+    residual."""
 
     def __init__(self, cfg, kind: str, gen: torch.Generator, device):
         super().__init__()
@@ -88,7 +91,10 @@ class Block(nn.Module):
         self.norm1 = L.norm_init(cfg.d_model, dt, cfg.norm, device)
         self.attn = L.attn_init(gen, cfg, device)
         self.norm2 = L.norm_init(cfg.d_model, dt, cfg.norm, device)
-        self.ffn = L.ffn_init(gen, cfg, device)
+        if cfg.moe and cfg.moe.n_experts:
+            self.moe = L.moe_init(gen, cfg, device)
+        else:
+            self.ffn = L.ffn_init(gen, cfg, device)
         if cfg.post_norms:
             self.pnorm1 = L.norm_init(cfg.d_model, dt, cfg.norm, device)
             self.pnorm2 = L.norm_init(cfg.d_model, dt, cfg.norm, device)
@@ -186,9 +192,10 @@ class Transformer(nn.Module):
     def _block_train(self, li: int, blk: nn.Module, h, batch, ctx):
         """``block_apply`` (reference ``models/model.py:88-130``): for an
         attention layer norm1 -> self-attention -> [pnorm1] -> residual ->
-        norm2 -> FFN -> [pnorm2] -> residual; for an ssd layer norm1 ->
-        SSD mixer -> residual; for an rglru layer norm1 -> RG-LRU mixer ->
-        residual -> norm2 -> FFN -> residual."""
+        norm2 -> FFN or MoE -> [pnorm2] -> residual; for an ssd layer
+        norm1 -> SSD mixer -> residual; for an rglru layer norm1 -> RG-LRU
+        mixer -> residual -> norm2 -> FFN -> residual.  Returns (h, the
+        MoE layer's aux losses or None)."""
         cfg = self.cfg
         hook = None
         if self.attn_hook is not None:
@@ -196,18 +203,20 @@ class Transformer(nn.Module):
         if blk.kind == "ssd":
             return h + L.ssd_apply(blk.mixer,
                                    L.norm_apply(blk.norm1, h, cfg.norm),
-                                   batch, cfg, ctx, hook=hook)
+                                   batch, cfg, ctx, hook=hook), None
         if blk.kind == "rglru":
             h = h + L.rglru_apply(blk.mixer,
                                   L.norm_apply(blk.norm1, h, cfg.norm),
                                   batch, cfg, ctx, hook=hook)
             return h + L.ffn_apply(blk.ffn,
-                                   L.norm_apply(blk.norm2, h, cfg.norm), cfg)
+                                   L.norm_apply(blk.norm2, h, cfg.norm),
+                                   cfg), None
         window = cfg.window if blk.kind == "local" else 0
         a = L.self_attn_apply(blk.attn, L.norm_apply(blk.norm1, h, cfg.norm),
                               batch, cfg, ctx, causal=True, window=window,
                               hook=hook)
-        return self._attn_residual_tail(blk, h, a)
+        return self._attn_residual_tail(blk, h, a,
+                                        group=getattr(ctx, "group", None))
 
     def forward(self, batch: Dict[str, torch.Tensor], ctx) \
             -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -216,22 +225,31 @@ class Transformer(nn.Module):
         (and, with ``ctx.attn_impl == "cad"``, the step's plan is bound in
         ``ctx.cad``).  With ``ctx.remat`` each layer's forward is re-run
         in the backward (``torch.utils.checkpoint``, non-reentrant)
-        instead of keeping its activations.  Returns (logits [B,S,V] f32,
-        aux-losses: empty without MoE layers)."""
+        instead of keeping its activations (an MoE layer's all-reduce of
+        its top-1 counts under a group runs again there, in the same order
+        on every rank).  Returns (logits [B,S,V] f32, aux-losses: with MoE
+        layers ``moe_lb`` and ``moe_z``, f32 scalars summed over the
+        layers in order, else empty)."""
         cfg = self.cfg
         h = self._embed(batch["tokens"])
         if not cfg.use_rope and cfg.has_attention():
             h = h + L.sinusoidal_pos(batch["positions"], cfg.d_model,
                                      cfg.cdtype)
+        aux: Dict[str, torch.Tensor] = {}
+        if cfg.moe and cfg.moe.n_experts:
+            aux = {k: torch.zeros((), dtype=torch.float32, device=h.device)
+                   for k in ("moe_lb", "moe_z")}
         for li, blk in enumerate(self.layers):
             if ctx.remat and torch.is_grad_enabled():
-                h = torch.utils.checkpoint.checkpoint(
+                h, losses = torch.utils.checkpoint.checkpoint(
                     self._block_train, li, blk, h, batch, ctx,
                     use_reentrant=False)
             else:
-                h = self._block_train(li, blk, h, batch, ctx)
+                h, losses = self._block_train(li, blk, h, batch, ctx)
+            if losses:
+                aux = {k: aux[k] + v for k, v in losses.items()}
         h = L.norm_apply(self.final_norm, h, cfg.norm)
-        return self._unembed(h), {}
+        return self._unembed(h), aux
 
     # -------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_seq: int,
@@ -322,17 +340,26 @@ class Transformer(nn.Module):
         out = pf_ops.ragged_decode_attention(**args)
         return out.reshape(1, t, cfg.n_heads * cfg.head_dim) @ p["wo"]
 
-    def _attn_residual_tail(self, blk: Block, h, a):
-        """Post-attention wiring: post-norm, residual, norm2 -> FFN,
-        post-norm, residual."""
+    def _attn_residual_tail(self, blk: Block, h, a, group=None,
+                            no_drop=False):
+        """Post-attention wiring: post-norm, residual, norm2 -> FFN or MoE
+        (``no_drop`` in serving; ``group``, the CAD process group, in
+        training), post-norm, residual.  Returns (h, the MoE layer's aux
+        losses or None)."""
         cfg = self.cfg
         if cfg.post_norms:
             a = L.norm_apply(blk.pnorm1, a, cfg.norm)
         h = h + a
-        f = L.ffn_apply(blk.ffn, L.norm_apply(blk.norm2, h, cfg.norm), cfg)
+        f_in = L.norm_apply(blk.norm2, h, cfg.norm)
+        losses = None
+        if hasattr(blk, "moe"):
+            f, losses = L.moe_apply(blk.moe, f_in, cfg, no_drop=no_drop,
+                                    group=group)
+        else:
+            f = L.ffn_apply(blk.ffn, f_in, cfg)
         if cfg.post_norms:
             f = L.norm_apply(blk.pnorm2, f, cfg.norm)
-        return h + f
+        return h + f, losses
 
     def _block_serve(self, li: int, blk: nn.Module, h, cache_slot, pos,
                      writes, block_req, kv_len_next):
@@ -341,7 +368,7 @@ class Transformer(nn.Module):
         a_in = L.norm_apply(blk.norm1, h, self.cfg.norm)
         a = self._serve_attn(li, blk.attn, a_in, cache_slot, pos, writes,
                              block_req, kv_len_next, blk.kind)
-        return self._attn_residual_tail(blk, h, a)
+        return self._attn_residual_tail(blk, h, a, no_drop=True)[0]
 
     def _recurrent_serve(self, blk: nn.Module, h, cache_slot, pos):
         """A recurrent layer in a decode-mode step (reference
@@ -390,8 +417,9 @@ class Transformer(nn.Module):
         step's cache writes.
 
         Recurrent (ssd / rglru) layers take decode-mode steps only (blk_q
-        1, row i = request slot i, T = the cache's batch); a prefill
-        chunk on a recurrent pattern raises.
+        1, row i = request slot i, T = the cache's batch), and MoE archs
+        decode-mode steps of any T (routing is row-independent without
+        drops); a prefill chunk on either raises.
 
         Returns logits [T, V] f32.  The cache is updated in place (k/v
         written, recurrent states advanced for live rows, ``kv_len`` set
@@ -405,9 +433,12 @@ class Transformer(nn.Module):
             if t != nq:
                 raise ValueError(
                     f"{cfg.arch_id}: fused chunked prefill needs an "
-                    f"attention-only pattern, got {cfg.layer_pattern}; "
-                    f"recurrent layers take decode-mode steps (blk_q 1)")
-            if t != cache["kv_len"].shape[0]:
+                    f"attention-only pattern without MoE, got "
+                    f"{cfg.layer_pattern} moe="
+                    f"{bool(cfg.moe and cfg.moe.n_experts)}; recurrent and "
+                    f"MoE layers take decode-mode steps (blk_q 1)")
+            if any(kind in _RECURRENT for kind in cfg.layer_pattern) \
+                    and t != cache["kv_len"].shape[0]:
                 raise ValueError(
                     f"{cfg.arch_id}: a decode-mode step of a recurrent "
                     f"pattern has one row a cache slot ({t} rows, "

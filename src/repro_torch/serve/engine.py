@@ -15,9 +15,10 @@ token budget, while the device sees two shapes, the prefill chunk and the
 decode batch.
 
 Recurrent archs (mamba2's ``ssd``, recurrentgemma's ``rglru`` with its
-local attention layers) use the same cache layout but prefill a token a
-request per step (decode-mode chunks): their mixers are sequential, so
-``fused_ok`` is false for them and ``prefill(mode="fused")`` raises.
+local attention layers) and MoE archs use the same cache layout but
+prefill a token a request per step (decode-mode chunks): their mixers
+are sequential or their routing batch-global, so ``fused_ok`` is false
+for them and ``prefill(mode="fused")`` raises.
 
 The reference's ``decode_impl`` switch does not carry over: on the card
 attention always runs the kernel, on the CPU its plain version.

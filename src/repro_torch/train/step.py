@@ -11,8 +11,10 @@ the global batch: its loss is its own ``nll_sum`` over the global batch's
 loss-token count (``batch["n_tokens_global"]``, known on every rank, no
 collective), the gradients are summed across the ranks in flat buckets
 (``allreduce_grads``) before the update, so every rank applies the same
-update, and AdamW's clipping sees the global norm.  Auxiliary losses
-(MoE's, ROADMAP queue 1 item 12) raise under a group."""
+update, and AdamW's clipping sees the global norm.  MoE's auxiliary
+losses come out of the forward as this rank's shares of the global
+values (``models.layers.moe_apply``), so the same all-reduce gives their
+gradients; the metrics report them all-reduced."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -97,11 +99,6 @@ def make_train_step(model, ctx, optimizer, decay):
     def train_step(opt_state, batch):
         b = batch_to_device(batch, model.device)
         logits, aux = model(b, _bind(ctx, b))
-        if group is not None and aux:
-            raise NotImplementedError(
-                "auxiliary losses under a CAD process group (the gradient "
-                "all-reduce would sum each rank's in full): they come with "
-                "MoE, ROADMAP queue 1 item 12")
         loss, stats = lm_loss(logits, b["labels"], b["segment_ids"])
         del logits
         if group is not None:
@@ -117,9 +114,15 @@ def make_train_step(model, ctx, optimizer, decay):
         if group is not None:
             import torch.distributed as dist
             allreduce_grads(grads, group)
+            # the global loss and aux losses: each rank holds its share
             loss = loss.detach().clone()
-            dist.all_reduce(loss, group=group)       # the global loss
+            dist.all_reduce(loss, group=group)
+            aux = {k: v.detach().clone() for k, v in aux.items()}
+            for v in aux.values():
+                dist.all_reduce(v, group=group)
             total = loss
+            for v in aux.values():
+                total = total + v
             stats = dict(stats, n_tokens=torch.tensor(
                 batch["n_tokens_global"]))
         opt_state, gnorm = optimizer.update(grads, opt_state, params,

@@ -201,8 +201,10 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
                     or step == train_cfg.steps - 1:
                 history.append(m)
                 if rank == 0:
+                    aux = "".join(f" {k} {m[k]:.4e}" for k in
+                                  ("moe_lb", "moe_z") if k in m)
                     print(f"step {step:5d} loss {m['loss']:.4f} "
-                          f"gnorm {m['grad_norm']:.3f} "
+                          f"gnorm {m['grad_norm']:.3f}{aux} "
                           f"({m['wall_s']:.1f}s)", flush=True)
             if train_cfg.ckpt_every and step and \
                     step % train_cfg.ckpt_every == 0:

@@ -133,15 +133,21 @@ def _tiny(**over):
 ])
 def test_outside_the_slice_raises(over, match):
     """Serving raises for every arch outside the port.  mamba2 and
-    recurrentgemma serve from the ragged cache (their legacy dense decode
-    cache still raises); qk_norm, cross-attention and MoE layers raise
-    when the serving arch is checked and when a model is built."""
+    recurrentgemma serve from the ragged cache, and so do MoE archs since
+    the MoE slice (the "MoE" case: the config builds with its ``moe``
+    weights); of them only the legacy dense decode cache raises.  qk_norm
+    and cross-attention layers raise when the serving arch is checked and
+    when a model is built."""
     cfg = _tiny(**over)
-    if {"ssd", "rglru"} & set(cfg.layer_pattern):
+    if {"ssd", "rglru"} & set(cfg.layer_pattern) or cfg.moe:
         check_arch(cfg)
         model = Transformer(cfg, device="cpu")
-        assert "conv" in model.init_cache(2, 64)["slots"][0]
-        with pytest.raises(NotImplementedError, match=match):
+        slot = model.init_cache(2, 64)["slots"][0]
+        if cfg.moe:
+            assert hasattr(model.layers[0], "moe") and "k" in slot
+        else:
+            assert "conv" in slot
+        with pytest.raises(NotImplementedError, match="layout='decode'"):
             model.init_cache(2, 64, layout="decode")
     else:
         with pytest.raises(NotImplementedError, match=match):

@@ -19,9 +19,15 @@ its ``_global_sim``-path ``cad_attention`` and ``jax.vjp`` of it.  Two
 training steps of smollm-360m-reduced at 4 ranks: losses within 1e-5
 relative of the single-process trainer at ``n_ranks=4`` (each rank sums
 its own rows' loss and gradients, then the ranks sum theirs: another
-order), parameters bitwise equal across the ranks after each step.  A
+order), parameters bitwise equal across the ranks after each step.  Two
+ping-pong steps of qwen2-moe-reduced at 4 ranks: the lm loss, the
+global MoE aux losses and the parameters within 1e-5 relative of the
+single-process trainer's; at capacity factor 1.0 each rank's
+``moe_apply`` is the reference's on its own tokens, and the ranks' aux
+shares sum to the reference's global losses.  A
 rank fed other segment ids makes the plan-agreement check raise, and
-what stays single-process raises under a group.  The ping-pong call's
+what stays single-process raises under a group (and so does expert
+parallelism).  The ping-pong call's
 issue order is recorded on every rank: both nano-batches' ten sends go
 out asynchronously before nano-batch 0 is waited on and served."""
 import importlib.util
@@ -62,6 +68,12 @@ OUT_TOL = dict(atol=2e-5, rtol=0)
 GRAD_REL = 1e-5            # x max |grad|
 LOSS_RTOL = 1e-5
 TRAIN = dict(arch="smollm-360m-reduced", steps=2, seq=256, batch=4)
+# MoE under the group: 2 rows a rank for ping-pong's two nano-batches; the
+# reduced capacity factor (8) drops nothing, so each rank's local routing
+# is the single process's global one
+MOE = dict(arch="qwen2-moe-a2.7b-reduced", steps=2, seq=256, batch=8)
+MOE_KEYS = ("loss", "moe_lb", "moe_z", "total_loss")
+MOE_RTOL = 1e-5
 
 WORKER = r'''
 import hashlib, json, os, sys
@@ -163,7 +175,7 @@ def worker(rank, tmp):
         return StepPlan.from_dict({k[len(prefix):]: inp[k] for k in inp
                                    if k.startswith(prefix)}).to("cpu")
 
-    res, meta = {}, {"rank": rank, "device": str(info.device)}
+    res, meta = {}, {"rank": rank, "device": str(info.device), "tmp": tmp}
     cfg = CADConfig(**spec["geo"])
     res.update(_attention(rank, inp, "a_", cfg, plan_of("plan_"), group,
                           False))
@@ -189,7 +201,47 @@ def worker(rank, tmp):
     meta["n_tokens"] = [h["n_tokens"] for h in out["history"]]
     meta["param_digests"] = digests
 
-    # (e) the plan-agreement control: rank 3 reads other segment ids (its
+    # (e) MoE: two CAD steps of qwen2-moe-reduced under ping-pong (its
+    # aux losses' all-reduce runs inside each layer, again in the
+    # recompute); rank 0 keeps the trained parameters
+    import dataclasses
+    from repro_torch.models.layers import moe_apply
+    m = spec["moe"]
+    moe_cfg = get_config(m["arch"])
+    moe_pipe = PipelineConfig(distribution="prolong", max_doc_len=m["seq"],
+                              seq_len=m["seq"], global_batch=m["batch"],
+                              n_ranks=4, vocab_size=moe_cfg.vocab_size,
+                              seed=0)
+    moe_model = Transformer(moe_cfg, device="cpu", seed=0)
+    out = train(moe_cfg, moe_pipe, TrainConfig(steps=m["steps"],
+                                               peak_lr=1e-3, warmup=1,
+                                               log_every=1, seed=0),
+                model=moe_model, device="cpu",
+                session=CADSession.for_pipeline(moe_cfg, moe_pipe,
+                                                group=group, pingpong=True))
+    meta["moe_history"] = [{k: h[k] for k in spec["moe_keys"]}
+                           for h in out["history"]]
+    if rank == 0:
+        np.savez(os.path.join(tmp, "moe_params.npz"),
+                 **{n: p.detach().numpy()
+                    for n, p in moe_model.named_parameters()})
+    # moe_apply at capacity factor 1.0 on this rank's rows of moe_h
+    drop_cfg = dataclasses.replace(moe_cfg, moe=dataclasses.replace(
+        moe_cfg.moe, capacity_factor=1.0))
+    pm = {k[len("moe_p_"):]: torch.from_numpy(v.copy())
+          for k, v in inp.items() if k.startswith("moe_p_")}
+    rows = inp["moe_h"].shape[0] // 4
+    hm = torch.from_numpy(inp["moe_h"][rank * rows:(rank + 1) * rows]
+                          .copy())
+    mo, aux = moe_apply(pm, hm, drop_cfg, group=group)
+    res["moe_out"] = mo.numpy()
+    res.update({k: v.numpy() for k, v in aux.items()})
+    ep_cfg = dataclasses.replace(moe_cfg, moe=dataclasses.replace(
+        moe_cfg.moe, expert_parallel=True))
+    meta["expert_parallel"] = _raises(
+        lambda: moe_apply(pm, hm, ep_cfg, group=group), NotImplementedError)
+
+    # (f) the plan-agreement control: rank 3 reads other segment ids (its
     # first row's document cut in two halves)
     sess = CADSession.for_pipeline(mcfg, pipe, group=group, prefetch=0)
     b0 = next(raw_batches(pipe))
@@ -297,6 +349,18 @@ def _cases():
     return {"plain": a, "pingpong": b}
 
 
+def _moe_inputs():
+    """The MoE weights (the reference's init) and 4 x 64 tokens of input
+    for the per-rank ``moe_apply`` case (4 rows: one a rank)."""
+    from repro.configs import get_config as jax_config
+    from repro.models import layers as JL
+    cfg = jax_config(MOE["arch"])
+    p = JL.moe_init(jax.random.PRNGKey(5), cfg)
+    h = np.random.default_rng(5).standard_normal(
+        (WORLD, 64, cfg.d_model)).astype(np.float32)
+    return {k: np.array(v) for k, v in p.items()}, h
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Spawn the 4-rank gloo group once; return the cases and every
@@ -311,9 +375,12 @@ def ranks(tmp_path_factory):
     arrays.update({"plan_" + k: np.asarray(v) for k, v in a["plan"].items()})
     for i, p in enumerate(b["plan"]):
         arrays.update({f"pp{i}_" + k: np.asarray(v) for k, v in p.items()})
+    arrays.update({"moe_p_" + k: v for k, v in _moe_inputs()[0].items()})
+    arrays["moe_h"] = _moe_inputs()[1]
     np.savez(tmp / "inputs.npz", **arrays)
     (tmp / "spec.json").write_text(json.dumps(
-        {"geo": a["geo"], "pp_geo": b["geo"], "train": TRAIN}))
+        {"geo": a["geo"], "pp_geo": b["geo"], "train": TRAIN, "moe": MOE,
+         "moe_keys": MOE_KEYS}))
     (tmp / "worker.py").write_text(WORKER)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1"}
@@ -504,28 +571,81 @@ def test_pingpong_issue_order(ranks):
         assert not any(e[2] for e in bwd)
 
 
-def test_aux_losses_raise_under_a_group():
-    """An auxiliary loss would be summed once per rank by the gradient
-    all-reduce: under a group the step refuses it (MoE, item 12)."""
-    from repro_torch.train.step import make_train_step
+def test_moe_training_matches_single_process(ranks):
+    """Two CAD steps of qwen2-moe-reduced at 4 ranks under ping-pong
+    against the single-process trainer on the same seed and batches: the
+    lm loss, both aux losses (global values: each rank's share summed by
+    the all-reduce) within 1e-5 relative, and each parameter tensor within
+    1e-5 relative in norm; every rank reports the same numbers."""
+    _, per_rank = ranks
+    cfg = get_config(MOE["arch"])
+    pipe = PipelineConfig(distribution="prolong", max_doc_len=MOE["seq"],
+                          seq_len=MOE["seq"], global_batch=MOE["batch"],
+                          n_ranks=WORLD, vocab_size=cfg.vocab_size, seed=0)
+    res = train(cfg, pipe, TrainConfig(steps=MOE["steps"], peak_lr=1e-3,
+                                       warmup=1, log_every=1, seed=0),
+                session=CADSession.for_pipeline(cfg, pipe, pingpong=True),
+                device="cpu")
+    for key in MOE_KEYS:
+        want = [h[key] for h in res["history"]]
+        for _, meta in per_rank:
+            got = [h[key] for h in meta["moe_history"]]
+            np.testing.assert_allclose(got, want, rtol=MOE_RTOL, atol=0,
+                                       err_msg=key)
+    assert len({json.dumps(meta["moe_history"]) for _, meta in per_rank}) \
+        == 1
+    tmp = Path(per_rank[0][1]["tmp"])
+    with np.load(tmp / "moe_params.npz") as z:
+        got = dict(z)
+    params = dict(res["model"].named_parameters())
+    assert sorted(got) == sorted(params)
+    # parameters: relative in norm, tensor by tensor.  Elementwise, AdamW
+    # amplifies the last bits of a gradient where its two steps' terms
+    # nearly cancel in the first moment (a few elements a tensor)
+    for name, p in params.items():
+        want = to_numpy(p)
+        err = np.linalg.norm(got[name] - want) / np.linalg.norm(want)
+        assert err <= MOE_RTOL, (name, err)
 
-    class WithAux(torch.nn.Module):
-        device = torch.device("cpu")
 
-        def __init__(self):
-            super().__init__()
-            self.w = torch.nn.Parameter(torch.ones(()))
+def test_moe_apply_per_rank_matches_reference(ranks):
+    """At capacity factor 1.0 each rank routes its own 64 tokens with its
+    own capacity: its output equals the reference's ``moe_apply`` on that
+    slice (f32 atol 1e-5 x max(1, max |ref|)), and the ranks' aux shares
+    sum to the reference's losses over all 256 tokens (1e-6 relative)."""
+    import dataclasses
+    from repro.configs import get_config as jax_config
+    from repro.models import layers as JL
+    _, per_rank = ranks
+    cfg = jax_config(MOE["arch"])
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.0))
+    p, h = _moe_inputs()
+    p = jax.tree.map(jnp.asarray, p)
+    ctx = JCtx(mesh=None)
+    run = jax.jit(lambda x: JL.moe_apply(p, x, cfg, ctx))
+    for r, (arr, _) in enumerate(per_rank):
+        want, _ = run(jnp.asarray(h[r:r + 1]))
+        want = np.asarray(want)
+        np.testing.assert_allclose(
+            arr["moe_out"], want, rtol=0,
+            atol=1e-5 * max(1.0, float(np.abs(want).max())))
+    _, aux = run(jnp.asarray(h))
+    for k in ("moe_lb", "moe_z"):
+        shares = sum(float(arr[k]) for arr, _ in per_rank)
+        np.testing.assert_allclose(shares, float(aux[k]), rtol=1e-6,
+                                   err_msg=k)
 
-        def forward(self, b, ctx):
-            logits = self.w * torch.zeros(b["tokens"].shape + (4,))
-            return logits, {"moe_aux": self.w * 0.01}
-    batch = {n: np.ones((1, 8), np.int64) for n in ("tokens", "labels",
-                                                    "segment_ids",
-                                                    "positions")}
-    step = make_train_step(WithAux(), ParallelContext(group=object()),
-                           optimizer=None, decay=None)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        step(None, batch)
+
+def test_expert_parallel_raises_under_a_group(ranks):
+    """Expert parallelism (maverick's) routes globally over experts
+    sharded across the ranks in the reference; the port has no expert
+    sharding yet, so under a group it raises instead of routing
+    locally."""
+    _, per_rank = ranks
+    for _, meta in per_rank:
+        assert meta["expert_parallel"] is not None
+        assert "ROADMAP queue 1 item 12" in meta["expert_parallel"]
 
 
 def _chip_smoke():
