@@ -233,19 +233,19 @@ Phases, each of which fails the run:
    decode ms a step, one decode step traced (host against busy ms), peak
    memory, and the kernel timed at this head_dim as phase 4 times it;
 21. mamba2-370m served at full width and depth (48 ssd layers), 4 slots,
-   prompts of 200-600 tokens prefilled a token a step, 32 new tokens: no
+   prompts of 100-300 tokens prefilled a token a step, 32 new tokens: no
    kernel launch (its SSD layers decode in torch ops, as the
    reference's), the concurrent run's tokens equal to those of its SOLO
    shortest prompts served alone (which idled through the others'
-   prefill steps), rates at the middle of its prompt lengths (4 x 400),
+   prefill steps), rates at the middle of its prompt lengths (4 x 200),
    one decode step traced, peak memory; then an f32 copy of 2 layers:
    per-token serve logits against ``Transformer.forward``'s within
    SERVE_FWD_REL_BOUND, the controls SERVE_FWD_CONTROLS outside it (TF32
    matmuls, the state reset at every token), a third (the recurrent
    state stored in bf16) recorded;
 22. recurrentgemma-9b served at full width and depth (38 layers, 12 of
-   them local), as phase 21 with prompts of 100-400 tokens (rates at 4 x
-   250) and 16 new: the ragged kernel once a local layer a device call,
+   them local), as phase 21 with prompts of 50-200 tokens (rates at 4 x
+   125) and 16 new: the ragged kernel once a local layer a device call,
    held against its plain version on a captured decode step of layer 2,
    and timed as phase 4 times it at the local layers' decode shape with
    kv 3000, past the window; the f32 check at 3 layers (rglru, rglru,
@@ -307,7 +307,7 @@ is timed).
    tokens/s, peak memory;
 26. (after 25) the MoE archs served through ``launch/serve.py``'s engine
    at every width, a token a step (MOE_SERVE): qwen2-moe-a2.7b at all 24
-   layers, 4 slots, prompts of 200-600 tokens, 16 new: launches = layers
+   layers, 4 slots, prompts of 100-300 tokens, 16 new: launches = layers
    x device calls, the kernel on a captured decode step, the concurrent
    run's tokens equal to its SOLO shortest prompts' served alone, rates
    and one decode step traced; an f32 copy of MOE_FWD_LAYERS layers:
@@ -317,14 +317,40 @@ is timed).
    control outside; llama4-maverick-400b-a17b at 1 of 48 layers (128
    experts top-1 and a shared one, the kernel at rep 5) the same way
    without the solo and f32 checks; then the ragged kernel timed at both
-   archs' decode shapes as phase 4 times it.
+   archs' decode shapes as phase 4 times it;
+27. (after 26, before 24) whisper-large-v3 at full size (32 encoder and
+   32 decoder ``cross`` layers, d_model 1280, 20 heads of 64, vocab
+   51866), bf16 from seed 0, every ``xgate`` at CROSS_GATE (the
+   reference's 0 would make cross-attention add nothing), the memory
+   seeded [4, 1500, 1280]: (a) CAD on 4 simulated servers, 4 x CROSS_SEQ
+   ``prolong`` tokens, ``balanced``, CROSS_STEPS steps through
+   ``make_train_step`` with the memory added to each batch: CA launches
+   servers x 32 x {2, 1, 1} a step and no other kernel (cross-attention
+   and the encoder take the ``xla`` route), step 1 traced by family (CA,
+   cuBLAS, the ``xla`` route, other), the step-0 loss bitwise equal under
+   ``identity`` and on a repeat and moved by the memory rows rotated
+   across the batch, the CA kernels on layer 0's captured server batches
+   against their plain versions and timed beside flash (phase 6's way);
+   (b) served at full depth through ``Engine(memory=...)``'s legacy
+   branch (a dense 4 x 128 prompt batch, 16 new tokens, a token a step,
+   no kernel launched): build and encode ms, prefill tokens/s, decode
+   ms a step, one decode step traced, peak memory; the prompts and
+   memory rows permuted together give the tokens permuted, bitwise; an
+   f32 copy at WHISPER_FWD_LAYERS: per-token decode logits within
+   SERVE_FWD_REL_BOUND of ``Transformer.forward``'s, the TF32 and
+   rotated-memory controls outside;
+28. (after 27) llama-3.2-vision-11b the same way: (a) at every width
+   with 5 of 40 layers (4 ``global`` + 1 ``cross``; the full config has
+   no encoder), memory [4, 6404, 4096], CA launches servers x 5 x {2, 1,
+   1}; (b) served at all 40 layers; the f32 copy has 5 layers.
 
 The line before the card line lists every ported kernel as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after
 phase 2: the short first call for a new kernel; ``--only ranks`` runs
-phases 1, 5 and 24; ``--only moe`` phases 1, 25 and 26.  Every traced
-or profiled window opens with a ~1 ms spin kernel (TRACE_LEAD_IN_CYCLES),
-not counted.
+phases 1, 5 and 24; ``--only moe`` phases 1, 25 and 26; ``--only
+cross`` phases 1, 27 and 28.  Every traced
+or profiled window opens with LEAD_IN_KERNELS spin kernels
+(TRACE_LEAD_IN_CYCLES in all, ~2 ms), not counted.
 """
 from __future__ import annotations
 
@@ -430,10 +456,22 @@ def cuda_ms_back_to_back(fn, n=100, reps=5, warmup=3):
 PROFILE_WINDOWS = 3
 # [empty windows, windows profiled, timings with no device time]
 EMPTY_PROFILE_WINDOWS = [0, 0, 0]
-# a traced window's opening spin (GPU cycles, ~1 ms at 1.98 GHz), and the
-# name of the kernel ``torch.cuda._sleep`` launches for it
-TRACE_LEAD_IN_CYCLES = 2_000_000
+# a traced window's opening spin (GPU cycles in all, ~2 ms at 1.98 GHz),
+# in LEAD_IN_KERNELS launches, and the name of the kernel
+# ``torch.cuda._sleep`` launches for it.  Late in a run the profiler drops
+# a window's first device events, the same count in every window of a
+# phase: one 1 ms spin absorbed that until phases 27-28 ran before phase
+# 24, whose windows then each lost the spin and their first 4 NCCL
+# events (NVIDIA H100 80GB HBM3); 64 launches absorb 64.
+TRACE_LEAD_IN_CYCLES = 4_000_000
+LEAD_IN_KERNELS = 64
 SPIN_KERNEL = "spin_kernel"
+
+
+def trace_lead_in(torch):
+    """Open a traced window: LEAD_IN_KERNELS spin kernels, not counted."""
+    for _ in range(LEAD_IN_KERNELS):
+        torch.cuda._sleep(TRACE_LEAD_IN_CYCLES // LEAD_IN_KERNELS)
 
 
 def profiled_device_ms(fn, n=20):
@@ -451,9 +489,9 @@ def profiled_device_ms(fn, n=20):
     for _ in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            # the window opens with a spin kernel, not counted: late in a
+            # the window opens with spin kernels, not counted: late in a
             # run the profiler has dropped a window's first events
-            torch.cuda._sleep(TRACE_LEAD_IN_CYCLES)
+            trace_lead_in(torch)
             torch.cuda.synchronize()
             for _ in range(n):
                 fn()
@@ -4874,9 +4912,12 @@ def _serve_vs_forward(torch, np, cfg, phase):
 SOLO = 2          # prompts of phases 21-22 served alone again
 RECURRENT_SERVE = {
     # phase: (arch, prompt lengths, new tokens, max_seq, the f32 check's
-    #         layer pattern and depth)
-    21: ("mamba2-370m", (200, 601), 32, 640, ("ssd",), 2),
-    22: ("recurrentgemma-9b", (100, 401), 16, 512,
+    #         layer pattern and depth).  The prompts were twice as long
+    #         until phases 27-28 came: on a slow host the whole run then
+    #         took 1222 s, past its 1200 s limit, and these a-token-a-step
+    #         phases (21, 22, 26) took 607 s of it
+    21: ("mamba2-370m", (100, 301), 32, 640, ("ssd",), 2),
+    22: ("recurrentgemma-9b", (50, 201), 16, 512,
          ("rglru", "rglru", "local"), 3),
 }
 
@@ -4919,7 +4960,7 @@ def serve_recurrent(torch, np, ops, launch, card, phase):
     def capture(layer, inputs):
         if local and layer == local[0] and not captured \
                 and int((inputs["q_pos"] >= 0).sum()) == 4 \
-                and int(inputs["q_pos"].min()) >= 90:
+                and int(inputs["q_pos"].min()) >= 40:
             captured[("decode", layer)] = {
                 k: v.clone() if torch.is_tensor(v) else v
                 for k, v in inputs.items()}
@@ -5348,7 +5389,7 @@ def train_moe(torch, ops, card):
 
 
 # phase 26: (arch, depth, prompt lengths, new tokens, max_seq)
-MOE_SERVE = {"qwen2-moe-a2.7b": (24, (200, 601), 16, 640),
+MOE_SERVE = {"qwen2-moe-a2.7b": (24, (100, 301), 16, 640),
              # 1 of 48 layers: 18.4 B params, 36.8 GB of bf16 weights (one
              # layer's 128 experts are 32 GB); two would not leave room
              "llama4-maverick-400b-a17b": (1, (64, 161), 16, 192)}
@@ -5563,6 +5604,613 @@ def moe_phases(torch, np, ops, launch, card):
     return train, serving, times
 
 
+# ------------------------------------------------------- phases 27-28
+# Every cross layer's tanh gate after seeding.  The reference initialises
+# ``xgate`` to 0, so at init cross-attention adds exactly nothing and its
+# weights get no gradient: no check at init could see it broken.
+CROSS_GATE = 0.5
+CROSS_STEPS = 3
+CROSS_SEQ = 4096
+CROSS_ROWS = 4
+# the f32 serve-vs-forward copy's (encoder, decoder) layers
+WHISPER_FWD_LAYERS = (2, 2)
+# arch -> phase, training depth (None: every layer), the f32 copy's depth
+CROSS_ARCHS = {
+    "whisper-large-v3": dict(phase=27, train_layers=None,
+                             fwd_layers=WHISPER_FWD_LAYERS),
+    # 5 of 40 layers, one pattern group: 4 global + 1 cross; the full
+    # config has no encoder, so this run has none
+    "llama-3.2-vision-11b": dict(phase=28, train_layers=5,
+                                 fwd_layers=(0, 5))}
+# serving: rows, prompt tokens, new tokens
+CROSS_SERVE = (4, 128, 16)
+CROSS_FWD_CONTROLS = ("TF32 matmuls", "memory rows rotated")
+# the f32 copies' tokens a row, a token a decode step (3 passes each);
+# 512 took vision's copy ~20 s
+CROSS_FWD_TOKENS = 256
+CROSS_FAMILIES = ("CA-server kernels", "matmuls (cuBLAS)",
+                  "xla route (encoder and cross-attention)", "other")
+
+
+def _cross_memory(torch, cfg, rows, seed):
+    """Seeded memory [rows, n_ctx, d_model] f32 from an explicit generator
+    on the card (stub audio frames or patch embeddings): 0.02 x (a normal
+    vector each row's frames share + a normal vector per frame).  With
+    the per-frame draws alone, a random init's near-uniform attention
+    over 6404 rows averages them away: on an H100 (80GB HBM3) the f32
+    vision copy's rotated-memory control then moved the logits by 5.8e-4
+    of their std, inside SERVE_FWD_REL_BOUND."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    shared = torch.randn((rows, 1, cfg.d_model), generator=gen,
+                         device=DEVICE)
+    frames = torch.randn((rows, cfg.encoder.n_ctx, cfg.d_model),
+                         generator=gen, device=DEVICE)
+    return (shared + frames) * 0.02
+
+
+def _open_gates(torch, model):
+    with torch.no_grad():
+        n = 0
+        for blk in model.layers:
+            if blk.kind == "cross":
+                blk.attn["xgate"].fill_(CROSS_GATE)
+                n += 1
+    if not n:
+        raise SystemExit(f"{model.cfg.arch_id}: no cross layer to open")
+    return model
+
+
+def _cross_setup(arch):
+    from repro_torch.cad import CADSession
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig
+    spec = CROSS_ARCHS[arch]
+    cfg = get_config(arch)
+    if spec["train_layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["train_layers"])
+    pipe = PipelineConfig(distribution="prolong", max_doc_len=CROSS_SEQ,
+                          seq_len=CROSS_SEQ, global_batch=CROSS_ROWS,
+                          n_ranks=4, vocab_size=cfg.vocab_size, seed=0)
+
+    def session(policy):
+        return CADSession.for_pipeline(cfg, pipe, plan_policy=policy,
+                                       prefetch=2)
+    return spec["phase"], cfg, pipe, session
+
+
+def _cross_train(torch, cfg, pipe, sess, memory, steps, model=None,
+                 on_step=None):
+    """``steps`` CAD steps of a fresh seed-0 model (gates opened) through
+    ``make_train_step``: plans from ``sess``, ``memory`` added to every
+    batch, AdamW as the trainer sets it up.  Returns the metrics of each
+    step (floats, with ``step_s`` from a synchronize to a synchronize)."""
+    from repro_torch.data.pipeline import raw_batches
+    from repro_torch.models.convert import decay_mask
+    from repro_torch.models.model import Transformer
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import make_train_step
+    if model is None:
+        model = _open_gates(torch, Transformer(cfg, device=DEVICE, seed=0))
+    opt = AdamW(lr=cosine_schedule(3e-4, 1, steps), weight_decay=0.1)
+    state = opt.init(list(model.parameters()))
+    step_fn = make_train_step(model, sess.context(), opt, decay_mask(model))
+    gen = sess.attach_plans(raw_batches(pipe))
+    out = []
+    try:
+        for step in range(steps):
+            batch = next(gen)
+            batch.pop("schedule_stats", None)
+            batch["memory"] = memory
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            m = {k: float(v) for k, v in m.items()}
+            m.update(step=step, step_s=time.perf_counter() - t0)
+            out.append(m)
+            if on_step is not None:
+                on_step(step, m)
+    finally:
+        gen.close()
+    del model, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mark_xla_route(torch):
+    """Bracket every forward and backward of the blockwise ``xla`` route
+    (``core.attention._XlaFlash``) with a one-cycle spin kernel, so that
+    a CUDA-only trace can tell that route's kernels from the rest: the
+    device runs one stream in order, and the route's calls do not nest.
+    Returns (the undo, a one-element list counting the calls)."""
+    from repro_torch.core import attention as A
+    fwd, bwd = A._XlaFlash.forward, A._XlaFlash.backward
+    calls = [0]
+
+    def forward(ctx, *a):
+        calls[0] += 1
+        torch.cuda._sleep(1)
+        out = fwd(ctx, *a)
+        torch.cuda._sleep(1)
+        return out
+
+    def backward(ctx, *g):
+        calls[0] += 1
+        torch.cuda._sleep(1)
+        out = bwd(ctx, *g)
+        torch.cuda._sleep(1)
+        return out
+    A._XlaFlash.forward = staticmethod(forward)
+    A._XlaFlash.backward = staticmethod(backward)
+
+    def undo():
+        A._XlaFlash.forward = staticmethod(fwd)
+        A._XlaFlash.backward = staticmethod(bwd)
+    return undo, calls
+
+
+# a marking spin kernel of one cycle runs for a few microseconds; each of
+# the window's lead-in spins (~30 us) is longer than this
+MARK_MAX_NS = 20_000
+
+
+def _cross_breakdown(prof, phase, n_calls):
+    """Device ms of one CUDA-only traced window by family: the CA-server
+    kernels, cuBLAS matmuls outside the ``xla`` route, the ``xla`` route's
+    kernels (every kernel between a pair of ``_mark_xla_route`` spin
+    kernels), and the rest; with busy ms (the union of the kernels'
+    intervals) and the span.  The window's lead-in spin is left out.
+    Reads kineto's raw events (no per-event Python objects: a whisper step
+    has ~10^5 kernels).  Returns None when the trace does not hold two
+    marks for each of the window's ``n_calls`` route calls: the profiler
+    has lost device events (as late in a run it has), and the families
+    are then not measured."""
+    import re
+    from torch.autograd import DeviceType
+    kernels = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        start = e.start_ns() if hasattr(e, "start_ns") \
+            else 1e3 * e.start_us()
+        dur = e.duration_ns() if hasattr(e, "duration_ns") \
+            else 1e3 * e.duration_us()
+        kernels.append((start, start + dur, e.name()))
+    kernels.sort()
+    if not kernels:
+        raise SystemExit(f"phase {phase}: the profiler recorded no device "
+                         f"time")
+    fams = dict.fromkeys(CROSS_FAMILIES, 0.0)
+    ca = re.compile(dict(KERNEL_FAMILIES)["CA-server kernels"], re.I)
+    mm = re.compile(dict(KERNEL_FAMILIES)["matmuls (cuBLAS)"], re.I)
+    inside, marks, n = False, 0, 0
+    busy, end, first = 0.0, -math.inf, None
+    for a, b, name in kernels:
+        if SPIN_KERNEL in name:
+            if b - a < MARK_MAX_NS:
+                inside, marks = not inside, marks + 1
+            continue
+        n += 1
+        first = a if first is None else first
+        ms = (b - a) / 1e6
+        busy += max(0.0, b - max(a, end)) / 1e6
+        end = max(end, b)
+        if inside:
+            fams["xla route (encoder and cross-attention)"] += ms
+        elif ca.search(name):
+            fams["CA-server kernels"] += ms
+        elif mm.search(name):
+            fams["matmuls (cuBLAS)"] += ms
+        else:
+            fams["other"] += ms
+    if marks != 2 * n_calls:
+        log(f"phase {phase}: {marks} xla-route marks in the trace for "
+            f"{n_calls} calls: device events lost, families not measured")
+        return None
+    return dict(kernels=n, xla_calls=marks // 2, busy_ms=busy,
+                span_ms=(end - first) / 1e6, families=fams)
+
+
+def train_cross(torch, ops, card, arch):
+    """Phase 27 (whisper-large-v3 at full size: 32 encoder + 32 decoder
+    layers) or 28 (llama-3.2-vision-11b at every width, 5 of 40 layers: 4
+    global + 1 cross) in bf16 from seed 0, gates at CROSS_GATE, the memory
+    seeded [4, n_ctx, d_model] and added to every batch.  CAD on 4
+    simulated servers, 4 x CROSS_SEQ ``prolong`` tokens, through
+    ``make_train_step``: the step-0 loss under ``identity``; CROSS_STEPS
+    steps under ``balanced`` (launches servers x causal self-attention
+    layers x {2, 1, 1} and nothing else: cross-attention and the encoder
+    take the ``xla`` route), step 1 traced by family; the step-0 loss
+    bitwise equal under identity and on a repeat, and moved by the memory
+    rows rotated across the batch; the CA kernels on layer 0's captured
+    server batches against their plain versions and timed (phase 6's
+    way), flash beside them on that layer's q/k/v."""
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    phase, cfg, pipe, session = _cross_setup(arch)
+    n_servers = pipe.n_ranks
+    tokens = pipe.global_batch * pipe.seq_len
+    memory = _cross_memory(torch, cfg, pipe.global_batch, seed=0)
+    n_enc = cfg.encoder.n_layers if cfg.encoder else 0
+    loss_identity = _cross_train(torch, cfg, pipe, session("identity"),
+                                 memory, 1)[0]["loss"]
+    from repro_torch.models.model import Transformer
+    model = _open_gates(torch, Transformer(cfg, device=DEVICE, seed=0))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase {phase}: {arch}, {cfg.n_layers} decoder layers "
+        f"({[blk.kind for blk in model.layers].count('cross')} cross) and "
+        f"{n_enc} encoder layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e9:.3f} B params, "
+        f"{cfg.param_dtype}, xgate "
+        f"{CROSS_GATE}; memory {tuple(memory.shape)}; CAD on {n_servers} "
+        f"simulated servers, {pipe.global_batch} x {pipe.seq_len} tokens "
+        f"({pipe.distribution}); step-0 identity loss {loss_identity!r}")
+    expect = {"ca_server_fwd": n_servers * cfg.n_layers * 2,   # + remat
+              "ca_server_bwd_dq": n_servers * cfg.n_layers,
+              "ca_server_bwd_dkv": n_servers * cfg.n_layers}
+    captured, steps = {}, []
+
+    def capture(layer, inputs):
+        if layer == 0 and layer not in captured:
+            captured[layer] = {k: v.detach().clone() if torch.is_tensor(v)
+                               else v for k, v in inputs.items()}
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    undo, calls = _mark_xla_route(torch)
+    traced = {}
+
+    def on_step(step, m):
+        if step == 1:
+            prof.stop()
+            traced["calls"] = calls[0]
+        counts = {k: ops.launches[k] for k in expect}
+        others = sum(n for k, n in ops.launches.items() if k not in expect)
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        model.attn_hook = None              # capture step 0 only
+        steps.append(dict(m, counts=counts, others=others, peak_gib=mem))
+        log(f"phase {phase}: step {step} loss {m['loss']:.6f} gnorm "
+            f"{m['grad_norm']:.4f} step {1e3 * m['step_s']:.1f} ms "
+            f"{tokens / m['step_s']:.0f} tokens/s peak {mem:.2f} GiB "
+            f"launches {counts}{' (traced)' if step == 1 else ''} [{card}]")
+        if step == 0:
+            prof.start()
+            trace_lead_in(torch)
+            calls[0] = 0
+    model.attn_hook = capture
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _cross_train(torch, cfg, pipe, session("balanced"), memory,
+                     CROSS_STEPS, model=model, on_step=on_step)
+    finally:
+        undo()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bd = _cross_breakdown(prof, phase, traced["calls"])
+    del prof
+    host_ms = 1e3 * steps[1]["step_s"]
+    if bd is not None:
+        fams = ", ".join(f"{f} {ms:.1f}" for f, ms in
+                         bd["families"].items())
+        log(f"phase {phase}: step 1 traced (CUDA activity only, read in "
+            f"{time.perf_counter() - t0:.1f} s): {bd['kernels']} kernels, "
+            f"{bd['xla_calls']} xla-route calls; host {host_ms:.1f} ms, "
+            f"device span {bd['span_ms']:.1f} ms, busy "
+            f"{bd['busy_ms']:.1f} ms (idle "
+            f"{1 - bd['busy_ms'] / host_ms:.4f} of the step); ms by family:"
+            f" {fams} [{card}]")
+    for st in steps:
+        if st["counts"] != expect or st["others"]:
+            raise SystemExit(f"phase {phase}: step {st['step']} launches "
+                             f"{st['counts']} (+{st['others']} of other "
+                             f"kernels) != {expect}")
+        if not math.isfinite(st["loss"]):
+            raise SystemExit(f"phase {phase}: step {st['step']} loss "
+                             f"{st['loss']}")
+    if sorted(captured) != [0]:
+        raise SystemExit(f"phase {phase}: captured layers {sorted(captured)}")
+    repeat = _cross_train(torch, cfg, pipe, session("balanced"), memory,
+                          1)[0]["loss"]
+    rotated = _cross_train(torch, cfg, pipe, session("balanced"),
+                           memory.roll(1, 0), 1)[0]["loss"]
+    loss0 = steps[0]["loss"]
+    log(f"phase {phase}: step-0 loss {loss0!r} under balanced, "
+        f"{loss_identity!r} under identity, {repeat!r} on a repeat; with "
+        f"the memory rows rotated across the batch {rotated!r} (|diff| "
+        f"{abs(rotated - loss0):.3e})")
+    if not loss0 == loss_identity == repeat or rotated == loss0:
+        raise SystemExit(f"phase {phase}: step-0 losses: balanced {loss0!r}, "
+                         f"identity {loss_identity!r}, repeat {repeat!r}, "
+                         f"rotated memory {rotated!r}")
+    batches = captured_batches(torch, captured)
+    err = check_captured(torch, ops, captured, batches, phase=phase)
+    tot, f_bound, b_bound = ca_kernel_times(torch, ops, batches[0],
+                                            captured[0], card, phase=phase)
+    del batches, captured, memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase {phase}: launches per step = {expect}; {seconds:.1f} s in "
+        f"all [{card}]")
+    return dict(params=n_params, ca_launches=steps[0]["counts"], times=tot,
+                bounds=(f_bound, b_bound), ca_captured_max_abs_err=err,
+                loss=[st["loss"] for st in steps],
+                step_s=[st["step_s"] for st in steps],
+                tokens_per_s=[tokens / st["step_s"] for st in steps],
+                peak_gib=[st["peak_gib"] for st in steps],
+                step0=dict(identity=loss_identity, repeat=repeat,
+                           rotated_memory=rotated),
+                traced_step1=dict(host_ms=host_ms, **(bd or dict(
+                    families="not measured: device events lost"))),
+                seconds=seconds,
+                shape=f"{pipe.global_batch} x {pipe.seq_len} tokens, "
+                      f"{n_servers} servers, {cfg.n_layers} decoder and "
+                      f"{n_enc} encoder layers, memory "
+                      f"{cfg.encoder.n_ctx} rows")
+
+
+def _cross_serve_vs_forward(torch, np, cfg, layers, phase):
+    """An f32 copy of ``cfg`` at ``layers`` = (encoder, decoder) layers,
+    gates open: the per-token logits of the legacy decode path
+    (``make_serve_step`` on a ``layout="decode"`` cache, a token a step)
+    against ``Transformer.forward``'s on 2 x CROSS_FWD_TOKENS tokens with
+    the same memory, as max |diff| / std; and the controls': the decode
+    path with TF32 matmuls, and with the memory rows rotated across the
+    batch.  Returns (gap, {control: gap})."""
+    from repro_torch.models.model import Transformer
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.train.step import make_serve_step
+    n_enc, n_dec = layers
+    enc = cfg.encoder
+    if enc is not None and enc.n_layers:
+        enc = dataclasses.replace(enc, n_layers=n_enc)
+    cfg = dataclasses.replace(cfg, n_layers=n_dec, encoder=enc,
+                              param_dtype="float32", compute_dtype="float32")
+    model = _open_gates(torch, Transformer(cfg, device=DEVICE, seed=0))
+    memory = _cross_memory(torch, cfg, 2, seed=100 + phase)
+    rng = np.random.default_rng(100 + phase)
+    prompt = torch.tensor(rng.integers(1, cfg.vocab_size,
+                                       (2, CROSS_FWD_TOKENS)),
+                          dtype=torch.int32, device=DEVICE)
+    step = make_serve_step(model)
+
+    def per_token(mem):
+        cache = model.init_cache(2, CROSS_FWD_TOKENS, layout="decode",
+                                 memory=mem)
+        rows = []
+        for t in range(CROSS_FWD_TOKENS):
+            rows.append(step(cache, prompt[:, t:t + 1],
+                             torch.full((2,), t, dtype=torch.int32,
+                                        device=DEVICE))[1][:, 0])
+        del cache
+        return torch.stack(rows, 1)
+    served = per_token(memory)
+    controls = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        controls["TF32 matmuls"] = per_token(memory)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    controls["memory rows rotated"] = per_token(memory.roll(1, 0))
+    batch = {"tokens": prompt,
+             "segment_ids": torch.ones(prompt.shape, dtype=torch.int32,
+                                       device=DEVICE),
+             "positions": torch.arange(CROSS_FWD_TOKENS, dtype=torch.int32,
+                                       device=DEVICE).expand(2, -1)
+             .contiguous(),
+             "memory": memory}
+    with torch.no_grad():
+        logits, _ = model(batch, ParallelContext(attn_impl="xla",
+                                                 remat=False))
+    scale = float(logits.std())
+    gap = float((served - logits).abs().max()) / scale
+    ctrl = {k: float((c - logits).abs().max()) / scale
+            for k, c in controls.items()}
+    del model, served, controls, logits, memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gap, ctrl
+
+
+def serve_cross(torch, np, ops, card, arch):
+    """Phase 27(b) / 28(b): the arch at full size and depth (whisper's 32
+    + 32 layers, vision's 40) in bf16 from seed 0, gates open, served
+    through the legacy branch of ``Engine`` (``Engine(memory=...)``):
+    CROSS_SERVE's dense prompt batch, greedy ``generate``, a token a step;
+    no kernel of the port launches (no ragged call: the reference's
+    legacy path attends in plain ops).  Records the engine's build (the
+    encoder, each cross layer's xk/xv), encode ms alone, prefill tokens/s,
+    decode ms a step, one decode step traced (host against busy), peak
+    memory; the prompts and memory rows permuted together give the tokens
+    permuted, bitwise; then the f32 serve-vs-forward check."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Transformer
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.serve import Engine, ServeConfig
+    spec = CROSS_ARCHS[arch]
+    phase = spec["phase"]
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    rows, plen, new = CROSS_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    model = _open_gates(torch, Transformer(cfg, device=DEVICE, seed=0))
+    n_params = sum(p.numel() for p in model.parameters())
+    memory = _cross_memory(torch, cfg, rows, seed=1)
+    encode_ms = None
+    if cfg.encoder and cfg.encoder.n_layers:
+        ctx = ParallelContext(attn_impl="xla", remat=False)
+        with torch.inference_mode():
+            model.encode(memory, ctx)               # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.encode(memory, ctx)
+            torch.cuda.synchronize()
+        encode_ms = 1e3 * (time.perf_counter() - t0)
+    scfg = ServeConfig(max_seq=plen + new, max_new_tokens=new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = Engine(model, scfg, batch_size=rows, device=DEVICE,
+                    memory=memory)
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    if engine.serve_layout or engine.fused_ok:
+        raise SystemExit(f"phase {phase}: {arch} is not on the legacy branch")
+    rng = np.random.default_rng(phase)
+    prompt = rng.integers(1, cfg.vocab_size, (rows, plen)).astype(np.int32)
+    orig, calls = engine._step, []
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*a)
+        torch.cuda.synchronize()
+        calls.append(time.perf_counter() - t)
+        return out
+    ops.reset_launches()
+    engine._step = timed
+    try:
+        t0 = time.perf_counter()
+        toks = engine.generate(prompt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine._step = orig
+    launched = {k: n for k, n in ops.launches.items() if n}
+    toks = toks.cpu().numpy()
+    if toks.shape != (rows, new) or not ((toks >= 0)
+                                         & (toks < cfg.vocab_size)).all():
+        raise SystemExit(f"phase {phase}: {arch} generated {toks}")
+    if launched or len(calls) != plen + new - 1:
+        raise SystemExit(f"phase {phase}: {len(calls)} steps, launches "
+                         f"{launched} (none expected)")
+    prefill_tps = rows * plen / sum(calls[:plen])
+    decode = sorted(calls[plen:])
+    decode_ms = 1e3 * decode[len(decode) // 2]
+    # one more decode step at the next position, traced
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    nxt = torch.tensor(toks[:, -1], device=DEVICE)
+    torch.cuda.synchronize()
+    prof.start()
+    t0 = time.perf_counter()
+    engine._legacy_step(nxt, plen + new - 1)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    prof.stop()
+    bd = device_breakdown(prof.events())
+    del prof
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"phase {phase}: {arch} served at full depth ({cfg.n_layers} "
+        f"decoder layers, {cfg.encoder.n_layers} encoder layers, "
+        f"{n_params / 1e9:.3f} B params, {cfg.param_dtype}): engine built "
+        f"in "
+        f"{build_ms:.1f} ms (encoder and each cross layer's xk/xv"
+        + (f"; encode alone {encode_ms:.1f} ms" if encode_ms else "")
+        + f"); {rows} x {plen} prompt tokens + {new} new in {wall:.2f} s: "
+        f"prefill {prefill_tps:.0f} tokens/s (a token a step), decode "
+        f"{decode_ms:.2f} ms a step (median of {len(decode)}, "
+        f"{1e3 * decode[0]:.2f}-{1e3 * decode[-1]:.2f}); kernel launches "
+        f"{launched or 0}; one decode step traced: host {host_ms:.2f} ms, "
+        f"device busy {bd['busy_ms']:.2f} ms (idle "
+        f"{1 - bd['busy_ms'] / host_ms:.4f}), {bd['kernels']} device "
+        f"events, ms by family "
+        f"{ {k: round(v, 3) for k, v in bd['families'].items() if v} }; "
+        f"peak {peak:.2f} GiB [{card}]")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    perm = np.array([2, 0, 3, 1])
+    engine = Engine(model, scfg, batch_size=rows, device=DEVICE,
+                    memory=memory[torch.as_tensor(perm, device=DEVICE)])
+    permuted = engine.generate(prompt[perm]).cpu().numpy()
+    same = bool(np.array_equal(permuted, toks[perm]))
+    log(f"phase {phase}: prompts and memory rows permuted {perm.tolist()}: "
+        f"tokens permuted bitwise {same}")
+    if not same:
+        raise SystemExit(f"phase {phase}: permuted tokens {permuted} != "
+                         f"{toks[perm]}")
+    del engine, model, memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    gap, ctrl = _cross_serve_vs_forward(torch, np, cfg, spec["fwd_layers"],
+                                        phase)
+    log(f"phase {phase}: f32 copy at {spec['fwd_layers']} (encoder, "
+        f"decoder) layers: per-token decode logits against "
+        f"Transformer.forward's on 2 x {CROSS_FWD_TOKENS} tokens: max "
+        f"|diff| / std {gap:.3e} (bound {SERVE_FWD_REL_BOUND}); controls "
+        + ", ".join(f"'{k}' {v:.3e}" for k, v in ctrl.items()))
+    if not gap <= SERVE_FWD_REL_BOUND < min(ctrl[k]
+                                            for k in CROSS_FWD_CONTROLS):
+        raise SystemExit(f"phase {phase}: serve vs forward gap {gap} / "
+                         f"controls {ctrl} against {SERVE_FWD_REL_BOUND}")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase {phase}: serving {seconds:.1f} s in all [{card}]")
+    return dict(params=n_params, layers=cfg.n_layers,
+                encoder_layers=cfg.encoder.n_layers, build_ms=build_ms,
+                encode_ms=encode_ms, prefill_tokens_per_s=prefill_tps,
+                prefill_shape=f"{rows} x {plen}, a token a step",
+                decode_ms=decode_ms, new_tokens=new, serve_s=wall,
+                traced_decode_host_ms=host_ms,
+                traced_decode_busy_ms=bd["busy_ms"],
+                traced_decode_idle=1 - bd["busy_ms"] / host_ms,
+                traced_decode_families={k: v for k, v in
+                                        bd["families"].items() if v},
+                kernel_launches=0, permuted_bitwise=same, peak_gib=peak,
+                serve_vs_forward=dict(gap=gap, controls=ctrl,
+                                      bound=SERVE_FWD_REL_BOUND,
+                                      layers=spec["fwd_layers"]),
+                seconds=seconds)
+
+
+def cross_phases(torch, np, ops, card):
+    """Phases 27 and 28: each cross-attention arch trained under CAD, then
+    served."""
+    return {arch: (train_cross(torch, ops, card, arch),
+                   serve_cross(torch, np, ops, card, arch))
+            for arch in CROSS_ARCHS}
+
+
+def _record_cross(ca_fwd, ca_bwd, cross):
+    """Phases 27-28's numbers into the kernels' JSON entries (rows 4w-5w
+    and 4v-5v)."""
+    heads = {"whisper-large-v3": ("whisper", "20 q over 20 kv heads of 64: "
+                                             "rep 1"),
+             "llama-3.2-vision-11b": ("vision", "32 q over 8 kv heads of "
+                                                "128: rep 4")}
+    for arch, (train, serving) in cross.items():
+        key, head = heads[arch]
+        t, (f_bound, b_bound) = train["times"], train["bounds"]
+        shape = (f"{arch} layer 0 of step 0 ({head}), 4 server batches "
+                 f"summed; " + train["shape"])
+        ca_fwd[key] = dict(
+            launches=train["ca_launches"]["ca_server_fwd"], ms=t["fwd"],
+            ms_repeat=t["fwd_repeat"], plain_ms=t["plain_fwd"],
+            bound_ms=f_bound[0], bound_by=f_bound[1],
+            library_ms=t["sdpa_fwd"],
+            library_call="sdpa fwd, efficient attention, boolean mask",
+            flash_yardstick_ms=t["flash_fwd"], shape=shape,
+            captured_max_abs_err=train["ca_captured_max_abs_err"],
+            train={k: train[k] for k in (
+                "loss", "step_s", "tokens_per_s", "peak_gib", "params",
+                "step0", "traced_step1", "seconds")},
+            serving=serving)
+        ca_bwd[key] = dict(
+            launches=train["ca_launches"]["ca_server_bwd_dq"],
+            launches_dkv=train["ca_launches"]["ca_server_bwd_dkv"],
+            ms=t["bwd"], plain_ms=t["plain_bwd"], bound_ms=b_bound[0],
+            bound_by=b_bound[1], library_ms=t["sdpa_fwd_bwd"],
+            library_call="sdpa fwd+bwd, efficient attention, boolean mask",
+            flash_yardstick_ms=t["flash_bwd"], shape=shape)
+
+
 # ---------------------------------------------------------------- main
 def _kernel_symbol(mangled: str) -> str:
     """``name<args>`` of a mangled kernel symbol: the first
@@ -5631,7 +6279,7 @@ def _traced_exchanges(torch, fn, n, ca_names, n_ca):
     of exchanges or CA kernels off) is traced again, up to
     PROFILE_WINDOWS: late in a run the profiler has dropped device events
     (section 7 of PERF.md), in one run the same first ones of every
-    window, so each window opens with a spin kernel (TRACE_LEAD_IN_CYCLES)
+    window, so each window opens with spin kernels (``trace_lead_in``)
     before ``fn``.  Returns (None, what each window held) when none was
     whole."""
     from torch.autograd import DeviceType
@@ -5642,7 +6290,7 @@ def _traced_exchanges(torch, fn, n, ca_names, n_ca):
     for _ in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(TRACE_LEAD_IN_CYCLES)
+            trace_lead_in(torch)
             torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
@@ -6174,11 +6822,11 @@ def build_kernels(build, ops, ssd, rg):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--only", choices=("kernels", "ranks", "moe"),
+    p.add_argument("--only", choices=("kernels", "ranks", "moe", "cross"),
                    default=None,
                    help="'kernels': stop after the kernel checks (phases "
                         "1-2); 'ranks': phases 1, 5 and 24 alone; 'moe': "
-                        "phases 1, 25 and 26")
+                        "phases 1, 25 and 26; 'cross': phases 1, 27 and 28")
     return p.parse_args(argv)
 
 
@@ -6298,6 +6946,8 @@ def main(argv=None) -> int:
     elif args.only == "moe":
         _record_moe(kernel, ca_fwd, ca_bwd, fl_fwd, fl_bwd,
                     moe_phases(torch, np, ops, launch, card))
+    elif args.only == "cross":
+        _record_cross(ca_fwd, ca_bwd, cross_phases(torch, np, ops, card))
     elif args.only != "kernels":
         engine, launches, captured_err = serve_full_width(torch, np, ops,
                                                           launch)
@@ -6652,6 +7302,8 @@ def main(argv=None) -> int:
         # phases 25-26: the MoE archs
         _record_moe(kernel, ca_fwd, ca_bwd, fl_fwd, fl_bwd,
                     moe_phases(torch, np, ops, launch, card))
+        # phases 27-28: the cross-attention archs
+        _record_cross(ca_fwd, ca_bwd, cross_phases(torch, np, ops, card))
         # last: the only phase that joins a process group and spawns
         ca_fwd["ranks_phase24"] = ranks_phase(
             torch, np, ops, layer0, card, elastic["free_digest"])

@@ -5,7 +5,8 @@ from .base import (EncoderConfig, ModelConfig, MoEConfig, RGLRUConfig,
 
 # the architectures the port serves: the dense stacks, the recurrent
 # hybrids (mamba2's SSD, recurrentgemma's RG-LRU with local attention) and
-# the MoE stacks (routed experts with shared ones)
+# the MoE stacks (routed experts with shared ones); not the cross-attention
+# archs, which serve only with a memory the HTTP launcher cannot give them
 SERVE_ARCHS = ("llama3-8b", "llama3-34b", "smollm-360m", "gemma2-2b",
                "mistral-large-123b", "nemotron-4-340b", "mamba2-370m",
                "recurrentgemma-9b", "qwen2-moe-a2.7b",

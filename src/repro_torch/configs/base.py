@@ -4,9 +4,10 @@ The port's copy of ``repro.configs.base``: the same dataclasses, widths
 and ``reduced()`` rule, with torch dtypes in place of ``jnp.dtype``.  The
 registry holds the configs the port builds, trains and serves: the dense
 stacks (llama3-8b, llama3-34b, smollm-360m, gemma2-2b, mistral-large-123b,
-nemotron-4-340b), the recurrent hybrids (mamba2-370m, recurrentgemma-9b)
-and the MoE stacks (qwen2-moe-a2.7b, llama4-maverick-400b-a17b); the
-cross-attention archs come with the slice that runs their layers.
+nemotron-4-340b), the recurrent hybrids (mamba2-370m, recurrentgemma-9b),
+the MoE stacks (qwen2-moe-a2.7b, llama4-maverick-400b-a17b) and the
+cross-attention archs (whisper-large-v3 with its encoder,
+llama-3.2-vision-11b).
 
 Every assigned architecture gets a ``ModelConfig`` in its own module under
 ``repro/configs``; the registry maps ``--arch <id>`` to it.  A config fully
@@ -290,6 +291,6 @@ def list_archs():
 
 def _load_all():
     from . import (gemma2_2b, llama3_8b, llama3_34b,  # noqa: F401
-                   llama4_maverick, mamba2_370m, mistral_large,
-                   nemotron4_340b, qwen2_moe, recurrentgemma_9b,
-                   smollm_360m)
+                   llama4_maverick, llama32_vision, mamba2_370m,
+                   mistral_large, nemotron4_340b, qwen2_moe,
+                   recurrentgemma_9b, smollm_360m, whisper_large_v3)

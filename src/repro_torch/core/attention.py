@@ -260,6 +260,36 @@ class _XlaFlash(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+# ---------------------------------------------------------------- decoding
+def decode_attention(q, k_cache, v_cache, cache_len_mask, pos_q, pos_kv, *,
+                     window=0, softcap=0.0, scale: Optional[float] = None):
+    """One-token (or few-token) query against a dense cache, the legacy
+    decode path's attention (reference ``core/attention.py:374-400``): an
+    f32 einsum, a masked softmax and an einsum, outside any kernel, as the
+    reference computes it.
+
+    q [B,Sq,Hq,dh]; caches [B,S,Hkv,dh]; cache_len_mask [B,S] bool (True =
+    the slot holds a real token); pos_q [B,Sq]; pos_kv [B,S] absolute
+    positions (a ring buffer's slot order is not its position order)."""
+    dh = q.shape[-1]
+    n_rep = q.shape[2] // k_cache.shape[2]
+    scale = scale if scale is not None else dh ** -0.5
+    k = _repeat_kv(k_cache, n_rep)
+    v = _repeat_kv(v_cache, n_rep)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = _softcap(logits, softcap)
+    m = cache_len_mask[:, None, None, :] & (
+        pos_q[:, None, :, None] >= pos_kv[:, None, None, :])
+    if window and window > 0:
+        m = m & ((pos_q[:, None, :, None] - pos_kv[:, None, None, :])
+                 < window)
+    logits = torch.where(m, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(m.any(-1)[..., None], p, 0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
 # ------------------------------------------------------------------ router
 def core_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv, *, causal=True,
                    window=0, softcap=0.0, ctx=None, scale=None, mask=None):

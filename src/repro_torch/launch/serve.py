@@ -54,7 +54,7 @@ import numpy as np
 
 from repro_torch.configs import SERVE_ARCHS, get_config
 from repro_torch.core.cost_model import GridCalibrator
-from repro_torch.models.model import Transformer
+from repro_torch.models.model import Transformer, needs_memory
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.serve.scheduler import DECODE, Request
@@ -274,6 +274,11 @@ def build_engine(args, cfg=None) -> Engine:
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = cfg.reduced()
+    if needs_memory(cfg):
+        # the reference's launcher reaches an assert in init_cache here
+        raise ValueError(f"{cfg.arch_id} cross-attends to a memory the "
+                         f"launcher cannot give it; build "
+                         f"Engine(model, serve_cfg, memory=...) instead")
     model = Transformer(cfg, device=args.device, seed=args.seed)
     scfg = ServeConfig(max_seq=args.max_seq,
                        max_new_tokens=args.max_new,

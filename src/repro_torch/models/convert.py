@@ -2,9 +2,13 @@
 
 ``params_from_jax`` takes the reference's param pytree as numpy arrays
 (``embed``, ``unembed``, ``final_norm`` and ``blocks``: a tuple of slot
-dicts whose leaves carry a leading ``[n_groups]`` axis) and returns a
-``state_dict`` for ``model.Transformer``.  Layer ``l`` is slot
-``l % period`` of group ``l // period``.  Weights keep the reference's
+dicts whose leaves carry a leading ``[n_groups]`` axis; with an encoder
+also ``enc_blocks``, one slot dict stacked on ``[n_enc_layers]``, and
+``enc_final_norm``) and returns a ``state_dict`` for
+``model.Transformer``.  Layer ``l`` is slot ``l % period`` of group
+``l // period``; encoder layer ``i`` is ``enc_blocks[.][i]``.  A cross
+layer's 0-d ``xgate`` is its group's entry of a ``[n_groups]`` leaf.
+Weights keep the reference's
 ``[in, out]`` layout, which the port applies as ``h @ W``: nothing is
 transposed, here or in the hot path.
 
@@ -18,7 +22,7 @@ from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.model import check_arch
+from repro_torch.models.model import check_arch, has_encoder
 
 
 def _tensor(x, dtype) -> torch.Tensor:
@@ -58,6 +62,18 @@ def _entries(np_params: Mapping, cfg) \
                                  f"{cfg.n_groups}")
             for g in range(cfg.n_groups):
                 yield f"layers.{g * cfg.period + si}.{name}", stacked, g
+    if has_encoder(cfg):
+        flat = {}
+        _flatten("", np_params["enc_blocks"], flat)
+        for name, stacked in flat.items():
+            if stacked.shape[0] != cfg.encoder.n_layers:
+                raise ValueError(f"enc_blocks {name}: leading axis "
+                                 f"{stacked.shape[0]} != n_layers "
+                                 f"{cfg.encoder.n_layers}")
+            for i in range(cfg.encoder.n_layers):
+                yield f"enc_layers.{i}.{name}", stacked, i
+        for k, v in np_params["enc_final_norm"].items():
+            yield f"enc_final_norm.{k}", v, None
 
 
 def params_from_jax(np_params: Mapping, cfg) -> Dict[str, torch.Tensor]:
@@ -79,10 +95,14 @@ def decay_mask(model) -> List[bool]:
     """Per tensor of ``model.parameters()``: does the reference's AdamW
     decay it?  The reference decays a leaf of its param tree when
     ``ndim >= 2`` (``src/repro/optim/adamw.py:57``).  A leaf of
-    ``blocks`` carries the leading ``[n_groups]`` axis, so a repeated
+    ``blocks`` carries the leading ``[n_groups]`` axis, and one of
+    ``enc_blocks`` the leading ``[n_enc_layers]`` axis, so a repeated
     layer's tensor decays when it has ``dim() >= 1``: its matrices and
     also its vectors (norm scales, biases, ``lru_a``, ``conv_b``,
-    ``A_log``, ``D_skip``, ``dt_bias``).  A top-level tensor (``embed``,
-    ``unembed``, ``final_norm``) decays when ``dim() >= 2``."""
-    return [p.dim() >= (1 if name.startswith("layers.") else 2)
+    ``A_log``, ``D_skip``, ``dt_bias``), but not a cross layer's 0-d
+    ``xgate`` (a ``[n_groups]`` leaf there).  A top-level tensor
+    (``embed``, ``unembed``, ``final_norm``, ``enc_final_norm``) decays
+    when ``dim() >= 2``."""
+    return [p.dim() >= (1 if name.startswith(("layers.", "enc_layers."))
+                        else 2)
             for name, p in model.named_parameters()]

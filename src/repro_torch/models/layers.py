@@ -1,5 +1,6 @@
 """Layer implementations: init, norms, RoPE, GQA projections,
-self-attention over packed documents, the MLP, the capacity-routed MoE
+self-attention over packed documents, cross-attention over a memory
+(encoder output or patch embeddings), the MLP, the capacity-routed MoE
 with shared experts, the Mamba-2 SSD block
 (chunked scan, packed-document aware) and the RecurrentGemma RG-LRU block
 (linear recurrence with document resets), and their one-token decode
@@ -94,15 +95,26 @@ def activation_fn(name: str):
 
 
 # --------------------------------------------------------------- attention
-def attn_init(gen: torch.Generator, cfg, device=None) -> nn.ParameterDict:
+def attn_init(gen: torch.Generator, cfg, device=None,
+              cross: bool = False) -> nn.ParameterDict:
+    """The self-attention projections; with ``cross`` also the
+    cross-attention ones (``xwq``/``xwk``/``xwv``/``xwo``) and the 0-d
+    tanh gate ``xgate``, which starts at zero (reference
+    ``layers.py:74-90``): at init a cross layer adds nothing."""
     d, dh = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     dt = cfg.pdtype
-    return _params(
-        wq=dense_init(gen, d, (d, hq * dh), dt, device),
-        wk=dense_init(gen, d, (d, hkv * dh), dt, device),
-        wv=dense_init(gen, d, (d, hkv * dh), dt, device),
-        wo=dense_init(gen, hq * dh, (hq * dh, d), dt, device))
+    p = dict(wq=dense_init(gen, d, (d, hq * dh), dt, device),
+             wk=dense_init(gen, d, (d, hkv * dh), dt, device),
+             wv=dense_init(gen, d, (d, hkv * dh), dt, device),
+             wo=dense_init(gen, hq * dh, (hq * dh, d), dt, device))
+    if cross:
+        p.update(xwq=dense_init(gen, d, (d, hq * dh), dt, device),
+                 xwk=dense_init(gen, d, (d, hkv * dh), dt, device),
+                 xwv=dense_init(gen, d, (d, hkv * dh), dt, device),
+                 xwo=dense_init(gen, hq * dh, (hq * dh, d), dt, device),
+                 xgate=torch.zeros((), dtype=dt, device=device))
+    return _params(**p)
 
 
 def qkv_proj(p: Mapping[str, torch.Tensor], h: torch.Tensor, cfg,
@@ -133,6 +145,42 @@ def self_attn_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, batch,
                          window=window, softcap=cfg.attn_logit_softcap,
                          ctx=ctx)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
+
+
+def cross_gate(p: Mapping[str, torch.Tensor],
+               out: torch.Tensor) -> torch.Tensor:
+    """``tanh(xgate) * out``, the gate's tanh in f32 (llama3.2-vision's
+    gate; whisper carries one too)."""
+    if "xgate" not in p:
+        return out
+    return torch.tanh(p["xgate"].float()).to(out.dtype) * out
+
+
+def cross_attn_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, batch,
+                     cfg, ctx) -> torch.Tensor:
+    """Cross-attention of h [B,S,D] over ``batch["memory"]`` [B,M,D] (the
+    encoder's output or the stub patch embeddings), reference
+    ``layers.py:156-182``.  Every real query token sees every valid memory
+    row, whatever its document: the queries take segment ``seg_q > 0``,
+    the memory segment 1 (or ``memory_mask``), every memory position is
+    0, and the attention is non-causal without softcap.  Padding queries
+    (segment 0) attend nothing."""
+    b, s, _ = h.shape
+    dh = cfg.head_dim
+    mem = batch["memory"]
+    m = mem.shape[1]
+    q = (h @ p["xwq"]).reshape(b, s, cfg.n_heads, dh)
+    k = (mem @ p["xwk"]).reshape(b, m, cfg.n_kv_heads, dh)
+    v = (mem @ p["xwv"]).reshape(b, m, cfg.n_kv_heads, dh)
+    mem_mask = batch.get("memory_mask")
+    seg_kv = (torch.ones((b, m), dtype=torch.int32, device=h.device)
+              if mem_mask is None else mem_mask.to(torch.int32))
+    seg_q_x = (batch["segment_ids"] > 0).to(torch.int32)
+    pos_kv = torch.zeros((b, m), dtype=torch.int32, device=h.device)
+    out = core_attention(q, k, v, seg_q_x, batch["positions"], seg_kv,
+                         pos_kv, causal=False, window=0, softcap=0.0,
+                         ctx=ctx)
+    return cross_gate(p, out.reshape(b, s, cfg.n_heads * dh) @ p["xwo"])
 
 
 # --------------------------------------------------------------------- ffn

@@ -1,29 +1,34 @@
-"""Model assembly: decoders trained on packed documents (``forward``)
-and dense decoders served from the ragged serving cache (DESIGN.md §8).
+"""Model assembly: decoders trained on packed documents (``forward``),
+served from the ragged serving cache (DESIGN.md §8) or, for the
+cross-attention archs, from the legacy dense decode cache
+(``init_cache(layout="decode")``, ``decode_step``).
 
 The port of ``repro.models.model``.  The reference stacks each pattern
 slot's weights on a leading ``[n_groups]`` axis and scans over it; here
 each layer is its own module in ``Transformer.layers`` and the scan is a
 Python loop.  Layer ``l`` is pattern slot ``l % period`` of group
-``l // period``.
+``l // period``.  An encoder (whisper's) is ``Transformer.enc_layers``,
+non-causal ``enc`` layers, and ``enc_final_norm``.
 
-What trains: patterns of ``global``, ``local``, ``ssd`` and ``rglru``
-layers (dense MLPs or routed experts with shared ones, optional
+What trains: patterns of ``global``, ``local``, ``cross``, ``ssd`` and
+``rglru`` layers (dense MLPs or routed experts with shared ones, optional
 post-norms, softcaps, tied embeddings; the Mamba-2 SSD block; the
-RecurrentGemma RG-LRU block), under every ``attn_impl`` (with ``cad``,
-``local`` layers take the dispatch's windowed fallback,
-``xla_flash_attention``; ``ssd`` layers run their intra-chunk step and
-``rglru`` layers their recurrence in the CUDA kernels under ``pallas``
-and in torch ops otherwise).  An MoE layer routes with capacity drops in
-training and without (``no_drop``) in serving, and ``forward`` returns
-its auxiliary losses summed over the layers.  What serves: the same
-patterns, from the ragged serving cache; ``ssd`` and ``rglru`` layers
-keep their conv window and recurrent state in it and run decode-mode
-steps only (one token a request, ``ssd_decode`` / ``rglru_decode``), and
-MoE archs prefill a token a request per step too (the reference's engine
-gates them so).  Cross-attention, the encoder and the legacy
-``layout="decode"`` cache raise ``NotImplementedError`` naming what
-brings them.
+RecurrentGemma RG-LRU block; a ``cross`` layer is a causal self-attention
+layer that also cross-attends to ``batch["memory"]``, the encoder's output
+when the config has one), under every ``attn_impl`` (with ``cad``,
+``local`` layers, cross-attention and the encoder take the dispatch's
+non-plan route, ``xla_flash_attention``; ``ssd`` layers run their
+intra-chunk step and ``rglru`` layers their recurrence in the CUDA kernels
+under ``pallas`` and in torch ops otherwise).  An MoE layer routes with
+capacity drops in training and without (``no_drop``) in serving, and
+``forward`` returns its auxiliary losses summed over the layers.  What
+serves: every pattern without cross-attention or an encoder from the
+ragged serving cache (``ssd`` and ``rglru`` layers keep their conv window
+and recurrent state in it and run decode-mode steps only, one token a
+request; MoE archs prefill a token a request per step too, as the
+reference's engine gates them); every pattern from the legacy dense
+decode cache, a token a step, its attention in plain torch ops
+(``decode_attention``), as the reference's.
 """
 from __future__ import annotations
 
@@ -34,9 +39,11 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.core.attention import decode_attention
 from repro_torch.data.packing import BLOCK as SERVE_BLOCK
 from repro_torch.kernels.packed_flash import ops as pf_ops
 from repro_torch.models import layers as L
+from repro_torch.parallel import ParallelContext
 
 _ATTN_KINDS = ("global", "local")
 
@@ -51,21 +58,26 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-_LATER = {"cross": "the cross-attention slice (whisper, llama3.2-vision)"}
 _RECURRENT = ("ssd", "rglru")
+_KINDS = _ATTN_KINDS + ("cross",) + _RECURRENT
+
+
+def has_encoder(cfg) -> bool:
+    return bool(cfg.encoder and cfg.encoder.n_layers)
+
+
+def needs_memory(cfg) -> bool:
+    """Whether the arch reads a memory (cross-attention layers or an
+    encoder): it serves only from the legacy decode cache."""
+    return has_encoder(cfg) or "cross" in cfg.layer_pattern
 
 
 def check_arch(cfg) -> None:
-    """Raise for what the port cannot build, train and serve yet (every
-    arch that trains serves: recurrent layers in decode-mode steps)."""
+    """Raise for what the port cannot build: a layer kind it does not
+    know, or qk_norm (which no assigned arch uses)."""
     for kind in cfg.layer_pattern:
-        if kind not in _ATTN_KINDS + _RECURRENT:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: {kind!r} layers come with "
-                f"{_LATER.get(kind, 'a later slice')}")
-    if cfg.encoder and cfg.encoder.n_layers:
-        raise NotImplementedError(f"{cfg.arch_id}: the encoder comes with the "
-                                  f"cross-attention slice")
+        if kind not in _KINDS:
+            raise ValueError(f"{cfg.arch_id}: unknown layer kind {kind!r}")
     if cfg.qk_norm:
         raise NotImplementedError(f"{cfg.arch_id}: qk_norm is not ported")
 
@@ -81,17 +93,20 @@ def fused_prefill_ok(cfg) -> bool:
 
 class Block(nn.Module):
     """One attention layer: norm1 -> attn -> [pnorm1] -> residual ->
-    norm2 -> ffn (or moe, with ``cfg.moe.n_experts``) -> [pnorm2] ->
-    residual."""
+    [a ``cross`` layer: xnorm -> cross-attention -> residual] -> norm2 ->
+    ffn (or moe, with ``cfg.moe.n_experts``; never in an ``enc`` layer)
+    -> [pnorm2] -> residual."""
 
     def __init__(self, cfg, kind: str, gen: torch.Generator, device):
         super().__init__()
         self.kind = kind
         dt = cfg.pdtype
         self.norm1 = L.norm_init(cfg.d_model, dt, cfg.norm, device)
-        self.attn = L.attn_init(gen, cfg, device)
+        self.attn = L.attn_init(gen, cfg, device, cross=kind == "cross")
         self.norm2 = L.norm_init(cfg.d_model, dt, cfg.norm, device)
-        if cfg.moe and cfg.moe.n_experts:
+        if kind == "cross":
+            self.xnorm = L.norm_init(cfg.d_model, dt, cfg.norm, device)
+        if cfg.moe and cfg.moe.n_experts and kind != "enc":
             self.moe = L.moe_init(gen, cfg, device)
         else:
             self.ffn = L.ffn_init(gen, cfg, device)
@@ -128,7 +143,8 @@ _BLOCKS = {"ssd": SSDBlock, "rglru": RGLRUBlock}
 
 
 class Transformer(nn.Module):
-    """Decoder for training and, with attention-only patterns, serving.
+    """Decoder (with whisper's encoder where the config has one) for
+    training and serving.
     Weights are drawn from ``seed`` (normal * fan_in**-0.5, per tensor, in
     the param dtype, on ``device``);
     ``load_state_dict(convert.params_from_jax(...))`` replaces them."""
@@ -155,6 +171,12 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(
             _BLOCKS[kind](cfg, gen, device) if kind in _BLOCKS
             else Block(cfg, kind, gen, device) for kind in kinds)
+        if has_encoder(cfg):
+            self.enc_layers = nn.ModuleList(
+                Block(cfg, "enc", gen, device)
+                for _ in range(cfg.encoder.n_layers))
+            self.enc_final_norm = L.norm_init(cfg.d_model, dt, cfg.norm,
+                                              device)
         # inspection hook: called as attn_hook(layer, inputs) with each
         # sequence mixer's inputs just before its kernel call (serving: the
         # kernel's arguments; training attention: q, k, v, segment_ids,
@@ -189,16 +211,20 @@ class Transformer(nn.Module):
         return logits
 
     # ----------------------------------------------------------- training
-    def _block_train(self, li: int, blk: nn.Module, h, batch, ctx):
+    def _block_train(self, li: Optional[int], blk: nn.Module, h, batch,
+                     ctx):
         """``block_apply`` (reference ``models/model.py:88-130``): for an
-        attention layer norm1 -> self-attention -> [pnorm1] -> residual ->
-        norm2 -> FFN or MoE -> [pnorm2] -> residual; for an ssd layer
-        norm1 -> SSD mixer -> residual; for an rglru layer norm1 -> RG-LRU
-        mixer -> residual -> norm2 -> FFN -> residual.  Returns (h, the
+        attention layer norm1 -> self-attention (non-causal in an ``enc``
+        layer) -> [pnorm1] -> residual -> [``cross``: xnorm ->
+        cross-attention -> residual] -> norm2 -> FFN or MoE -> [pnorm2] ->
+        residual; for an ssd layer norm1 -> SSD mixer -> residual; for an
+        rglru layer norm1 -> RG-LRU mixer -> residual -> norm2 -> FFN ->
+        residual.  ``li`` is the decoder layer's index for ``attn_hook``
+        (None for an encoder layer, which is not hooked).  Returns (h, the
         MoE layer's aux losses or None)."""
         cfg = self.cfg
         hook = None
-        if self.attn_hook is not None:
+        if self.attn_hook is not None and li is not None:
             hook = lambda inputs, li=li: self.attn_hook(li, inputs)  # noqa
         if blk.kind == "ssd":
             return h + L.ssd_apply(blk.mixer,
@@ -213,10 +239,64 @@ class Transformer(nn.Module):
                                    cfg), None
         window = cfg.window if blk.kind == "local" else 0
         a = L.self_attn_apply(blk.attn, L.norm_apply(blk.norm1, h, cfg.norm),
-                              batch, cfg, ctx, causal=True, window=window,
-                              hook=hook)
+                              batch, cfg, ctx, causal=blk.kind != "enc",
+                              window=window, hook=hook)
+        cross_fn = None
+        if blk.kind == "cross":
+            cross_fn = lambda hh: L.cross_attn_apply(  # noqa: E731
+                blk.attn, L.norm_apply(blk.xnorm, hh, cfg.norm), batch, cfg,
+                ctx)
         return self._attn_residual_tail(blk, h, a,
-                                        group=getattr(ctx, "group", None))
+                                        group=getattr(ctx, "group", None),
+                                        cross_fn=cross_fn)
+
+    def _run_layers(self, layers, h, batch, ctx, hooked: bool):
+        """Each layer in turn, under ``torch.utils.checkpoint`` when
+        ``ctx.remat`` and gradients are on; returns (h, the MoE layers'
+        aux losses in order)."""
+        losses_all = []
+        for li, blk in enumerate(layers):
+            li = li if hooked else None
+            if ctx.remat and torch.is_grad_enabled():
+                h, losses = torch.utils.checkpoint.checkpoint(
+                    self._block_train, li, blk, h, batch, ctx,
+                    use_reentrant=False)
+            else:
+                h, losses = self._block_train(li, blk, h, batch, ctx)
+            if losses:
+                losses_all.append(losses)
+        return h, losses_all
+
+    def encode(self, memory_raw: torch.Tensor, ctx) -> torch.Tensor:
+        """The whisper-style encoder over stub frame embeddings [B,M,D]
+        (reference ``models/model.py:145-160``): sinusoidal positions
+        0..M-1, one document a row, the non-causal ``enc`` layers (each
+        under ``torch.utils.checkpoint`` with ``ctx.remat``), then
+        ``enc_final_norm``.  Returns [B,M,D] in the compute dtype."""
+        cfg = self.cfg
+        b, m, _ = memory_raw.shape
+        dev = memory_raw.device
+        pos = torch.arange(m, dtype=torch.int32, device=dev).expand(b, m)
+        h = memory_raw.to(cfg.cdtype) + L.sinusoidal_pos(pos, cfg.d_model,
+                                                         cfg.cdtype)
+        ebatch = {"segment_ids": torch.ones((b, m), dtype=torch.int32,
+                                            device=dev),
+                  "positions": pos}
+        h, _ = self._run_layers(self.enc_layers, h, ebatch, ctx,
+                                hooked=False)
+        return L.norm_apply(self.enc_final_norm, h, cfg.norm)
+
+    def _memory(self, memory: Optional[torch.Tensor], ctx):
+        """What the cross layers attend to: the encoder's output where the
+        config has an encoder, else the memory in the compute dtype."""
+        if memory is None:
+            if "cross" in self.cfg.layer_pattern:
+                raise ValueError(f"{self.cfg.arch_id}: cross-attention "
+                                 f"layers need a memory [B, M, d_model]")
+            return None
+        if has_encoder(self.cfg):
+            return self.encode(memory, ctx)
+        return memory.to(self.cfg.cdtype)
 
     def forward(self, batch: Dict[str, torch.Tensor], ctx) \
             -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -227,10 +307,16 @@ class Transformer(nn.Module):
         in the backward (``torch.utils.checkpoint``, non-reentrant)
         instead of keeping its activations (an MoE layer's all-reduce of
         its top-1 counts under a group runs again there, in the same order
-        on every rank).  Returns (logits [B,S,V] f32, aux-losses: with MoE
-        layers ``moe_lb`` and ``moe_z``, f32 scalars summed over the
+        on every rank).  A cross-attention arch also reads
+        ``batch["memory"]`` [B, M, D] (encoded first where the config has
+        an encoder) and, optionally, ``memory_mask`` [B, M] (0 = a memory
+        row no query sees).  Returns (logits [B,S,V] f32, aux-losses: with
+        MoE layers ``moe_lb`` and ``moe_z``, f32 scalars summed over the
         layers in order, else empty)."""
         cfg = self.cfg
+        memory = self._memory(batch.get("memory"), ctx)
+        if memory is not None:
+            batch = dict(batch, memory=memory)
         h = self._embed(batch["tokens"])
         if not cfg.use_rope and cfg.has_attention():
             h = h + L.sinusoidal_pos(batch["positions"], cfg.d_model,
@@ -239,43 +325,68 @@ class Transformer(nn.Module):
         if cfg.moe and cfg.moe.n_experts:
             aux = {k: torch.zeros((), dtype=torch.float32, device=h.device)
                    for k in ("moe_lb", "moe_z")}
-        for li, blk in enumerate(self.layers):
-            if ctx.remat and torch.is_grad_enabled():
-                h, losses = torch.utils.checkpoint.checkpoint(
-                    self._block_train, li, blk, h, batch, ctx,
-                    use_reentrant=False)
-            else:
-                h, losses = self._block_train(li, blk, h, batch, ctx)
-            if losses:
-                aux = {k: aux[k] + v for k, v in losses.items()}
+        h, losses_all = self._run_layers(self.layers, h, batch, ctx,
+                                         hooked=True)
+        for losses in losses_all:
+            aux = {k: aux[k] + v for k, v in losses.items()}
         h = L.norm_apply(self.final_norm, h, cfg.norm)
         return self._unembed(h), aux
 
     # -------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_seq: int,
-                   layout: str = "serve") -> Dict:
-        """The ragged serving cache (DESIGN.md §8), one slot dict a layer:
-        an attention layer's ``k``/``v`` of ``[B, S_pad, Hkv, dh]`` where
+                   layout: str = "serve",
+                   memory: Optional[torch.Tensor] = None) -> Dict:
+        """A decoding cache, one slot dict a layer.
+
+        ``layout="serve"``: the ragged serving cache (DESIGN.md §8): an
+        attention layer's ``k``/``v`` of ``[B, S_pad, Hkv, dh]`` where
         slot index == absolute position (local layers too: the window is
         the kernel's mask), ``S_pad`` = ``max_seq`` rounded up to the
         128-token block; an ssd layer's ``conv`` [B, W-1, d_in + 2·G·N]
         (compute dtype) and ``state`` [B, H, N, P] f32; an rglru layer's
         ``conv`` [B, W-1, lru_width] and ``h`` [B, lru_width] f32; plus the
-        per-request visibility bound ``kv_len [B]``."""
-        if layout == "decode":
-            raise NotImplementedError(
-                f"{self.cfg.arch_id}: the legacy dense decode cache "
-                f"(layout='decode') is not ported (ROADMAP queue 1 item 10, "
-                f"with item 12); the serving engine uses layout='serve'")
-        if layout != "serve":
-            raise ValueError(f"unknown cache layout {layout!r}")
+        per-request visibility bound ``kv_len [B]``.  Archs that read a
+        memory have no serve layout (``needs_memory``).
+
+        ``layout="decode"``: the legacy dense decode cache (reference
+        ``models/model.py:194-257``): a ``global`` or ``cross`` layer's
+        ``k``/``v`` [B, max_seq, Hkv, dh] and ``kv_pos`` [B, max_seq]
+        (the position a slot holds, -1 = empty); a ``local`` layer's ring
+        of ``min(window, max_seq)`` slots, written at ``pos % size``; the
+        recurrent layers' states as above; and each ``cross`` layer's
+        ``xk``/``xv`` [B, M, Hkv, dh], projected once from ``memory``
+        [B, M, D] (through the encoder first where the config has one,
+        its attention on the blockwise ``xla`` route; the memory is taken
+        in the compute dtype, as ``forward`` takes it)."""
         cfg = self.cfg
         check_arch(cfg)
+        if layout not in ("serve", "decode"):
+            raise ValueError(f"unknown cache layout {layout!r}")
+        if layout == "serve" and needs_memory(cfg):
+            raise ValueError(f"{cfg.arch_id}: the serve cache layout does "
+                             f"not support cross-attention/encoder "
+                             f"architectures; use layout='decode'")
         dev, cdt, f32 = self.device, cfg.cdtype, torch.float32
-        s_pad = -(-max_seq // SERVE_BLOCK) * SERVE_BLOCK
         b = batch_size
+        if layout == "serve":
+            s_len = -(-max_seq // SERVE_BLOCK) * SERVE_BLOCK
+        else:
+            s_len = max_seq
+            if "cross" in cfg.layer_pattern:
+                if memory is None:
+                    raise ValueError(
+                        f"{cfg.arch_id}: the decode cache of a "
+                        f"cross-attention arch needs the memory its cross "
+                        f"layers attend to (Engine(memory=...))")
+                if memory.shape[0] != b:
+                    raise ValueError(f"memory has {memory.shape[0]} rows, "
+                                     f"the cache {b}")
+                with torch.no_grad():
+                    memory = self._memory(memory.to(dev), ParallelContext(
+                        attn_impl="xla", remat=False))
 
-        def slot(kind):
+        def slot(blk):
+            kind = blk.kind
             if kind == "ssd":
                 s = cfg.ssm
                 d_in = s.expand * cfg.d_model
@@ -290,12 +401,27 @@ class Transformer(nn.Module):
                 return {"conv": torch.zeros((b, cfg.rglru.conv_width - 1, w),
                                             dtype=cdt, device=dev),
                         "h": torch.zeros((b, w), dtype=f32, device=dev)}
-            shape = (b, s_pad, cfg.n_kv_heads, cfg.head_dim)
-            return {"k": torch.zeros(shape, dtype=cdt, device=dev),
-                    "v": torch.zeros(shape, dtype=cdt, device=dev)}
+            n = s_len
+            if layout == "decode" and kind == "local":
+                n = min(cfg.window, max_seq)
+            shape = (b, n, cfg.n_kv_heads, cfg.head_dim)
+            c = {"k": torch.zeros(shape, dtype=cdt, device=dev),
+                 "v": torch.zeros(shape, dtype=cdt, device=dev)}
+            if layout == "decode":
+                c["kv_pos"] = torch.full((b, n), -1, dtype=torch.int32,
+                                         device=dev)
+            if kind == "cross":
+                m = memory.shape[1]
+                kv = (b, m, cfg.n_kv_heads, cfg.head_dim)
+                with torch.no_grad():
+                    c["xk"] = (memory @ blk.attn["xwk"]).reshape(kv)
+                    c["xv"] = (memory @ blk.attn["xwv"]).reshape(kv)
+            return c
 
         slots: List[Dict[str, torch.Tensor]] = [
-            slot(blk.kind) for blk in self.layers]
+            slot(blk) for blk in self.layers]
+        if layout == "decode":
+            return {"slots": slots}
         return {"slots": slots,
                 "kv_len": torch.zeros(b, dtype=torch.int32, device=dev)}
 
@@ -341,15 +467,18 @@ class Transformer(nn.Module):
         return out.reshape(1, t, cfg.n_heads * cfg.head_dim) @ p["wo"]
 
     def _attn_residual_tail(self, blk: Block, h, a, group=None,
-                            no_drop=False):
-        """Post-attention wiring: post-norm, residual, norm2 -> FFN or MoE
-        (``no_drop`` in serving; ``group``, the CAD process group, in
-        training), post-norm, residual.  Returns (h, the MoE layer's aux
-        losses or None)."""
+                            no_drop=False, cross_fn=None):
+        """Post-attention wiring shared by training, serving and decode:
+        post-norm, residual, the cross-attention insert ``h + cross_fn(h)``
+        of a ``cross`` layer, norm2 -> FFN or MoE (``no_drop`` in serving;
+        ``group``, the CAD process group, in training), post-norm,
+        residual.  Returns (h, the MoE layer's aux losses or None)."""
         cfg = self.cfg
         if cfg.post_norms:
             a = L.norm_apply(blk.pnorm1, a, cfg.norm)
         h = h + a
+        if cross_fn is not None:
+            h = h + cross_fn(h)
         f_in = L.norm_apply(blk.norm2, h, cfg.norm)
         losses = None
         if hasattr(blk, "moe"):
@@ -370,6 +499,27 @@ class Transformer(nn.Module):
                              block_req, kv_len_next, blk.kind)
         return self._attn_residual_tail(blk, h, a, no_drop=True)[0]
 
+    def _recurrent_step(self, blk: nn.Module, hb, cache_slot, reset):
+        """One token of a recurrent layer (reference ``block_decode``,
+        ``models/model.py:516-536``): hb [B, 1, D]; ``reset`` [B] bool
+        starts an rglru row's recurrence afresh.  Returns (hb, the new
+        conv window and state by name); the cache is not written."""
+        cfg = self.cfg
+        xin = L.norm_apply(blk.norm1, hb, cfg.norm)
+        if blk.kind == "ssd":
+            y, conv, state = L.ssd_decode(blk.mixer, xin, cache_slot["conv"],
+                                          cache_slot["state"], cfg)
+            return hb + y, {"conv": conv, "state": state}
+        mixer = blk.mixer
+        gate_br = F.gelu(xin @ mixer["w_gate_br"], approximate="tanh")
+        x, conv = L._causal_conv(xin @ mixer["w_x"], mixer["conv_w"],
+                                 mixer["conv_b"], cache_slot["conv"])
+        hstate = L.rglru_decode(mixer, x, cache_slot["h"], reset=reset)
+        hb = hb + (hstate[:, None].to(hb.dtype) * gate_br) @ mixer["w_out"]
+        hb = hb + L.ffn_apply(blk.ffn, L.norm_apply(blk.norm2, hb, cfg.norm),
+                              cfg)
+        return hb, {"conv": conv, "h": hstate}
+
     def _recurrent_serve(self, blk: nn.Module, h, cache_slot, pos):
         """A recurrent layer in a decode-mode step (reference
         ``models/model.py:343-372``): row i of the packed [1, T, D] stream
@@ -377,26 +527,8 @@ class Transformer(nn.Module):
         (e.g. a request waiting while another prefills): their conv window
         and state are kept bit for bit, written back by a masked select;
         the rglru reset at pos == 0 is theirs only when live."""
-        cfg = self.cfg
-        hb = h[0][:, None]                                   # [B,1,D]
-        xin = L.norm_apply(blk.norm1, hb, cfg.norm)
-        if blk.kind == "ssd":
-            y, conv, state = L.ssd_decode(blk.mixer, xin, cache_slot["conv"],
-                                          cache_slot["state"], cfg)
-            hb = hb + y
-            new = {"conv": conv, "state": state}
-        else:
-            mixer = blk.mixer
-            gate_br = F.gelu(xin @ mixer["w_gate_br"], approximate="tanh")
-            x, conv = L._causal_conv(xin @ mixer["w_x"], mixer["conv_w"],
-                                     mixer["conv_b"], cache_slot["conv"])
-            hstate = L.rglru_decode(mixer, x, cache_slot["h"],
-                                    reset=pos.clamp(min=0) == 0)
-            hb = hb + (hstate[:, None].to(hb.dtype) * gate_br) \
-                @ mixer["w_out"]
-            hb = hb + L.ffn_apply(blk.ffn,
-                                  L.norm_apply(blk.norm2, hb, cfg.norm), cfg)
-            new = {"conv": conv, "h": hstate}
+        hb, new = self._recurrent_step(blk, h[0][:, None], cache_slot,
+                                       pos.clamp(min=0) == 0)
         live = pos >= 0
         for name, x in new.items():
             old = cache_slot[name]
@@ -460,3 +592,94 @@ class Transformer(nn.Module):
         h = L.norm_apply(self.final_norm, h, cfg.norm)
         cache["kv_len"] = kv_len_next
         return self._unembed(h)[0]
+
+    # ------------------------------------------------------ legacy decode
+    @staticmethod
+    def _write_cache(cache_slot, k_new, v_new, pos, ring: bool) -> None:
+        """Write one token's k/v [B, 1, Hkv, dh] at each row's ``pos``
+        (``pos % size`` in a ring), and the position into ``kv_pos``; in
+        place (reference ``_write_cache``, ``models/model.py:433``).  The
+        reference's ``dynamic_update_slice`` clamps a position past the
+        end onto the last slot; ``decode_step`` raises before that."""
+        size = cache_slot["k"].shape[1]
+        slot = (pos % size if ring else pos).long()
+        rows = torch.arange(pos.shape[0], device=pos.device)
+        cache_slot["k"][rows, slot] = k_new[:, 0]
+        cache_slot["v"][rows, slot] = v_new[:, 0]
+        cache_slot["kv_pos"][rows, slot] = pos.to(torch.int32)
+
+    def _attn_decode(self, p, h, cache_slot, pos, kind):
+        """Self-attention of one token a row against the dense cache
+        (reference ``attn_decode``, ``models/model.py:450``).  h [B,1,D];
+        returns [B,1,D]."""
+        cfg = self.cfg
+        b = h.shape[0]
+        posb = pos[:, None]
+        q, k, v = L.qkv_proj(p, h, cfg, posb if cfg.use_rope else None)
+        self._write_cache(cache_slot, k, v, pos, ring=kind == "local")
+        kp = cache_slot["kv_pos"]
+        out = decode_attention(q, cache_slot["k"], cache_slot["v"], kp >= 0,
+                               posb, kp,
+                               window=cfg.window if kind == "local" else 0,
+                               softcap=cfg.attn_logit_softcap)
+        return out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+
+    def _cross_decode(self, p, h, cache_slot):
+        """Cross-attention of one token a row to the cached ``xk``/``xv``
+        (reference ``cross_decode``, ``models/model.py:471``): every memory
+        row is visible (the decode cache keeps no ``memory_mask``), and
+        the config's attention softcap applies, as in the reference."""
+        cfg = self.cfg
+        b = h.shape[0]
+        q = (h @ p["xwq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+        m = cache_slot["xk"].shape[1]
+        mask = torch.ones((b, m), dtype=torch.bool, device=h.device)
+        zero = torch.zeros((b, m), dtype=torch.int32, device=h.device)
+        out = decode_attention(q, cache_slot["xk"], cache_slot["xv"], mask,
+                               zero[:, :1], zero, window=0,
+                               softcap=cfg.attn_logit_softcap)
+        out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["xwo"]
+        return L.cross_gate(p, out)
+
+    def _block_decode(self, blk: nn.Module, h, cache_slot, pos):
+        """One token a row through one layer (reference ``block_decode``,
+        ``models/model.py:507``): the attention kinds through
+        ``_attn_residual_tail`` (MoE without drops), a ``cross`` layer's
+        cross-attention inserted there, the recurrent kinds through
+        ``_recurrent_step`` with the rglru reset at pos == 0."""
+        if blk.kind in _RECURRENT:
+            h, new = self._recurrent_step(blk, h, cache_slot, pos == 0)
+            cache_slot.update(new)
+            return h
+        cfg = self.cfg
+        a = self._attn_decode(blk.attn, L.norm_apply(blk.norm1, h, cfg.norm),
+                              cache_slot, pos, blk.kind)
+        cross_fn = None
+        if blk.kind == "cross":
+            cross_fn = lambda hh: self._cross_decode(  # noqa: E731
+                blk.attn, L.norm_apply(blk.xnorm, hh, cfg.norm), cache_slot)
+        return self._attn_residual_tail(blk, h, a, no_drop=True,
+                                         cross_fn=cross_fn)[0]
+
+    def decode_step(self, cache: Dict, tokens: torch.Tensor,
+                    pos: torch.Tensor) -> torch.Tensor:
+        """One decode step against a ``layout="decode"`` cache (reference
+        ``decode_step``, ``models/model.py:539``).  tokens [B, 1] int32,
+        pos [B] int32 (the tokens each row has cached).  Returns logits
+        [B, 1, V] f32; the cache is updated in place.  A position past the
+        end of a ``global``/``cross`` layer's cache raises (the reference
+        clamps it onto the last slot)."""
+        cfg = self.cfg
+        full = [c["k"].shape[1] for blk, c in zip(self.layers,
+                                                 cache["slots"])
+                if blk.kind in ("global", "cross")]
+        if full and int(pos.max()) >= min(full):
+            raise ValueError(f"decode position {int(pos.max())} is past the "
+                             f"end of the {min(full)}-slot decode cache")
+        h = self._embed(tokens)
+        if not cfg.use_rope and cfg.has_attention():
+            h = h + L.sinusoidal_pos(pos[:, None], cfg.d_model, cfg.cdtype)
+        for blk, slot in zip(self.layers, cache["slots"]):
+            h = self._block_decode(blk, h, slot, pos)
+        h = L.norm_apply(self.final_norm, h, cfg.norm)
+        return self._unembed(h)

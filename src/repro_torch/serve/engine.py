@@ -20,6 +20,15 @@ prefill a token a request per step (decode-mode chunks): their mixers
 are sequential or their routing batch-global, so ``fused_ok`` is false
 for them and ``prefill(mode="fused")`` raises.
 
+Archs that read a memory (cross-attention layers, an encoder), and any
+engine given a ``memory``, take the legacy branch instead (reference
+``engine.py:74-91``): a dense ``layout="decode"`` cache holding the
+memory's projected ``xk``/``xv``, prompts prefilled a token a step
+through ``decode_step`` and greedy decode through the same step, its
+attention in plain torch ops (``decode_attention``), as the reference's;
+no ragged kernel runs there.  Fused prefill, ``return_logits``,
+``serve()`` and ``make_scheduler`` raise on that branch.
+
 The reference's ``decode_impl`` switch does not carry over: on the card
 attention always runs the kernel, on the CPU its plain version.
 """
@@ -33,12 +42,12 @@ import torch
 
 from repro_torch.kernels.packed_flash import ops as pf_ops
 from repro_torch.models.model import (check_arch, fused_prefill_ok,
-                                      resolve_device)
+                                      needs_memory, resolve_device)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.scheduler import (DECODE, DONE, ContinuousScheduler,
                                          Request, SchedulerConfig)
-from repro_torch.train.step import make_serve_chunk_step
+from repro_torch.train.step import make_serve_chunk_step, make_serve_step
 
 
 @dataclasses.dataclass
@@ -68,29 +77,43 @@ def check_kernel_head_dim(cfg) -> None:
 class Engine:
     """Serves one ``model.Transformer`` (and its config) from
     ``batch_size`` cache slots.  The model's weights must already live on
-    ``device``."""
+    ``device``.  ``memory`` [batch_size, M, D] is what a cross-attention
+    arch's cross layers attend to (stub audio frames, encoded first, or
+    patch embeddings); with one, or for such an arch, the engine serves
+    from the legacy dense decode cache."""
 
     def __init__(self, model, serve_cfg: ServeConfig,
-                 batch_size: int = 1, device="cuda"):
+                 batch_size: int = 1, device="cuda", memory=None):
         cfg = model.cfg
         check_arch(cfg)
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model weights are on {model.device}, the "
                              f"engine runs on {self.device}")
-        if self.device.type == "cuda" and cfg.has_attention():
-            check_kernel_head_dim(cfg)
         self.cfg, self.model = cfg, model
-        # fused chunked prefill needs an attention-only pattern; recurrent
-        # archs prefill through decode-mode chunks
-        self.fused_ok = fused_prefill_ok(cfg)
+        # the serving layout hosts every arch but the cross-attention and
+        # encoder ones; fused chunked prefill needs an attention-only
+        # pattern (recurrent and MoE archs prefill through decode-mode
+        # chunks)
+        self.serve_layout = memory is None and not needs_memory(cfg)
+        self.fused_ok = self.serve_layout and fused_prefill_ok(cfg)
+        if self.serve_layout and self.device.type == "cuda" \
+                and cfg.has_attention():
+            check_kernel_head_dim(cfg)
         self.scfg = serve_cfg
         self.batch_size = batch_size
-        self.cache = model.init_cache(batch_size, serve_cfg.max_seq,
-                                      layout="serve")
-        self._chunk = make_serve_chunk_step(model)
-        #: device calls made through ``_chunk_call`` (prefill chunks and
-        #: decode steps alike)
+        if memory is not None:
+            memory = torch.as_tensor(memory, device=self.device)
+        if self.serve_layout:
+            self.cache = model.init_cache(batch_size, serve_cfg.max_seq,
+                                          layout="serve")
+            self._chunk = make_serve_chunk_step(model)
+        else:
+            self.cache = model.init_cache(batch_size, serve_cfg.max_seq,
+                                          layout="decode", memory=memory)
+            self._step = make_serve_step(model)
+        #: device calls: serve-layout chunks (prefill chunks and decode
+        #: steps alike) or legacy decode steps
         self.n_chunk_calls = 0
 
     def _tensor(self, x) -> torch.Tensor:
@@ -129,6 +152,15 @@ class Engine:
                 f"prompt length {tokens.shape[1]} exceeds max_seq "
                 f"{self.scfg.max_seq}")
         mode = mode or (self.scfg.prefill if self.fused_ok else "loop")
+        if not self.serve_layout:
+            if mode == "fused":
+                raise ValueError(
+                    f"fused prefill unsupported for {self.cfg.arch_id}: "
+                    f"cross-attention/encoder archs use the legacy path")
+            if return_logits:
+                raise ValueError("return_logits requires the serving "
+                                 "cache layout")
+            return self._prefill_legacy(tokens)
         # a prefill starts a fresh generation for every slot: kv visibility
         # drops and recurrent states are zeroed
         self._reset(np.ones(self.batch_size, bool))
@@ -191,6 +223,48 @@ class Engine:
             return lg, torch.stack(rows, dim=1)
         return lg
 
+    def _legacy_step(self, tokens: torch.Tensor, t: int):
+        """One legacy decode step of every row at position ``t``; returns
+        (next tokens [B] int32, logits [B, V] f32)."""
+        self.n_chunk_calls += 1
+        pos = torch.full((self.batch_size,), t, dtype=torch.int32,
+                         device=self.device)
+        nxt, logits = self._step(self.cache, tokens[:, None], pos)
+        return nxt, logits[:, -1]
+
+    def _prefill_legacy(self, tokens: np.ndarray):
+        """The legacy branch's prefill (reference ``engine.py:214``): a
+        token a step through ``decode_step``.  Starts a fresh generation:
+        every slot's positions are emptied and recurrent states zeroed
+        (the memory's ``xk``/``xv`` stay).  Returns the last logits
+        [B, V]."""
+        b, p = tokens.shape
+        if b != self.batch_size:
+            raise ValueError(f"{b} prompts for {self.batch_size} slots")
+        for slot in self.cache["slots"]:
+            for name, x in slot.items():
+                if name == "kv_pos":
+                    x.fill_(-1)
+                elif name in ("conv", "state", "h"):
+                    x.zero_()
+        toks = torch.as_tensor(np.ascontiguousarray(tokens),
+                               device=self.device)
+        last = None
+        for t in range(p):
+            _, last = self._legacy_step(toks[:, t], t)
+        return last
+
+    def _generate_legacy(self, prompt: np.ndarray) -> torch.Tensor:
+        """Greedy decode on the legacy branch (reference
+        ``engine.py:246``)."""
+        p = prompt.shape[1]
+        nxt = self._prefill_legacy(prompt).argmax(-1).to(torch.int32)
+        out = [nxt]
+        for i in range(self.scfg.max_new_tokens - 1):
+            nxt, _ = self._legacy_step(nxt, p + i)
+            out.append(nxt)
+        return torch.stack(out, dim=1)
+
     # ------------------------------------------------- static-batch decode
     def generate(self, prompt) -> torch.Tensor:
         """Greedy decode of a dense [B, P] batch; returns [B, max_new]."""
@@ -201,6 +275,8 @@ class Engine:
             raise ValueError(
                 f"prompt {p} + max_new_tokens {self.scfg.max_new_tokens} "
                 f"does not fit max_seq {self.scfg.max_seq}")
+        if not self.serve_layout:
+            return self._generate_legacy(prompt)
         lg = self.prefill(prompt)
         nxt = lg.argmax(-1).to(torch.int32)
         out = [nxt]
@@ -221,6 +297,9 @@ class Engine:
         ``snapshot_provider`` (argument or ``ServeConfig`` field), cost
         admission prices from one live calibration snapshot per round;
         otherwise from the static analytic model."""
+        if not self.serve_layout:
+            raise ValueError("continuous batching needs the serving cache "
+                             "layout (no cross-attention/encoder archs)")
         scfg = self.scfg
         provider = snapshot_provider or scfg.snapshot_provider
         need_cost = scfg.admission == "cost" or scfg.step_cost_budget

@@ -1,5 +1,6 @@
 """Step factories: the training and eval steps over packed batches, and
-the serving step.  The port of ``repro.train.step``.
+the serving steps (ragged chunks, and the legacy dense decode step).
+The port of ``repro.train.step``.
 
 The reference jits pure functions of ``(params, opt_state, batch)``; here
 the parameters live in the ``Transformer`` and the optimizer updates them
@@ -24,16 +25,21 @@ import torch
 
 from repro_torch.train.loss import lm_loss
 
-BATCH_KEYS = ("tokens", "labels", "segment_ids", "positions")
+BATCH_KEYS = ("tokens", "labels", "segment_ids", "positions", "memory",
+              "memory_mask")
 # elements of one all-reduce bucket: bounds the flat copy of the grads
 BUCKET_ELEMS = 1 << 26
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
-    """The pipeline's host arrays as tensors on ``device`` (one copy per
-    field), and the attached plan as int32 tensors (``plan.to``)."""
-    out = {k: torch.as_tensor(np.asarray(batch[k]), device=device)
-           for k in BATCH_KEYS if k in batch}
+    """The pipeline's host arrays (and a cross-attention arch's
+    ``memory`` [B, M, D] and ``memory_mask`` [B, M], host arrays or
+    tensors) as tensors on ``device`` (one copy per field, none for a
+    tensor already there), and the attached plan as int32 tensors
+    (``plan.to``)."""
+    out = {k: batch[k].to(device) if torch.is_tensor(batch[k])
+           else torch.as_tensor(np.asarray(batch[k]), device=device)
+           for k in BATCH_KEYS if batch.get(k) is not None}
     if batch.get("plan") is not None:
         out["plan"] = batch["plan"].to(device)
     return out
@@ -144,6 +150,20 @@ def make_eval_step(model, ctx):
             loss, stats = lm_loss(logits, b["labels"], b["segment_ids"])
         return {"loss": loss, "n_tokens": stats["n_tokens"]}
     return eval_step
+
+
+def make_serve_step(model):
+    """One new token a row against a ``layout="decode"`` cache, the legacy
+    dense decode path (the reference's ``make_serve_step``; the engine
+    serves the cross-attention archs through it).  Returns
+    ``serve_step(cache, tokens [B, 1], pos [B]) -> (next token [B] int32,
+    logits [B, 1, V] f32)``; runs under ``torch.inference_mode`` and
+    updates the cache in place."""
+    def serve_step(cache, tokens, pos):
+        with torch.inference_mode():
+            logits = model.decode_step(cache, tokens, pos)
+            return logits[:, -1].argmax(-1).to(torch.int32), logits
+    return serve_step
 
 
 def make_serve_chunk_step(model):

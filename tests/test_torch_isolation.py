@@ -146,6 +146,29 @@ def test_rank_path_and_fabric_load_no_jax():
     _probe(_RANKS_AND_FABRIC)
 
 
+# the cross-attention archs, the encoder and the legacy decode path, each
+# from the module that defines it
+_CROSS = """
+from repro_torch.configs import get_config, SERVE_ARCHS
+from repro_torch.core.attention import decode_attention
+from repro_torch.models.layers import attn_init, cross_attn_apply, cross_gate
+from repro_torch.models.model import Transformer, has_encoder, needs_memory
+from repro_torch.models.convert import decay_mask, params_from_jax
+from repro_torch.train.step import BATCH_KEYS, make_serve_step
+from repro_torch.serve.engine import Engine
+from repro_torch.launch.serve import build_engine
+assert callable(Transformer.encode) and callable(Transformer.decode_step)
+assert {"memory", "memory_mask"} <= set(BATCH_KEYS)
+for arch in ("whisper-large-v3", "llama-3.2-vision-11b"):
+    assert needs_memory(get_config(arch)) and arch not in SERVE_ARCHS
+assert has_encoder(get_config("whisper-large-v3"))
+"""
+
+
+def test_cross_attention_and_legacy_decode_load_no_jax():
+    _probe(_CROSS)
+
+
 def test_importing_chip_smoke_loads_no_jax():
     _probe(_SMOKE)
 

@@ -212,10 +212,10 @@ def test_transformer_on_cuda_raises_without_a_card():
 
 def test_serving_mamba2_raises():
     """Serving admits ssd layers now (``ssd_decode`` and the recurrent
-    cache, ``tests/test_torch_recurrent_serve.py``); what still raises is
-    the legacy dense decode cache."""
+    cache, ``tests/test_torch_recurrent_serve.py``), and so does the
+    legacy dense decode cache (``tests/test_torch_decode.py``); what still
+    raises is a model on a card that is not there."""
     model = Transformer(torch_config(ARCH), device="cpu")
     assert set(model.init_cache(2, 256)["slots"][0]) == {"conv", "state"}
-    with pytest.raises(NotImplementedError,
-                       match="layout='decode'.*queue 1 item 10"):
-        model.init_cache(2, 256, layout="decode")
+    assert set(model.init_cache(2, 256, layout="decode")["slots"][0]) \
+        == {"conv", "state"}

@@ -132,28 +132,42 @@ def _tiny(**over):
     ({"moe": MoEConfig(n_experts=4, top_k=2, d_ff_expert=32)}, "MoE"),
 ])
 def test_outside_the_slice_raises(over, match):
-    """Serving raises for every arch outside the port.  mamba2 and
-    recurrentgemma serve from the ragged cache, and so do MoE archs since
-    the MoE slice (the "MoE" case: the config builds with its ``moe``
-    weights); of them only the legacy dense decode cache raises.  qk_norm
-    and cross-attention layers raise when the serving arch is checked and
-    when a model is built."""
+    """Of what the port once refused, only qk_norm still raises, when the
+    arch is checked and when a model is built.  The rest builds, case for
+    case: mamba2's ssd layers serve from the ragged cache and now also
+    build the legacy ``layout='decode'`` cache (conv window and state);
+    MoE archs (the "MoE" case: the config builds with its ``moe``
+    weights) build both caches; a ``cross`` layer builds with its
+    ``xnorm`` and gated cross projections, refuses the serve layout
+    (``match`` names it) and builds the decode cache from a memory."""
     cfg = _tiny(**over)
-    if {"ssd", "rglru"} & set(cfg.layer_pattern) or cfg.moe:
-        check_arch(cfg)
-        model = Transformer(cfg, device="cpu")
-        slot = model.init_cache(2, 64)["slots"][0]
-        if cfg.moe:
-            assert hasattr(model.layers[0], "moe") and "k" in slot
-        else:
-            assert "conv" in slot
-        with pytest.raises(NotImplementedError, match="layout='decode'"):
-            model.init_cache(2, 64, layout="decode")
-    else:
+    if cfg.qk_norm:
         with pytest.raises(NotImplementedError, match=match):
             check_arch(cfg)
         with pytest.raises(NotImplementedError, match=match):
             Transformer(cfg, device="cpu")
+        return
+    check_arch(cfg)
+    model = Transformer(cfg, device="cpu")
+    if "cross" in cfg.layer_pattern:
+        blk = model.layers[0]
+        assert hasattr(blk, "xnorm") and blk.attn["xgate"].dim() == 0
+        with pytest.raises(ValueError, match=match):
+            model.init_cache(2, 64)
+        mem = torch.zeros((2, 5, cfg.d_model))
+        slot = model.init_cache(2, 64, layout="decode",
+                                memory=mem)["slots"][0]
+        assert slot["xk"].shape == (2, 5, cfg.n_kv_heads, cfg.head_dim)
+        assert slot["kv_pos"].shape == (2, 64)
+        return
+    slot = model.init_cache(2, 64)["slots"][0]
+    decode = model.init_cache(2, 64, layout="decode")["slots"][0]
+    if cfg.moe:
+        assert hasattr(model.layers[0], "moe") and "k" in slot
+        assert decode["kv_pos"].shape == (2, 64)
+    else:
+        assert "conv" in slot
+        assert sorted(decode) == ["conv", "state"] == sorted(slot)
 
 
 def test_engine_head_dim_guard_reads_the_kernel_set(monkeypatch):
@@ -178,9 +192,14 @@ def test_engine_head_dim_guard_reads_the_kernel_set(monkeypatch):
 
 
 def test_legacy_decode_cache_raises():
+    """The legacy dense decode cache builds now (max_seq slots, no
+    padding, ``kv_pos`` empty); an unknown layout raises."""
     model = Transformer(_tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="layout='decode'"):
-        model.init_cache(2, 64, layout="decode")
+    slot = model.init_cache(2, 64, layout="decode")["slots"][0]
+    assert slot["k"].shape == (2, 64, 2, 32)
+    assert int(slot["kv_pos"].max()) == -1
+    with pytest.raises(ValueError, match="unknown cache layout"):
+        model.init_cache(2, 64, layout="dense")
     cache = model.init_cache(2, 200)
     assert cache["slots"][0]["k"].shape == (2, 256, 2, 32)
 

@@ -230,13 +230,15 @@ def test_transformer_on_cuda_raises_without_a_card():
 
 def test_serving_recurrentgemma_raises():
     """Serving admits rglru layers now (``rglru_decode`` and the
-    recurrent cache, ``tests/test_torch_recurrent_serve.py``); what still
-    raises is the legacy dense decode cache (ROADMAP queue 1 item 10's
-    last bullet)."""
+    recurrent cache, ``tests/test_torch_recurrent_serve.py``), and so does
+    the legacy dense decode cache since the cross-attention slice: its
+    local layer keeps a ring of ``min(window, max_seq)`` slots
+    (``tests/test_torch_decode.py``)."""
     check_arch(torch_config("recurrentgemma-9b"))
     model = Transformer(torch_config(ARCH), device="cpu")
     slots = model.init_cache(2, 256)["slots"]
     assert [set(s) for s in slots] == [{"conv", "h"}, {"k", "v"}]
-    with pytest.raises(NotImplementedError,
-                       match="layout='decode'.*queue 1 item 10"):
-        model.init_cache(2, 256, layout="decode")
+    cfg = torch_config(ARCH)
+    slots = model.init_cache(2, 256, layout="decode")["slots"]
+    assert [set(s) for s in slots] == [{"conv", "h"}, {"k", "v", "kv_pos"}]
+    assert slots[1]["k"].shape[1] == min(cfg.window, 256)
