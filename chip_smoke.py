@@ -257,7 +257,7 @@ Phases, each of which fails the run:
    under ``identity``,
    the CA kernels on layer 0's captured server batches against their
    plain versions, step ms, tokens/s, peak memory;
-24. (last) CAD across ranks and the fabric, on phase 5's
+24. (after 28, before 29) CAD across ranks and the fabric, on phase 5's
    captured layer 0: (a) this process joins an NCCL group of world size
    1 on cuda:0 and trains phase 5's configuration with a 1-server plan
    and ping-pong on (RANKS_STEPS steps), once over the group and once
@@ -343,12 +343,31 @@ is timed).
    with 5 of 40 layers (4 ``global`` + 1 ``cross``; the full config has
    no encoder), memory [4, 6404, 4096], CA launches servers x 5 x {2, 1,
    1}; (b) served at all 40 layers; the f32 copy has 5 layers.
+29. (last, after 24: it spawns, and no traced window may follow it)
+   pipeline parallelism with CAD across stages: PIPE_STAGES processes on
+   the one card joined under gloo, each one stage of llama3-8b at every
+   width (one layer a stage, seed 0), PIPE_MICRO microbatches of [1,
+   PIPE_SEQ] ``prolong`` tokens in bf16 under ``cad`` with remat, one
+   plan a tick (``tick_schedules``): one forward and backward of the
+   pipelined loss, computed on PIPE_LOSS_RANK alone, then an f32 copy's
+   forward.  Each tick's moves and loads (max/mean before and after
+   scheduling) logged, tick 0 moving tasks and every idle stage of the
+   warm-up and drain ticks serving others' tasks; CA launches a rank a
+   tick (1 forward; 1 remat forward, 1 dq, 1 dk/dv backward); the
+   outputs replicated bitwise on every rank and, with the losses and
+   every gradient, bitwise equal to the one-process tick simulation's
+   on the card; each microbatch's logits and loss bitwise equal to
+   ``Transformer.forward`` on that microbatch alone (one server, its
+   identity plan); the f32 copy's logits within PIPE_F32_REL_BOUND of
+   its unpipelined forward's; per-rank peak memory and seconds (gloo
+   stages CUDA tensors through the host: not speed figures).  No error
+   of a rank is caught.
 
 The line before the card line lists every ported kernel as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after
 phase 2: the short first call for a new kernel; ``--only ranks`` runs
 phases 1, 5 and 24; ``--only moe`` phases 1, 25 and 26; ``--only
-cross`` phases 1, 27 and 28.  Every traced
+cross`` phases 1, 27 and 28; ``--only pipeline`` phases 1 and 29.  Every traced
 or profiled window opens with LEAD_IN_KERNELS spin kernels
 (TRACE_LEAD_IN_CYCLES in all, ~2 ms), not counted.
 """
@@ -6728,6 +6747,424 @@ def ranks_phase(torch, np, ops, layer0, card, free_digest):
     return out
 
 
+# ----------------------------------------------------------- phase 29
+# pipeline parallelism with CAD across stages: PIPE_STAGES gloo processes
+# on the one card, one llama3-8b layer a stage, one CAD plan a tick
+PIPE_STAGES = 4
+PIPE_MICRO = 4
+PIPE_SEQ = 4096
+# the loss is computed on this rank alone: stage 0, not the last stage, so
+# the gradient reaches the last stage through the replication's backward
+PIPE_LOSS_RANK = 0
+PIPE_CA = ("ca_server_fwd", "ca_server_bwd_dq", "ca_server_bwd_dkv")
+# an f32 copy's pipelined logits against its unpipelined forward:
+# max |diff| / max |logit|
+PIPE_F32_REL_BOUND = 1e-5
+
+
+def _pipe_setup():
+    """llama3-8b at every width, one layer a stage; PIPE_MICRO microbatches
+    of [1, PIPE_SEQ] ``prolong`` documents (the data pipeline's seed 0);
+    the pool sized as ``CADSession.for_pipeline`` sizes it, PIPE_STAGES
+    servers."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import CommModel
+    from repro_torch.core.plan import CADConfig
+    from repro_torch.data.pipeline import PipelineConfig, raw_batches
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=PIPE_STAGES)
+    pipe = PipelineConfig(distribution="prolong", max_doc_len=PIPE_SEQ,
+                          seq_len=PIPE_SEQ, global_batch=PIPE_MICRO,
+                          vocab_size=cfg.vocab_size, seed=0)
+    b = next(raw_batches(pipe))
+    data = {k: np.ascontiguousarray(b[k][:, None]) for k in
+            ("tokens", "labels", "segment_ids", "positions")}
+    cadcfg = CADConfig.default(PIPE_STAGES, PIPE_SEQ,
+                               max_doc_tokens=PIPE_SEQ)
+    comm = CommModel(cfg.n_heads, cfg.head_dim, cfg.n_kv_heads)
+    return cfg, data, cadcfg, comm, max(1, PIPE_SEQ // cadcfg.blk)
+
+
+def _pipe_loss(torch, model, h, data, dev):
+    """The summed LM loss of the outputs ``h`` [M, 1, S, D], a microbatch
+    at a time (its f32 logits freed before the next); gradients go into
+    ``h.grad`` and the final norm and unembedding.  Returns the losses."""
+    from repro_torch.models import layers as L
+    from repro_torch.train.loss import lm_loss
+    losses = []
+    for m in range(h.shape[0]):
+        logits = model._unembed(L.norm_apply(model.final_norm, h[m],
+                                             model.cfg.norm))
+        loss = lm_loss(logits, torch.as_tensor(data["labels"][m], device=dev),
+                       torch.as_tensor(data["segment_ids"][m], device=dev))[0]
+        if h.requires_grad:
+            loss.backward()
+        losses.append(loss.item())
+        del logits, loss
+    return losses
+
+
+def _pipe_rank_run(torch, cfg, data, plans, cad, info, grad):
+    """One stage's run: the pipelined forward (and, with ``grad``, the
+    loss on PIPE_LOSS_RANK and the backward, the shared parameters'
+    gradients summed over the stages), the CA launches of each tick."""
+    from repro_torch.kernels.packed_flash import ops
+    from repro_torch.models.model import Transformer
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.pipeline_par import (model_stage_fn, pipeline_apply,
+                                          split_stages,
+                                          sum_grads_over_stages)
+    dev, rank, group = info.device, info.rank, info.group
+    model = Transformer(cfg, device=dev, seed=0)
+    stage = split_stages(model.layers, PIPE_STAGES)[rank]
+    ctx = ParallelContext(attn_impl="cad", cad=cad, remat=True, group=group)
+    segs, poss = (torch.as_tensor(data[k], device=dev)
+                  for k in ("segment_ids", "positions"))
+    fn = model_stage_fn(model, stage, ctx, segs, poss)
+    fwd, marks = [], []
+
+    def snap():
+        return {k: ops.launches[k] for k in PIPE_CA}
+
+    def counted(h, m, tick_plan):
+        before = snap()
+        out = fn(h, m, tick_plan)
+        fwd.append({k: v - before[k] for k, v in snap().items()})
+        if h.requires_grad:
+            # the gradient of the tick's input is whole once the tick's
+            # layer (recompute and CA backward included) is done
+            h.register_hook(lambda g: marks.append(snap()))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.set_grad_enabled(grad):
+        h_mb = torch.stack([model._embed(torch.as_tensor(x, device=dev))
+                            for x in data["tokens"]])
+        outs = pipeline_apply(h_mb, counted, n_stages=PIPE_STAGES,
+                              group=group, plans=plans)
+    torch.cuda.synchronize()
+    res = dict(fwd_counts=fwd, fwd_s=time.perf_counter() - t0,
+               outs_digest=_bits_digest(torch, outs))
+    if rank == PIPE_LOSS_RANK:
+        res["outs"] = outs.detach().cpu()
+    if not grad:
+        return res
+    t0 = time.perf_counter()
+    g = torch.zeros_like(outs)
+    if rank == PIPE_LOSS_RANK:
+        h = outs.detach().requires_grad_()
+        res["losses"] = _pipe_loss(torch, model, h, data, dev)
+        g = h.grad
+    start = snap()
+    torch.autograd.backward(outs, g)
+    shared = [p for n, p in model.named_parameters()
+              if not n.startswith("layers.")]
+    sum_grads_over_stages(shared, group)
+    torch.cuda.synchronize()
+    res["bwd_s"] = time.perf_counter() - t0
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # marks come in reverse tick order: tick t's backward launches lie
+    # between the marks of ticks t + 1 and t
+    seq = [start] + marks
+    bwd = [{k: b[k] - a[k] for k in PIPE_CA} for a, b in zip(seq, seq[1:])]
+    res["bwd_counts"] = bwd[::-1]
+    first = rank * len(stage)
+    res["grads"] = {n: p.grad.cpu() for n, p in model.named_parameters()
+                    if n.startswith(tuple(f"layers.{first + i}."
+                                          for i in range(len(stage))))}
+    res["shared_digests"] = {n: _bits_digest(torch, p.grad)
+                             for n, p in model.named_parameters()
+                             if not n.startswith("layers.")}
+    if rank == 0:
+        res["shared"] = {n: p.grad.cpu() for n, p in
+                         model.named_parameters()
+                         if not n.startswith("layers.")}
+    return res
+
+
+def _pipeline_rank(rank, tmp):
+    """Phase 29's rank ``rank`` (a process of its own, on cuda:0): stage
+    ``rank`` of the pipeline over a gloo group, the bf16 forward and
+    backward, then an f32 copy's forward; writes its results under
+    ``tmp``.  Any error ends the spawn, and the run."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import dispatch as D
+    from repro_torch.launch import mesh
+    tmp = Path(tmp)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = mesh.join_group(DEVICE, backend="gloo", rank=rank,
+                           world=PIPE_STAGES, local_rank=0,
+                           init_method=f"file://{tmp / 'store'}",
+                           timeout_s=300)
+    try:
+        cfg, data, cadcfg, _, jmax = _pipe_setup()
+        plans = {k: torch.as_tensor(v, device=info.device)
+                 for k, v in torch.load(tmp / "plans.pt",
+                                        weights_only=False).items()}
+        cad = D.CADContext(cfg=cadcfg, jmax=jmax)
+        res = _pipe_rank_run(torch, cfg, data, plans, cad, info, True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype="float32")
+        res["f32"] = _pipe_rank_run(torch, cfg32, data, plans, cad, info,
+                                    False)
+        torch.save(res, tmp / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        mesh.leave_group()
+
+
+def _pipe_home_loads(data, cadcfg):
+    """Each microbatch's CA load at home (the scheduler's cost units): a
+    stage's load before scheduling, in the tick it holds the microbatch."""
+    from repro_torch.core.scheduler import block_costs, layout_from_segments
+    out = []
+    for seg in data["segment_ids"][:, 0]:
+        _, doc_of, bi_of = layout_from_segments(seg[None], cadcfg.blk, 1)
+        out.append(float(block_costs(doc_of, bi_of, cadcfg.blk).sum()))
+    return out
+
+
+def _pipe_tick_report(np, stats, plans, home):
+    """Per tick: loads max/mean before (at home) and after scheduling, and
+    the idle stages that serve: an inactive stage with load after
+    scheduling that receives q blocks of another stage."""
+    n, m_total = PIPE_STAGES, len(home)
+    rows, idle_serving = [], True
+    for st in stats:
+        t = st["tick"]
+        before = np.array([home[t - s] if 0 <= t - s < m_total else 0.0
+                           for s in range(n)])
+        after = st["loads"]
+        idle = [s for s in range(n) if not 0 <= t - s < m_total]
+        recv = [int((plans["q_send_idx"][t][:, s] >= 0).sum())
+                for s in range(n)]
+        serving = all(after[s] > 0 and recv[s] > 0 for s in idle)
+        idle_serving = idle_serving and serving
+        rows.append(dict(
+            tick=t, moves=st["moves"], comm_bytes=st["comm_bytes"],
+            before=before.tolist(), after=after.tolist(),
+            before_max_over_mean=float(before.max() / before.mean()),
+            after_max_over_mean=float(after.max() / after.mean()),
+            idle=idle, q_blocks_received=recv, idle_serving=serving))
+    return rows, idle_serving
+
+
+def _pipe_oracle(torch, cfg, data, plans, cad):
+    """The one-process tick simulation on the card: every stage in this
+    process, the same ticks, masks and plans, each tick's exchange through
+    ``_global_sim``; the loss and backward as the group computes them.
+    Returns (model with gradients, outs, losses)."""
+    from repro_torch.models.model import Transformer
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.pipeline_par import split_stages
+    from repro_torch.pipeline_par.pipeline import (_lockstep_tick_fn,
+                                                   _tick_sim)
+    model = Transformer(cfg, device=DEVICE, seed=0)
+    ctx = ParallelContext(attn_impl="cad", cad=cad, remat=False)
+    segs, poss = (torch.as_tensor(data[k], device=DEVICE)
+                  for k in ("segment_ids", "positions"))
+    h_mb = torch.stack([model._embed(torch.as_tensor(x, device=DEVICE))
+                        for x in data["tokens"]])
+    outs = _tick_sim(h_mb, _lockstep_tick_fn(
+        model, split_stages(model.layers, PIPE_STAGES), ctx, segs, poss),
+        n_stages=PIPE_STAGES, plans=plans)
+    h = outs.detach().requires_grad_()
+    losses = _pipe_loss(torch, model, h, data, DEVICE)
+    outs.backward(h.grad)
+    return model, outs.detach(), losses
+
+
+def _pipe_vs_unpipelined(torch, model, outs, data, jmax):
+    """Each microbatch's logits from the pipeline's outputs ``outs`` (the
+    head on them) against ``Transformer.forward`` under ``cad`` on that
+    microbatch alone (one server, its identity plan): bitwise, max
+    |diff|, max |logit|, and the unpipelined losses."""
+    from repro_torch.core import dispatch as D
+    from repro_torch.core.plan import CADConfig, identity_plan
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.train.loss import lm_loss
+    cfg1 = CADConfig.default(1, PIPE_SEQ, max_doc_tokens=PIPE_SEQ)
+    same, diff, top, losses = True, 0.0, 0.0, []
+    for m in range(PIPE_MICRO):
+        batch = {k: torch.as_tensor(data[k][m], device=DEVICE)
+                 for k in ("tokens", "labels", "segment_ids", "positions")}
+        plan = identity_plan(cfg1, data["segment_ids"][m]).to(DEVICE)
+        ctx = ParallelContext(attn_impl="cad", remat=False, cad=D.CADContext(
+            cfg=cfg1, plan=plan, jmax=jmax))
+        with torch.no_grad():
+            want = model(batch, ctx)[0]
+            losses.append(lm_loss(want, batch["labels"],
+                                  batch["segment_ids"])[0].item())
+            got = model._unembed(L.norm_apply(model.final_norm,
+                                              outs[m].to(DEVICE),
+                                              model.cfg.norm))
+        same = same and same_bits(torch, got, want)
+        diff = max(diff, float((got - want).abs().max()))
+        top = max(top, float(want.abs().max()))
+        del got, want
+    return same, diff, top, losses
+
+
+def pipeline_phase(torch, np, card):
+    """Phase 29: pipeline parallelism with CAD across stages
+    (``repro_torch.pipeline_par``) on PIPE_STAGES gloo processes on the
+    one card (gloo stages CUDA tensors through the host, so its exchange
+    and step times are not speed figures), each one stage of llama3-8b at
+    every width (one layer a stage), PIPE_MICRO microbatches of [1,
+    PIPE_SEQ] in bf16 under ``cad``, one plan a tick (``tick_schedules``):
+    one forward and backward of the pipelined loss, computed on
+    PIPE_LOSS_RANK alone.  Checked: tick 0 moves tasks and every idle
+    stage of the warm-up and drain ticks serves others' tasks; each rank
+    launches the CA kernels once a tick forward and {1 forward (remat), 1
+    dq, 1 dk/dv} a tick backward; the replicated outputs, the losses and
+    every gradient bitwise equal to the one-process tick simulation's on
+    the card; each microbatch's logits and loss bitwise equal to
+    ``Transformer.forward`` on that microbatch alone (one server, its
+    identity plan); an f32 copy's within PIPE_F32_REL_BOUND.  The kernel
+    libraries are built before the spawn: the ranks load them."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.core import dispatch as D
+    from repro_torch.pipeline_par import tick_schedules
+    t_phase = time.perf_counter()
+    cfg, data, cadcfg, comm, jmax = _pipe_setup()
+    t0 = time.perf_counter()
+    plans, stats = tick_schedules(data["segment_ids"][:, 0], PIPE_STAGES,
+                                  cadcfg, comm)
+    plan_s = time.perf_counter() - t0
+    ticks, idle_serving = _pipe_tick_report(
+        np, stats, plans, _pipe_home_loads(data, cadcfg))
+    log(f"phase 29: llama3-8b width, {PIPE_STAGES} stages of 1 layer, "
+        f"{PIPE_MICRO} microbatches of [1, {PIPE_SEQ}] (bf16, cad, remat), "
+        f"{len(stats)} ticks planned in {plan_s:.2f} s")
+    for r in ticks:
+        log(f"  tick {r['tick']}: moves {r['moves']}, "
+            f"{r['comm_bytes'] / 2 ** 20:.1f} MiB, loads max/mean "
+            f"{r['before_max_over_mean']:.3f} -> "
+            f"{r['after_max_over_mean']:.3f} (before {r['before']}, after "
+            f"{r['after']}), idle stages {r['idle']} serving "
+            f"{r['idle_serving']}, q blocks received by stage "
+            f"{r['q_blocks_received']}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_"))
+    t0 = time.perf_counter()
+    try:
+        torch.save(plans, tmp / "plans.pt")
+        mp.spawn(_pipeline_rank, args=(str(tmp),), nprocs=PIPE_STAGES,
+                 join=True)
+        parts = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(PIPE_STAGES)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    spawn_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the oracle, then the unpipelined forward, on this process's card
+    plans_dev = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in plans.items()}
+    t0 = time.perf_counter()
+    model, outs_sim, losses_sim = _pipe_oracle(
+        torch, cfg, data, plans_dev, D.CADContext(cfg=cadcfg, jmax=jmax))
+    oracle_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    got = parts[PIPE_LOSS_RANK]
+    grad_gaps = {}            # max |diff| / max |grad| where not bitwise
+    for n, g in [kv for p in parts for kv in p["grads"].items()] \
+            + list(parts[0]["shared"].items()):
+        g, want = g.to(DEVICE), params[n].grad
+        if not same_bits(torch, g, want):
+            grad_gaps[n] = float((g.float() - want.float()).abs().max()) \
+                / float(want.float().abs().max())
+    n_grads = sum(len(p["grads"]) for p in parts) + len(parts[0]["shared"])
+    outs_same = same_bits(torch, got["outs"].to(DEVICE), outs_sim)
+    model.zero_grad(set_to_none=True)
+    del outs_sim, params
+    vs, vs_diff, vs_top, u_losses = _pipe_vs_unpipelined(
+        torch, model, got["outs"], data, jmax)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.models.model import Transformer
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = Transformer(cfg32, device=DEVICE, seed=0)
+    _, diff32, top32, _ = _pipe_vs_unpipelined(
+        torch, model32, got["f32"]["outs"], data, jmax)
+    del model32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_ticks = len(stats)
+    want_fwd = [{"ca_server_fwd": 1, "ca_server_bwd_dq": 0,
+                 "ca_server_bwd_dkv": 0}] * n_ticks
+    want_bwd = [{k: 1 for k in PIPE_CA}] * n_ticks
+    counts = [dict(fwd=p["fwd_counts"], bwd=p["bwd_counts"],
+                   f32_fwd=p["f32"]["fwd_counts"]) for p in parts]
+    rel32 = diff32 / top32
+    checks = {
+        "tick 0 moves tasks": stats[0]["moves"] > 0,
+        "every idle stage of warm-up and drain serves others' tasks":
+            idle_serving,
+        "CA launches a rank a tick: forward 1; backward 1 + 1 + 1": all(
+            c["fwd"] == want_fwd and c["bwd"] == want_bwd
+            and c["f32_fwd"] == want_fwd for c in counts),
+        "outputs replicated bitwise on every rank":
+            len({p["outs_digest"] for p in parts}) == 1
+            and len({p["f32"]["outs_digest"] for p in parts}) == 1,
+        "shared gradients equal on every rank":
+            len({json.dumps(p["shared_digests"], sort_keys=True)
+                 for p in parts}) == 1,
+        "outputs bitwise the tick simulation's": outs_same,
+        "losses bitwise the tick simulation's": got["losses"] == losses_sim,
+        f"every gradient ({n_grads} tensors) bitwise the tick "
+        f"simulation's": not grad_gaps,
+        "logits bitwise the unpipelined forward's": vs,
+        "losses bitwise the unpipelined forward's": got["losses"] == u_losses,
+        f"f32 copy: logits within {PIPE_F32_REL_BOUND} of the unpipelined "
+        f"forward's": rel32 <= PIPE_F32_REL_BOUND,
+    }
+    seconds = time.perf_counter() - t_phase
+    timing = {r: {k: round(p[k], 3) for k in ("fwd_s", "bwd_s")}
+              for r, p in enumerate(parts)}
+    peaks = [round(p["peak_gib"], 3) for p in parts]
+    log(f"phase 29: losses {got['losses']} (sum {sum(got['losses'])!r}), "
+        f"tick simulation {losses_sim}, unpipelined {u_losses}; logits vs "
+        f"unpipelined: bitwise {vs}, max |diff| {vs_diff} (max |logit| "
+        f"{vs_top}); f32 copy: max |diff| / max |logit| {rel32}; gradients "
+        f"off the simulation's bits: {grad_gaps or 'none'}")
+    for r, c in enumerate(counts):
+        log(f"  rank {r}: CA launches a tick, forward "
+            f"{[x['ca_server_fwd'] for x in c['fwd']]}, backward "
+            f"{[[x[k] for k in PIPE_CA] for x in c['bwd']]} (fwd, dq, dkv), "
+            f"f32 forward {[x['ca_server_fwd'] for x in c['f32_fwd']]}; "
+            f"peak {peaks[r]} GiB; forward {timing[r]['fwd_s']} s, backward "
+            f"{timing[r]['bwd_s']} s")
+    log(f"phase 29: plans {plan_s:.2f} s, spawn and the ranks' runs "
+        f"{spawn_s:.1f} s, tick simulation {oracle_s:.1f} s, phase "
+        f"{seconds:.1f} s (gloo stages CUDA tensors through the host: these "
+        f"times are not speed figures) [{card}]")
+    for name, ok in checks.items():
+        log(f"  {name}: {ok}")
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"phase 29: failed: {failed}")
+    return dict(checks=checks, ticks=ticks, launches_per_rank_tick=counts,
+                losses=got["losses"], logits_max_abs_diff=vs_diff,
+                f32_rel_gap=rel32, grad_gaps=grad_gaps, peak_gib=peaks,
+                rank_seconds=timing, spawn_s=spawn_s, seconds=seconds,
+                note="gloo stages CUDA tensors through the host: times are "
+                     "not speed figures")
+
+
 def _record_moe(kernel, ca_fwd, ca_bwd, fl_fwd, fl_bwd, moe):
     """Phases 25-26's numbers into the kernels' JSON entries."""
     train, serving, times = moe
@@ -6771,6 +7208,31 @@ def _record_moe(kernel, ca_fwd, ca_bwd, fl_fwd, fl_bwd, moe):
             decode=dict({k: times[arch][k] for k in TIMED_KEYS},
                         shape=f"{arch} decode: 4 rows, {heads}, kv 2000"),
             serving=serving[arch])
+
+
+def _record_pipeline(ca_fwd, ca_bwd, res):
+    """Phase 29's launches (per rank and tick) and checks into the CA
+    kernels' JSON entries."""
+    counts = res["launches_per_rank_tick"]
+    ca_fwd["pipeline_phase29"] = dict(
+        launches_per_rank_tick=[[x["ca_server_fwd"] for x in c["fwd"]]
+                                for c in counts],
+        launches_remat_per_rank_tick=[[x["ca_server_fwd"] for x in c["bwd"]]
+                                      for c in counts],
+        launches_f32_per_rank_tick=[[x["ca_server_fwd"] for x in c["f32_fwd"]]
+                                    for c in counts],
+        **{k: res[k] for k in ("checks", "losses", "logits_max_abs_diff",
+                               "f32_rel_gap", "grad_gaps", "peak_gib",
+                               "rank_seconds", "spawn_s", "seconds",
+                               "note")},
+        ticks=[{k: r[k] for k in ("tick", "moves", "before_max_over_mean",
+                                  "after_max_over_mean", "idle_serving")}
+               for r in res["ticks"]])
+    ca_bwd["pipeline_phase29"] = dict(
+        launches_dq_per_rank_tick=[[x["ca_server_bwd_dq"] for x in c["bwd"]]
+                                   for c in counts],
+        launches_dkv_per_rank_tick=[[x["ca_server_bwd_dkv"]
+                                     for x in c["bwd"]] for c in counts])
 
 
 def build_kernels(build, ops, ssd, rg):
@@ -6822,11 +7284,13 @@ def build_kernels(build, ops, ssd, rg):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--only", choices=("kernels", "ranks", "moe", "cross"),
+    p.add_argument("--only", choices=("kernels", "ranks", "moe", "cross",
+                                      "pipeline"),
                    default=None,
                    help="'kernels': stop after the kernel checks (phases "
                         "1-2); 'ranks': phases 1, 5 and 24 alone; 'moe': "
-                        "phases 1, 25 and 26; 'cross': phases 1, 27 and 28")
+                        "phases 1, 25 and 26; 'cross': phases 1, 27 and 28; "
+                        "'pipeline': phases 1 and 29")
     return p.parse_args(argv)
 
 
@@ -6948,6 +7412,8 @@ def main(argv=None) -> int:
                     moe_phases(torch, np, ops, launch, card))
     elif args.only == "cross":
         _record_cross(ca_fwd, ca_bwd, cross_phases(torch, np, ops, card))
+    elif args.only == "pipeline":
+        _record_pipeline(ca_fwd, ca_bwd, pipeline_phase(torch, np, card))
     elif args.only != "kernels":
         engine, launches, captured_err = serve_full_width(torch, np, ops,
                                                           launch)
@@ -7304,10 +7770,14 @@ def main(argv=None) -> int:
                     moe_phases(torch, np, ops, launch, card))
         # phases 27-28: the cross-attention archs
         _record_cross(ca_fwd, ca_bwd, cross_phases(torch, np, ops, card))
-        # last: the only phase that joins a process group and spawns
+        # last: the phases that join a process group and spawn; no traced
+        # window comes after them
         ca_fwd["ranks_phase24"] = ranks_phase(
             torch, np, ops, layer0, card, elastic["free_digest"])
         del layer0
+        gc.collect()
+        torch.cuda.empty_cache()
+        _record_pipeline(ca_fwd, ca_bwd, pipeline_phase(torch, np, card))
     log(json.dumps({"kernels": [kernel, ca_fwd, ca_bwd, ca_rng, ca_glse,
                                 fl_fwd, fl_bwd, fl_rng, ssd_fm, ssd_bm,
                                 ssd_f, ssd_b, lru_f, lru_b]}))

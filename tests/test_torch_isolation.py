@@ -169,6 +169,26 @@ def test_cross_attention_and_legacy_decode_load_no_jax():
     _probe(_CROSS)
 
 
+# pipeline parallelism with CAD across stages, from the module that
+# defines it; importing it creates no process group and touches no device
+_PIPELINE = """
+import torch
+import torch.distributed as dist
+from repro_torch.pipeline_par import (
+    pipeline_apply, split_stages, tick_schedules, model_stage_fn,
+    sum_grads_over_stages)
+from repro_torch.pipeline_par.pipeline import (
+    _Shift, _SumOverGroup, _tick_sim, _lockstep_tick_fn, MB_SEG_OFFSET)
+assert MB_SEG_OFFSET == 100000
+assert not dist.is_initialized()
+assert torch.cuda.is_initialized() is False
+"""
+
+
+def test_pipeline_parallelism_loads_no_jax():
+    _probe(_PIPELINE)
+
+
 def test_importing_chip_smoke_loads_no_jax():
     _probe(_SMOKE)
 
