@@ -343,7 +343,7 @@ is timed).
    with 5 of 40 layers (4 ``global`` + 1 ``cross``; the full config has
    no encoder), memory [4, 6404, 4096], CA launches servers x 5 x {2, 1,
    1}; (b) served at all 40 layers; the f32 copy has 5 layers.
-29. (last, after 24: it spawns, and no traced window may follow it)
+29. (after 24: it spawns, and no traced window may follow it)
    pipeline parallelism with CAD across stages: PIPE_STAGES processes on
    the one card joined under gloo, each one stage of llama3-8b at every
    width (one layer a stage, seed 0), PIPE_MICRO microbatches of [1,
@@ -362,12 +362,31 @@ is timed).
    its unpipelined forward's; per-rank peak memory and seconds (gloo
    stages CUDA tensors through the host: not speed figures).  No error
    of a rank is caught.
+30. (last, after 29: it spawns too) the per-rank runtime: RT_RANKS
+   processes on the one card joined under gloo, each a CAD rank of
+   smollm-360m at every width (RT_LAYERS of 32 layers, seed 0), a [1,
+   RT_SEQ] ``prolong`` row a rank in bf16, ``balanced``, prefetch 2:
+   RT_STEPS steps of ``trainer.train`` with ``calibrate=True``,
+   ``calibrate_every=1`` and RT_FAULTS, then an f32 copy the same way.
+   In each, every step's plan digest,
+   calibration version and pool stats equal on every rank; the
+   calibrator's state equal on every rank after every probe; each rank's
+   probe launches the CA forward 1 + 1 times (a warm-up, its own
+   server), the one-process probe 1 + RT_RANKS; from the kill on, no
+   live task on the killed server at pool epoch 1 with 3 active; CA
+   launches a rank a step RT_LAYERS x {2, 1, 1}; the parameters bitwise
+   equal across the ranks after every step; the one-process trainer on
+   the card, replaying the gathered observations, builds the same plans;
+   the bf16 step-0 loss bitwise its, the f32 copy's losses within
+   RT_LOSS_RTOL (the bf16 gaps logged).  Probe seconds by server and
+   step, peaks and times logged (not speed figures).
 
 The line before the card line lists every ported kernel as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after
 phase 2: the short first call for a new kernel; ``--only ranks`` runs
 phases 1, 5 and 24; ``--only moe`` phases 1, 25 and 26; ``--only
-cross`` phases 1, 27 and 28; ``--only pipeline`` phases 1 and 29.  Every traced
+cross`` phases 1, 27 and 28; ``--only pipeline`` phases 1 and 29;
+``--only rank_runtime`` phases 1 and 30.  Every traced
 or profiled window opens with LEAD_IN_KERNELS spin kernels
 (TRACE_LEAD_IN_CYCLES in all, ~2 ms), not counted.
 """
@@ -7165,6 +7184,342 @@ def pipeline_phase(torch, np, card):
                      "not speed figures")
 
 
+# ----------------------------------------------------------- phase 30
+# the per-rank runtime: RT_RANKS gloo processes on the one card, each a
+# CAD rank of smollm-360m at every width, calibrating every step under a
+# fault schedule
+RT_ARCH = "smollm-360m"
+# of its 32 layers: gloo stages every exchange through the host (~50 MB/s
+# in phase 29), so 32 layers would take ~40 s a step
+RT_LAYERS = 4
+RT_RANKS = 4
+RT_SEQ = 4096
+RT_STEPS = 4
+RT_FAULTS = "kill:1@2"
+RT_KILLED, RT_KILL_STEP = 1, 2
+# the training run in bf16, then an f32 copy for the loss bound
+RT_DTYPES = ("bfloat16", "float32")
+# the f32 copy's losses against the one-process trainer's: the group sums
+# its rows' losses and gradients in another order (tests/test_torch_ranks.py
+# holds 1e-5 on the CPU).  In bf16 each rank's weight gradient is rounded
+# to bf16 before the ranks' sum, one process's once, and the bf16 weights
+# then round a few updates apart: 3.7e-6 and 1.15e-5 in two runs of the
+# same code (PERF.md, PR 28), so bf16 holds the step-0 loss bitwise and
+# logs the later gaps
+RT_LOSS_RTOL = 1e-5
+
+
+def _rt_setup(dtype):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig
+    from repro_torch.train.trainer import TrainConfig
+    cfg = dataclasses.replace(get_config(RT_ARCH), n_layers=RT_LAYERS,
+                              param_dtype=dtype, compute_dtype=dtype)
+    pipe = PipelineConfig(distribution="prolong", max_doc_len=RT_SEQ,
+                          seq_len=RT_SEQ, global_batch=RT_RANKS,
+                          n_ranks=RT_RANKS, vocab_size=cfg.vocab_size,
+                          seed=0)
+    tc = TrainConfig(steps=RT_STEPS, peak_lr=3e-4, warmup=1, log_every=1,
+                     seed=0, calibrate_every=1, fault_schedule=RT_FAULTS)
+    return cfg, pipe, tc
+
+
+def _rt_session(cfg, pipe, group=None, prefetch=2):
+    """The calibrated session with its pool attached (so the trainer keeps
+    this instance, and the hooks set on it)."""
+    from repro_torch.cad import CADSession
+    from repro_torch.runtime import ServerPool
+    sess = CADSession.for_pipeline(cfg, pipe, group=group, calibrate=True,
+                                   prefetch=prefetch)
+    return sess.with_pool(ServerPool(RT_RANKS, calibrator=sess.calibrator))
+
+
+def _rt_record_pulls(sess, pulls):
+    """Hook ``sess.attach_plans``: each pulled plan's digest, calibration
+    version, pool stats and the servers with a live task."""
+    from repro_torch.cad.session import plan_digest
+    from repro_torch.core.dispatch import iter_plan_tasks
+    attach = sess.attach_plans
+
+    def recording(batches):
+        gen = attach(batches)
+        try:
+            for b in gen:
+                st = b["schedule_stats"]
+                pulls.append(dict(
+                    digest=plan_digest(b["plan"]),
+                    calib_version=st["calib_version"],
+                    pool_epoch=st["pool_epoch"],
+                    pool_active=st["pool_active"],
+                    servers=sorted({s for s, *_ in iter_plan_tasks(
+                        sess.cfg, b["plan"])})))
+                yield b
+        finally:
+            gen.close()
+    object.__setattr__(sess, "attach_plans", recording)   # frozen
+
+
+def _rt_rank_run(torch, ops, info, dtype):
+    """One rank's training run in ``dtype``: records each pulled plan,
+    each probe's launches, gathered triples and calibrator state, each
+    step's loss, parameter digest and CA launches, and the peak."""
+    from repro_torch.models.model import Transformer
+    from repro_torch.train.trainer import train
+    cfg, pipe, tc = _rt_setup(dtype)
+    sess = _rt_session(cfg, pipe, group=info.group)
+    cal = sess.calibrator
+    rec = dict(pulls=[], probes=[], snaps=[], probe_launches=[],
+               probe_s=[], steps=[])
+    fed = []
+    observe_tasks = cal.observe_tasks
+
+    def feeding(tasks, seconds, server=None):
+        fed.append((list(tasks), seconds, server))
+        return observe_tasks(tasks, seconds, server=server)
+    cal.observe_tasks = feeding
+    observe_probe = sess.observe_probe
+
+    def probing(plan, **kw):
+        before, n0 = dict(ops.launches), len(fed)
+        t0 = time.perf_counter()
+        observe_probe(plan, **kw)
+        rec["probe_s"].append(time.perf_counter() - t0)
+        rec["probe_launches"].append(
+            {k: ops.launches[k] - before[k] for k in PIPE_CA})
+        rec["probes"].append(fed[n0:])
+        rec["snaps"].append(json.dumps(cal.state_dict(), sort_keys=True))
+    object.__setattr__(sess, "observe_probe", probing)
+    _rt_record_pulls(sess, rec["pulls"])
+    model = Transformer(cfg, device=info.device, seed=0)
+    last = dict(ops.launches)
+
+    def on_step(step, m):
+        nonlocal last
+        now = dict(ops.launches)
+        probe = rec["probe_launches"][step]
+        rec["steps"].append(dict(
+            loss=m["loss"], step_s=m["step_s"],
+            launches={k: now[k] - last[k] - probe[k] for k in PIPE_CA},
+            params=_bits_digest(torch, torch.cat([
+                p.detach().reshape(-1).float()
+                for p in model.parameters()]))))
+        last = now
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train(cfg, pipe, tc, model=model, session=sess, device=info.device,
+          on_step=on_step)
+    rec["train_s"] = time.perf_counter() - t0
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return rec
+
+
+def _rank_runtime_rank(rank, tmp):
+    """Phase 30's rank ``rank`` (a process of its own, on cuda:0): the
+    training run over a gloo CAD group in each of RT_DTYPES, one after
+    the other.  Any error ends the spawn, and the run."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.packed_flash import ops
+    from repro_torch.launch import mesh
+    tmp = Path(tmp)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = mesh.join_group(DEVICE, backend="gloo", rank=rank,
+                           world=RT_RANKS, local_rank=0,
+                           init_method=f"file://{tmp / 'store'}",
+                           timeout_s=300)
+    try:
+        recs = {}
+        for dtype in RT_DTYPES:
+            recs[dtype] = _rt_rank_run(torch, ops, info, dtype)
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.save(recs, tmp / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        mesh.leave_group()
+
+
+def _rt_oracle(torch, cfg, pipe, tc, probes):
+    """The one-process trainer on the card on the same weights and
+    batches, at prefetch 0, its ``observe_probe`` replaying the group's
+    gathered observations in order; returns (losses, pulls)."""
+    from repro_torch.models.model import Transformer
+    from repro_torch.train.trainer import train
+    sess = _rt_session(cfg, pipe, prefetch=0)
+    replay = iter(probes)
+
+    def replaying(plan, **kw):
+        for tasks, seconds, server in next(replay):
+            sess.calibrator.observe_tasks(tasks, seconds, server=server)
+    object.__setattr__(sess, "observe_probe", replaying)
+    pulls = []
+    _rt_record_pulls(sess, pulls)
+    res = train(cfg, pipe, tc, model=Transformer(cfg, device=DEVICE,
+                                                 seed=0),
+                session=sess, device=DEVICE)
+    return [h["loss"] for h in res["history"]], pulls
+
+
+def _rt_one_process_probe(torch, ops, cfg, pipe):
+    """The one-process probe's CA forward launches on the step-0 plan: a
+    warm-up and one a server."""
+    from repro_torch.core import dispatch as D
+    from repro_torch.data.pipeline import raw_batches
+    sess = _rt_session(cfg, pipe, prefetch=0)
+    plan = sess.plan(next(raw_batches(pipe))["segment_ids"]
+                     .reshape(RT_RANKS, -1))[0]
+    before = ops.launches["ca_server_fwd"]
+    D.probe_plan_times(D.CADContext(cfg=sess.cfg, jmax=sess.jmax), plan,
+                       n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+                       n_kv_heads=cfg.n_kv_heads, dtype=cfg.cdtype,
+                       device=DEVICE)
+    return ops.launches["ca_server_fwd"] - before
+
+
+def _rt_checks(torch, parts, dtype, card):
+    """One dtype's run against the one-process trainer replaying its
+    observations: the checks and the numbers logged."""
+    cfg, pipe, tc = _rt_setup(dtype)
+    t0 = time.perf_counter()
+    losses_1p, pulls_1p = _rt_oracle(torch, cfg, pipe, tc,
+                                     parts[0]["probes"])
+    oracle_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    tag = "bf16" if dtype == "bfloat16" else "f32"
+
+    def same(key):
+        return all(p[key] == parts[0][key] for p in parts)
+    first = parts[0]
+    losses = [x["loss"] for x in first["steps"]]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, losses_1p)]
+    want_step = {"ca_server_fwd": 2 * RT_LAYERS,
+                 "ca_server_bwd_dq": RT_LAYERS,
+                 "ca_server_bwd_dkv": RT_LAYERS}
+    want_probe = {"ca_server_fwd": 2, "ca_server_bwd_dq": 0,
+                  "ca_server_bwd_dkv": 0}
+    checks = {
+        f"{tag}: plan digests, calibration versions and pool stats equal "
+        f"on every rank at every step": same("pulls")
+        and len(first["pulls"]) == RT_STEPS,
+        f"{tag}: calibrator state equal on every rank after every probe":
+            same("snaps") and len(first["snaps"]) == RT_STEPS,
+        f"{tag}: each rank's probe launches the CA forward 1 + 1 times":
+            all(x == want_probe for p in parts
+                for x in p["probe_launches"]),
+        f"{tag}: from step {RT_KILL_STEP} server {RT_KILLED} serves no "
+        f"task, pool epoch 1, 3 active": all(
+            RT_KILLED not in x["servers"] and x["pool_epoch"] == 1
+            and x["pool_active"] == RT_RANKS - 1
+            for x in first["pulls"][RT_KILL_STEP:])
+        and all(RT_KILLED in x["servers"]
+                for x in first["pulls"][:RT_KILL_STEP]),
+        f"{tag}: CA launches a rank a step {RT_LAYERS} x {{2, 1, 1}}": all(
+            x["launches"] == want_step for p in parts for x in p["steps"]),
+        f"{tag}: parameters bitwise equal across the ranks after every "
+        f"step": len({tuple(x["params"] for x in p["steps"])
+                      for p in parts}) == 1,
+        f"{tag}: the one-process trainer's plan digests equal the "
+        f"group's": [x["digest"] for x in pulls_1p]
+        == [x["digest"] for x in first["pulls"]],
+    }
+    if dtype == "float32":
+        checks[f"{tag}: losses within {RT_LOSS_RTOL} relative of the "
+               f"one-process trainer's"] = max(gaps) <= RT_LOSS_RTOL
+    else:
+        checks[f"{tag}: step-0 loss bitwise the one-process trainer's"] = \
+            losses[0] == losses_1p[0]
+    for k in range(RT_STEPS):
+        per_server = {srv: sec for _, sec, srv in first["probes"][k]}
+        log(f"  {tag} step {k}: loss {losses[k]!r} (one process "
+            f"{losses_1p[k]!r}, relative gap {gaps[k]!r}), calib_version "
+            f"{first['pulls'][k]['calib_version']}, pool epoch "
+            f"{first['pulls'][k]['pool_epoch']}, servers with tasks "
+            f"{first['pulls'][k]['servers']}, probe seconds by server "
+            f"{per_server}, step s by rank "
+            f"{[round(p['steps'][k]['step_s'], 3) for p in parts]}, probe "
+            f"s by rank {[round(p['probe_s'][k], 3) for p in parts]}")
+    peaks = [round(p["peak_gib"], 3) for p in parts]
+    log(f"phase 30 {tag}: peaks {peaks} GiB; train "
+        f"{[round(p['train_s'], 1) for p in parts]} s by rank; one-process "
+        f"trainer {oracle_s:.1f} s [{card}]")
+    return checks, dict(
+        losses=losses, losses_one_process=losses_1p, loss_rel_gaps=gaps,
+        peak_gib=peaks, oracle_s=oracle_s,
+        probe_seconds=[{srv: sec for _, sec, srv in pr}
+                       for pr in first["probes"]],
+        launches_per_rank_step=[[x["launches"] for x in p["steps"]]
+                                for p in parts],
+        probe_launches_per_rank=[p["probe_launches"] for p in parts])
+
+
+def rank_runtime_phase(torch, np, ops, card):
+    """Phase 30: the per-rank runtime (calibration probes and fault
+    schedules under a CAD process group) on RT_RANKS gloo processes on
+    the one card (gloo stages CUDA tensors through the host: its times
+    are not speed figures), each a CAD rank of smollm-360m at every width
+    with RT_LAYERS layers, one [1, RT_SEQ] ``prolong`` row a rank,
+    ``cad``, ``balanced``, prefetch 2: RT_STEPS steps of
+    ``trainer.train`` with ``calibrate=True``, ``calibrate_every=1`` and
+    RT_FAULTS, in bf16 and then as an f32 copy.  Checked in each: every
+    step's plan digest and calibration version equal on every rank; the
+    calibrator's state equal on every rank after every probe; each
+    rank's probe launches the CA forward twice (a warm-up and its own
+    server's batch), the one-process probe 1 + servers times; from the
+    kill on server RT_KILLED has no live task in any rank's plan, at
+    pool epoch 1 with 3 active; CA launches a rank a step RT_LAYERS x {2,
+    1, 1}; the parameters bitwise equal across the ranks after every
+    step; the one-process trainer on the card, replaying the gathered
+    observations, builds the same plan at every step; the bf16 step-0
+    loss bitwise its, the f32 copy's losses within RT_LOSS_RTOL of its
+    (the bf16 gaps logged).  The kernel libraries are built before the spawn: the ranks
+    load them."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    log(f"phase 30: {RT_ARCH} at every width, {RT_LAYERS} of 32 layers, "
+        f"{RT_RANKS} gloo ranks on the card, a [1, {RT_SEQ}] row each "
+        f"(cad, balanced, prefetch 2), {RT_STEPS} steps, calibrate_every "
+        f"1, {RT_FAULTS}, in {' and '.join(RT_DTYPES)}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_rank_runtime_"))
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(_rank_runtime_rank, args=(str(tmp),), nprocs=RT_RANKS,
+                 join=True)
+        parts = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(RT_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    spawn_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks, runs = {}, {}
+    for dtype in RT_DTYPES:
+        c, runs[dtype] = _rt_checks(torch, [p[dtype] for p in parts], dtype,
+                                    card)
+        checks.update(c)
+    probe_1p = _rt_one_process_probe(torch, ops, *_rt_setup(RT_DTYPES[0])[:2])
+    checks[f"the one-process probe launches the CA forward 1 + {RT_RANKS} "
+           f"times"] = probe_1p == 1 + RT_RANKS
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 30: spawn and the ranks' runs {spawn_s:.1f} s, phase "
+        f"{seconds:.1f} s (gloo stages CUDA tensors through the host: these "
+        f"times are not speed figures) [{card}]")
+    for name, ok in checks.items():
+        log(f"  {name}: {ok}")
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"phase 30: failed: {failed}")
+    return dict(checks=checks, runs=runs,
+                one_process_probe_launches=probe_1p, spawn_s=spawn_s,
+                seconds=seconds,
+                note="gloo stages CUDA tensors through the host: times "
+                     "are not speed figures")
+
 def _record_moe(kernel, ca_fwd, ca_bwd, fl_fwd, fl_bwd, moe):
     """Phases 25-26's numbers into the kernels' JSON entries."""
     train, serving, times = moe
@@ -7235,6 +7590,31 @@ def _record_pipeline(ca_fwd, ca_bwd, res):
                                      for x in c["bwd"]] for c in counts])
 
 
+def _record_rank_runtime(ca_fwd, ca_bwd, res):
+    """Phase 30's launches (per rank and step, and per probe) and checks
+    into the CA kernels' JSON entries."""
+    def runs(key, fn):
+        return {d: fn(r[key]) for d, r in res["runs"].items()}
+
+    def per_rank(kernel):
+        return lambda x: [[s[kernel] for s in r] for r in x]
+    ca_fwd["rank_runtime_phase30"] = dict(
+        launches_per_rank_step=runs("launches_per_rank_step",
+                                    per_rank("ca_server_fwd")),
+        probe_launches_per_rank=runs("probe_launches_per_rank",
+                                     per_rank("ca_server_fwd")),
+        **{k: runs(k, lambda x: x) for k in (
+            "losses", "losses_one_process", "loss_rel_gaps",
+            "probe_seconds", "peak_gib", "oracle_s")},
+        **{k: res[k] for k in ("one_process_probe_launches", "checks",
+                               "spawn_s", "seconds", "note")})
+    ca_bwd["rank_runtime_phase30"] = dict(
+        launches_dq_per_rank_step=runs("launches_per_rank_step",
+                                       per_rank("ca_server_bwd_dq")),
+        launches_dkv_per_rank_step=runs("launches_per_rank_step",
+                                        per_rank("ca_server_bwd_dkv")))
+
+
 def build_kernels(build, ops, ssd, rg):
     """Phase 1: build every kernel source, one nvcc each, all at once."""
     loaders = {"ragged_decode": ops.load_library,
@@ -7285,12 +7665,13 @@ def build_kernels(build, ops, ssd, rg):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only", choices=("kernels", "ranks", "moe", "cross",
-                                      "pipeline"),
+                                      "pipeline", "rank_runtime"),
                    default=None,
                    help="'kernels': stop after the kernel checks (phases "
                         "1-2); 'ranks': phases 1, 5 and 24 alone; 'moe': "
                         "phases 1, 25 and 26; 'cross': phases 1, 27 and 28; "
-                        "'pipeline': phases 1 and 29")
+                        "'pipeline': phases 1 and 29; 'rank_runtime': "
+                        "phases 1 and 30")
     return p.parse_args(argv)
 
 
@@ -7414,6 +7795,9 @@ def main(argv=None) -> int:
         _record_cross(ca_fwd, ca_bwd, cross_phases(torch, np, ops, card))
     elif args.only == "pipeline":
         _record_pipeline(ca_fwd, ca_bwd, pipeline_phase(torch, np, card))
+    elif args.only == "rank_runtime":
+        _record_rank_runtime(ca_fwd, ca_bwd,
+                             rank_runtime_phase(torch, np, ops, card))
     elif args.only != "kernels":
         engine, launches, captured_err = serve_full_width(torch, np, ops,
                                                           launch)
@@ -7778,6 +8162,10 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         _record_pipeline(ca_fwd, ca_bwd, pipeline_phase(torch, np, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        _record_rank_runtime(ca_fwd, ca_bwd,
+                             rank_runtime_phase(torch, np, ops, card))
     log(json.dumps({"kernels": [kernel, ca_fwd, ca_bwd, ca_rng, ca_glse,
                                 fl_fwd, fl_bwd, fl_rng, ssd_fm, ssd_bm,
                                 ssd_f, ssd_b, lru_f, lru_b]}))

@@ -34,8 +34,13 @@ server): every rank reads the same seeded global batch and runs the same
 host planner on its global segment ids; ``plan_batch`` returns this
 rank's rows with the global plan, and ``attach_plans`` holds the ranks
 to one plan (a digest of its arrays, gathered across the group, at every
-plan).  Calibration, fault schedules, speculation and streaming stay
-single-process: under a group they raise (ROADMAP queue 1 item 15).
+plan).  So every rank must plan from the same calibration snapshot and
+pool epoch: each rank probes its own server and the triples are gathered
+(``observe_probe``), so every rank's calibrator takes the same
+observations in the same order; the trainer applies the fault schedule's
+membership events on every rank at the same step; and a prefetched plan
+whose calibration version is not the current one is re-planned at pull
+(``_plan_stale``).
 """
 from __future__ import annotations
 
@@ -122,10 +127,9 @@ class CADSession:
                 raise ValueError(f"the CAD group has "
                                  f"{dist.get_world_size(group)} ranks, "
                                  f"the pipeline {n}")
-            if calibrate:
-                _single_process("runtime calibration")
-            if stream_chunk:
-                _single_process("chunked KV streaming")
+            # streaming shapes the plans alone here: the rank path serves
+            # every task unstreamed, as the reference's shard_map body
+            # (``_rank_fn``) and the port's ``_global_sim`` do
         rows_per_rank = pipe_cfg.global_batch // n
         tokens_per_rank = rows_per_rank * pipe_cfg.seq_len
         if pingpong:
@@ -174,9 +178,6 @@ class CADSession:
         stats record the membership epoch it was built from, and
         prefetched plans from a superseded epoch are re-planned at pull
         (DESIGN.md §9)."""
-        if pool is not None and self.group is not None:
-            _single_process("an elastic server pool (fault schedules, "
-                            "speculation)")
         if pool is not None and pool.n_slots != self.cfg.n_servers:
             raise ValueError(
                 f"pool has {pool.n_slots} slots, session pool geometry "
@@ -235,7 +236,11 @@ class CADSession:
         """True when a prefetched batch's plan was built from a superseded
         pool epoch, or from speeds that have since drifted beyond
         ``recalib_threshold``: checked (and re-planned) on the consumer
-        thread at pull time."""
+        thread at pull time.  Under a group any other calibration version
+        is stale: which snapshot the worker read depends on thread timing,
+        which differs between ranks, while the version at pull is the same
+        on every rank (each made the same ``observe`` calls), so a pulled
+        plan is the one ``prefetch=0`` builds."""
         st = batch.get("schedule_stats") or {}
         view = self._pool_view()
         if view is not None \
@@ -246,28 +251,55 @@ class CADSession:
             return False
         if int(st["calib_version"]) == snap.version:
             return False
+        if self.group is not None:
+            return True
         drift = max(abs(st.get(f"calib_speed_{s}", 1.0) - snap.speeds[s])
                     for s in range(self.cfg.n_servers))
         return drift > self.recalib_threshold
 
+    def _gathered(self, mine: list) -> list:
+        """Under a group: every rank's ``mine`` concatenated in rank
+        order (a collective, on the thread that runs the step)."""
+        if self.group is None:
+            return mine
+        got = [None] * dist.get_world_size(self.group)
+        dist.all_gather_object(got, mine, group=self.group)
+        return [x for part in got for x in part]
+
     def observe(self, q_tokens: int, kv_tokens: int, seconds: float,
                 server: Optional[int] = None) -> None:
-        """Feed one measured CA-task timing into the calibrator."""
+        """Feed one measured CA-task timing into the calibrator.  Under a
+        group it raises: one rank's timing of one task reaches no other
+        rank's calibrator (``observe_server``, ``observe_plan`` and
+        ``observe_probe`` gather)."""
+        if self.group is not None and self.calibrator is not None:
+            raise RuntimeError(
+                "CADSession.observe under a CAD group would feed one "
+                "rank's calibrator alone; use observe_server, "
+                "observe_plan or observe_probe, which gather the ranks' "
+                "timings")
         if self.calibrator is not None:
             self.calibrator.observe(q_tokens, kv_tokens, seconds,
                                     server=server)
 
     def observe_server(self, server: int, tasks, seconds: float) -> None:
         """Feed one per-server fused-batch timing (``tasks`` is the
-        server's [(q_tokens, kv_tokens), ...] composition)."""
-        if self.calibrator is not None:
-            self.calibrator.observe_tasks(tasks, seconds, server=server)
+        server's [(q_tokens, kv_tokens), ...] composition).  Under a group
+        it is a collective: each rank passes the timing it measured, and
+        every rank feeds all of them in rank order."""
+        if self.calibrator is None:
+            return
+        for s, t, sec in self._gathered([(server, list(tasks),
+                                          float(seconds))]):
+            self.calibrator.observe_tasks(t, sec, server=s)
 
     def observe_plan(self, plan, per_server_seconds) -> None:
         """Feed measured per-server serve times for one executed plan;
         task shapes come from the plan's arrays.  A ping-pong step's
         timing covers both halves, so a :class:`PingPongPlan` contributes
-        the tasks of both."""
+        the tasks of both.  Under a group it is a collective: each rank
+        passes the per-server times it measured (its own server's, as a
+        dict), and every rank feeds all of them in rank order."""
         if self.calibrator is None:
             return
         halves = list(plan) if isinstance(plan, (tuple, list,
@@ -282,7 +314,8 @@ class CADSession:
                 by_server.setdefault(s, []).append((qt, kvt))
         if not isinstance(per_server_seconds, dict):
             per_server_seconds = dict(enumerate(per_server_seconds))
-        for s, seconds in per_server_seconds.items():
+        for s, seconds in self._gathered(
+                [(int(s), float(t)) for s, t in per_server_seconds.items()]):
             if s in by_server:
                 self.calibrator.observe_tasks(by_server[s], float(seconds),
                                               server=s)
@@ -295,7 +328,11 @@ class CADSession:
         ``calibrate_every`` hook, which passes the model's compute dtype
         and device (the card's bf16 and f32 kernels differ several-fold
         in speed, so the probe times the one training runs).
-        Ping-pong plans probe both nano-batch halves."""
+        Ping-pong plans probe both nano-batch halves.  Under a group it is
+        a collective: each rank times its own server's batch in its turn,
+        the ranks' triples are gathered (on this thread, never the
+        prefetch worker), and every rank feeds all of them in server
+        order, so every rank's calibrator holds the same state."""
         if self.calibrator is None:
             return
         comm = self.comm or CommModel(1, 1, 1)
@@ -309,10 +346,11 @@ class CADSession:
                 else dataclasses.replace(self.cfg, nb=nb)
             cad = CADContext(cfg=cfg, jmax=self.jmax, mask=self.mask)
             label = "probe" if len(plans) == 1 else f"probe/half{i}"
-            for s, tasks, seconds in probe_plan_times(
+            for s, tasks, seconds in self._gathered(probe_plan_times(
                     cad, p, n_heads=comm.n_heads, head_dim=comm.head_dim,
                     n_kv_heads=comm.n_kv_heads, dtype=dtype, seed=seed,
-                    repeats=repeats, trace_label=label, device=device):
+                    repeats=repeats, trace_label=label, device=device,
+                    group=self.group)):
                 self.calibrator.observe_tasks(tasks, seconds, server=s)
 
     # ----------------------------------------------------------- planning
@@ -434,7 +472,8 @@ class CADSession:
         computes batch *i* (bounded queue, order-preserving); with
         ``prefetch=0`` planning happens inline.  With a calibrator
         attached, a prefetched plan whose speeds have drifted past
-        ``recalib_threshold`` is re-planned at pull time (on the
+        ``recalib_threshold`` (under a group: any plan of another
+        calibration version) is re-planned at pull time (on the
         consumer thread); with a pool attached, a plan prefetched under a
         superseded membership epoch always is: a plan that routes tasks
         to a dead server must never reach the dispatch."""
@@ -445,12 +484,19 @@ class CADSession:
                 self.check_plan_agreement(out)
                 yield out
             return
-        stale = self._plan_stale if (self.calibrator is not None
-                                     or self.pool is not None) else None
-        pf = PlanPrefetcher(batch_iter, self.plan_batch, depth=depth,
-                            is_stale=stale)
+        stale = None
+        if self.calibrator is not None or self.pool is not None:
+            def stale(item):
+                return self._plan_stale(item[1])
+
+        def plan(raw):
+            # the raw batch rides along: under a group the planned batch
+            # holds this rank's rows alone, and a re-plan needs them all
+            return raw, self.plan_batch(raw)
+        pf = PlanPrefetcher(batch_iter, plan, depth=depth, is_stale=stale,
+                            refresh=lambda item: plan(item[0]))
         try:
-            for out in pf:
+            for _, out in pf:
                 self.check_plan_agreement(out)
                 yield out
         finally:
@@ -472,8 +518,3 @@ def plan_digest(plan) -> str:
             h.update(np.ascontiguousarray(a, np.int32).tobytes())
     return h.hexdigest()
 
-
-def _single_process(what: str):
-    raise NotImplementedError(
-        f"{what} under a CAD process group is ROADMAP queue 1 item 15; it "
-        f"runs in one process (group=None)")

@@ -43,9 +43,11 @@ one (streamed through ``stream_task_batch`` when ``stream_chunk`` is
 set), ``assemble_step_outputs`` scatters the outputs home (missing
 servers give zeros; ``merge_recovered`` selects recovered blocks in).
 ``probe_plan_times`` times each server's batch for the runtime
-calibrator.  The ring baseline (DISTFLASHATTN) runs each server's batch
-one ring pass at a time (``ring_attention``; ``ring_global_sim`` is the
-same schedule through the stacked orchestration).
+calibrator; under a group each rank times its own server's batch
+(``server_inputs``), the ranks in turn.  The ring baseline
+(DISTFLASHATTN) runs each server's batch one ring pass at a time
+(``ring_attention``; ``ring_global_sim`` is the same schedule through
+the stacked orchestration).
 """
 from __future__ import annotations
 
@@ -436,6 +438,29 @@ def build_server_inputs(cad: CADContext, plan, q, k, v, pos):
              for s in range(d)])
 
 
+def server_inputs(cad: CADContext, plan, q, k, v, pos, server: int):
+    """One server's fused CA-task inputs and plan row, gathered as the
+    rank path gathers them (its own blocks, and the blocks every rank
+    sends it) with no exchange: ``q``/``k``/``v``/``pos`` hold every
+    rank's rows, as for :func:`build_server_inputs`, whose
+    ``inputs[server]`` and ``plans_r[server]`` these equal bitwise.  The
+    probe's rank half: rank ``server`` builds its own batch alone."""
+    cfg = cad.cfg
+    d = cfg.n_servers
+    plan_t = _plan_tensors(plan, q.device)
+    blocks = tuple(_to_blocks(x.reshape((d, x.shape[0] // d)
+                                        + tuple(x.shape[1:])), cfg.blk)
+                   for x in (q, k, v, pos))
+    # what every rank sends to ``server``: its column of the send indices
+    to_server = {f: plan_t[f][:, server]
+                 for f in ("q_send_idx", "kv_send_idx")}
+    recv = tuple(x[None] for x in _make_sends(*blocks, to_server))
+    own = tuple(b[server:server + 1] for b in blocks)
+    row = _plan_row(plan_t, server, q.device)
+    tasks = _server_tasks(*own, recv, row, cfg)
+    return tuple(x[0] for x in tasks), {f: a[0] for f, a in row.items()}
+
+
 def _serve_one(cad, inputs_s, plan_s, softcap, scale):
     return ca_server_attention(**_server_kwargs(cad, inputs_s, plan_s),
                                softcap=softcap, scale=scale)
@@ -514,7 +539,8 @@ def merge_recovered(cfg: CADConfig, base, recovered, lost_blocks):
 def probe_plan_times(cad: CADContext, plan, *, n_heads: int = 1,
                      head_dim: int = 8, n_kv_heads: Optional[int] = None,
                      dtype=torch.float32, seed: int = 0, repeats: int = 1,
-                     trace_label: str = "probe", device="cuda") \
+                     trace_label: str = "probe", device="cuda",
+                     group=None) \
         -> List[Tuple[int, List[Tuple[int, int]], float]]:
     """Time each server's fused CA-task batch for one plan with seeded
     q/k/v: the runtime calibrator's measurement (DESIGN.md §3).  Kernel
@@ -525,7 +551,16 @@ def probe_plan_times(cad: CADContext, plan, *, n_heads: int = 1,
     ``(server, [(q_tokens, kv_tokens), ...], seconds)`` per server, ready
     for ``GridCalibrator.observe_tasks``.  ``device`` defaults to the
     card; the serve is the one training runs (the CA kernels there, the
-    plain versions on the CPU)."""
+    plain versions on the CPU).
+
+    Under ``group`` (the CAD group, one rank per server) rank r builds
+    its own server's batch alone (:func:`server_inputs`, bitwise the
+    one-process probe's ``inputs[r]``), serves its warm-up, and times its
+    ``repeats`` serves in its turn: the ranks take turns in rank order
+    with a barrier between turns, as the reference's loop takes the
+    servers one after another, so no rank's probe overlaps another's on
+    a shared card.  It returns ``[(r, tasks, seconds)]``; the session
+    gathers the ranks' triples (``CADSession.observe_probe``)."""
     cfg = cad.cfg
     d, nb, blk = cfg.n_servers, cfg.nb, cfg.blk
     s_len = nb * blk
@@ -540,7 +575,14 @@ def probe_plan_times(cad: CADContext, plan, *, n_heads: int = 1,
     q, k, v = rnd(n_heads), rnd(hkv), rnd(hkv)
     pos = torch.arange(s_len, dtype=torch.int32, device=dev) \
         .expand(d, s_len).contiguous()
-    inputs, plans_r = build_server_inputs(cad, plan, q, k, v, pos)
+    if group is None:
+        mine = range(d)
+        inputs, plans_r = build_server_inputs(cad, plan, q, k, v, pos)
+    else:
+        rank = check_cad_group(cad, group)
+        mine = (rank,)
+        got, row = server_inputs(cad, plan, q, k, v, pos, rank)
+        inputs, plans_r = {rank: got}, {rank: row}
     by_server: Dict[int, List[Tuple[int, int]]] = {s: [] for s in range(d)}
     for s, _slot, qt, kvt in iter_plan_tasks(cfg, plan, mask=cad.mask):
         by_server[s].append((qt, kvt))
@@ -552,21 +594,34 @@ def probe_plan_times(cad: CADContext, plan, *, n_heads: int = 1,
     reps = max(1, repeats)
     rec = obs_trace.get_recorder()
     results = []
+
+    def timed(s):
+        # the span lands on the server's own track (``trace_label``
+        # tells ping-pong halves apart)
+        with rec.span(trace_label, server_track(s),
+                      args={"repeats": reps, "n_tasks": len(by_server[s])}):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                _serve_one(cad, inputs[s], plans_r[s], 0.0, None)
+            sync()
+            seconds = (time.perf_counter() - t0) / reps
+        results.append((s, by_server[s], seconds))
+
     with torch.no_grad():
-        _serve_one(cad, inputs[0], plans_r[0], 0.0, None)   # warm-up
-        for s in range(d):
-            # the span lands on the server's own track (``trace_label``
-            # tells ping-pong halves apart)
-            with rec.span(trace_label, server_track(s),
-                          args={"repeats": reps,
-                                "n_tasks": len(by_server[s])}):
-                sync()
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    _serve_one(cad, inputs[s], plans_r[s], 0.0, None)
-                sync()
-                seconds = (time.perf_counter() - t0) / reps
-            results.append((s, by_server[s], seconds))
+        first = mine[0]
+        _serve_one(cad, inputs[first], plans_r[first], 0.0, None)  # warm-up
+        if group is None:
+            for s in mine:
+                timed(s)
+            return results
+        import torch.distributed as dist
+        sync()
+        for turn in range(d):
+            dist.barrier(group=group)
+            if turn == rank:
+                timed(rank)
+        dist.barrier(group=group)
     return results
 
 

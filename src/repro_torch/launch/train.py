@@ -51,8 +51,15 @@ Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) each process joins
 the group (gloo for ``--device cpu``, NCCL on ``cuda:LOCAL_RANK``
 otherwise; ``launch/mesh.py``), reads the same global batches, trains its
 rows and exchanges q/kv blocks and outputs with the other ranks; rank 0
-prints and writes checkpoints, traces and metrics.  ``--ranks`` must
-equal ``WORLD_SIZE`` there, and --cad is required.  Without ``torchrun``
+prints (the pool lines and the step lines) and writes checkpoints,
+traces and metrics.  ``--ranks`` must equal ``WORLD_SIZE`` there, and
+--cad is required.  --calibrate and --calibrate-every (each rank probes
+its own server in turn; the timings are gathered, so every rank plans
+from the same calibration), --fault-schedule (every rank applies the
+membership events at the same step; a killed server's rank trains its
+rows and serves no task), --stream-chunk and --server-hbm (the plans;
+the ranks serve unstreamed, as the reference's mesh path does) work
+under ``torchrun`` as in one process.  Without ``torchrun``
 the launcher keeps the single-process simulated pool.
 """
 import argparse

@@ -137,7 +137,9 @@ class StepState:
 
 class ElasticExecutor:
     """Drives elastic steps for one :class:`CADSession` with an
-    attached :class:`ServerPool` (``session.with_pool(pool)``).
+    attached :class:`ServerPool` (``session.with_pool(pool)``).  It
+    serves every server in this one process, as the reference's does: a
+    session over a CAD process group raises ``ValueError``.
 
     ``speculate_pct`` in (0, 1] arms straggler speculation: a server
     whose serve time exceeds ``quantile(predicted, pct) * slack`` is
@@ -156,6 +158,13 @@ class ElasticExecutor:
                  timer: str = "model",
                  feed_calibrator: bool = True,
                  recorder=None, metrics=None, clock=None):
+        if session.group is not None:
+            raise ValueError(
+                f"{type(self).__name__} serves every server's batch in one "
+                "process, as the reference's does; its session must not "
+                "carry a CAD process group (train under a group with "
+                "trainer.train, whose fused step applies the fault "
+                "schedule's membership events on every rank)")
         if session.pool is None:
             raise ValueError("session has no ServerPool; use "
                              "session.with_pool(ServerPool(...))")

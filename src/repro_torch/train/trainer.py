@@ -10,7 +10,11 @@ group=g)``) every rank runs this loop on its rows of the same global
 batches: the parameters start from rank 0's, the gradients are summed
 across the ranks before each update, rank 0 alone logs and writes
 checkpoints, every rank synchronizes its own device around a step, and
-tokens/s counts the global batch.
+tokens/s counts the global batch.  Every rank applies the fault
+schedule's membership events at the same step and probes its own server
+in turn (``CADSession.observe_probe`` gathers the timings), so every
+rank plans every step from the same pool epoch and calibration snapshot.
+A killed server's rank goes on training its rows; it serves no task.
 """
 from __future__ import annotations
 
@@ -110,11 +114,6 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
     faults = pool = None
     group = None if session is None else session.group
     rank = 0 if group is None else dist.get_rank(group)
-    if group is not None and (train_cfg.fault_schedule
-                              or train_cfg.calibrate_every):
-        raise NotImplementedError(
-            "fault schedules and calibration probes under a CAD process "
-            "group are ROADMAP queue 1 item 15; they run in one process")
     if session is not None:
         if train_cfg.fault_schedule:
             from repro_torch.runtime import FaultSchedule, ServerPool
@@ -123,7 +122,7 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
                 session = session.with_pool(ServerPool(
                     session.cfg.n_servers,
                     calibrator=session.calibrator))
-            if train_cfg.speculate_pct > 0:
+            if train_cfg.speculate_pct > 0 and rank == 0:
                 print("note: --speculate-pct drives task-level "
                       "speculation in the elastic executor "
                       "(runtime.ElasticExecutor); the fused train step "
@@ -151,7 +150,7 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
         # the newest checkpoint (no-op when none carries calibration)
         last = ckpt.latest_step(train_cfg.ckpt_dir)
         if last is not None and ckpt.restore_calibration(
-                train_cfg.ckpt_dir, last, session.calibrator):
+                train_cfg.ckpt_dir, last, session.calibrator) and rank == 0:
             print(f"restored calibration state from step {last}")
 
     history = []
@@ -168,7 +167,7 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
                 # the elastic executor)
                 pool_events = faults.apply_pre_step(pool, step) \
                     + faults.apply_failures(pool, step)
-                if pool_events:
+                if pool_events and rank == 0:
                     print(f"step {step:5d} pool: "
                           f"{', '.join(pool_events)} "
                           f"(epoch {pool.epoch})", flush=True)
@@ -185,7 +184,8 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
             if plan is not None and step % train_cfg.calibrate_every == 0:
                 # measure -> fit: the per-server timings feed the
                 # calibrator, so the (prefetched) plan of a later batch
-                # is built from them
+                # is built from them (under a group each rank times its
+                # own server and every rank feeds all the timings)
                 session.observe_probe(plan, seed=train_cfg.seed + step,
                                       dtype=model.cfg.cdtype,
                                       device=dev)
@@ -212,6 +212,10 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
                           opt_state,
                           calibrator=None if session is None
                           else session.calibrator, rank=rank)
+                if group is not None:
+                    # rank 0 alone writes: no rank reads the checkpoint
+                    # (a restart's calibration) before it is whole
+                    dist.barrier(group=group)
     finally:
         gen.close()      # stops the plan-prefetch worker, if any
     return {"model": model, "opt_state": opt_state, "history": history}

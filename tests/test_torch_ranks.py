@@ -26,8 +26,9 @@ single-process trainer's; at capacity factor 1.0 each rank's
 ``moe_apply`` is the reference's on its own tokens, and the ranks' aux
 shares sum to the reference's global losses.  A
 rank fed other segment ids makes the plan-agreement check raise, and
-what stays single-process raises under a group (and so does expert
-parallelism).  The ping-pong call's
+a group of another size raises (and so does expert parallelism).
+Calibration, fault schedules and streaming plans under a group are
+``tests/test_torch_rank_runtime.py``'s.  The ping-pong call's
 issue order is recorded on every rank: both nano-batches' ten sends go
 out asynchronously before nano-batch 0 is waited on and served."""
 import importlib.util
@@ -162,7 +163,6 @@ def worker(rank, tmp):
     from repro_torch.data.pipeline import PipelineConfig, raw_batches
     from repro_torch.launch import mesh
     from repro_torch.models.model import Transformer
-    from repro_torch.runtime import ServerPool
     from repro_torch.train.trainer import TrainConfig, train
     info = mesh.join_group("cpu", rank=rank, world=4,
                            init_method="file://" + os.path.join(tmp, "store"),
@@ -272,15 +272,6 @@ def worker(rank, tmp):
                 mcfg, PipelineConfig(global_batch=4, n_ranks=2,
                                      seq_len=256, max_doc_len=256),
                 group=group), ValueError),
-        "calibrate": _raises(lambda: CADSession.for_pipeline(
-            mcfg, pipe, group=group, calibrate=True), NotImplementedError),
-        "stream_chunk": _raises(lambda: CADSession.for_pipeline(
-            mcfg, pipe, group=group, stream_chunk=2), NotImplementedError),
-        "pool": _raises(lambda: sess.with_pool(ServerPool(4)),
-                        NotImplementedError),
-        "fault schedule": _raises(lambda: train(
-            mcfg, pipe, TrainConfig(steps=1, fault_schedule="kill:1@0"),
-            device="cpu", session=sess), NotImplementedError),
     }
     np.savez(os.path.join(tmp, f"rank{rank}.npz"), **res)
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -534,16 +525,12 @@ def test_plan_disagreement_raises_on_every_rank(ranks):
 
 
 @pytest.mark.parametrize("what", [
-    "group size != n_servers", "pipeline ranks != group", "calibrate",
-    "stream_chunk", "pool", "fault schedule"])
+    "group size != n_servers", "pipeline ranks != group"])
 def test_what_the_rank_path_refuses(ranks, what):
     _, per_rank = ranks
     for _, meta in per_rank:
         msg = meta["refusals"][what]
         assert msg is not None, what
-        if what not in ("group size != n_servers",
-                        "pipeline ranks != group"):
-            assert "ROADMAP queue 1 item 15" in msg
 
 
 def _pingpong_forward_order():
@@ -757,3 +744,45 @@ def test_torchrun_launcher_on_cpu(tmp_path, capsys, monkeypatch):
     assert len(got) == 2 and "ranks=2" in multi.stdout
     assert [ln.split("(")[0] for ln in got] \
         == [ln.split("(")[0] for ln in want]
+
+
+def test_torchrun_launcher_calibrates_under_a_fault_schedule_on_cpu(
+        tmp_path, capsys, monkeypatch):
+    """``torchrun --nproc-per-node 2 ... --calibrate --calibrate-every 1
+    --fault-schedule kill:1@1``: both ranks train, rank 0 alone prints the
+    pool line and the step lines, as the single-process launcher prints
+    them under the same schedule.  Each run's plans from step 1 on come
+    from its own probe timings, so the losses are compared within one unit
+    of their last printed digit, not as text: a plan moves tasks, not
+    arithmetic, but the rows' sums take another order."""
+    from repro_torch.launch import train as launch
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    args = ["--arch", TRAIN["arch"], "--steps", "3", "--seq", "256",
+            "--batch", "4", "--ranks", "2", "--cad", "--device", "cpu",
+            "--calibrate", "--calibrate-every", "1", "--fault-schedule",
+            "kill:1@1"]
+    multi = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *args],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=str(tmp_path))
+    assert multi.returncode == 0, multi.stderr[-3000:]
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    launch.main(args)
+    single = capsys.readouterr().out
+
+    def lines(text, word):
+        return [ln for ln in text.splitlines()
+                if ln.startswith("step") and word in ln]
+
+    def losses(text):
+        return [float(ln.split("loss ")[1].split()[0])
+                for ln in lines(text, " loss ")]
+    assert lines(multi.stdout, "pool:") == ["step     1 pool: kill 1 "
+                                            "(epoch 1)"]
+    assert lines(multi.stdout, "pool:") == lines(single, "pool:")
+    assert len(lines(multi.stdout, " loss ")) == 3
+    np.testing.assert_allclose(losses(multi.stdout), losses(single),
+                               atol=1e-4, rtol=0)
