@@ -362,7 +362,7 @@ is timed).
    its unpipelined forward's; per-rank peak memory and seconds (gloo
    stages CUDA tensors through the host: not speed figures).  No error
    of a rank is caught.
-30. (last, after 29: it spawns too) the per-rank runtime: RT_RANKS
+30. (after 29: it spawns too) the per-rank runtime: RT_RANKS
    processes on the one card joined under gloo, each a CAD rank of
    smollm-360m at every width (RT_LAYERS of 32 layers, seed 0), a [1,
    RT_SEQ] ``prolong`` row a rank in bf16, ``balanced``, prefetch 2:
@@ -380,13 +380,33 @@ is timed).
    the bf16 step-0 loss bitwise its, the f32 copy's losses within
    RT_LOSS_RTOL (the bf16 gaps logged).  Probe seconds by server and
    step, peaks and times logged (not speed figures).
+31. (last, after 30: it spawns too) the sharding rules on a data 2 x
+   model 2 grid (``launch.mesh.join_grid``): GRID_RANKS processes on the
+   one card under gloo, each model index's data ranks a CAD group,
+   bf16, seed 0: (a) llama3-8b and (b) smollm-360m (15 heads padded to
+   16: 8 MHA heads of 64 a rank) at every width with 2 layers, a [1,
+   4096] row a data rank, and (c) qwen2-moe-a2.7b with expert
+   parallelism (30 experts a data rank, the expert width split over the
+   model ranks), 2 layers, [1, 2048] a data rank, 2 ``cad`` steps each,
+   then an f32 copy's step; (a) also on the colocated ``pallas`` route;
+   (d) llama4-maverick at every width, 1 layer, one ``cad`` forward (64
+   experts, 8 GB, a rank).  Against the one-process runs on the same
+   weights and batches (run before the spawn, maverick's 32 GB of
+   experts first): the f32 step-0 loss and grad norm within
+   GRID_F32_LIMIT (the "no causal mask" control outside), the bf16
+   gaps logged, expert-parallel routing equal, the data-replicated
+   tensors bitwise across data ranks, plan digests equal on every rank,
+   CA launches a rank a step layers x {2, 1, 1}; then the CA kernels on
+   (a)'s and (b)'s captured server batches at the per-rank shapes,
+   against their plain versions and timed (PERF.md rows 4g/5g, 4p/5p).
 
 The line before the card line lists every ported kernel as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after
 phase 2: the short first call for a new kernel; ``--only ranks`` runs
 phases 1, 5 and 24; ``--only moe`` phases 1, 25 and 26; ``--only
 cross`` phases 1, 27 and 28; ``--only pipeline`` phases 1 and 29;
-``--only rank_runtime`` phases 1 and 30.  Every traced
+``--only rank_runtime`` phases 1 and 30; ``--only grid`` phases 1 and
+31.  Every traced
 or profiled window opens with LEAD_IN_KERNELS spin kernels
 (TRACE_LEAD_IN_CYCLES in all, ~2 ms), not counted.
 """
@@ -397,6 +417,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -7520,6 +7541,886 @@ def rank_runtime_phase(torch, np, ops, card):
                 note="gloo stages CUDA tensors through the host: times "
                      "are not speed figures")
 
+# ------------------------------------------------------------ phase 31
+# The sharding rules on a data x model grid: GRID_RANKS gloo processes on
+# the one card as data 2 x model 2 (NCCL refuses two ranks on one
+# device), each model index's data ranks a CAD group.
+GRID = {"data": 2, "model": 2}
+GRID_RANKS = GRID["data"] * GRID["model"]
+# path: (arch, layers, tokens a data rank, bf16 steps, expert parallel);
+# every width, depth cut.  (d) is a forward only: maverick's 128 experts
+# of [5120, 8192] are 32 GB in bf16, 8 GB a rank, and training would need
+# ~48 GB a rank for weights, gradients and f32 AdamW moments
+GRID_PATHS = {
+    "a": ("llama3-8b", 2, 4096, 2, False),
+    "b": ("smollm-360m", 2, 4096, 2, False),
+    "c": ("qwen2-moe-a2.7b", 2, 2048, 2, True),
+    "d": ("llama4-maverick-400b-a17b", 1, 2048, 0, True),
+}
+GRID_TRAIN = ("a", "b", "c")
+# whose layer-0 CA batches (the last model rank's heads, both data ranks'
+# servers) are timed: PERF.md rows 4g/5g and 4p/5p
+GRID_TIMED = {"a": "4g/5g", "b": "4p/5p"}
+GRID_DTYPES = ("bfloat16", "float32")
+# the f32 copy's step-0 loss and gradient norm against the one-process
+# trainer's on the same weights and batch, relative.  The grid sums each
+# partial product (heads, FFN columns, vocab shards, expert width) over
+# the model ranks, another order than one process's
+GRID_F32_LIMIT = 1e-5
+GRID_REQUIRED_CONTROLS = ("no causal mask",)
+# tokens of each rank's logits (its vocab shard) held against the
+# one-process forward's in (d)
+GRID_LOGIT_TOKENS = 64
+# (d) in bf16 against the one-process forward on the same weights and
+# batch: the loss's relative gap, and each rank's logit slice's max |diff|
+# over the one-process slices' max |logit|.  Each control breaks the
+# expert-parallel layer on every rank; the required one must fall outside.
+# Measured on one H100 (NVIDIA H100 80GB HBM3, 700 W): loss 1.03e-4,
+# logits <= 8.2e-3 (0.046875 of 5.75: 1.5 bf16 steps); the control
+# "return exchange reversed" 5.34e-4 and >= 0.838
+GRID_D_LOSS_LIMIT = 1.5e-4
+GRID_D_LOGIT_LIMIT = 1e-2
+GRID_D_CONTROLS = ("return exchange reversed", "shared expert dropped")
+GRID_D_REQUIRED = ("return exchange reversed",)
+# The expert-parallel routing against one process's: the router's inputs
+# differ in their last bits (the matmuls run at other shapes, and past
+# layer 0 the model ranks' partial sums add in another order), so a
+# choice may flip where two experts' probabilities are within rounding of
+# each other.  Every choice must be equal but at such a near-tie: the
+# one-process probabilities of the two experts within this fraction of
+# the larger.  Set just above the worst flipped pair measured on one H100
+# (NVIDIA H100 80GB HBM3, 700 W): f32 3.0e-7 ((c), layer 1); bf16 at
+# layer 0 1.5504e-2 ((c)) and 1.5504e-2 ((d)), under the rounding
+# estimate (bf16 logits keep 8 significant bits: 2 steps of 2**-7 move a
+# pair's gap by up to 2**-6 of the logit, ~1.6e-2 of the probability)
+GRID_NEAR_TIE = {"float32": 5e-7, "bfloat16": 2e-2}
+GRID_CA = ("ca_server_fwd", "ca_server_bwd_dq", "ca_server_bwd_dkv")
+# the ranks' caching-allocator setting (set for the spawn alone)
+GRID_ALLOC_ENV = "PYTORCH_CUDA_ALLOC_CONF"
+GRID_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+              "flash_tile_ranges")
+
+
+def _grid_setup(path, dtype="bfloat16"):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig
+    from repro_torch.train.trainer import TrainConfig
+    arch, layers, seq, steps, ep = GRID_PATHS[path]
+    cfg = get_config(arch)
+    moe = cfg.moe and dataclasses.replace(cfg.moe, expert_parallel=ep)
+    cfg = dataclasses.replace(cfg, n_layers=layers, moe=moe,
+                              param_dtype=dtype, compute_dtype=dtype)
+    pipe = PipelineConfig(distribution="prolong", max_doc_len=seq,
+                          seq_len=seq, global_batch=GRID["data"],
+                          n_ranks=GRID["data"], vocab_size=cfg.vocab_size,
+                          seed=0)
+    tc = TrainConfig(steps=steps if dtype == "bfloat16" else 1,
+                     peak_lr=3e-4, warmup=1, log_every=1, seed=0)
+    return cfg, pipe, tc
+
+
+def _grid_fill(torch, model, seed, coords=None):
+    """Fill ``model``'s parameters (whole, or a grid rank's shards after
+    ``shard_model``) with seeded values that do not depend on the grid:
+    a tensor is the shard of one drawn whole from a generator seeded by
+    (seed, its name), an expert tensor's expert e of one drawn from (seed,
+    its name, e), each times fan_in**-0.5 as ``dense_init`` draws; norm
+    scales are ones.  A rank draws at most one non-expert tensor or one
+    expert's matrix whole at a time, so maverick's ranks never hold its
+    32 GB of experts."""
+    import zlib
+    from repro_torch.models.convert import shard_params
+    placed = getattr(model, "grid_placements", {})
+    gen = torch.Generator(device=model.device)
+
+    def draw(name, key, shape, dtype, axes):
+        gen.manual_seed(seed * 1_000_003 + key)
+        fan = shape[-1] if name.endswith("embed") else shape[-2]
+        w = torch.randn(shape, generator=gen, dtype=dtype,
+                        device=model.device).mul_(fan ** -0.5)
+        return shard_params({"w": w}, {"w": axes}, coords, GRID)["w"]
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".scale"):
+                p.fill_(1)
+                continue
+            axes = placed.get(name, (None,) * p.dim())
+            shape = [n * (GRID[a] if a else 1) for n, a in
+                     zip(p.shape, (a if not isinstance(a, tuple) else
+                                   a[0] for a in axes))]
+            key = zlib.crc32(name.encode())
+            if ".experts_" not in name:
+                p.copy_(draw(name, key, shape, p.dtype, axes))
+                continue
+            lo = coords["data"] * p.shape[0] if axes[0] else 0
+            for j in range(p.shape[0]):
+                p[j].copy_(draw(name, key + 7919 * (lo + j), shape[1:],
+                                p.dtype, axes[1:]))
+
+
+def _grid_replicated_digest(torch, model):
+    """One digest of the tensors every data rank holds (all but the
+    expert-parallel experts), for the bitwise check across data ranks."""
+    import hashlib
+    from repro_torch.parallel import sharded_over
+    h = hashlib.sha1()
+    for n, p in model.named_parameters():
+        if "data" not in sharded_over(model.grid_placements[n]):
+            h.update(_bits_digest(torch, p).encode())
+    return h.hexdigest()
+
+
+def _grid_record_routing(L, rec, n_layers, probs_too=False):
+    """Wrap the MoE's top-k and slot table so that the first ``n_layers``
+    calls of each (step 0's forward) land in ``rec``: under "routing" the
+    expert ids of this rank's tokens (with ``probs_too`` the router's
+    probabilities too), under "slots" the expert ids the slot table was
+    derived from (under expert parallelism every data rank's, gathered)
+    and the capacity; returns the undo."""
+    top_k, slot_table = L._top_k, L._slot_table
+    rec.update(routing=[], slots=[])
+
+    def recording(probs, k):
+        vals, idx = top_k(probs, k)
+        if len(rec["routing"]) < n_layers:
+            # detached: a copy that kept its autograd graph would keep the
+            # whole model's weights alive
+            rec["routing"].append((idx.cpu(), probs.detach().float().cpu()
+                                   if probs_too else None))
+        return vals, idx
+
+    def recording_slots(flat_e, n_e, cap):
+        if len(rec["slots"]) < n_layers:
+            rec["slots"].append((flat_e.cpu(), cap))
+        return slot_table(flat_e, n_e, cap)
+    L._top_k, L._slot_table = recording, recording_slots
+
+    def undo():
+        L._top_k, L._slot_table = top_k, slot_table
+    return undo
+
+
+def _grid_colocated(torch, ops, grid, model, cfg, pipe):
+    """Path (a)'s colocated ``pallas`` route on the grid at the step-0
+    weights: one forward and backward of the loss on the step-0 batch,
+    every rank's flash kernels on its heads; returns (the global loss,
+    this rank's flash launches)."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import (global_token_count, raw_batches,
+                                           rank_rows)
+    from repro_torch.parallel import ParallelContext, make_rules
+    from repro_torch.train.loss import grid_nll_sum
+    from repro_torch.train.step import batch_to_device
+    gen = raw_batches(pipe)
+    raw = next(gen)
+    gen.close()
+    b = batch_to_device(rank_rows(raw, grid.data_index, GRID["data"]),
+                        grid.device)
+    ctx = ParallelContext(attn_impl="pallas", remat=True,
+                          group=grid.data_group,
+                          model_group=grid.model_group,
+                          rules=make_rules(grid.sizes, cfg))
+    before = dict(ops.launches)
+    logits, aux = model(b, ctx)
+    loss = grid_nll_sum(logits, b["labels"], b["segment_ids"], ctx) \
+        / torch.as_tensor(global_token_count(raw), device=grid.device)
+    del logits
+    torch.autograd.grad(loss + sum(aux.values(), torch.zeros_like(loss)),
+                        list(model.parameters()))
+    loss = loss.detach()
+    dist.all_reduce(loss)
+    return float(loss), {k: ops.launches[k] - before[k] for k in GRID_FLASH}
+
+
+def _grid_rank_train(torch, ops, grid, path, dtype, tmp):
+    """One rank's training run of ``path`` in ``dtype`` on the grid:
+    each step's loss, grad norm, CA launches, step seconds and digest of
+    the data-replicated tensors, each pulled plan's digest, step 0's
+    routing and peak memory; path (a) in bf16 also runs the colocated
+    route first, and the timed paths save the last model rank's layer-0
+    attention inputs."""
+    from repro_torch.cad import CADSession
+    from repro_torch.models import layers as L
+    from repro_torch.models.convert import shard_model
+    from repro_torch.models.model import Transformer
+    from repro_torch.train.trainer import train
+    cfg, pipe, tc = _grid_setup(path, dtype)
+    sess = CADSession.for_pipeline(cfg, pipe, grid=grid, prefetch=2)
+    rec = dict(plan_digests=[], steps=[])
+    attach = sess.attach_plans
+
+    def recording(batches):
+        gen = attach(batches)
+        try:
+            for b in gen:
+                rec["plan_digests"].append(b["plan_digest"])
+                yield b
+        finally:
+            gen.close()
+    object.__setattr__(sess, "attach_plans", recording)    # frozen
+    model = Transformer(cfg, device=grid.device, seed=0)
+    shard_model(model, grid.sizes, {"data": grid.data_index,
+                                    "model": grid.model_index})
+    if path == "a" and dtype == "bfloat16":
+        rec["colocated"] = _grid_colocated(torch, ops, grid, model, cfg,
+                                           pipe)
+    captured = {}
+    if path in GRID_TIMED and dtype == "bfloat16" \
+            and grid.model_index == GRID["model"] - 1:
+        def capture(layer, inputs):
+            if layer == 0 and not captured:
+                cad = inputs["ctx"].cad
+                plan = type(cad.plan)(**{k: v.cpu()
+                                         for k, v in cad.plan.items()})
+                captured.update(
+                    {k: inputs[k].detach().cpu() for k in
+                     ("q", "k", "v", "segment_ids", "positions")},
+                    cad=dataclasses.replace(cad, plan=plan))
+        model.attn_hook = capture
+    undo = _grid_record_routing(L, rec, cfg.n_layers)
+    last = dict(ops.launches)
+
+    def on_step(step, m):
+        now = dict(ops.launches)
+        rec["steps"].append(dict(
+            loss=m["loss"], total=m["total_loss"], gnorm=m["grad_norm"],
+            step_s=m["step_s"],
+            launches={k: now[k] - last[k] for k in GRID_CA},
+            params=_grid_replicated_digest(torch, model)))
+        last.update(now)
+        model.attn_hook = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        train(cfg, pipe, tc, model=model, session=sess, device=grid.device,
+              on_step=on_step)
+    finally:
+        undo()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if captured:
+        torch.save(captured, tmp / f"capture_{path}_d{grid.data_index}.pt")
+    return rec
+
+
+def _grid_rank_forward(torch, ops, grid):
+    """Path (d) on one rank: maverick's layer built as this rank's shards
+    (``_grid_fill``) and one ``cad`` forward of the step-0 batch: the
+    global loss, the layer's routing on this rank's tokens, its logits on
+    the first GRID_LOGIT_TOKENS tokens (its vocab shard), CA launches,
+    seconds and peak memory."""
+    import torch.distributed as dist
+    from repro_torch.cad import CADSession
+    from repro_torch.data.pipeline import raw_batches
+    from repro_torch.models import layers as L
+    from repro_torch.models.convert import shard_model
+    from repro_torch.models.model import Transformer
+    from repro_torch.train.loss import grid_nll_sum
+    from repro_torch.train.step import batch_to_device
+    cfg, pipe, _ = _grid_setup("d")
+    coords = {"data": grid.data_index, "model": grid.model_index}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="meta")
+    shard_model(model, grid.sizes, coords)
+    model.to_empty(device=grid.device)
+    _grid_fill(torch, model, 0, coords)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sess = CADSession.for_pipeline(cfg, pipe, grid=grid, prefetch=0)
+    gen = sess.attach_plans(raw_batches(pipe))
+    batch = next(gen)
+    gen.close()
+    b = batch_to_device(batch, grid.device)
+    ctx = sess.context(remat=False)
+    ctx = ctx.cad.bind_plan(ctx, b["plan"])
+    rec = dict(plan_digest=batch["plan_digest"], build_s=build_s)
+    def forward():
+        with torch.no_grad():
+            logits, _ = model(b, ctx)
+            nll = grid_nll_sum(logits, b["labels"], b["segment_ids"], ctx)
+            dist.all_reduce(nll)
+        return (float(nll) / int(batch["n_tokens_global"]),
+                logits[0, :GRID_LOGIT_TOKENS].cpu())
+
+    undo = _grid_record_routing(L, rec, cfg.n_layers)
+    before = dict(ops.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        loss, logits = forward()
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    rec.update(forward_s=time.perf_counter() - t0,
+               launches={k: ops.launches[k] - before[k] for k in GRID_CA},
+               loss=loss, logits=logits,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               controls={})
+    for name in GRID_D_CONTROLS:
+        undo = _grid_d_control(torch, L, name)
+        try:
+            rec["controls"][name] = forward()
+        finally:
+            undo()
+    return rec
+
+
+def _grid_d_control(torch, L, name):
+    """Break the expert-parallel MoE layer as control ``name`` says: the
+    rows that come back from the experts' ranks reversed (each token
+    combines other tokens' expert outputs), or the shared expert's output
+    zero.  Returns the undo."""
+    if name == "return exchange reversed":
+        S, orig = L.S, L.S.exchange_rows
+        calls = [0]
+
+        def exchange(x, send, recv, group):
+            out = orig(x, send, recv, group)
+            calls[0] += 1
+            return out.flip(0) if calls[0] % 2 == 0 else out
+        S.exchange_rows = exchange
+        return lambda: setattr(S, "exchange_rows", orig)
+    assert name == "shared expert dropped", name
+    mlp = L._mlp
+    L._mlp = lambda p, x, act: torch.zeros_like(x)
+    return lambda: setattr(L, "_mlp", mlp)
+
+
+def _grid_rank(rank, tmp):
+    """Phase 31's rank ``rank`` (a process of its own, on cuda:0): the
+    training paths in each of GRID_DTYPES, then the maverick forward, on
+    a data x model grid over gloo.  Any error ends the spawn, and the
+    run."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.packed_flash import ops
+    from repro_torch.launch import mesh
+    tmp = Path(tmp)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = mesh.join_grid(GRID["data"], GRID["model"], DEVICE,
+                          backend="gloo", rank=rank, world=GRID_RANKS,
+                          local_rank=0, init_method=f"file://{tmp / 'store'}",
+                          timeout_s=300)
+    try:
+        recs = {}
+        for path in GRID_TRAIN:
+            for dtype in GRID_DTYPES:
+                t0 = time.perf_counter()
+                recs[path, dtype] = _grid_rank_train(torch, ops, grid, path,
+                                                     dtype, tmp)
+                recs[path, dtype]["seconds"] = time.perf_counter() - t0
+                gc.collect()
+                torch.cuda.empty_cache()
+        recs["d"] = _grid_rank_forward(torch, ops, grid)
+        torch.save(recs, tmp / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        mesh.leave_group()
+
+
+def _grid_one_process(torch, ops, path, dtype):
+    """The one-process trainer on the card on the same weights and batches
+    (2 simulated servers): each step's loss and grad norm, step 0's
+    routing; in f32 also the controls' step-0 losses on the same weights
+    (``pallas`` route, plan-free: documents merged into one a row, and
+    attention without the causal mask)."""
+    from repro_torch.cad import CADSession
+    from repro_torch.data.pipeline import raw_batches
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Transformer
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.train.step import batch_to_device
+    from repro_torch.train.trainer import train
+    cfg, pipe, tc = _grid_setup(path, dtype)
+    model = Transformer(cfg, device=DEVICE, seed=0)
+    rec = dict(controls={})
+    if dtype == "float32":
+        gen = raw_batches(pipe)
+        batch = batch_to_device(next(gen), DEVICE)
+        gen.close()
+        ctx = ParallelContext(attn_impl="pallas", remat=False)
+        rec["controls"] = {
+            "none (forward only, pallas)": _step0_loss(torch, model, ctx,
+                                                       batch),
+            "documents merged": _step0_loss(torch, model, ctx, dict(
+                batch, segment_ids=(batch["segment_ids"] > 0)
+                .to(torch.int32)))}
+        orig = ops.packed_flash_attention
+        ops.packed_flash_attention = \
+            lambda *a, **kw: orig(*a, **dict(kw, causal=False))
+        try:
+            rec["controls"]["no causal mask"] = _step0_loss(torch, model,
+                                                            ctx, batch)
+        finally:
+            ops.packed_flash_attention = orig
+    undo = _grid_record_routing(L, rec, cfg.n_layers, probs_too=True)
+    try:
+        res = train(cfg, pipe, tc, model=model, device=DEVICE,
+                    session=CADSession.for_pipeline(cfg, pipe, prefetch=2))
+    finally:
+        undo()
+    rec["steps"] = [dict(loss=h["loss"], total=h["total_loss"],
+                         gnorm=h["grad_norm"], step_s=h["step_s"])
+                    for h in res["history"]]
+    del res, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _grid_one_process_forward(torch, ops):
+    """Path (d) in one process: maverick's layer whole (32 GB of
+    experts), the same seeded values as the ranks' shards, one ``cad``
+    forward over 2 simulated servers: the loss, the routing, and each
+    rank's logit slice (its rows' first GRID_LOGIT_TOKENS tokens, its
+    vocab shard)."""
+    from repro_torch.cad import CADSession
+    from repro_torch.data.pipeline import raw_batches
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Transformer
+    from repro_torch.train.loss import lm_loss
+    from repro_torch.train.step import batch_to_device
+    cfg, pipe, _ = _grid_setup("d")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="meta")
+    model.to_empty(device=DEVICE)
+    _grid_fill(torch, model, 0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sess = CADSession.for_pipeline(cfg, pipe, prefetch=0)
+    gen = sess.attach_plans(raw_batches(pipe))
+    batch = next(gen)
+    gen.close()
+    b = batch_to_device(batch, DEVICE)
+    ctx = sess.context(remat=False)
+    ctx = ctx.cad.bind_plan(ctx, b["plan"])
+    rec = dict(build_s=build_s)
+    undo = _grid_record_routing(L, rec, cfg.n_layers, probs_too=True)
+    before = dict(ops.launches)
+    try:
+        with torch.no_grad():
+            logits, _ = model(b, ctx)
+            loss = lm_loss(logits, b["labels"], b["segment_ids"])[0]
+    finally:
+        undo()
+    v = cfg.vocab_size // GRID["model"]
+    rec.update(loss=float(loss),
+               launches={k: ops.launches[k] - before[k] for k in GRID_CA},
+               logits={(d, m): logits[d, :GRID_LOGIT_TOKENS,
+                                      m * v:(m + 1) * v].cpu()
+                       for d in range(GRID["data"])
+                       for m in range(GRID["model"])})
+    del model, logits, b, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _grid_rank_tokens(x, d, m):
+    """Rank (d, m)'s tokens of a one-process ``[rows * S, ...]`` array:
+    data rank d's row, model rank m's sequence shard."""
+    rows = x.reshape((GRID["data"], -1) + tuple(x.shape[1:]))[d]
+    n = rows.shape[0] // GRID["model"]
+    return rows[m * n:(m + 1) * n]
+
+
+def _grid_routing_equal(torch, parts, want, near_tie):
+    """Each rank's step-0 expert ids against the one-process run's on its
+    tokens, layer by layer: every choice equal but where the one-process
+    probabilities of its expert and the rank's are within ``near_tie`` of
+    the larger.  Returns (so, differing choices by layer, differing ones
+    not at a near-tie, the largest relative gap of a differing pair by
+    layer)."""
+    differ = [0] * len(want)
+    worst = [0.0] * len(want)
+    far = 0
+    for r, part in enumerate(parts):
+        d, m = divmod(r, GRID["model"])
+        for li, ((got, _), (w_idx, w_probs)) in enumerate(zip(part, want)):
+            w_idx = _grid_rank_tokens(w_idx, d, m)
+            w_probs = _grid_rank_tokens(w_probs, d, m)
+            tok, j = torch.nonzero(got != w_idx, as_tuple=True)
+            differ[li] += int(tok.numel())
+            if not tok.numel():
+                continue
+            pa = w_probs[tok, w_idx[tok, j]]
+            pb = w_probs[tok, got[tok, j]]
+            gap = (pa - pb).abs() / torch.maximum(pa, pb)
+            far += int((gap > near_tie).sum())
+            worst[li] = max(worst[li], float(gap.max()))
+    n = len(want)
+    ok = all(len(p) == n for p in parts) and far == 0
+    return ok, differ, far, worst
+
+
+def _grid_slots_global(recs, one, differ):
+    """Every rank derived its slot tables from the global token order and
+    capacity: at each layer the same capacity as one process, the same
+    number of expert ids, equal to one process's but at the choices that
+    flipped on some rank (``differ``, counted over all the ranks)."""
+    return all(
+        len(r["slots"]) == len(one["slots"]) and all(
+            cap == w_cap and ids.shape == w_ids.shape
+            and int((ids != w_ids).sum()) == n
+            for (ids, cap), (w_ids, w_cap), n in zip(
+                r["slots"], one["slots"], differ))
+        for r in recs)
+
+
+def _grid_capture(torch, path):
+    """The captured layer-0 attention inputs of both data ranks (the last
+    model rank's heads), rows put together, as ``captured_batches``
+    takes them."""
+    from repro_torch.parallel import ParallelContext
+    caps = [torch.load(path.parent / f"{path.name}_d{d}.pt",
+                       weights_only=False) for d in range(GRID["data"])]
+    inp = {k: torch.cat([c[k] for c in caps]).to(DEVICE)
+           for k in ("q", "k", "v", "segment_ids", "positions")}
+    cad = caps[0]["cad"]
+    inp["ctx"] = ParallelContext(attn_impl="cad", cad=dataclasses.replace(
+        cad, plan=cad.plan.to(DEVICE)))
+    return inp
+
+
+def _grid_checks(torch, np, parts, oracles, fwd_1p, card):
+    """Phase 31's checks over the ranks' records; logs the numbers."""
+    checks, runs = {}, {}
+    data_pairs = [(r, r + GRID["model"]) for r in range(GRID["model"])]
+    for path in GRID_TRAIN:
+        cfg, _, _ = _grid_setup(path)
+        n = cfg.n_layers
+        want = {"ca_server_fwd": 2 * n, "ca_server_bwd_dq": n,
+                "ca_server_bwd_dkv": n}
+        for dtype in GRID_DTYPES:
+            tag = f"({path}) {GRID_PATHS[path][0]} {dtype}"
+            recs = [p[path, dtype] for p in parts]
+            one = oracles[path, dtype]
+            steps = recs[0]["steps"]
+            gaps = [abs(s["loss"] - o["loss"]) / abs(o["loss"])
+                    for s, o in zip(steps, one["steps"])]
+            ggaps = [abs(s["gnorm"] - o["gnorm"]) / abs(o["gnorm"])
+                     for s, o in zip(steps, one["steps"])]
+            checks[f"{tag}: every rank reports the same losses"] = all(
+                [s["loss"] for s in r["steps"]]
+                == [s["loss"] for s in steps] for r in recs)
+            checks[f"{tag}: plan digests equal on all {GRID_RANKS} ranks "
+                   f"at every step"] = len({tuple(r["plan_digests"])
+                                           for r in recs}) == 1 \
+                and len(steps) == len(recs[0]["plan_digests"])
+            checks[f"{tag}: the data-replicated tensors bitwise equal "
+                   f"across the data ranks after every step"] = all(
+                [s["params"] for s in recs[a]["steps"]]
+                == [s["params"] for s in recs[b]["steps"]]
+                for a, b in data_pairs)
+            checks[f"{tag}: CA launches a rank a step {n} x {{2, 1, 1}}"] = \
+                all(s["launches"] == want for r in recs for s in r["steps"])
+            routing = None
+            if cfg.moe:
+                # in bf16 the model ranks' partial sums round apart from
+                # one process's past layer 0, so only layer 0 is held
+                tie = GRID_NEAR_TIE[dtype]
+                held = None if dtype == "float32" else 1
+                ok = _grid_routing_equal(
+                    torch, [r["routing"][:held] for r in recs],
+                    one["routing"][:held], tie)[0]
+                _, differ, far, worst = _grid_routing_equal(
+                    torch, [r["routing"] for r in recs], one["routing"],
+                    tie)
+                routing = dict(differ_by_layer=differ, far=far,
+                               worst_gap_by_layer=worst, limit=tie,
+                               held_layers=held)
+                checks[f"{tag}: step-0 routing (expert-parallel, global) "
+                       f"equal to the one-process routing but at near-ties "
+                       f"(within {tie}), "
+                       + ("every layer" if held is None else "layer 0")] = ok
+                checks[f"{tag}: every rank's slot tables from the global "
+                       f"capacity and token order"] = _grid_slots_global(
+                    recs, one, differ)
+                log(f"  {tag}: step-0 routing choices differing from one "
+                    f"process by layer {differ} of {GRID_RANKS} x "
+                    f"{recs[0]['routing'][0][0].numel()} a layer, {far} not "
+                    f"at a near-tie, largest relative probability gap of a "
+                    f"differing pair by layer {worst!r} (limit {tie!r}, held "
+                    + ("at every layer)" if held is None else "at layer 0)"))
+            if dtype == "float32":
+                checks[f"{tag}: step-0 loss within {GRID_F32_LIMIT} of the "
+                       f"one-process trainer's"] = gaps[0] <= GRID_F32_LIMIT
+                checks[f"{tag}: step-0 grad norm within {GRID_F32_LIMIT} of "
+                       f"the one-process trainer's"] = \
+                    ggaps[0] <= GRID_F32_LIMIT
+                for name, loss in one["controls"].items():
+                    gap = abs(loss - steps[0]["loss"]) / abs(steps[0]["loss"])
+                    need = name in GRID_REQUIRED_CONTROLS
+                    log(f"  {tag} control, {name}: loss {loss!r}, relative "
+                        f"gap to the grid's {gap!r}"
+                        + (" (must exceed the limit)" if need else
+                           " (recorded)"))
+                    if need:
+                        checks[f"{tag}: control '{name}' outside "
+                               f"{GRID_F32_LIMIT}"] = gap > GRID_F32_LIMIT
+            for k, s in enumerate(steps):
+                ms = [round(1e3 * r["steps"][k]["step_s"], 1) for r in recs]
+                log(f"  {tag} step {k}: loss {s['loss']!r} (one process "
+                    f"{one['steps'][k]['loss']!r}, relative gap "
+                    f"{gaps[k]!r}), grad norm {s['gnorm']!r} (gap "
+                    f"{ggaps[k]!r}), step ms by rank {ms} (one process "
+                    f"{1e3 * one['steps'][k]['step_s']:.1f})")
+            log(f"  {tag}: peaks {[round(r['peak_gib'], 2) for r in recs]} "
+                f"GiB a rank, {recs[0]['seconds']:.1f} s [{card}]")
+            runs[path, dtype] = dict(
+                losses=[s["loss"] for s in steps],
+                losses_one_process=[s["loss"] for s in one["steps"]],
+                loss_rel_gaps=gaps, grad_norm_rel_gaps=ggaps,
+                step_ms=[[1e3 * s["step_s"] for s in r["steps"]]
+                         for r in recs],
+                peak_gib=[r["peak_gib"] for r in recs],
+                launches_per_rank_step=[[s["launches"] for s in r["steps"]]
+                                        for r in recs],
+                controls=one["controls"], routing=routing)
+    col = [p["a", "bfloat16"]["colocated"] for p in parts]
+    n = GRID_PATHS["a"][1]
+    want_fl = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+               "flash_tile_ranges": 3 * n}
+    cad0 = parts[0]["a", "bfloat16"]["steps"][0]["loss"]
+    checks[f"(a) colocated pallas on the grid: flash launches a rank "
+           f"{n} x {{2, 1, 1, 3}}"] = all(c[1] == want_fl for c in col)
+    checks["(a) colocated pallas on the grid: step-0 loss bitwise the "
+           "grid's CAD step-0 loss"] = all(c[0] == cad0 for c in col)
+    log(f"  (a) colocated pallas on the grid: loss {col[0][0]!r} (CAD "
+        f"{cad0!r}), flash launches {col[0][1]}")
+    fwd = [p["d"] for p in parts]
+    ok, differ, far, worst = _grid_routing_equal(
+        torch, [r["routing"] for r in fwd], fwd_1p["routing"],
+        GRID_NEAR_TIE["bfloat16"])
+    logit_max = max(float(x.abs().max()) for x in fwd_1p["logits"].values())
+
+    def d_gaps(loss, logits):
+        """The loss's relative gap and each rank's logit gap over
+        logit_max, against the one-process forward."""
+        return (abs(loss - fwd_1p["loss"]) / abs(fwd_1p["loss"]),
+                [float((x - fwd_1p["logits"][divmod(i, GRID["model"])])
+                       .abs().max()) / logit_max
+                 for i, x in enumerate(logits)])
+    gap, logit_gaps = d_gaps(fwd[0]["loss"], [r["logits"] for r in fwd])
+    checks[f"(d) maverick forward: loss within {GRID_D_LOSS_LIMIT} of the "
+           f"one-process forward's"] = gap <= GRID_D_LOSS_LIMIT
+    checks[f"(d) maverick forward: every rank's logits (its vocab shard, "
+           f"first {GRID_LOGIT_TOKENS} tokens) within {GRID_D_LOGIT_LIMIT} "
+           f"of max |logit| of the one-process forward's"] = \
+        max(logit_gaps) <= GRID_D_LOGIT_LIMIT
+    controls = {}
+    for name in GRID_D_CONTROLS:
+        c_gap, c_logits = d_gaps(fwd[0]["controls"][name][0],
+                                 [r["controls"][name][1] for r in fwd])
+        outside = c_gap > GRID_D_LOSS_LIMIT \
+            or max(c_logits) > GRID_D_LOGIT_LIMIT
+        need = name in GRID_D_REQUIRED
+        controls[name] = dict(loss_rel_gap=c_gap, logit_rel_gaps=c_logits)
+        log(f"  (d) control, {name}: loss relative gap {c_gap!r}, logit "
+            f"gaps by rank {c_logits!r}, outside the limits: {outside}"
+            + (" (must be)" if need else " (recorded)"))
+        if need:
+            checks[f"(d) control '{name}' outside the limits"] = outside
+    checks["(d) maverick forward: CA launches a rank 1"] = all(
+        r["launches"] == {"ca_server_fwd": 1, "ca_server_bwd_dq": 0,
+                          "ca_server_bwd_dkv": 0} for r in fwd)
+    checks["(d) maverick forward: every rank's slot tables from the global "
+           "capacity and token order"] = _grid_slots_global(fwd, fwd_1p,
+                                                            differ)
+    checks["(d) maverick forward: plan digests equal on all ranks"] = \
+        len({r["plan_digest"] for r in fwd}) == 1
+    checks[f"(d) maverick forward: routing (expert-parallel, global) equal "
+           f"to the one-process routing but at near-ties (within "
+           f"{GRID_NEAR_TIE['bfloat16']})"] = ok
+    checks["(d) maverick forward: every rank reports the same finite "
+           "loss"] = len({r["loss"] for r in fwd}) == 1 \
+        and math.isfinite(fwd[0]["loss"])
+    log(f"  (d) maverick forward: loss {fwd[0]['loss']!r} (one process "
+        f"{fwd_1p['loss']!r}, relative gap {gap!r}), routing choices "
+        f"differing {differ} ({far} not at a near-tie, largest relative "
+        f"probability gap {worst!r}), logits max |diff| over max |logit| "
+        f"{logit_max!r} by rank {logit_gaps!r} on the first "
+        f"{GRID_LOGIT_TOKENS} tokens, build "
+        f"{[round(r['build_s'], 2) for r in fwd]} s, forward ms "
+        f"{[round(1e3 * r['forward_s'], 1) for r in fwd]}, peaks "
+        f"{[round(r['peak_gib'], 2) for r in fwd]} GiB a rank (one process "
+        f"build {fwd_1p['build_s']:.2f} s) [{card}]")
+    runs["d"] = dict(loss=fwd[0]["loss"], loss_one_process=fwd_1p["loss"],
+                     loss_rel_gap=gap, routing_differ=differ,
+                     routing_worst_gap=worst, logit_rel_gaps=logit_gaps,
+                     logit_max=logit_max, controls=controls,
+                     forward_ms=[1e3 * r["forward_s"] for r in fwd],
+                     peak_gib=[r["peak_gib"] for r in fwd],
+                     launches=[r["launches"] for r in fwd])
+    return checks, runs
+
+
+def grid_phase(torch, np, ops, card):
+    """Phase 31: the sharding rules on a data 2 x model 2 grid of
+    GRID_RANKS gloo processes on the one card (gloo stages CUDA tensors
+    through the host: its times are not speed figures), bf16, seed 0,
+    each model index's data ranks a CAD group: (a) llama3-8b and (b)
+    smollm-360m (15 heads padded to 16, 8 MHA heads a rank) at every
+    width, 2 layers, a [1, 4096] ``prolong`` row a data rank, 2 steps of
+    ``trainer.train`` under ``cad`` with remat; (c) qwen2-moe-a2.7b with
+    ``expert_parallel`` (30 experts a data rank, ``d_ff_expert`` split
+    over the model ranks), 2 layers, [1, 2048] a data rank, 2 steps; each
+    then as an f32 copy, one step; (a) also on the colocated ``pallas``
+    route at the step-0 weights; (d) llama4-maverick at every width, 1
+    layer, a ``cad`` forward of [1, 2048] a data rank (64 experts a data
+    rank, 8 GB a rank in bf16).  Each against the one-process trainer (or
+    forward) on the card on the same weights and batches, run before the
+    spawn and freed (maverick's 32 GB first).  Checked: the f32 copies'
+    step-0 loss and grad norm within GRID_F32_LIMIT (the "no causal
+    mask" control outside it), the bf16 gaps logged; (d)'s loss and every
+    rank's logit slice within GRID_D_LOSS_LIMIT and GRID_D_LOGIT_LIMIT
+    (the "return exchange reversed" control outside them); the expert-
+    parallel routing equal to the one-process routing but at near-ties
+    (GRID_NEAR_TIE); the tensors every
+    data rank holds bitwise equal across the data ranks after every
+    step; plan digests equal on all ranks; CA launches a rank a step
+    layers x {2, 1, 1} (flash's on the colocated route); then the CA
+    kernels against their plain versions on (a)'s and (b)'s captured
+    server batches at the grid's per-rank shapes, and timed beside SDPA
+    and their bound.  The kernel libraries are built before the spawn:
+    the ranks load them."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    log(f"phase 31: a data {GRID['data']} x model {GRID['model']} grid of "
+        f"gloo ranks on the card: (a) llama3-8b, (b) smollm-360m, (c) "
+        f"qwen2-moe-a2.7b (expert parallel) trained, (d) "
+        f"llama4-maverick-400b-a17b forward")
+    t0 = time.perf_counter()
+    fwd_1p = _grid_one_process_forward(torch, ops)
+    oracles = {(path, dtype): _grid_one_process(torch, ops, path, dtype)
+               for path in GRID_TRAIN for dtype in GRID_DTYPES}
+    oracle_s = time.perf_counter() - t0
+    ops.reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    live = sorted(((o.untyped_storage().nbytes(), tuple(o.shape))
+                   for o in gc.get_objects()
+                   if torch.is_tensor(o) and o.is_cuda), reverse=True)
+    log(f"phase 31: this process holds "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated at the "
+        f"spawn; the largest CUDA tensors it references: "
+        f"{[(round(n / 2 ** 30, 3), shape) for n, shape in live[:5]]}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_grid_"))
+    t0 = time.perf_counter()
+    # the 4 ranks share the card: segments that grow in place keep each
+    # rank's cached-but-unused memory small (without it one H100 ran out of
+    # its 79 GiB in (a)'s f32 update with 1.78 GiB so cached a rank)
+    alloc = os.environ.get(GRID_ALLOC_ENV)
+    os.environ[GRID_ALLOC_ENV] = "expandable_segments:True"
+    try:
+        mp.spawn(_grid_rank, args=(str(tmp),), nprocs=GRID_RANKS, join=True)
+        parts = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(GRID_RANKS)]
+        captured = {path: _grid_capture(torch, tmp / f"capture_{path}")
+                    for path in GRID_TIMED}
+    finally:
+        if alloc is None:
+            os.environ.pop(GRID_ALLOC_ENV)
+        else:
+            os.environ[GRID_ALLOC_ENV] = alloc
+        shutil.rmtree(tmp, ignore_errors=True)
+    spawn_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks, runs = _grid_checks(torch, np, parts, oracles, fwd_1p, card)
+    timed = {}
+    for path, rows in GRID_TIMED.items():
+        batches = captured_batches(torch, {0: captured[path]})
+        checks[f"({path}) CA kernels against their plain versions on the "
+               f"captured server batches"] = check_captured(
+            torch, ops, {0: captured[path]}, batches, phase=31) >= 0
+        tot, f_bound, b_bound = ca_kernel_times(
+            torch, ops, batches[0], captured[path], card, phase=31)
+        q, k = captured[path]["q"], captured[path]["k"]
+        timed[path] = dict(
+            rows=rows, times=tot, bounds=(f_bound, b_bound),
+            shape=f"{GRID_PATHS[path][0]} layer 0 of step 0 on model rank "
+                  f"{GRID['model'] - 1}: q {tuple(q.shape)}, k/v "
+                  f"{tuple(k.shape)} {str(q.dtype)[6:]}, "
+                  f"{GRID['data']} server batches summed")
+        del batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 31: one-process runs {oracle_s:.1f} s, spawn and the ranks' "
+        f"runs {spawn_s:.1f} s, phase {seconds:.1f} s (gloo stages CUDA "
+        f"tensors through the host: these times are not speed figures) "
+        f"[{card}]")
+    for name, ok in checks.items():
+        log(f"  {name}: {ok}")
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"phase 31: failed: {failed}")
+    return dict(checks=checks, runs=runs, timed=timed,
+                colocated=[p["a", "bfloat16"]["colocated"] for p in parts],
+                oracle_s=oracle_s, spawn_s=spawn_s, seconds=seconds,
+                note="gloo stages CUDA tensors through the host: times "
+                     "are not speed figures")
+
+
+def _record_grid(ca_fwd, ca_bwd, fl_fwd, fl_bwd, res):
+    """Phase 31's launches, checks and per-rank-shape CA times into the
+    kernels' JSON entries."""
+    runs = {"_".join(k) if isinstance(k, tuple) else k: v
+            for k, v in res["runs"].items()}
+    common = {k: res[k] for k in ("checks", "oracle_s", "spawn_s",
+                                  "seconds", "note")}
+    ca_fwd["grid_phase31"] = dict(
+        launches_per_rank_step={k: [[s["ca_server_fwd"] for s in r]
+                                    for r in v["launches_per_rank_step"]]
+                                for k, v in runs.items() if k != "d"},
+        launches_maverick_forward=[x["ca_server_fwd"]
+                                   for x in runs["d"]["launches"]],
+        runs=runs, **common)
+    ca_bwd["grid_phase31"] = dict(
+        launches_dq_per_rank_step={k: [[s["ca_server_bwd_dq"] for s in r]
+                                       for r in v["launches_per_rank_step"]]
+                                   for k, v in runs.items() if k != "d"},
+        launches_dkv_per_rank_step={k: [[s["ca_server_bwd_dkv"] for s in r]
+                                        for r in v["launches_per_rank_step"]]
+                                    for k, v in runs.items() if k != "d"})
+    for path, t in res["timed"].items():
+        tot, (f_bound, b_bound) = t["times"], t["bounds"]
+        key = f"grid_{GRID_PATHS[path][0].replace('-', '_')}"
+        ca_fwd[key] = dict(
+            perf_rows=t["rows"], launches=2 * GRID_PATHS[path][1],
+            launches_note="a rank a step (forward and remat recompute)",
+            ms=tot["fwd"], ms_repeat=tot["fwd_repeat"],
+            plain_ms=tot["plain_fwd"], bound_ms=f_bound[0],
+            bound_by=f_bound[1], library_ms=tot["sdpa_fwd"],
+            library_call="sdpa fwd, efficient attention, boolean mask",
+            flash_yardstick_ms=tot["flash_fwd"], shape=t["shape"])
+        ca_bwd[key] = dict(
+            perf_rows=t["rows"], launches=GRID_PATHS[path][1],
+            launches_note="dq and dk/dv kernels each, a rank a step",
+            ms=tot["bwd"], plain_ms=tot["plain_bwd"], bound_ms=b_bound[0],
+            bound_by=b_bound[1], library_ms=tot["sdpa_fwd_bwd"],
+            library_call="sdpa fwd+bwd, efficient attention, boolean mask",
+            flash_yardstick_ms=tot["flash_bwd"], shape=t["shape"])
+    fl_fwd["grid_phase31"] = dict(
+        launches_per_rank=[c[1]["flash_fwd"] for c in res["colocated"]],
+        route="colocated pallas on a rank's heads, (a) at the step-0 "
+              "weights, one forward and backward",
+        loss=[c[0] for c in res["colocated"]])
+    fl_bwd["grid_phase31"] = dict(
+        launches_dq_per_rank=[c[1]["flash_bwd_dq"]
+                              for c in res["colocated"]],
+        launches_dkv_per_rank=[c[1]["flash_bwd_dkv"]
+                               for c in res["colocated"]])
+
+
 def _record_moe(kernel, ca_fwd, ca_bwd, fl_fwd, fl_bwd, moe):
     """Phases 25-26's numbers into the kernels' JSON entries."""
     train, serving, times = moe
@@ -7665,13 +8566,13 @@ def build_kernels(build, ops, ssd, rg):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only", choices=("kernels", "ranks", "moe", "cross",
-                                      "pipeline", "rank_runtime"),
+                                      "pipeline", "rank_runtime", "grid"),
                    default=None,
                    help="'kernels': stop after the kernel checks (phases "
                         "1-2); 'ranks': phases 1, 5 and 24 alone; 'moe': "
                         "phases 1, 25 and 26; 'cross': phases 1, 27 and 28; "
                         "'pipeline': phases 1 and 29; 'rank_runtime': "
-                        "phases 1 and 30")
+                        "phases 1 and 30; 'grid': phases 1 and 31")
     return p.parse_args(argv)
 
 
@@ -7798,6 +8699,9 @@ def main(argv=None) -> int:
     elif args.only == "rank_runtime":
         _record_rank_runtime(ca_fwd, ca_bwd,
                              rank_runtime_phase(torch, np, ops, card))
+    elif args.only == "grid":
+        _record_grid(ca_fwd, ca_bwd, fl_fwd, fl_bwd,
+                     grid_phase(torch, np, ops, card))
     elif args.only != "kernels":
         engine, launches, captured_err = serve_full_width(torch, np, ops,
                                                           launch)
@@ -8166,6 +9070,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         _record_rank_runtime(ca_fwd, ca_bwd,
                              rank_runtime_phase(torch, np, ops, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        _record_grid(ca_fwd, ca_bwd, fl_fwd, fl_bwd,
+                     grid_phase(torch, np, ops, card))
     log(json.dumps({"kernels": [kernel, ca_fwd, ca_bwd, ca_rng, ca_glse,
                                 fl_fwd, fl_bwd, fl_rng, ssd_fm, ssd_bm,
                                 ssd_f, ssd_b, lru_f, lru_b]}))

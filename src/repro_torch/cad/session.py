@@ -96,6 +96,9 @@ class CADSession:
                                    # the calibrator, mutable shared state
     group: Any = None              # the CAD process group (one rank per
                                    # server), None = one process
+    grid: Any = None               # launch.mesh.GridInfo: group is its
+                                   # "data" sub-group
+    rules: Any = None              # the grid's ShardingRules
 
     # ------------------------------------------------------- constructors
     @classmethod
@@ -105,7 +108,7 @@ class CADSession:
                      server_hbm=None, stream_chunk: int = 0,
                      calibrate: bool = False, calib_ema: float = 0.5,
                      mask: Union[MaskSpec, str, None] = None,
-                     group=None) -> "CADSession":
+                     group=None, grid=None) -> "CADSession":
         """Size the attention-server pool for a training pipeline.
 
         ``pipe_cfg`` needs ``n_ranks``, ``global_batch``, ``seq_len`` and
@@ -120,8 +123,18 @@ class CADSession:
         beyond dense causal (a :class:`~repro_torch.core.mask.MaskSpec`
         or a ``--mask`` flag string, DESIGN.md §12).  ``group`` (a
         ``torch.distributed`` process group) runs the servers as the
-        group's ranks: its size must be ``pipe_cfg.n_ranks``."""
+        group's ranks: its size must be ``pipe_cfg.n_ranks``.  ``grid`` (a
+        :class:`~repro_torch.launch.mesh.GridInfo`) runs them as its
+        ``"data"`` sub-group, the CAD axis, and gives the context the
+        ``"model"`` sub-group and the sharding rules; every rank of the
+        grid plans the same global batch and the plans are held equal
+        over all of them."""
         n = pipe_cfg.n_ranks
+        rules = None
+        if grid is not None:
+            from repro_torch.parallel import make_rules
+            group = grid.data_group
+            rules = make_rules(grid.sizes, model_cfg)
         if group is not None:
             if dist.get_world_size(group) != n:
                 raise ValueError(f"the CAD group has "
@@ -160,7 +173,7 @@ class CADSession:
         return cls(cfg=cadcfg, pingpong=pingpong, tolerance=tolerance,
                    plan_policy=plan_policy, jmax=jmax, comm=comm,
                    prefetch=prefetch, mask=mask, calibrator=calibrator,
-                   group=group)
+                   group=group, grid=grid, rules=rules)
 
     # ------------------------------------------------------------ context
     def context(self, *, remat: bool = True) -> ParallelContext:
@@ -168,6 +181,10 @@ class CADSession:
         step by the train step (``CADContext.bind_plan``)."""
         cad = CADContext(cfg=self.cfg, jmax=self.jmax,
                          pingpong=self.pingpong, mask=self.mask)
+        if self.grid is not None:
+            return ParallelContext(
+                attn_impl="cad", cad=cad, remat=remat, group=self.group,
+                model_group=self.grid.model_group, rules=self.rules)
         return ParallelContext(attn_impl="cad", cad=cad, remat=remat,
                                group=self.group)
 
@@ -453,12 +470,15 @@ class CADSession:
     def check_plan_agreement(self, batch: Dict[str, Any]) -> None:
         """Under a group: gather every rank's ``plan_digest`` and raise
         unless all are equal (the ranks planned different batches, and
-        their exchanges would not match).  A collective: call it on the
-        thread that runs the step, never on the prefetch worker."""
+        their exchanges would not match); on a grid over all of its ranks,
+        each model index's data ranks being a CAD group of its own.  A
+        collective: call it on the thread that runs the step, never on the
+        prefetch worker."""
         if self.group is None:
             return
-        got = [None] * dist.get_world_size(self.group)
-        dist.all_gather_object(got, batch["plan_digest"], group=self.group)
+        group = None if self.grid is not None else self.group
+        got = [None] * dist.get_world_size(group)
+        dist.all_gather_object(got, batch["plan_digest"], group=group)
         if len(set(got)) != 1:
             raise RuntimeError(
                 f"CAD ranks disagree on the step's plan (digests by rank: "

@@ -99,8 +99,9 @@ def xla_flash_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv, *,
     that can hold unmasked entries are visited, from a static
     lower-triangle pair list, when ``causal`` and Sq == Skv.  Sequences
     are padded to the block (padding is segment 0).  The reference's
-    ``shard_hint`` pins its scan accumulators on a device mesh; the port
-    has no mesh yet (ROADMAP queue 1 item 12)."""
+    ``shard_hint`` pins its scan accumulators on a device mesh; on the
+    port's grid this route (and the colocated ``pallas`` route) simply
+    runs on the rank's local heads, which nothing here needs to know."""
     opts = dict(causal=causal, window=window, sink=sink, rate=rate, blk=blk,
                 softcap=softcap, scale=scale, q_block=q_block,
                 kv_block=kv_block, skip_masked_blocks=skip_masked_blocks)

@@ -8,6 +8,10 @@ cards is one process per card started by a launcher (``torchrun``), each
 joining one ``torch.distributed`` process group whose ranks are the
 attention servers.  :func:`join_group` is that join: a function, so that
 importing this module creates no group and touches no device.
+:func:`join_grid` joins the same way and lays the ranks out as the
+reference's ``("data", "model")`` mesh (``init_device_mesh``): the CAD
+group is a rank's ``"data"`` sub-group, the tensor-parallel collectives
+run on its ``"model"`` sub-group.
 """
 from __future__ import annotations
 
@@ -54,8 +58,8 @@ def join_group(device: str = "cuda", *, backend: Optional[str] = None,
     ``nccl`` for ``cuda`` and ``gloo`` for ``cpu`` unless ``backend``
     names one; the device is ``cuda:LOCAL_RANK`` unless the caller asks
     for the CPU.  A ``cuda`` request without a card raises.  Every rank
-    of the CAD group holds every head: the port has no ``"model"`` axis
-    (tensor-parallel heads are ROADMAP queue 1 item 12)."""
+    of the group holds every head; :func:`join_grid` adds a ``"model"``
+    axis."""
     import torch.distributed as dist
     env = os.environ
     rank = int(env["RANK"]) if rank is None else int(rank)
@@ -81,6 +85,55 @@ def join_group(device: str = "cuda", *, backend: Optional[str] = None,
         dist.init_process_group(**kw)
     return RankInfo(rank=rank, world=world, device=dev,
                     group=dist.group.WORLD)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridInfo:
+    """This process's place in a ``("data", "model")`` grid: its rank,
+    its data and model indices, both sub-groups (``data_group`` is the
+    CAD group) and the ``DeviceMesh``."""
+    rank: int
+    world: int
+    device: torch.device
+    data: int
+    model: int
+    data_index: int
+    model_index: int
+    data_group: object
+    model_group: object
+    mesh: object
+
+    @property
+    def sizes(self):
+        return {"data": self.data, "model": self.model}
+
+
+def join_grid(data: int, model: int, device: str = "cuda", *,
+              backend: Optional[str] = None, rank: Optional[int] = None,
+              world: Optional[int] = None, local_rank: Optional[int] = None,
+              init_method: Optional[str] = None,
+              timeout_s: float = 600.0) -> GridInfo:
+    """Join the default process group as :func:`join_group` does and lay
+    its ranks out as a ``data x model`` grid (rank ``d * model + m`` has
+    data index ``d`` and model index ``m``, the reference mesh's
+    row-major order).  The world size (``WORLD_SIZE`` under ``torchrun``)
+    must equal ``data * model``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    env = os.environ
+    world = int(env["WORLD_SIZE"]) if world is None else int(world)
+    if world != data * model:
+        raise ValueError(f"a {data} x {model} grid needs {data * model} "
+                         f"ranks, the world has {world}")
+    info = join_group(device, backend=backend, rank=rank, world=world,
+                      local_rank=local_rank, init_method=init_method,
+                      timeout_s=timeout_s)
+    mesh = init_device_mesh(info.device.type, (data, model),
+                            mesh_dim_names=("data", "model"))
+    d, m = divmod(info.rank, model)
+    return GridInfo(rank=info.rank, world=world, device=info.device,
+                    data=data, model=model, data_index=d, model_index=m,
+                    data_group=mesh.get_group("data"),
+                    model_group=mesh.get_group("model"), mesh=mesh)
 
 
 def leave_group() -> None:

@@ -38,7 +38,8 @@ layers, all windowed, take the dispatch's blockwise fallback.  The MoE
 archs (qwen2-moe-a2.7b, llama4-maverick-400b-a17b, and their -reduced
 widths) train with their auxiliary losses in the loss, logged beside it;
 under ``torchrun`` each rank routes its own tokens, and an arch with
-expert parallelism (maverick) raises there.  The reference's --kernel is
+expert parallelism (maverick) routes globally over experts split across
+the ranks.  The reference's --kernel is
 not carried over: CUDA tensors run the hand-written kernels.
 
 Across processes, one rank per attention server::
@@ -61,9 +62,25 @@ rows and serves no task), --stream-chunk and --server-hbm (the plans;
 the ranks serve unstreamed, as the reference's mesh path does) work
 under ``torchrun`` as in one process.  Without ``torchrun``
 the launcher keeps the single-process simulated pool.
+
+``--model-axis M`` lays the ranks out as a ``--ranks x M`` grid
+(``launch/mesh.py::join_grid``; ``WORLD_SIZE`` must be ``ranks x M``):
+each model index's ``--ranks`` ranks are a CAD group, and the M ranks of
+a data index split the heads, FFN columns, expert width, vocabulary and
+residual sequence between them (tensor parallelism, the reference's
+``"model"`` axis), an expert-parallel arch's experts split over the data
+ranks::
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch smollm-360m-reduced --steps 3 --seq 256 --batch 4 --ranks 2 \
+      --model-axis 2 --cad --device cpu
+
+With M > 1, --calibrate, --fault-schedule and --ckpt-every raise
+(ROADMAP queue 1 item 12), as do ssd, rglru, cross and enc layers.
 """
 import argparse
 import json
+import os
 
 from repro_torch.cad import CADSession, available_policies
 from repro_torch.configs import get_config
@@ -82,6 +99,9 @@ def parse_args(argv=None):
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--ranks", type=int, default=2)
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="tensor-parallel ranks a data rank (under "
+                         "torchrun, WORLD_SIZE = ranks x model-axis)")
     ap.add_argument("--max-doc", type=int, default=0)
     ap.add_argument("--dist", default="pretrain",
                     choices=["pretrain", "prolong"])
@@ -150,16 +170,26 @@ def _per_rank(text, ranks, flag):
 
 
 def _join(args):
-    """Under torchrun: join the CAD group; returns (RankInfo or None,
-    the training device)."""
+    """Under torchrun: join the CAD group, or the ``--ranks x
+    --model-axis`` grid; returns (RankInfo, GridInfo or None, the
+    training device)."""
     if not mesh.launched_by_torchrun():
+        if args.model_axis > 1:
+            raise SystemExit("--model-axis needs a process a rank: run "
+                             "under torchrun")
         return None, resolve_device(args.device)
-    info = mesh.join_group(resolve_device(args.device).type)
     if not args.cad:
         raise SystemExit("under torchrun the launcher trains with --cad: "
                          "the ranks are the attention servers")
-    if args.ranks != info.world:
-        raise SystemExit(f"--ranks {args.ranks} != WORLD_SIZE {info.world}")
+    world = int(os.environ["WORLD_SIZE"])
+    if args.ranks * args.model_axis != world:
+        raise SystemExit(f"--ranks {args.ranks} x --model-axis "
+                         f"{args.model_axis} != WORLD_SIZE {world}")
+    dev = resolve_device(args.device).type
+    if args.model_axis > 1:
+        info = mesh.join_grid(args.ranks, args.model_axis, dev)
+    else:
+        info = mesh.join_group(dev)
     return info, info.device
 
 
@@ -175,13 +205,16 @@ def main(argv=None):
 
 def _main(args, info, device):
     lead = info is None or info.rank == 0
+    grid = info if isinstance(info, mesh.GridInfo) else None
     if args.trace and lead:
         enable_tracing(capacity=args.trace_capacity)
     cfg = get_config(args.arch)
     if lead:
         print(f"arch={cfg.arch_id} params={cfg.n_params()/1e6:.1f}M "
               f"family={cfg.family} device={device}"
-              + ("" if info is None else f" ranks={info.world}"))
+              + ("" if info is None else f" ranks={info.world}")
+              + ("" if grid is None else
+                 f" grid={grid.data}x{grid.model}"))
     pipe = PipelineConfig(
         distribution=args.dist, max_doc_len=args.max_doc or args.seq,
         seq_len=args.seq, global_batch=args.batch, n_ranks=args.ranks,
@@ -197,7 +230,7 @@ def _main(args, info, device):
             server_speeds=speeds, server_hbm=hbm,
             stream_chunk=args.stream_chunk, calibrate=args.calibrate,
             mask=args.mask or None,
-            group=None if info is None else info.group)
+            group=None if info is None or grid else info.group, grid=grid)
     else:
         if args.cad:
             print(f"note: {cfg.arch_id} is attention-free; CAD is "

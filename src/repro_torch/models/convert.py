@@ -14,6 +14,13 @@ transposed, here or in the hot path.
 
 ``decay_mask`` says which of a ``Transformer``'s parameters the
 reference's AdamW decays, a rule it states on the stacked layout.
+
+``shard_params`` cuts a state_dict into one grid rank's shards as
+``parallel.param_placements`` places them (less the FSDP data axes,
+``parallel.stored_axes``), ``gather_params`` puts the ranks' shards back
+together, and ``shard_model`` cuts a ``Transformer``'s own parameters in
+place: how a grid rank gets its weights, and how tests hold a grid
+against one process.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import check_arch, has_encoder
+from repro_torch.parallel import (make_rules, param_placements,
+                                  stored_axes)
 
 
 def _tensor(x, dtype) -> torch.Tensor:
@@ -106,3 +115,70 @@ def decay_mask(model) -> List[bool]:
     return [p.dim() >= (1 if name.startswith(("layers.", "enc_layers."))
                         else 2)
             for name, p in model.named_parameters()]
+
+
+def _split_dims(axes) -> List[Tuple[int, str]]:
+    """(dim, grid axis) for each axis a stored placement splits a dim
+    over, in dim order."""
+    out = []
+    for i, a in enumerate(axes):
+        for n in (() if a is None else a if isinstance(a, tuple) else (a,)):
+            out.append((i, n))
+    return out
+
+
+def _cut(t: torch.Tensor, axes, coords: Mapping[str, int],
+         sizes: Mapping[str, int]) -> torch.Tensor:
+    for i, n in _split_dims(axes):
+        size = t.shape[i] // sizes[n]
+        t = t.narrow(i, coords[n] * size, size)
+    return t
+
+
+def grid_placements(cfg, params: Mapping, sizes: Mapping[str, int]) \
+        -> Dict[str, Tuple]:
+    """Per tensor, the axes it is stored split over on a grid of axis
+    ``sizes``: ``param_placements`` under ``make_rules``, less the FSDP
+    data axes."""
+    placed = param_placements(cfg, params, make_rules(sizes, cfg), sizes)
+    return {k: stored_axes(k, a) for k, a in placed.items()}
+
+
+def shard_params(full: Mapping[str, torch.Tensor], placements: Mapping,
+                 coords: Mapping[str, int], sizes: Mapping[str, int]) \
+        -> Dict[str, torch.Tensor]:
+    """The shards of ``full`` (a state_dict) that the rank at ``coords``
+    (``{"data": d, "model": m}``) of a grid of axis ``sizes`` stores, by
+    ``placements`` (``grid_placements``); views where a slice allows."""
+    return {k: _cut(v, placements[k], coords, sizes)
+            for k, v in full.items()}
+
+
+def gather_params(parts: Mapping[Tuple[int, int], Mapping[str, torch.Tensor]],
+                  placements: Mapping, sizes: Mapping[str, int]) \
+        -> Dict[str, torch.Tensor]:
+    """The inverse of ``shard_params``: ``parts[(d, m)]`` is the rank at
+    data index d and model index m's shards; returns whole tensors."""
+    def build(key, fixed, rest):
+        if not rest:
+            return parts[(fixed.get("data", 0),
+                          fixed.get("model", 0))][key]
+        (i, n), more = rest[0], rest[1:]
+        return torch.cat([build(key, {**fixed, n: j}, more)
+                          for j in range(sizes[n])], dim=i)
+    return {k: build(k, {}, _split_dims(placements[k]))
+            for k in parts[(0, 0)]}
+
+
+@torch.no_grad()
+def shard_model(model, sizes: Mapping[str, int],
+                coords: Mapping[str, int]) -> Dict[str, Tuple]:
+    """Cut ``model``'s parameters in place to the shards the rank at
+    ``coords`` stores (each a tensor of its own: the whole one is freed);
+    records and returns the placements (``model.grid_placements``)."""
+    placed = grid_placements(model.cfg, dict(model.named_parameters()),
+                             sizes)
+    for name, p in model.named_parameters():
+        p.data = _cut(p.data, placed[name], coords, sizes).clone()
+    model.grid_placements = placed
+    return placed

@@ -11,9 +11,13 @@ The port of the matching functions of ``repro.models.layers``, with the
 same weight names and layouts: weights are stored ``[in, out]`` and
 applied as ``h @ W``.  ``*_init`` returns an ``nn.ParameterDict`` of
 trainable weights; ``*_apply`` takes that or any mapping of tensors, so a
-test can hand in plain tensors.  The reference's sharding constraints
-(``ctx.cons``) and its tensor-parallel head padding are no-ops on one
-card and are left out.
+test can hand in plain tensors.  On one card the reference's sharding
+constraints (``ctx.cons``) are no-ops and are left out; on a ``("data",
+"model")`` grid (``ctx.tp``) the attention, FFN and MoE layers take the
+residual's sequence shard, gather the sequence over the model ranks, work
+on this rank's heads, FFN columns or expert width, and reduce-scatter
+their partial outputs (``models.sharded``), and the MoE routes over the
+data ranks (expert parallelism) where the config asks for it.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ from torch import nn
 
 from repro_torch.core.attention import core_attention
 from repro_torch.core.dispatch import _GatherRows
+from repro_torch.models import sharded as S
+from repro_torch.parallel import head_pad
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 
@@ -119,11 +125,12 @@ def attn_init(gen: torch.Generator, cfg, device=None,
 
 def qkv_proj(p: Mapping[str, torch.Tensor], h: torch.Tensor, cfg,
              positions: Optional[torch.Tensor], prefix: str = "w"):
+    """q/k/v ``[B, S, heads, dh]``, as many heads as the weights' columns
+    hold (a grid rank's shards hold its own)."""
     b, s, _ = h.shape
     dh = cfg.head_dim
-    q = (h @ p[prefix + "q"]).reshape(b, s, cfg.n_heads, dh)
-    k = (h @ p[prefix + "k"]).reshape(b, s, cfg.n_kv_heads, dh)
-    v = (h @ p[prefix + "v"]).reshape(b, s, cfg.n_kv_heads, dh)
+    q, k, v = (h @ p[prefix + n] for n in "qkv")
+    q, k, v = (t.reshape(b, s, t.shape[-1] // dh, dh) for t in (q, k, v))
     if cfg.use_rope and positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -135,16 +142,72 @@ def self_attn_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, batch,
                     hook=None) -> torch.Tensor:
     """h [B,S,D]; ``batch`` provides segment_ids/positions [B,S].
     ``hook``, if given, is called with the attention inputs just before
-    core attention (an inspection point for tests and the smoke run)."""
-    b, s, _ = h.shape
+    core attention (an inspection point for tests and the smoke run).
+
+    On a grid (``ctx.tp``; reference ``self_attn_apply`` under a mesh)
+    ``h`` is the residual's sequence shard: q/k/v are projected from the
+    whole sequence on this rank's heads (``tp_heads``) and the ``wo``
+    output's sequence shard, summed over the model ranks, is returned.
+    Where the ``heads`` rule splits the heads, ``wq``'s columns and
+    ``wo``'s rows are stored as this rank's; otherwise they are sliced
+    from the replicated tensors, and ``tp_local_heads`` pads the heads."""
+    tp = getattr(ctx, "tp", False)
+    x = S.seq_gather(h, ctx.model_group) if tp else h
+    b, s, _ = x.shape
     seg, pos = batch["segment_ids"], batch["positions"]
-    q, k, v = qkv_proj(p, h, cfg, pos if cfg.use_rope else None)
+    w = {n: p[n] for n in ("wq", "wk", "wv", "wo")}
+    n_real = cfg.n_heads
+    if tp:
+        grid = (ctx.rules, ctx.model_size, S.model_rank(ctx))
+        lo, n_real, _ = tp_heads(cfg, *grid)
+        if ctx.rules.heads is None:
+            cols = slice(lo * cfg.head_dim, (lo + n_real) * cfg.head_dim)
+            w.update(wq=w["wq"][:, cols], wo=w["wo"][cols])
+    q, k, v = qkv_proj(w, x, cfg, pos if cfg.use_rope else None)
+    if tp:
+        q, k, v = tp_local_heads(q, k, v, cfg, *grid)
     if hook is not None:
         hook(dict(q=q, k=k, v=v, segment_ids=seg, positions=pos, ctx=ctx))
     out = core_attention(q, k, v, seg, pos, seg, pos, causal=causal,
                          window=window, softcap=cfg.attn_logit_softcap,
                          ctx=ctx)
-    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    out = out[:, :, :n_real].reshape(b, s, n_real * cfg.head_dim) @ w["wo"]
+    return S.seq_scatter(out, ctx.model_group) if tp else out
+
+
+def tp_heads(cfg, rules, model_size: int, model_index: int):
+    """This model rank's q heads on the grid: (first head, real heads,
+    heads it attends with).  Where the ``heads`` rule splits them each
+    rank takes ``n_heads / M``; otherwise (the reference's
+    ``_pad_heads_for_tp``, ``models/layers.py:113-130``) the heads are
+    padded to ``head_pad`` and each rank takes ``head_pad / M``, the last
+    ones zero heads, cut off before ``wo``."""
+    hq = cfg.n_heads
+    if rules.heads is not None:
+        per = hq // model_size
+        return model_index * per, per, per
+    per = head_pad(hq, model_size) // model_size
+    lo = model_index * per
+    return lo, max(0, min(per, hq - lo)), per
+
+
+def tp_local_heads(q, k, v, cfg, rules, model_size: int, model_index: int):
+    """The q/k/v this model rank attends with, from ``q [B, S, n_real,
+    dh]`` (its real heads) and ``k``/``v`` (its kv heads where the
+    ``kv_heads`` rule splits them, else all ``n_kv_heads``): unsplit kv is
+    repeated to one head a q head and cut to this rank's (MHA,
+    ``core/dispatch.py:943-951`` of the reference), and zero heads pad q,
+    k and v to ``tp_heads``'s count, as the reference's
+    ``_pad_heads_for_tp`` pads its whole tensors."""
+    lo, n_real, per = tp_heads(cfg, rules, model_size, model_index)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if rules.kv_heads is None:
+        kv = torch.arange(lo, lo + n_real, device=q.device) // (hq // hkv)
+        k, v = k[:, :, kv], v[:, :, kv]
+    if per > n_real:
+        pad = (0, 0, 0, per - n_real)
+        q, k, v = F.pad(q, pad), F.pad(k, pad), F.pad(v, pad)
+    return q, k, v
 
 
 def cross_gate(p: Mapping[str, torch.Tensor],
@@ -196,12 +259,24 @@ def ffn_init(gen: torch.Generator, cfg, device=None) -> nn.ParameterDict:
 
 
 def ffn_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor,
-              cfg) -> torch.Tensor:
-    act = activation_fn(cfg.activation)
+              cfg, ctx=None) -> torch.Tensor:
+    """The MLP.  On a grid whose ``ffn`` rule splits it (``ctx.tp``), h is
+    the residual's sequence shard: the whole sequence meets this rank's
+    columns of ``w_gate``/``w_up`` and rows of ``w_down``, and the partial
+    sums are reduce-scattered.  Otherwise it runs on the tokens it is
+    given."""
+    split = getattr(ctx, "tp", False) and ctx.rules.ffn is not None
+    if split:
+        h = S.seq_gather(h, ctx.model_group)
+    out = _mlp(p, h, activation_fn(cfg.activation))
+    return S.seq_scatter(out, ctx.model_group) if split else out
+
+
+def _mlp(p, x, act):
     if "w_gate" in p:
-        inner = act(h @ p["w_gate"]) * (h @ p["w_up"])
+        inner = act(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
-        inner = act(h @ p["w_up"])
+        inner = act(x @ p["w_up"])
     return inner @ p["w_down"]
 
 
@@ -235,8 +310,129 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _slot_table(flat_e: torch.Tensor, n_e: int, cap: int):
+    """Each choice's slot in its expert's queue, in the order of
+    ``flat_e`` (a stable sort of the flat expert ids): returns (in_cap,
+    slot; a dropped choice points past the last slot, the reference's
+    spare one)."""
+    tk = flat_e.shape[0]
+    dev = flat_e.device
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    grp_start = torch.searchsorted(sorted_e, torch.arange(n_e, device=dev))
+    rank_sorted = torch.arange(tk, device=dev) - grp_start[sorted_e]
+    pos = torch.empty_like(flat_e).scatter_(0, order, rank_sorted)
+    in_cap = pos < cap
+    return in_cap, torch.where(in_cap, flat_e * cap + pos, n_e * cap)
+
+
+def _token_of_slot(slot, n_tok: int, k: int, n_slots: int):
+    """The token in each of ``n_slots`` slots (-1: empty), from each
+    choice's slot (token-major choices; a dropped one's spare slot is cut
+    off)."""
+    out = torch.full((n_slots + 1,), -1, dtype=torch.long,
+                     device=slot.device)
+    out[slot] = torch.arange(n_tok, device=slot.device).repeat_interleave(k)
+    return out[:-1]
+
+
+def _experts(p, xs, act, lo: int, n: int, whole: bool = True):
+    """Experts ``[lo, lo + n)`` on ``xs [n, cap, D]``: from tensors that
+    hold all E experts (``whole``), or just these (stored split by the
+    ``experts`` rule)."""
+    wg, wu, wd = p["experts_gate"], p["experts_up"], p["experts_down"]
+    if whole:
+        wg, wu, wd = wg[lo:lo + n], wu[lo:lo + n], wd[lo:lo + n]
+    inner = act(torch.bmm(xs, wg)) * torch.bmm(xs, wu)
+    return torch.bmm(inner, wd)
+
+
+def _combine(ys, slot, w, n_tok, k):
+    """Token t's k choices, each its slot's output times its gate (0 for a
+    dropped choice), summed in the order of the choices."""
+    picked = _GatherRows.apply(ys, slot) * w[:, None]
+    picked = picked.reshape(n_tok, k, -1)
+    out = picked[:, 0]
+    for j in range(1, k):
+        out = out + picked[:, j]
+    return out
+
+
+def _route_local(p, x, idx, gate_vals, cap, cfg, act):
+    """Route x [T, D]'s top-k choices through all E experts, ``cap``
+    tokens an expert in token order."""
+    e = cfg.moe
+    n_tok, d = x.shape
+    k, n_e = e.top_k, e.n_experts
+    in_cap, slot = _slot_table(idx.reshape(-1), n_e, cap)
+    n_slots = n_e * cap
+    token_of_slot = _token_of_slot(slot, n_tok, k, n_slots)
+    live = (token_of_slot >= 0).to(x.dtype)[:, None]
+    xs = _GatherRows.apply(x, token_of_slot.clamp(min=0)) * live
+    ys = _experts(p, xs.reshape(n_e, cap, d), act, 0, n_e) \
+        .reshape(n_slots, d)
+    w = torch.where(in_cap, gate_vals.reshape(-1).to(x.dtype), 0)
+    return _combine(ys, slot.clamp(max=n_slots - 1), w, n_tok, k)
+
+
+def _route_expert_parallel(p, x, idx, gate_vals, cfg, act, group,
+                           no_drop, whole):
+    """Expert parallelism over ``group`` (the data ranks): rank r computes
+    experts ``[r E/D, (r+1) E/D)``; routing is global, as the reference's
+    at ``n_groups = 1``.  Every rank gathers the ranks' expert ids (rows
+    rank-major: the global token order) and derives the same slot table,
+    with the capacity of the global token count; the token rows go to
+    their experts' ranks and the outputs come back (``exchange_rows``),
+    sent in slot order, received by source rank and then slot.  ``whole``:
+    the expert tensors hold all E experts (no grid's ``experts`` rule
+    split them)."""
+    e = cfg.moe
+    n_tok, d = x.shape
+    k, n_e = e.top_k, e.n_experts
+    n_ranks, r = dist.get_world_size(group), dist.get_rank(group)
+    if n_e % n_ranks:
+        raise ValueError(f"{cfg.arch_id}: {n_e} experts do not split over "
+                         f"{n_ranks} expert-parallel ranks")
+    e_loc = n_e // n_ranks
+    dev = x.device
+    n_glob = n_tok * n_ranks
+    cap = n_glob if no_drop else max(
+        1, int(n_glob * k / n_e * e.capacity_factor))
+    in_cap, slot = _slot_table(S.all_gather(idx, group).reshape(-1), n_e,
+                               cap)
+    per_rank = e_loc * cap
+    token_of_slot = _token_of_slot(slot, n_glob, k, n_e * cap)
+    mine = slice(r * n_tok * k, (r + 1) * n_tok * k)
+    my_in, my_slot = in_cap[mine], slot[mine]
+    # sends: this rank's kept choices in slot order (so by owner)
+    send_idx = torch.nonzero(my_in)[:, 0]
+    send_idx = send_idx[torch.argsort(my_slot[send_idx], stable=True)]
+    send = torch.bincount(my_slot[send_idx] // per_rank,
+                          minlength=n_ranks).tolist()
+    # receives: this rank's live slots by source rank, then slot
+    tok = token_of_slot[r * per_rank:(r + 1) * per_rank]
+    live = torch.nonzero(tok >= 0)[:, 0]
+    src = tok[live] // n_tok
+    live = live[torch.argsort(src * per_rank + live, stable=True)]
+    recv = torch.bincount(src, minlength=n_ranks).tolist()
+    rows = S.exchange_rows(_GatherRows.apply(x, send_idx // k), send, recv,
+                           group)
+    at = torch.full((per_rank,), live.shape[0], dtype=torch.long,
+                    device=dev)
+    at[live] = torch.arange(live.shape[0], device=dev)
+    xs = _GatherRows.apply(torch.cat([rows, rows.new_zeros((1, d))]), at)
+    ys = _experts(p, xs.reshape(e_loc, cap, d), act, r * e_loc, e_loc,
+                  whole).reshape(per_rank, d)
+    back = S.exchange_rows(_GatherRows.apply(ys, live), recv, send, group)
+    at = torch.full((n_tok * k,), send_idx.shape[0], dtype=torch.long,
+                    device=dev)
+    at[send_idx] = torch.arange(send_idx.shape[0], device=dev)
+    w = torch.where(my_in, gate_vals.reshape(-1).to(x.dtype), 0)
+    return _combine(torch.cat([back, back.new_zeros((1, d))]), at, w,
+                    n_tok, k)
+
+
 def moe_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, cfg,
-              no_drop: bool = False, group=None):
+              no_drop: bool = False, group=None, ctx=None):
     """Capacity-based MoE (reference ``models/layers.py:228-331``): each
     token picks its top-k experts, each expert takes at most ``cap``
     tokens, in token order (a stable sort of the flat expert ids; the
@@ -250,85 +446,72 @@ def moe_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, cfg,
     choice reading zero, summed over k in order.  Nothing is added with
     atomics, so a step repeats bit for bit on the card.
 
-    Under a CAD process group (``group``) each rank routes its own tokens
-    with the capacity of its own count, as the reference routes each data
-    shard's tokens; the auxiliary losses are this rank's shares of the
-    global values (every rank holds the same number of tokens): the top-1
-    counts are summed across the group inside this call, and summed over
-    the ranks the shares are the reference's means over all tokens.
+    Under a CAD process group (``group``, the data ranks) each rank routes
+    its own tokens with the capacity of its own count, as the reference
+    routes each data shard's tokens; with ``expert_parallel`` routing is
+    global instead, over experts split across the ranks
+    (``_route_expert_parallel``).  On a grid (``ctx.tp``) ``h`` is the
+    residual's sequence shard: the router runs on it, the experts (this
+    rank's columns of ``d_ff_expert``) and shared experts on the whole
+    sequence, and the partial outputs are reduce-scattered.  The
+    auxiliary losses are this rank's shares of the global values (every
+    rank holds the same number of tokens): the top-1 counts are summed
+    over the ranks inside this call, and summed over the ranks the shares
+    are the reference's means over all tokens.
 
     h [B, S, D].  Returns (out [B, S, D], {"moe_lb", "moe_z"} f32)."""
     e = cfg.moe
     b, s, d = h.shape
     act = activation_fn(cfg.activation)
-    n_tok, k, n_e = b * s, e.top_k, e.n_experts
-    world = 1
-    if group is not None:
-        if e.expert_parallel:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: expert parallelism under a CAD process "
-                f"group (experts sharded over the ranks, routed globally) "
-                f"comes with the sharding rules, ROADMAP queue 1 item 12")
-        world = dist.get_world_size(group)
-    x = h.reshape(n_tok, d)
-    dev = x.device
+    k, n_e = e.top_k, e.n_experts
+    tp = getattr(ctx, "tp", False)
+    if tp and ctx.rules.ffn is None:
+        raise ValueError(f"{cfg.arch_id}: d_ff_expert {e.d_ff_expert} does "
+                         f"not split over {ctx.model_size} model ranks")
+    x = h.reshape(b * s, d)
 
     logits = (x @ p["router"]).float()                        # [T, E]
     probs = torch.softmax(logits, -1)
     gate_vals, idx = _top_k(probs, k)                         # [T, k]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
 
-    cap = n_tok if no_drop else max(
-        1, int(n_tok * k / n_e * e.capacity_factor))
-    tk = n_tok * k
-    flat_e = idx.reshape(tk)
-    sorted_e, order = torch.sort(flat_e, stable=True)
-    grp_start = torch.searchsorted(sorted_e, torch.arange(n_e, device=dev))
-    rank_sorted = torch.arange(tk, device=dev) - grp_start[sorted_e]
-    pos = torch.empty_like(flat_e).scatter_(0, order, rank_sorted)
-    in_cap = pos < cap
-    n_slots = n_e * cap
-    # a dropped choice points past the last slot (the reference's spare
-    # slot): its token id lands there and is cut off
-    slot = torch.where(in_cap, flat_e * cap + pos, n_slots)   # [Tk]
-    token_id = torch.arange(n_tok, device=dev).repeat_interleave(k)
-    token_of_slot = torch.full((n_slots + 1,), -1, dtype=torch.long,
-                               device=dev)
-    token_of_slot[slot] = token_id
-    token_of_slot = token_of_slot[:-1]
-    live = (token_of_slot >= 0).to(h.dtype)[:, None]
-
-    xs = _GatherRows.apply(x, token_of_slot.clamp(min=0)) * live
-    xs = xs.reshape(n_e, cap, d)
-    inner = act(torch.bmm(xs, p["experts_gate"])) \
-        * torch.bmm(xs, p["experts_up"])
-    ys = torch.bmm(inner, p["experts_down"]).reshape(n_slots, d)
-    # combine: token t's k choices, each its slot's output times its gate
-    # (in h's dtype), summed in the order of the choices
-    w = torch.where(in_cap, gate_vals.reshape(tk).to(h.dtype), 0)
-    picked = _GatherRows.apply(ys, slot.clamp(max=n_slots - 1)) \
-        * w[:, None]
-    picked = picked.reshape(n_tok, k, d)
-    out = picked[:, 0]
-    for j in range(1, k):
-        out = out + picked[:, j]
-
+    xr, idx_r, gate_r = x, idx, gate_vals
+    if tp:
+        # the data shard's tokens, row-major, on every model rank
+        mg = ctx.model_group
+        xr = S.seq_gather(h, mg).reshape(-1, d)
+        gate_r = S.seq_gather(gate_vals.reshape(b, s, k), mg).reshape(-1, k)
+        idx_r = S.all_gather(idx.reshape(b, s, k), mg, dim=1).reshape(-1, k)
+    n_tok = xr.shape[0]
+    if e.expert_parallel and group is not None:
+        whole = ctx is None or ctx.rules.experts is None
+        out = _route_expert_parallel(p, xr, idx_r, gate_r, cfg, act, group,
+                                     no_drop, whole)
+    else:
+        cap = n_tok if no_drop else max(
+            1, int(n_tok * k / n_e * e.capacity_factor))
+        out = _route_local(p, xr, idx_r, gate_r, cap, cfg, act)
     if e.n_shared_experts and "w_gate" in p:
-        out = out + ((act(x @ p["w_gate"]) * (x @ p["w_up"]))
-                     @ p["w_down"])
+        out = out + _mlp(p, xr, act)
+    if tp:
+        out = S.seq_scatter(out.reshape(b, -1, d), ctx.model_group)
 
     # aux losses: Switch-style load balance and the router z-loss
     lse2 = torch.logsumexp(logits, -1) ** 2
     top1 = F.one_hot(idx[:, 0], n_e)
-    if group is None:
+    groups = [g for g in (group, ctx.model_group if tp else None)
+              if g is not None]
+    if not groups:
         me = probs.mean(0)
         ce = top1.float().mean(0)
         lb = n_e * torch.sum(me * ce) * e.load_balance_loss
         z = lse2.mean() * e.router_z_loss
     else:
         counts = top1.sum(0)
-        dist.all_reduce(counts, group=group)
-        n_glob = n_tok * world
+        n_glob = x.shape[0]
+        for g in groups:
+            dist.all_reduce(counts, group=g)
+            n_glob *= dist.get_world_size(g)
         ce = counts.float() / n_glob
         lb = n_e * torch.sum(probs.sum(0) / n_glob * ce) \
             * e.load_balance_loss

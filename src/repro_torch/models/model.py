@@ -43,6 +43,7 @@ from repro_torch.core.attention import decode_attention
 from repro_torch.data.packing import BLOCK as SERVE_BLOCK
 from repro_torch.kernels.packed_flash import ops as pf_ops
 from repro_torch.models import layers as L
+from repro_torch.models import sharded as S
 from repro_torch.parallel import ParallelContext
 
 _ATTN_KINDS = ("global", "local")
@@ -80,6 +81,27 @@ def check_arch(cfg) -> None:
             raise ValueError(f"{cfg.arch_id}: unknown layer kind {kind!r}")
     if cfg.qk_norm:
         raise NotImplementedError(f"{cfg.arch_id}: qk_norm is not ported")
+
+
+# the item of ROADMAP.md that lists what the model axis does not yet split
+GRID_ITEM = "ROADMAP queue 1 item 12"
+
+
+def check_grid(cfg, model_size: int, seq: int) -> None:
+    """Raise ``ValueError`` for what a model axis of ``model_size`` ranks
+    cannot split yet: ``ssd``, ``rglru``, ``cross`` and ``enc`` layers, and
+    a sequence the axis does not divide (the residual's shards)."""
+    if model_size <= 1:
+        return
+    kinds = set(cfg.layer_pattern) - set(_ATTN_KINDS)
+    if has_encoder(cfg):
+        kinds.add("enc")
+    if kinds:
+        raise ValueError(f"{cfg.arch_id}: {sorted(kinds)} layers do not "
+                         f"split over a model axis yet ({GRID_ITEM})")
+    if seq % model_size:
+        raise ValueError(f"a sequence of {seq} tokens does not split over "
+                         f"{model_size} model ranks")
 
 
 def fused_prefill_ok(cfg) -> bool:
@@ -190,20 +212,45 @@ class Transformer(nn.Module):
         return self.embed.device
 
     # ------------------------------------------------------ embed/unembed
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
+        """The token embedding.  On a grid (``ctx.tp``) it returns the
+        residual's sequence shard: with the vocabulary split over the
+        model ranks (the ``vocab`` rule) each rank looks up the tokens of
+        its rows of the table (others read zero) and the sums are
+        reduce-scattered; with a replicated table each rank looks up its
+        own tokens."""
         cfg = self.cfg
-        # F.embedding, not self.embed[tokens]: the backward of advanced
-        # indexing on the CPU sums repeated rows with atomic adds when
-        # torch has several threads, in no fixed order
-        h = F.embedding(tokens.long(), self.embed).to(cfg.cdtype)
+        table = self.embed
+        tp = getattr(ctx, "tp", False)
+        if tp and ctx.rules.vocab is not None:
+            start = S.model_rank(ctx) * table.shape[0]
+            t = tokens.long() - start
+            inside = (t >= 0) & (t < table.shape[0])
+            h = F.embedding(torch.where(inside, t, 0), table) \
+                * inside[..., None].to(table.dtype)
+            h = S.seq_scatter(h, ctx.model_group).to(cfg.cdtype)
+        else:
+            if tp:
+                tokens = S.own_seq(tokens, ctx)
+            # F.embedding, not self.embed[tokens]: the backward of
+            # advanced indexing on the CPU sums repeated rows with atomic
+            # adds when torch has several threads, in no fixed order
+            h = F.embedding(tokens.long(), table).to(cfg.cdtype)
         if cfg.scale_embed:
             h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype,
                                  device=h.device)
         return h
 
-    def _unembed(self, h: torch.Tensor) -> torch.Tensor:
+    def _unembed(self, h: torch.Tensor, ctx=None) -> torch.Tensor:
+        """Logits f32.  On a grid whose ``vocab`` rule splits the table,
+        the whole sequence (gathered) against this rank's rows: ``[B, S,
+        V/M]``; with a replicated table, this rank's sequence shard
+        against all of it: ``[B, S/M, V]`` (``train.loss.grid_nll_sum``
+        reads both)."""
         cfg = self.cfg
         table = self.embed if cfg.tie_embeddings else self.unembed
+        if getattr(ctx, "tp", False) and ctx.rules.vocab is not None:
+            h = S.seq_gather(h, ctx.model_group)
         logits = (h @ table.T).float()
         if cfg.final_logit_softcap:
             logits = torch.tanh(logits / cfg.final_logit_softcap) \
@@ -248,7 +295,7 @@ class Transformer(nn.Module):
                 ctx)
         return self._attn_residual_tail(blk, h, a,
                                         group=getattr(ctx, "group", None),
-                                        cross_fn=cross_fn)
+                                        cross_fn=cross_fn, ctx=ctx)
 
     def _run_layers(self, layers, h, batch, ctx, hooked: bool):
         """Each layer in turn, under ``torch.utils.checkpoint`` when
@@ -312,15 +359,24 @@ class Transformer(nn.Module):
         an encoder) and, optionally, ``memory_mask`` [B, M] (0 = a memory
         row no query sees).  Returns (logits [B,S,V] f32, aux-losses: with
         MoE layers ``moe_lb`` and ``moe_z``, f32 scalars summed over the
-        layers in order, else empty)."""
+        layers in order, else empty).  On a grid (``ctx.tp``) the weights
+        are this rank's shards (``convert.shard_model``), the batch is the
+        data rank's rows on every model rank, the residual stream is split
+        along the sequence over the model ranks between the blocks, the
+        logits are ``_unembed``'s shard and the aux losses this rank's
+        shares."""
         cfg = self.cfg
+        tp = getattr(ctx, "tp", False)
+        if tp:
+            check_grid(cfg, ctx.model_size, batch["tokens"].shape[1])
         memory = self._memory(batch.get("memory"), ctx)
         if memory is not None:
             batch = dict(batch, memory=memory)
-        h = self._embed(batch["tokens"])
+        h = self._embed(batch["tokens"], ctx)
         if not cfg.use_rope and cfg.has_attention():
-            h = h + L.sinusoidal_pos(batch["positions"], cfg.d_model,
-                                     cfg.cdtype)
+            pos = batch["positions"]
+            h = h + L.sinusoidal_pos(S.own_seq(pos, ctx) if tp else pos,
+                                     cfg.d_model, cfg.cdtype)
         aux: Dict[str, torch.Tensor] = {}
         if cfg.moe and cfg.moe.n_experts:
             aux = {k: torch.zeros((), dtype=torch.float32, device=h.device)
@@ -330,7 +386,7 @@ class Transformer(nn.Module):
         for losses in losses_all:
             aux = {k: aux[k] + v for k, v in losses.items()}
         h = L.norm_apply(self.final_norm, h, cfg.norm)
-        return self._unembed(h), aux
+        return self._unembed(h, ctx), aux
 
     # -------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_seq: int,
@@ -467,12 +523,13 @@ class Transformer(nn.Module):
         return out.reshape(1, t, cfg.n_heads * cfg.head_dim) @ p["wo"]
 
     def _attn_residual_tail(self, blk: Block, h, a, group=None,
-                            no_drop=False, cross_fn=None):
+                            no_drop=False, cross_fn=None, ctx=None):
         """Post-attention wiring shared by training, serving and decode:
         post-norm, residual, the cross-attention insert ``h + cross_fn(h)``
         of a ``cross`` layer, norm2 -> FFN or MoE (``no_drop`` in serving;
-        ``group``, the CAD process group, in training), post-norm,
-        residual.  Returns (h, the MoE layer's aux losses or None)."""
+        ``group``, the CAD process group, and ``ctx``, with a grid's model
+        axis, in training), post-norm, residual.  Returns (h, the MoE
+        layer's aux losses or None)."""
         cfg = self.cfg
         if cfg.post_norms:
             a = L.norm_apply(blk.pnorm1, a, cfg.norm)
@@ -483,9 +540,9 @@ class Transformer(nn.Module):
         losses = None
         if hasattr(blk, "moe"):
             f, losses = L.moe_apply(blk.moe, f_in, cfg, no_drop=no_drop,
-                                    group=group)
+                                    group=group, ctx=ctx)
         else:
-            f = L.ffn_apply(blk.ffn, f_in, cfg)
+            f = L.ffn_apply(blk.ffn, f_in, cfg, ctx)
         if cfg.post_norms:
             f = L.norm_apply(blk.pnorm2, f, cfg.norm)
         return h + f, losses

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, NamedTuple, Sequence, Union
+from typing import (Any, Callable, List, NamedTuple, Optional, Sequence,
+                    Union)
 
 import torch
 
@@ -50,18 +51,26 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: AdamWState,
-               params: Sequence[torch.Tensor], decay: Sequence[bool]):
+               params: Sequence[torch.Tensor], decay: Sequence[bool],
+               norm_groups: Optional[Sequence[Any]] = None):
         """Update ``params`` in place from ``grads``, adding weight decay to
         the tensors whose ``decay`` entry is true; returns (new state, the
-        f32 global gradient norm before clipping)."""
+        f32 global gradient norm before clipping).
+
+        The norm is over the whole model's gradient: ``norm_groups``
+        gives, per tensor, the process group its shards split over on a
+        grid (None, and no ``norm_groups`` at all: every rank holds all of
+        it), and each group's sum of squares is all-reduced over it once,
+        so a split tensor counts each shard once and a replicated one
+        once."""
         if len(decay) != len(params):
             raise ValueError(f"{len(decay)} decay flags for {len(params)} "
                              f"parameters")
         dev = params[0].device
         step = state.step + 1
         if self.grad_clip:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                   for g in grads))
+            gnorm = torch.sqrt(_sq_norm(grads, norm_groups
+                                        or [None] * len(grads)))
             scale = torch.clamp(_f32(self.grad_clip, dev) / (gnorm + 1e-9),
                                 max=1.0)
         else:
@@ -81,6 +90,25 @@ class AdamW:
                 delta = delta + self.weight_decay * p.float()
             p.copy_(p.float() - lr * delta)
         return AdamWState(step=step, mu=state.mu, nu=state.nu), gnorm
+
+
+def _sq_norm(grads, norm_groups) -> torch.Tensor:
+    """The squared global norm of gradients split over process groups:
+    the tensors' squares summed in order by group (groups in order of
+    first appearance), each group's sum all-reduced over it (None: not
+    split), the sums added in that order."""
+    import torch.distributed as dist
+    sums: dict = {}
+    for g, grp in zip(grads, norm_groups):
+        sq = torch.sum(torch.square(g.float()))
+        key = id(grp)
+        sums[key] = (grp, sq if key not in sums else sums[key][1] + sq)
+    total = None
+    for grp, sq in sums.values():
+        if grp is not None:
+            dist.all_reduce(sq, group=grp)
+        total = sq if total is None else total + sq
+    return total
 
 
 def cosine_schedule(peak_lr: float, warmup: int, total: int,

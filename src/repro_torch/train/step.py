@@ -15,15 +15,26 @@ collective), the gradients are summed across the ranks in flat buckets
 update, and AdamW's clipping sees the global norm.  MoE's auxiliary
 losses come out of the forward as this rank's shares of the global
 values (``models.layers.moe_apply``), so the same all-reduce gives their
-gradients; the metrics report them all-reduced."""
+gradients; the metrics report them all-reduced.
+
+On a ``("data", "model")`` grid (a model cut by
+``convert.shard_model``) a rank's loss is the share of its sequence shard of its data rank's rows (``grid_nll_sum``), and a
+gradient is summed over every grid axis its tensor is not split over
+(``model.grid_placements``): over ``"data"`` as above, and over
+``"model"`` for the tensors every model rank holds whole (norms, the
+router, replicated projections), whose gradients each rank holds for its
+own tokens or heads only.  The clip's norm counts each shard once
+(``AdamW.update``'s ``norm_groups``)."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.train.loss import lm_loss
+from repro_torch.parallel import sharded_over
+from repro_torch.train.loss import grid_nll_sum, lm_loss
 
 BATCH_KEYS = ("tokens", "labels", "segment_ids", "positions", "memory",
               "memory_mask")
@@ -74,14 +85,14 @@ def _flat_collective(tensors, op) -> None:
 def allreduce_grads(grads, group) -> None:
     """Sum ``grads`` across ``group`` in place, in flat buckets; every
     rank ends with the same bits."""
-    import torch.distributed as dist
     _flat_collective(grads, lambda f: dist.all_reduce(f, group=group))
 
 
 @torch.no_grad()
 def broadcast_params(params, group, src: int = 0) -> None:
-    """Every rank takes rank ``src``'s parameters (flat buckets)."""
-    import torch.distributed as dist
+    """Every rank takes the parameters of ``group``'s rank ``src`` (flat
+    buckets)."""
+    src = dist.get_global_rank(group, src)
     _flat_collective(list(params),
                      lambda f: dist.broadcast(f, src=src, group=group))
 
@@ -90,6 +101,36 @@ def _bind(ctx, batch):
     if getattr(ctx, "cad", None) is not None and "plan" in batch:
         return ctx.cad.bind_plan(ctx, batch["plan"])
     return ctx
+
+
+def grad_groups(model, ctx):
+    """Per parameter: (the group its gradient is summed over, or None;
+    the group its shards split over for the clip's norm, or None).
+    Without a grid (no ``model.grid_placements``) every gradient is summed
+    over the CAD group and no tensor is split."""
+    if getattr(model, "grid_placements", None) is None:
+        return [(getattr(ctx, "group", None), None)
+                for _ in model.parameters()]
+    by_axes = {(): None, ("data",): ctx.group, ("model",): ctx.model_group,
+               ("data", "model"): dist.group.WORLD}
+    out = []
+    for name, _ in model.named_parameters():
+        split = sharded_over(model.grid_placements[name])
+        out.append((by_axes[tuple(a for a in ("data", "model")
+                                  if a not in split)], by_axes[split]))
+    return out
+
+
+def _allreduce_by_group(grads, groups) -> None:
+    """Sum each gradient over its group, one bucketed all-reduce per
+    group in a fixed order (the same on every rank)."""
+    order = []
+    for grp in groups:
+        if grp is not None and all(grp is not g for g in order):
+            order.append(grp)
+    for grp in order:
+        allreduce_grads([g for g, gg in zip(grads, groups) if gg is grp],
+                        grp)
 
 
 def make_train_step(model, ctx, optimizer, decay):
@@ -101,40 +142,46 @@ def make_train_step(model, ctx, optimizer, decay):
     The model's parameters are updated in place."""
     params = list(model.parameters())
     group = getattr(ctx, "group", None)
+    tp = getattr(ctx, "tp", False)
+    grid = getattr(model, "grid_placements", None) is not None
+    sums, norms = zip(*grad_groups(model, ctx))
 
     def train_step(opt_state, batch):
         b = batch_to_device(batch, model.device)
         logits, aux = model(b, _bind(ctx, b))
-        loss, stats = lm_loss(logits, b["labels"], b["segment_ids"])
+        if tp:
+            nll = grid_nll_sum(logits, b["labels"], b["segment_ids"], ctx)
+        else:
+            loss, stats = lm_loss(logits, b["labels"], b["segment_ids"])
+            nll, n_tokens = stats["nll_sum"], stats["n_tokens"]
         del logits
         if group is not None:
             # this rank's share of the global mean, divided as lm_loss
             # divides (by an integer tensor: a Python float divisor takes
             # CUDA's multiply-by-reciprocal path, other bits)
-            loss = stats["nll_sum"] / torch.as_tensor(
-                int(batch["n_tokens_global"]), device=model.device)
+            n_tokens = torch.as_tensor(int(batch["n_tokens_global"]),
+                                       device=model.device)
+            loss = nll / n_tokens
         total = loss
         for v in aux.values():
             total = total + v
         grads = torch.autograd.grad(total, params)
+        _allreduce_by_group(grads, sums)
         if group is not None:
-            import torch.distributed as dist
-            allreduce_grads(grads, group)
             # the global loss and aux losses: each rank holds its share
+            everyone = dist.group.WORLD if grid else group
             loss = loss.detach().clone()
-            dist.all_reduce(loss, group=group)
+            dist.all_reduce(loss, group=everyone)
             aux = {k: v.detach().clone() for k, v in aux.items()}
             for v in aux.values():
-                dist.all_reduce(v, group=group)
+                dist.all_reduce(v, group=everyone)
             total = loss
             for v in aux.values():
                 total = total + v
-            stats = dict(stats, n_tokens=torch.tensor(
-                batch["n_tokens_global"]))
         opt_state, gnorm = optimizer.update(grads, opt_state, params,
-                                            decay)
+                                            decay, norm_groups=norms)
         metrics = {"loss": loss.detach(), "total_loss": total.detach(),
-                   "grad_norm": gnorm, "n_tokens": stats["n_tokens"]}
+                   "grad_norm": gnorm, "n_tokens": n_tokens}
         metrics.update({k: v.detach() for k, v in aux.items()})
         return opt_state, metrics
 

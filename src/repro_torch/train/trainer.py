@@ -15,6 +15,14 @@ schedule's membership events at the same step and probes its own server
 in turn (``CADSession.observe_probe`` gathers the timings), so every
 rank plans every step from the same pool epoch and calibration snapshot.
 A killed server's rank goes on training its rows; it serves no task.
+
+With a session on a ``("data", "model")`` grid (``for_pipeline(...,
+grid=g)``) the CAD group is the grid's ``"data"`` sub-group and the model
+is cut to this rank's shards (``convert.shard_model``) before training;
+the model ranks of a data rank train its rows together.  Calibration,
+fault schedules and checkpoints would need every model rank to probe and
+plan as one, and raise there when the model axis has more than one rank
+(``GRID_ITEM``).
 """
 from __future__ import annotations
 
@@ -30,10 +38,10 @@ import torch.distributed as dist
 from repro_torch.cad.session import CADSession
 from repro_torch.checkpoint import ckpt
 from repro_torch.data.pipeline import PipelineConfig, raw_batches
-from repro_torch.models.convert import decay_mask
-from repro_torch.models.model import Transformer, resolve_device
+from repro_torch.models.convert import decay_mask, shard_model
+from repro_torch.models.model import GRID_ITEM, Transformer, resolve_device
 from repro_torch.optim.adamw import AdamW, cosine_schedule
-from repro_torch.parallel import ParallelContext
+from repro_torch.parallel import ParallelContext, sharded_over
 from repro_torch.train.step import broadcast_params, make_train_step
 
 
@@ -107,13 +115,27 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
     are saved into ``ckpt_dir``; a calibrator starts from the newest
     checkpoint's calibration state.  Like the reference, the loop does
     not resume the parameters."""
+    grid = None if session is None else session.grid
+    if grid is not None and grid.model > 1:
+        for flag, on in (("calibrate_every", train_cfg.calibrate_every),
+                         ("fault_schedule", train_cfg.fault_schedule),
+                         ("ckpt_every", train_cfg.ckpt_every)):
+            if on:
+                raise ValueError(f"{flag} on a grid with a model axis of "
+                                 f"{grid.model} ranks: not yet "
+                                 f"({GRID_ITEM})")
     if model is None:
         model = Transformer(cfg, device=resolve_device(device),
                             seed=train_cfg.seed)
+    if grid is not None and getattr(model, "grid_placements", None) is None:
+        shard_model(model, grid.sizes, {"data": grid.data_index,
+                                        "model": grid.model_index})
     dev = model.device
     faults = pool = None
     group = None if session is None else session.group
     rank = 0 if group is None else dist.get_rank(group)
+    if grid is not None:
+        rank = grid.rank
     if session is not None:
         if train_cfg.fault_schedule:
             from repro_torch.runtime import FaultSchedule, ServerPool
@@ -138,7 +160,12 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
                 weight_decay=train_cfg.weight_decay)
     params = list(model.parameters())
     if group is not None:
-        broadcast_params(params, group)      # one set of weights
+        # one set of weights over the data ranks (on a grid the
+        # expert-parallel experts are each data rank's own)
+        placed = getattr(model, "grid_placements", {})
+        broadcast_params([p for n, p in model.named_parameters()
+                          if "data" not in sharded_over(placed.get(n, ()))],
+                         group)
     opt_state = opt.init(params)
     tokens = pipe_cfg.global_batch * pipe_cfg.seq_len
     step_fn = make_train_step(model, ctx, opt, decay_mask(model))

@@ -189,6 +189,33 @@ def test_pipeline_parallelism_loads_no_jax():
     _probe(_PIPELINE)
 
 
+# the sharding rules and the grid's layers, each from the module that
+# defines it; importing them joins no grid and touches no device
+_GRID = """
+import torch
+import torch.distributed as dist
+from repro_torch.parallel import (
+    ShardingRules, make_rules, param_placements, stored_axes, sharded_over,
+    head_pad, ParallelContext)
+from repro_torch.launch.mesh import GridInfo, join_grid
+from repro_torch.models.sharded import (
+    seq_gather, seq_scatter, own_seq, vocab_nll, exchange_rows, all_gather)
+from repro_torch.models.layers import tp_heads, tp_local_heads
+from repro_torch.models.convert import (
+    shard_params, gather_params, shard_model, grid_placements)
+from repro_torch.models.model import check_grid, GRID_ITEM
+from repro_torch.train.loss import grid_nll_sum
+from repro_torch.train.step import grad_groups
+assert head_pad(15, 2) == 16 and not ParallelContext().tp
+assert not dist.is_initialized()
+assert torch.cuda.is_initialized() is False
+"""
+
+
+def test_sharding_rules_and_grid_layers_load_no_jax():
+    _probe(_GRID)
+
+
 def test_importing_chip_smoke_loads_no_jax():
     _probe(_SMOKE)
 

@@ -24,13 +24,17 @@ ping-pong steps of qwen2-moe-reduced at 4 ranks: the lm loss, the
 global MoE aux losses and the parameters within 1e-5 relative of the
 single-process trainer's; at capacity factor 1.0 each rank's
 ``moe_apply`` is the reference's on its own tokens, and the ranks' aux
-shares sum to the reference's global losses.  A
-rank fed other segment ids makes the plan-agreement check raise, and
-a group of another size raises (and so does expert parallelism).
+shares sum to the reference's global losses.  Expert parallelism
+under the group (capacity factor 1.0): each rank computes its quarter of
+the experts, routing is global, and the outputs, aux losses and
+gradients (through both exchanges) are the reference's over all tokens.
+A rank fed other segment ids makes the plan-agreement check raise, and
+a group of another size raises.
 Calibration, fault schedules and streaming plans under a group are
 ``tests/test_torch_rank_runtime.py``'s.  The ping-pong call's
 issue order is recorded on every rank: both nano-batches' ten sends go
 out asynchronously before nano-batch 0 is waited on and served."""
+import functools
 import importlib.util
 import json
 import os
@@ -236,10 +240,25 @@ def worker(rank, tmp):
     mo, aux = moe_apply(pm, hm, drop_cfg, group=group)
     res["moe_out"] = mo.numpy()
     res.update({k: v.numpy() for k, v in aux.items()})
-    ep_cfg = dataclasses.replace(moe_cfg, moe=dataclasses.replace(
-        moe_cfg.moe, expert_parallel=True))
-    meta["expert_parallel"] = _raises(
-        lambda: moe_apply(pm, hm, ep_cfg, group=group), NotImplementedError)
+    # expert parallelism at capacity factor 1.0: this rank computes its
+    # experts' slots of the global routing; its gradients (the experts'
+    # rows of this rank, its tokens' router and shared-expert terms) are
+    # summed over the group as the train step sums them
+    ep_cfg = dataclasses.replace(drop_cfg, moe=dataclasses.replace(
+        drop_cfg.moe, expert_parallel=True))
+    pg = {k: v.clone().requires_grad_() for k, v in pm.items()}
+    hg = hm.clone().requires_grad_()
+    mo, aux = moe_apply(pg, hg, ep_cfg, group=group)
+    res["ep_out"] = mo.detach().numpy()
+    res.update({"ep_" + k: v.detach().numpy() for k, v in aux.items()})
+    ct = torch.from_numpy(inp["moe_g"][rank * rows:(rank + 1) * rows]
+                          .copy())
+    names = sorted(pg)
+    grads = torch.autograd.grad(mo, [hg] + [pg[k] for k in names], ct)
+    res["ep_dh"] = grads[0].numpy()
+    for k, g in zip(names, grads[1:]):
+        dist.all_reduce(g, group=group)
+        res["ep_d_" + k] = g.numpy()
 
     # (f) the plan-agreement control: rank 3 reads other segment ids (its
     # first row's document cut in two halves)
@@ -352,6 +371,13 @@ def _moe_inputs():
     return {k: np.array(v) for k, v in p.items()}, h
 
 
+def _moe_cotangent():
+    """A seeded cotangent of the MoE output (the expert-parallel case)."""
+    cfg = get_config(MOE["arch"])
+    return np.random.default_rng(6).standard_normal(
+        (WORLD, 64, cfg.d_model)).astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Spawn the 4-rank gloo group once; return the cases and every
@@ -368,6 +394,7 @@ def ranks(tmp_path_factory):
         arrays.update({f"pp{i}_" + k: np.asarray(v) for k, v in p.items()})
     arrays.update({"moe_p_" + k: v for k, v in _moe_inputs()[0].items()})
     arrays["moe_h"] = _moe_inputs()[1]
+    arrays["moe_g"] = _moe_cotangent()
     np.savez(tmp / "inputs.npz", **arrays)
     (tmp / "spec.json").write_text(json.dumps(
         {"geo": a["geo"], "pp_geo": b["geo"], "train": TRAIN, "moe": MOE,
@@ -624,15 +651,62 @@ def test_moe_apply_per_rank_matches_reference(ranks):
                                    err_msg=k)
 
 
-def test_expert_parallel_raises_under_a_group(ranks):
-    """Expert parallelism (maverick's) routes globally over experts
-    sharded across the ranks in the reference; the port has no expert
-    sharding yet, so under a group it raises instead of routing
-    locally."""
+@functools.lru_cache(maxsize=None)
+def _ep_reference():
+    """The reference's ``moe_apply`` with ``expert_parallel`` at capacity
+    factor 1.0 on all 4 ranks' tokens at once (global routing, its
+    ``n_groups = 1``), its aux losses and ``jax.vjp`` under the gathered
+    cotangent."""
+    import dataclasses
+    from repro.configs import get_config as jax_config
+    from repro.models import layers as JL
+    cfg = jax_config(MOE["arch"])
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.0, expert_parallel=True))
+    p, h = _moe_inputs()
+    p = jax.tree.map(jnp.asarray, p)
+    ctx = JCtx(mesh=None)
+    (out, aux), vjp = jax.vjp(lambda pp, x: JL.moe_apply(pp, x, cfg, ctx),
+                              p, jnp.asarray(h))
+    dp, dh = vjp((jnp.asarray(_moe_cotangent()),
+                  jax.tree.map(jnp.zeros_like, aux)))
+    return np.asarray(out), aux, np.asarray(dh), dp
+
+
+def test_expert_parallel_routes_globally_under_a_group(ranks):
+    """Expert parallelism (maverick's layout) under the 4-rank group at
+    capacity factor 1.0: each rank computes its quarter of the experts,
+    routing is global (capacity from all 256 tokens, queue places in
+    rank-major token order), so the ranks' outputs put together are the
+    reference's over all tokens (f32 atol 1e-5 x max(1, max |ref|)) and the
+    aux shares sum to its losses (1e-6 relative)."""
     _, per_rank = ranks
-    for _, meta in per_rank:
-        assert meta["expert_parallel"] is not None
-        assert "ROADMAP queue 1 item 12" in meta["expert_parallel"]
+    want, aux, _, _ = _ep_reference()
+    got = np.concatenate([arr["ep_out"] for arr, _ in per_rank])
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * max(1.0, float(np.abs(want)
+                                                          .max())))
+    for k in ("moe_lb", "moe_z"):
+        shares = sum(float(arr["ep_" + k]) for arr, _ in per_rank)
+        np.testing.assert_allclose(shares, float(aux[k]), rtol=1e-6,
+                                   err_msg=k)
+
+
+def test_expert_parallel_gradients_match_reference_vjp(ranks):
+    """The gradients through both exchanges: each rank's input gradient
+    is its rows of ``jax.vjp``'s, and every weight gradient summed over
+    the ranks is the reference's (1e-5 x max |grad|)."""
+    _, per_rank = ranks
+    _, _, dh, dp = _ep_reference()
+    got = np.concatenate([arr["ep_dh"] for arr, _ in per_rank])
+    np.testing.assert_allclose(got, dh, rtol=0,
+                               atol=GRAD_REL * float(np.abs(dh).max()))
+    for k, want in dp.items():
+        want = np.asarray(want)
+        for arr, _ in per_rank:
+            np.testing.assert_allclose(
+                arr["ep_d_" + k], want, rtol=0,
+                atol=GRAD_REL * float(np.abs(want).max()), err_msg=k)
 
 
 def _chip_smoke():
