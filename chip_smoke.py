@@ -306,8 +306,8 @@ is timed).
    CO_LOSS_LIMIT, the flash kernels on the captured q/k/v; step ms,
    tokens/s, peak memory;
 26. (after 25) the MoE archs served through ``launch/serve.py``'s engine
-   at every width, a token a step (MOE_SERVE): qwen2-moe-a2.7b at all 24
-   layers, 4 slots, prompts of 100-300 tokens, 16 new: launches = layers
+   at every width, a token a step (MOE_SERVE): qwen2-moe-a2.7b at 12 of
+   24 layers, 4 slots, prompts of 100-300 tokens, 16 new: launches = layers
    x device calls, the kernel on a captured decode step, the concurrent
    run's tokens equal to its SOLO shortest prompts' served alone, rates
    and one decode step traced; an f32 copy of MOE_FWD_LAYERS layers:
@@ -382,23 +382,38 @@ is timed).
    step, peaks and times logged (not speed figures).
 31. (last, after 30: it spawns too) the sharding rules on a data 2 x
    model 2 grid (``launch.mesh.join_grid``): GRID_RANKS processes on the
-   one card under gloo, each model index's data ranks a CAD group,
-   bf16, seed 0: (a) llama3-8b and (b) smollm-360m (15 heads padded to
-   16: 8 MHA heads of 64 a rank) at every width with 2 layers, a [1,
-   4096] row a data rank, and (c) qwen2-moe-a2.7b with expert
-   parallelism (30 experts a data rank, the expert width split over the
-   model ranks), 2 layers, [1, 2048] a data rank, 2 ``cad`` steps each,
+   one card under gloo, each model index's data ranks a CAD group, every
+   tensor stored as its placement says (FSDP: split over the data ranks
+   on its dmodel dim, gathered where a layer reads it), bf16, seed 0:
+   (a) llama3-8b and (b) smollm-360m (15 heads padded to 16: 8 MHA heads
+   of 64 a rank) at every width with 2 layers, a [1, 4096] row a data
+   rank, and (c) qwen2-moe-a2.7b with expert parallelism (30 experts a
+   data rank, the expert width split over the model ranks), 2 layers,
+   [1, 2048] a data rank, 2 ``cad`` steps each; (e) mamba2-370m (2
+   layers, the SSD kernels at full width on every model rank) and (f)
+   recurrentgemma-9b (rglru, rglru, local: lru_scan on 2048 channels a
+   rank, flash on 8 heads of 256) at every width, [1, 4096] a data rank,
+   2 steps on the ``pallas`` route of a sessionless grid; (g)
+   whisper-large-v3 at every width, 2 encoder and 2 decoder layers, a
+   memory of 1500 frames, [1, 4096] a data rank, 2 ``cad`` steps; each
    then an f32 copy's step; (a) also on the colocated ``pallas`` route;
    (d) llama4-maverick at every width, 1 layer, one ``cad`` forward (64
-   experts, 8 GB, a rank).  Against the one-process runs on the same
-   weights and batches (run before the spawn, maverick's 32 GB of
-   experts first): the f32 step-0 loss and grad norm within
-   GRID_F32_LIMIT (the "no causal mask" control outside), the bf16
-   gaps logged, expert-parallel routing equal, the data-replicated
-   tensors bitwise across data ranks, plan digests equal on every rank,
-   CA launches a rank a step layers x {2, 1, 1}; then the CA kernels on
-   (a)'s and (b)'s captured server batches at the per-rank shapes,
-   against their plain versions and timed (PERF.md rows 4g/5g, 4p/5p).
+   experts, 8 GB, a rank); (h) smollm-360m, 4 layers, 4 ``cad`` steps
+   with a probe a step, server 1 killed before step 2 and a checkpoint
+   after it.  Against the one-process runs on the same weights and
+   batches (run before the spawn, maverick's 32 GB of experts first):
+   the f32 step-0 loss and grad norm within GRID_F32_LIMIT (a fault
+   control outside), the bf16 gaps logged, expert-parallel routing
+   equal but at near-ties, the tensors every data rank holds bitwise
+   across them, plan digests equal on every rank, each path's
+   launches a rank a step, the stored parameter and moment bytes the
+   placements' shard sizes; (h)'s plans, calibrator states and pool
+   epochs equal on every rank, the one-process trainer replaying its
+   observations pulling its plans, its checkpoint loading into one
+   process bitwise; then the CA kernels on (a)'s, (b)'s and (g)'s
+   captured server batches at the per-rank shapes, against their plain
+   versions and timed (PERF.md rows 4g/5g, 4p/5p, 4h/5h), and the SSD,
+   lru_scan and flash kernels on (e)'s and (f)'s captured inputs.
 
 The line before the card line lists every ported kernel as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after
@@ -5447,8 +5462,10 @@ def train_moe(torch, ops, card):
                       f"{n_servers} servers, {cfg.n_layers} of 24 layers")
 
 
-# phase 26: (arch, depth, prompt lengths, new tokens, max_seq)
-MOE_SERVE = {"qwen2-moe-a2.7b": (24, (100, 301), 16, 640),
+# phase 26: (arch, depth, prompt lengths, new tokens, max_seq); qwen2-moe
+# at 12 of 24 layers since phase 31 grew (its 24 took 91 s of the script's
+# 1200 s limit, a token a step through the host-bound loop)
+MOE_SERVE = {"qwen2-moe-a2.7b": (12, (100, 301), 16, 640),
              # 1 of 48 layers: 18.4 B params, 36.8 GB of bf16 weights (one
              # layer's 128 experts are 32 GB); two would not leave room
              "llama4-maverick-400b-a17b": (1, (64, 161), 16, 192)}
@@ -7556,18 +7573,53 @@ GRID_PATHS = {
     "b": ("smollm-360m", 2, 4096, 2, False),
     "c": ("qwen2-moe-a2.7b", 2, 2048, 2, True),
     "d": ("llama4-maverick-400b-a17b", 1, 2048, 0, True),
+    # the other layer kinds: the SSD mixer whole on every model rank, the
+    # RG-LRU width split over them (rglru, rglru, local), whisper's
+    # encoder and cross-attention (GRID_ENC_LAYERS encoder layers)
+    "e": ("mamba2-370m", 2, 4096, 2, False),
+    "f": ("recurrentgemma-9b", 3, 4096, 2, False),
+    "g": ("whisper-large-v3", 2, 4096, 2, False),
+    # the runtime on the grid: GRID_RUNTIME's calibration, kill and
+    # checkpoints, bf16 only
+    "h": ("smollm-360m", 4, 4096, 4, False),
 }
-GRID_TRAIN = ("a", "b", "c")
+GRID_TRAIN = ("a", "b", "c", "e", "f", "g")
+# the paths on the colocated ``pallas`` route, a sessionless grid: mamba2
+# has no attention for CAD to serve, and CAD routes none of
+# recurrentgemma's layers through the CA kernels (its attention layers are
+# all local: the dispatch's blockwise fallback), while ``pallas`` runs
+# lru_scan and the flash kernels
+GRID_PALLAS = ("e", "f")
+# a path's layer kinds where the config's pattern is cut: recurrentgemma's
+# first three layers; the f32 copies' depth where it is not the bf16
+# run's: (f) at 2 layers (rglru, rglru)
+GRID_PATTERNS = {"f": ("rglru", "rglru", "local")}
+GRID_F32_LAYERS = {"f": 2}
+GRID_ENC_LAYERS = 2
+GRID_MEMORY_SEED = 1
+GRID_RUNTIME = dict(calibrate_every=1, fault_schedule="kill:1@2",
+                    ckpt_every=2)
 # whose layer-0 CA batches (the last model rank's heads, both data ranks'
-# servers) are timed: PERF.md rows 4g/5g and 4p/5p
-GRID_TIMED = {"a": "4g/5g", "b": "4p/5p"}
+# servers) are timed: PERF.md rows 4g/5g, 4p/5p and 4h/5h
+GRID_TIMED = {"a": "4g/5g", "b": "4p/5p", "g": "4h/5h"}
 GRID_DTYPES = ("bfloat16", "float32")
 # the f32 copy's step-0 loss and gradient norm against the one-process
 # trainer's on the same weights and batch, relative.  The grid sums each
 # partial product (heads, FFN columns, vocab shards, expert width) over
-# the model ranks, another order than one process's
-GRID_F32_LIMIT = 1e-5
-GRID_REQUIRED_CONTROLS = ("no causal mask",)
+# the model ranks, another order than one process's.  Measured on one
+# H100 (NVIDIA H100 80GB HBM3, 700 W), FSDP storage: the worst gap 1.81e-7
+# ((f)'s grad norm; (c)'s loss 7.65e-8, (e)'s grad norm 1.22e-7, the rest
+# 0); the required controls' smallest 5.22e-6 ((e)'s resets dropped;
+# (g)'s documents merged 2.55e-5, (f)'s resets dropped 4.29e-5)
+GRID_F32_LIMIT = 1e-6
+# the control each path's f32 step-0 loss must lie outside GRID_F32_LIMIT
+# of: the one-process forward with its fault put in.  "documents merged"
+# moves no recurrent mixer: the pipeline's documents are separated by
+# padding (segment 0), whose edges reset the state all the same
+GRID_RESETS_DROPPED = "document resets dropped"
+GRID_REQUIRED_CONTROLS = {"a": "no causal mask", "b": "no causal mask",
+                          "c": "no causal mask", "e": GRID_RESETS_DROPPED,
+                          "f": GRID_RESETS_DROPPED, "g": "documents merged"}
 # tokens of each rank's logits (its vocab shard) held against the
 # one-process forward's in (d)
 GRID_LOGIT_TOKENS = 64
@@ -7604,12 +7656,20 @@ GRID_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
 def _grid_setup(path, dtype="bfloat16"):
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import PipelineConfig
+    from repro_torch.models.model import has_encoder
     from repro_torch.train.trainer import TrainConfig
     arch, layers, seq, steps, ep = GRID_PATHS[path]
+    if dtype == "float32":
+        layers = GRID_F32_LAYERS.get(path, layers)
     cfg = get_config(arch)
     moe = cfg.moe and dataclasses.replace(cfg.moe, expert_parallel=ep)
-    cfg = dataclasses.replace(cfg, n_layers=layers, moe=moe,
-                              param_dtype=dtype, compute_dtype=dtype)
+    enc = cfg.encoder
+    if has_encoder(cfg):
+        enc = dataclasses.replace(enc, n_layers=GRID_ENC_LAYERS)
+    pattern = GRID_PATTERNS.get(path, cfg.layer_pattern)[:layers]
+    cfg = dataclasses.replace(cfg, n_layers=layers, moe=moe, encoder=enc,
+                              layer_pattern=pattern, param_dtype=dtype,
+                              compute_dtype=dtype)
     pipe = PipelineConfig(distribution="prolong", max_doc_len=seq,
                           seq_len=seq, global_batch=GRID["data"],
                           n_ranks=GRID["data"], vocab_size=cfg.vocab_size,
@@ -7660,15 +7720,43 @@ def _grid_fill(torch, model, seed, coords=None):
 
 
 def _grid_replicated_digest(torch, model):
-    """One digest of the tensors every data rank holds (all but the
-    expert-parallel experts), for the bitwise check across data ranks."""
+    """One digest of the tensors every data rank holds, for the bitwise
+    check across data ranks: all but the FSDP shards and the
+    expert-parallel experts, which are held once (gathered over the data
+    ranks, a shard is the same tensor on each by construction)."""
     import hashlib
     from repro_torch.parallel import sharded_over
     h = hashlib.sha1()
     for n, p in model.named_parameters():
         if "data" not in sharded_over(model.grid_placements[n]):
-            h.update(_bits_digest(torch, p).encode())
+            h.update(_bits_digest(torch, p.reshape(-1)).encode())
     return h.hexdigest()
+
+
+def _grid_storage(torch, model, opt_state=None):
+    """This rank's stored parameter (and AdamW moment) bytes, and what the
+    placements' shard sizes of the whole model's tensors add up to."""
+    from repro_torch.models.convert import shard_shape
+    from repro_torch.models.model import Transformer
+    full = {n: p.shape for n, p in
+            Transformer(model.cfg, device="meta").named_parameters()}
+    shards = {n: math.prod(shard_shape(full[n], model.grid_placements[n],
+                                       GRID)) for n in full}
+    out = dict(
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in model.parameters()),
+        param_bytes_placed=sum(shards[n] * p.element_size()
+                               for n, p in model.named_parameters()))
+    if opt_state is not None:
+        out.update(moment_bytes=sum(t.numel() * t.element_size() for t in
+                                    list(opt_state.mu) + list(opt_state.nu)),
+                   moment_bytes_placed=2 * 4 * sum(shards.values()))
+    return out
+
+
+def _grid_counts(ops, ssd, rg):
+    """Every kernel's launch count, by name."""
+    return dict(ops.launches, **ssd.launches, **rg.launches)
 
 
 def _grid_record_routing(L, rec, n_layers, probs_too=False):
@@ -7733,71 +7821,100 @@ def _grid_colocated(torch, ops, grid, model, cfg, pipe):
     return float(loss), {k: ops.launches[k] - before[k] for k in GRID_FLASH}
 
 
-def _grid_rank_train(torch, ops, grid, path, dtype, tmp):
+def _grid_capture_rank(path, grid):
+    """Whether this rank keeps step 0's kernel inputs of ``path``: for the
+    CA timings both data ranks' servers on the last model rank; for the
+    SSD, lru_scan and flash checks one rank."""
+    last = grid.model_index == GRID["model"] - 1
+    return last and (path in GRID_TIMED
+                     or (path in GRID_PALLAS and grid.data_index == 0))
+
+
+def _grid_rank_train(torch, ops, ssd, rg, grid, path, dtype, tmp):
     """One rank's training run of ``path`` in ``dtype`` on the grid:
-    each step's loss, grad norm, CA launches, step seconds and digest of
-    the data-replicated tensors, each pulled plan's digest, step 0's
-    routing and peak memory; path (a) in bf16 also runs the colocated
-    route first, and the timed paths save the last model rank's layer-0
-    attention inputs."""
+    each step's loss, grad norm, kernel launches, step seconds and digest
+    of the tensors every data rank holds, each pulled plan's digest (CAD
+    paths), step 0's routing, the stored bytes and peak
+    memory; path (a) in bf16 also runs the colocated route first, and in
+    bf16 the capturing ranks save their layer-0 kernel inputs (the local
+    layer's too on (f))."""
     from repro_torch.cad import CADSession
     from repro_torch.models import layers as L
     from repro_torch.models.convert import shard_model
-    from repro_torch.models.model import Transformer
+    from repro_torch.models.model import Transformer, needs_memory
+    from repro_torch.parallel import ParallelContext
     from repro_torch.train.trainer import train
     cfg, pipe, tc = _grid_setup(path, dtype)
-    sess = CADSession.for_pipeline(cfg, pipe, grid=grid, prefetch=2)
+    sess = None
     rec = dict(plan_digests=[], steps=[])
-    attach = sess.attach_plans
+    if path not in GRID_PALLAS:
+        sess = CADSession.for_pipeline(cfg, pipe, grid=grid, prefetch=2)
+        attach = sess.attach_plans
 
-    def recording(batches):
-        gen = attach(batches)
-        try:
-            for b in gen:
-                rec["plan_digests"].append(b["plan_digest"])
-                yield b
-        finally:
-            gen.close()
-    object.__setattr__(sess, "attach_plans", recording)    # frozen
+        def recording(batches):
+            gen = attach(batches)
+            try:
+                for b in gen:
+                    rec["plan_digests"].append(b["plan_digest"])
+                    yield b
+            finally:
+                gen.close()
+        object.__setattr__(sess, "attach_plans", recording)    # frozen
     model = Transformer(cfg, device=grid.device, seed=0)
+    memory = None
+    if needs_memory(cfg):
+        _open_gates(torch, model)
+        memory = _cross_memory(torch, cfg, GRID["data"], GRID_MEMORY_SEED)
     shard_model(model, grid.sizes, {"data": grid.data_index,
                                     "model": grid.model_index})
     if path == "a" and dtype == "bfloat16":
         rec["colocated"] = _grid_colocated(torch, ops, grid, model, cfg,
                                            pipe)
     captured = {}
-    if path in GRID_TIMED and dtype == "bfloat16" \
-            and grid.model_index == GRID["model"] - 1:
+    if dtype == "bfloat16" and _grid_capture_rank(path, grid):
+        local = [i for i in range(cfg.n_layers)
+                 if cfg.layer_pattern[i % cfg.period] == "local"]
+        want = [0] + local[:1]
+
         def capture(layer, inputs):
-            if layer == 0 and not captured:
+            if layer not in want or layer in captured:
+                return
+            if "ctx" in inputs and inputs["ctx"].cad is not None:
                 cad = inputs["ctx"].cad
                 plan = type(cad.plan)(**{k: v.cpu()
                                          for k, v in cad.plan.items()})
-                captured.update(
+                captured[layer] = dict(
                     {k: inputs[k].detach().cpu() for k in
                      ("q", "k", "v", "segment_ids", "positions")},
                     cad=dataclasses.replace(cad, plan=plan))
+            else:
+                captured[layer] = {k: v.detach().cpu() for k, v in
+                                   inputs.items() if torch.is_tensor(v)}
         model.attn_hook = capture
     undo = _grid_record_routing(L, rec, cfg.n_layers)
-    last = dict(ops.launches)
+    last = _grid_counts(ops, ssd, rg)
 
     def on_step(step, m):
-        now = dict(ops.launches)
+        now = _grid_counts(ops, ssd, rg)
         rec["steps"].append(dict(
             loss=m["loss"], total=m["total_loss"], gnorm=m["grad_norm"],
             step_s=m["step_s"],
-            launches={k: now[k] - last[k] for k in GRID_CA},
+            launches={k: now[k] - last[k] for k in now if now[k] > last[k]},
             params=_grid_replicated_digest(torch, model)))
         last.update(now)
         model.attn_hook = None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    ctx = ParallelContext(attn_impl="pallas", remat=True) \
+        if sess is None else None
     try:
-        train(cfg, pipe, tc, model=model, session=sess, device=grid.device,
-              on_step=on_step)
+        res = train(cfg, pipe, tc, model=model, session=sess, ctx=ctx,
+                    grid=grid if sess is None else None, memory=memory,
+                    device=grid.device, on_step=on_step)
     finally:
         undo()
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["storage"] = _grid_storage(torch, model, res["opt_state"])
     if captured:
         torch.save(captured, tmp / f"capture_{path}_d{grid.data_index}.pt")
     return rec
@@ -7857,7 +7974,7 @@ def _grid_rank_forward(torch, ops, grid):
                launches={k: ops.launches[k] - before[k] for k in GRID_CA},
                loss=loss, logits=logits,
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-               controls={})
+               storage=_grid_storage(torch, model), controls={})
     for name in GRID_D_CONTROLS:
         undo = _grid_d_control(torch, L, name)
         try:
@@ -7888,15 +8005,93 @@ def _grid_d_control(torch, L, name):
     return lambda: setattr(L, "_mlp", mlp)
 
 
+def _grid_rank_runtime(torch, ops, grid, tmp):
+    """Path (h) on one rank: GRID_RUNTIME's calibration, kill and
+    checkpoints under a grid session (prefetch 2, a pool attached first):
+    each pulled plan's digest, the observations fed to the calibrator by
+    probe and a digest of its state after each, the pool epoch, loss and
+    CA launches by step, the parameters gathered whole after the
+    checkpointed step (rank 0 saves them), the stored bytes and the
+    peak."""
+    import hashlib
+    from repro_torch.cad import CADSession
+    from repro_torch.models.convert import gather_shard
+    from repro_torch.models.model import Transformer
+    from repro_torch.runtime import ServerPool
+    from repro_torch.train.trainer import train
+    cfg, pipe, tc = _grid_setup("h")
+    tc = dataclasses.replace(tc, ckpt_dir=str(tmp / "ckpt"), **GRID_RUNTIME)
+    sess = CADSession.for_pipeline(cfg, pipe, grid=grid, calibrate=True,
+                                   prefetch=2)
+    sess = sess.with_pool(ServerPool(GRID["data"],
+                                     calibrator=sess.calibrator))
+    cal = sess.calibrator
+    rec = dict(plan_digests=[], probes=[], states=[], steps=[])
+    fed = []
+    observe_tasks = cal.observe_tasks
+
+    def feeding(tasks, seconds, server=None):
+        fed.append(([tuple(t) for t in tasks], seconds, server))
+        return observe_tasks(tasks, seconds, server=server)
+    cal.observe_tasks = feeding
+    observe_probe = sess.observe_probe
+
+    def probing(plan, **kw):
+        n0 = len(fed)
+        observe_probe(plan, **kw)
+        rec["probes"].append(fed[n0:])
+        rec["states"].append(hashlib.sha1(json.dumps(
+            cal.state_dict(), sort_keys=True).encode()).hexdigest())
+    attach = sess.attach_plans
+
+    def recording(batches):
+        gen = attach(batches)
+        try:
+            for b in gen:
+                rec["plan_digests"].append(b["plan_digest"])
+                yield b
+        finally:
+            gen.close()
+    object.__setattr__(sess, "observe_probe", probing)      # frozen
+    object.__setattr__(sess, "attach_plans", recording)
+    model = Transformer(cfg, device=grid.device, seed=0)
+    last = dict(ops.launches)
+
+    def on_step(step, m):
+        now = dict(ops.launches)
+        rec["steps"].append(dict(
+            loss=m["loss"], epoch=m["sched_pool_epoch"],
+            active=m["sched_pool_active"],
+            launches={k: now[k] - last[k] for k in GRID_CA}))
+        last.update(now)
+        if step == GRID_RUNTIME["ckpt_every"]:
+            groups = {"data": grid.data_group, "model": grid.model_group}
+            whole = {n: gather_shard(p.detach(), model.grid_placements[n],
+                                     groups).cpu()
+                     for n, p in model.named_parameters()}
+            if grid.rank == 0:
+                torch.save(whole, tmp / "h_params.pt")
+            del whole
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = train(cfg, pipe, tc, model=model, session=sess,
+                device=grid.device, on_step=on_step)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["storage"] = _grid_storage(torch, model, res["opt_state"])
+    return rec
+
+
 def _grid_rank(rank, tmp):
     """Phase 31's rank ``rank`` (a process of its own, on cuda:0): the
-    training paths in each of GRID_DTYPES, then the maverick forward, on
-    a data x model grid over gloo.  Any error ends the spawn, and the
-    run."""
+    training paths in each of GRID_DTYPES, the maverick forward, then the
+    runtime path (h), on a data x model grid over gloo.  Any error ends
+    the spawn, and the run."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.packed_flash import ops
+    from repro_torch.kernels.rglru import ops as rg
+    from repro_torch.kernels.ssd import ops as ssd
     from repro_torch.launch import mesh
     tmp = Path(tmp)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7910,12 +8105,17 @@ def _grid_rank(rank, tmp):
         for path in GRID_TRAIN:
             for dtype in GRID_DTYPES:
                 t0 = time.perf_counter()
-                recs[path, dtype] = _grid_rank_train(torch, ops, grid, path,
-                                                     dtype, tmp)
+                recs[path, dtype] = _grid_rank_train(
+                    torch, ops, ssd, rg, grid, path, dtype, tmp)
                 recs[path, dtype]["seconds"] = time.perf_counter() - t0
                 gc.collect()
                 torch.cuda.empty_cache()
         recs["d"] = _grid_rank_forward(torch, ops, grid)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        recs["h"] = _grid_rank_runtime(torch, ops, grid, tmp)
+        recs["h"]["seconds"] = time.perf_counter() - t0
         torch.save(recs, tmp / f"rank{rank}.pt")
         dist.barrier()
     finally:
@@ -7924,43 +8124,66 @@ def _grid_rank(rank, tmp):
 
 def _grid_one_process(torch, ops, path, dtype):
     """The one-process trainer on the card on the same weights and batches
-    (2 simulated servers): each step's loss and grad norm, step 0's
-    routing; in f32 also the controls' step-0 losses on the same weights
-    (``pallas`` route, plan-free: documents merged into one a row, and
-    attention without the causal mask)."""
+    (2 simulated servers, or the ``pallas`` route for GRID_PALLAS): each
+    step's loss and grad norm, step 0's routing; in f32 also the
+    controls' step-0 losses on the same weights (plan-free forwards: the
+    ``pallas`` route, ``xla`` where a memory is read; the plain forward,
+    documents merged into one a row, for (e)-(g) the layers given one
+    document a row (no document resets; the loss keeps its mask), and
+    for the attention paths attention without the causal mask)."""
     from repro_torch.cad import CADSession
     from repro_torch.data.pipeline import raw_batches
     from repro_torch.models import layers as L
-    from repro_torch.models.model import Transformer
+    from repro_torch.models.model import Transformer, needs_memory
     from repro_torch.parallel import ParallelContext
+    from repro_torch.train.loss import lm_loss
     from repro_torch.train.step import batch_to_device
     from repro_torch.train.trainer import train
     cfg, pipe, tc = _grid_setup(path, dtype)
     model = Transformer(cfg, device=DEVICE, seed=0)
+    memory = None
+    if needs_memory(cfg):
+        _open_gates(torch, model)
+        memory = _cross_memory(torch, cfg, GRID["data"], GRID_MEMORY_SEED)
     rec = dict(controls={})
     if dtype == "float32":
         gen = raw_batches(pipe)
-        batch = batch_to_device(next(gen), DEVICE)
+        batch = batch_to_device(dict(next(gen), memory=memory), DEVICE)
         gen.close()
-        ctx = ParallelContext(attn_impl="pallas", remat=False)
+        impl = "xla" if memory is not None else "pallas"
+        ctx = ParallelContext(attn_impl=impl, remat=False)
         rec["controls"] = {
-            "none (forward only, pallas)": _step0_loss(torch, model, ctx,
-                                                       batch),
+            f"none (forward only, {impl})": _step0_loss(torch, model, ctx,
+                                                        batch),
             "documents merged": _step0_loss(torch, model, ctx, dict(
                 batch, segment_ids=(batch["segment_ids"] > 0)
                 .to(torch.int32)))}
-        orig = ops.packed_flash_attention
-        ops.packed_flash_attention = \
-            lambda *a, **kw: orig(*a, **dict(kw, causal=False))
-        try:
-            rec["controls"]["no causal mask"] = _step0_loss(torch, model,
-                                                            ctx, batch)
-        finally:
-            ops.packed_flash_attention = orig
+        if path in ("e", "f", "g"):
+            # the layers see one document a row, the loss the real mask
+            with torch.no_grad():
+                logits, _ = model(dict(batch, segment_ids=torch.ones_like(
+                    batch["segment_ids"])), ctx)
+                rec["controls"][GRID_RESETS_DROPPED] = float(lm_loss(
+                    logits, batch["labels"], batch["segment_ids"])[0])
+            del logits
+        if GRID_REQUIRED_CONTROLS[path] == "no causal mask":
+            orig = ops.packed_flash_attention
+            ops.packed_flash_attention = \
+                lambda *a, **kw: orig(*a, **dict(kw, causal=False))
+            try:
+                rec["controls"]["no causal mask"] = _step0_loss(
+                    torch, model, ctx, batch)
+            finally:
+                ops.packed_flash_attention = orig
     undo = _grid_record_routing(L, rec, cfg.n_layers, probs_too=True)
+    sess = ctx = None
+    if path in GRID_PALLAS:
+        ctx = ParallelContext(attn_impl="pallas", remat=True)
+    else:
+        sess = CADSession.for_pipeline(cfg, pipe, prefetch=2)
     try:
-        res = train(cfg, pipe, tc, model=model, device=DEVICE,
-                    session=CADSession.for_pipeline(cfg, pipe, prefetch=2))
+        res = train(cfg, pipe, tc, model=model, device=DEVICE, ctx=ctx,
+                    session=sess, memory=memory)
     finally:
         undo()
     rec["steps"] = [dict(loss=h["loss"], total=h["total_loss"],
@@ -8077,7 +8300,7 @@ def _grid_capture(torch, path):
     takes them."""
     from repro_torch.parallel import ParallelContext
     caps = [torch.load(path.parent / f"{path.name}_d{d}.pt",
-                       weights_only=False) for d in range(GRID["data"])]
+                       weights_only=False)[0] for d in range(GRID["data"])]
     inp = {k: torch.cat([c[k] for c in caps]).to(DEVICE)
            for k in ("q", "k", "v", "segment_ids", "positions")}
     cad = caps[0]["cad"]
@@ -8086,16 +8309,207 @@ def _grid_capture(torch, path):
     return inp
 
 
+def _grid_pallas_kernels(torch, ops, ssd, rg, tmp, card):
+    """The kernels of the ``pallas`` paths on the inputs one rank (data 0,
+    the last model rank) captured at step 0: (e)'s SSD kernels at full
+    width on layer 0 (bf16, phase 11's rules, the backward repeated
+    bitwise), (f)'s lru_scan on layer 0's a and bterm (this rank's
+    channels; bitwise, as in phase 2) and its flash kernels on the local
+    layer's q/k/v (this rank's heads, window 2048).  Returns the checks
+    and the numbers."""
+    from repro_torch.configs import get_config
+    checks, out = {}, {}
+    cap = {path: {k: {n: v.to(DEVICE) for n, v in layer.items()}
+                  for k, layer in torch.load(
+                      tmp / f"capture_{path}_d0.pt", weights_only=False)
+                  .items()} for path in GRID_PALLAS}
+    args, dy, dstate = _ssd_args(torch, cap["e"][0], 31)
+    r = check_ssd_pair(torch, ssd, args, dy, dstate, scaled=True)
+    runs = [ssd.ssd_chunk_bwd(*args, dy, dstate) for _ in range(2)]
+    again = all(torch.equal(a, b) for a, b in zip(*runs))
+    checks["(e) SSD kernels against their plain versions on a rank's "
+           "layer-0 inputs (full width), backward bitwise on repeat"] = \
+        r["ok"] and again
+    out["e"] = dict(fwd=r["fwd"], grad=r["grad"], ratio=r["ratio"],
+                    shape=f"C {tuple(args[0].shape)}, x "
+                          f"{tuple(args[2].shape)} {args[2].dtype}")
+    log(f"  (e) captured layer 0: {out['e']['shape']}: y/states max |err| "
+        f"{r['fwd']:.3e}, grads {r['grad']:.3e} (worst ratio "
+        f"{r['ratio'][0]:.3e}), backward repeated bitwise {again}")
+    a = cap["f"][0]["a"].contiguous()
+    b = cap["f"][0]["bterm"].contiguous()
+    g = torch.randn(a.shape, generator=torch.Generator(
+        device=DEVICE).manual_seed(31), device=DEVICE)
+    e_f, e_b, bitwise, ok = check_lru_pair(torch, rg, a, b, g)
+    checks[f"(f) lru_scan against its plain versions on a rank's layer-0 "
+           f"a/bterm ({a.shape[-1]} channels), bitwise"] = ok and bitwise \
+        and a.shape[-1] == get_config("recurrentgemma-9b").rglru.lru_width \
+        // GRID["model"]
+    out["f_lru"] = dict(fwd=e_f, grad=e_b, bitwise=bitwise,
+                        shape=f"a/bterm {tuple(a.shape)} f32")
+    log(f"  (f) captured rglru layer 0: a/bterm {tuple(a.shape)}: h max "
+        f"|err| {e_f:.3e}, grads {e_b:.3e}, bitwise {bitwise}")
+    (layer, inp), = [(k, v) for k, v in cap["f"].items() if k]
+    fargs = flash_inputs(torch, inp)
+    opts = dict(window=get_config("recurrentgemma-9b").window)
+    do = torch.randn(fargs[0].shape, generator=torch.Generator(
+        device=DEVICE).manual_seed(32), device=DEVICE).to(fargs[0].dtype)
+    e_f, e_b, ok = check_flash_pair(torch, ops, fargs, opts, do)
+    checks["(f) flash kernels against their plain versions on a rank's "
+           "local-layer q/k/v"] = ok
+    out["f_flash"] = dict(fwd=e_f, grad=e_b,
+                          shape=f"layer {layer}: q {tuple(fargs[0].shape)}, "
+                                f"k/v {tuple(fargs[1].shape)} "
+                                f"{fargs[0].dtype}, window {opts['window']}")
+    log(f"  (f) captured local {out['f_flash']['shape']}: fwd max |err| "
+        f"{e_f:.3e}, grads {e_b:.3e} [{card}]")
+    return checks, out
+
+
+def _grid_runtime_checks(torch, parts, tmp, card):
+    """Path (h): plan digests, calibrator states, probe observations and
+    pool epochs equal on every rank at every step; the one-process
+    trainer on the card under the same schedule, its probes replaced by
+    the grid's gathered observations in order, pulls the grid's plans;
+    rank 0's checkpoint restores into a one-process ``Transformer`` and
+    its AdamW state, the parameters bitwise the grid's gathered ones."""
+    from repro_torch.cad import CADSession
+    from repro_torch.cad.session import plan_digest
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.models.model import Transformer
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime import ServerPool
+    from repro_torch.train.trainer import train
+    recs = [p["h"] for p in parts]
+    cfg, pipe, tc = _grid_setup("h")
+    steps = tc.steps
+    checks = {}
+    for key in ("plan_digests", "states", "probes"):
+        checks[f"(h) {key.replace('_', ' ')} equal on all {GRID_RANKS} "
+               f"ranks at every step"] = len(recs[0][key]) == steps and all(
+            r[key] == recs[0][key] for r in recs)
+    kill = int(GRID_RUNTIME["fault_schedule"].rsplit("@", 1)[1])
+    checks["(h) stored parameter and moment bytes a rank the placements' "
+           "shard sizes"] = all(_grid_stored_as_placed(r["storage"])
+                                for r in recs)
+    checks[f"(h) every rank at pool epoch 1 with 1 active server from step "
+           f"{kill} on"] = all(
+        [(s["epoch"], s["active"]) for s in r["steps"]]
+        == [(0.0, 2.0)] * kill + [(1.0, 1.0)] * (steps - kill)
+        for r in recs)
+    n = cfg.n_layers
+    for r_i, r in enumerate(recs):
+        probe = 2 if r_i % GRID["model"] == 0 else 0
+        want = {"ca_server_fwd": 2 * n + probe, "ca_server_bwd_dq": n,
+                "ca_server_bwd_dkv": n}
+        checks.setdefault(f"(h) CA launches a rank a step {n} x {{2, 1, 1}}"
+                          f", and 2 probe forwards on model index 0", True)
+        if any(s["launches"] != want for s in r["steps"]):
+            checks[f"(h) CA launches a rank a step {n} x {{2, 1, 1}}, and "
+                   f"2 probe forwards on model index 0"] = False
+    sess = CADSession.for_pipeline(cfg, pipe, calibrate=True, prefetch=0)
+    sess = sess.with_pool(ServerPool(GRID["data"],
+                                     calibrator=sess.calibrator))
+    replay = iter(recs[0]["probes"])
+
+    def replaying(plan, **kw):
+        for tasks, seconds, server in next(replay):
+            sess.calibrator.observe_tasks(tasks, seconds, server=server)
+    pulls = []
+    attach = sess.attach_plans
+
+    def recording(batches):
+        gen = attach(batches)
+        try:
+            for b in gen:
+                pulls.append(plan_digest(b["plan"]))
+                yield b
+        finally:
+            gen.close()
+    object.__setattr__(sess, "observe_probe", replaying)     # frozen
+    object.__setattr__(sess, "attach_plans", recording)
+    one = train(cfg, pipe, dataclasses.replace(
+        tc, calibrate_every=GRID_RUNTIME["calibrate_every"],
+        fault_schedule=GRID_RUNTIME["fault_schedule"]),
+        model=Transformer(cfg, device=DEVICE, seed=0), session=sess,
+        device=DEVICE)
+    checks["(h) the one-process trainer replaying the observations under "
+           "the same schedule pulls the grid's plans"] = \
+        pulls == recs[0]["plan_digests"]
+    losses = [h["loss"] for h in one["history"]]
+    del one
+    step = GRID_RUNTIME["ckpt_every"]
+    model = Transformer(cfg, device=DEVICE, seed=1)
+    got = ckpt.restore(str(tmp / "ckpt"), step, {
+        "params": model.state_dict(),
+        "opt_state": AdamW().init(list(model.parameters()))})
+    model.load_state_dict(got["params"])
+    whole = torch.load(tmp / "h_params.pt", weights_only=False)
+    bitwise = sorted(whole) == sorted(model.state_dict()) and all(
+        torch.equal(p.cpu(), whole[k]) for k, p in model.state_dict().items())
+    checks[f"(h) the step-{step} checkpoint loads into a one-process model, "
+           f"bitwise the grid's parameters gathered whole"] = bitwise \
+        and got["opt_state"].step == step + 1
+    log(f"  (h) smollm-360m {n} layers, {GRID_RUNTIME}: losses "
+        f"{[s['loss'] for s in recs[0]['steps']]!r} (one process replaying "
+        f"{losses!r}), probes a step {[len(p) for p in recs[0]['probes']]} "
+        f"observations, peaks {[round(r['peak_gib'], 2) for r in recs]} GiB "
+        f"a rank, {recs[0]['seconds']:.1f} s [{card}]")
+    del model, got, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return checks, dict(
+        losses=[s["loss"] for s in recs[0]["steps"]],
+        losses_one_process=losses,
+        launches_per_rank_step=[[s["launches"] for s in r["steps"]]
+                                for r in recs],
+        peak_gib=[r["peak_gib"] for r in recs],
+        storage=[r["storage"] for r in recs])
+
+
+def _grid_launches(cfg, path, dtype):
+    """A rank's kernel launches a step on ``path``: a CA layer's 2
+    forwards (one the remat recompute) and its 2 backwards; an SSD
+    layer's 2 forwards and its backward's kernels (bf16: the head-part
+    and fold kernels; f32: dC, dB/dx and dcsum); an rglru layer's 2 scans
+    and 1 reverse scan; a local layer's 2 flash forwards, dq and dk/dv
+    kernels and 3 tile-range prunes."""
+    kinds = [cfg.layer_pattern[i % cfg.period] for i in range(cfg.n_layers)]
+    n = {k: kinds.count(k) for k in set(kinds)}
+    if path in GRID_PALLAS:
+        want = {}
+        if "ssd" in n:
+            bwd = ("ssd_bwd_part", "ssd_bwd_fold") if dtype == "bfloat16" \
+                else ("ssd_chunk_bwd_dc", "ssd_chunk_bwd_dbx",
+                      "ssd_chunk_bwd_dcsum")
+            fwd = "ssd_fwd_mma" if dtype == "bfloat16" else "ssd_chunk_fwd"
+            want.update({fwd: 2 * n["ssd"]}, **{k: n["ssd"] for k in bwd})
+        if "rglru" in n:
+            want.update(lru_scan_fwd=2 * n["rglru"],
+                        lru_scan_bwd=n["rglru"])
+        if "local" in n:
+            want.update(flash_fwd=2 * n["local"], flash_bwd_dq=n["local"],
+                        flash_bwd_dkv=n["local"],
+                        flash_tile_ranges=3 * n["local"])
+        return want
+    return {"ca_server_fwd": 2 * cfg.n_layers,
+            "ca_server_bwd_dq": cfg.n_layers,
+            "ca_server_bwd_dkv": cfg.n_layers}
+
+
+def _grid_stored_as_placed(storage):
+    return all(storage[k] == storage[k + "_placed"]
+               for k in ("param_bytes", "moment_bytes") if k in storage)
+
+
 def _grid_checks(torch, np, parts, oracles, fwd_1p, card):
     """Phase 31's checks over the ranks' records; logs the numbers."""
     checks, runs = {}, {}
     data_pairs = [(r, r + GRID["model"]) for r in range(GRID["model"])]
     for path in GRID_TRAIN:
-        cfg, _, _ = _grid_setup(path)
-        n = cfg.n_layers
-        want = {"ca_server_fwd": 2 * n, "ca_server_bwd_dq": n,
-                "ca_server_bwd_dkv": n}
         for dtype in GRID_DTYPES:
+            cfg, _, _ = _grid_setup(path, dtype)
+            want = _grid_launches(cfg, path, dtype)
             tag = f"({path}) {GRID_PATHS[path][0]} {dtype}"
             recs = [p[path, dtype] for p in parts]
             one = oracles[path, dtype]
@@ -8107,17 +8521,21 @@ def _grid_checks(torch, np, parts, oracles, fwd_1p, card):
             checks[f"{tag}: every rank reports the same losses"] = all(
                 [s["loss"] for s in r["steps"]]
                 == [s["loss"] for s in steps] for r in recs)
-            checks[f"{tag}: plan digests equal on all {GRID_RANKS} ranks "
-                   f"at every step"] = len({tuple(r["plan_digests"])
-                                           for r in recs}) == 1 \
-                and len(steps) == len(recs[0]["plan_digests"])
-            checks[f"{tag}: the data-replicated tensors bitwise equal "
-                   f"across the data ranks after every step"] = all(
+            if path not in GRID_PALLAS:
+                checks[f"{tag}: plan digests equal on all {GRID_RANKS} "
+                       f"ranks at every step"] = len(
+                    {tuple(r["plan_digests"]) for r in recs}) == 1 \
+                    and len(steps) == len(recs[0]["plan_digests"])
+            checks[f"{tag}: the tensors every data rank holds bitwise "
+                   f"equal across the data ranks after every step"] = all(
                 [s["params"] for s in recs[a]["steps"]]
                 == [s["params"] for s in recs[b]["steps"]]
                 for a, b in data_pairs)
-            checks[f"{tag}: CA launches a rank a step {n} x {{2, 1, 1}}"] = \
+            checks[f"{tag}: launches a rank a step {want}"] = \
                 all(s["launches"] == want for r in recs for s in r["steps"])
+            checks[f"{tag}: stored parameter and moment bytes a rank the "
+                   f"placements' shard sizes"] = all(
+                _grid_stored_as_placed(r["storage"]) for r in recs)
             routing = None
             if cfg.moe:
                 # in bf16 the model ranks' partial sums round apart from
@@ -8154,7 +8572,7 @@ def _grid_checks(torch, np, parts, oracles, fwd_1p, card):
                     ggaps[0] <= GRID_F32_LIMIT
                 for name, loss in one["controls"].items():
                     gap = abs(loss - steps[0]["loss"]) / abs(steps[0]["loss"])
-                    need = name in GRID_REQUIRED_CONTROLS
+                    need = name == GRID_REQUIRED_CONTROLS[path]
                     log(f"  {tag} control, {name}: loss {loss!r}, relative "
                         f"gap to the grid's {gap!r}"
                         + (" (must exceed the limit)" if need else
@@ -8170,7 +8588,8 @@ def _grid_checks(torch, np, parts, oracles, fwd_1p, card):
                     f"{ggaps[k]!r}), step ms by rank {ms} (one process "
                     f"{1e3 * one['steps'][k]['step_s']:.1f})")
             log(f"  {tag}: peaks {[round(r['peak_gib'], 2) for r in recs]} "
-                f"GiB a rank, {recs[0]['seconds']:.1f} s [{card}]")
+                f"GiB a rank, stored {recs[0]['storage']} bytes (rank 0), "
+                f"{recs[0]['seconds']:.1f} s [{card}]")
             runs[path, dtype] = dict(
                 losses=[s["loss"] for s in steps],
                 losses_one_process=[s["loss"] for s in one["steps"]],
@@ -8178,6 +8597,7 @@ def _grid_checks(torch, np, parts, oracles, fwd_1p, card):
                 step_ms=[[1e3 * s["step_s"] for s in r["steps"]]
                          for r in recs],
                 peak_gib=[r["peak_gib"] for r in recs],
+                storage=[r["storage"] for r in recs],
                 launches_per_rank_step=[[s["launches"] for s in r["steps"]]
                                         for r in recs],
                 controls=one["controls"], routing=routing)
@@ -8233,6 +8653,9 @@ def _grid_checks(torch, np, parts, oracles, fwd_1p, card):
                                                             differ)
     checks["(d) maverick forward: plan digests equal on all ranks"] = \
         len({r["plan_digest"] for r in fwd}) == 1
+    checks["(d) maverick forward: stored parameter bytes a rank the "
+           "placements' shard sizes"] = all(
+        _grid_stored_as_placed(r["storage"]) for r in fwd)
     checks[f"(d) maverick forward: routing (expert-parallel, global) equal "
            f"to the one-process routing but at near-ties (within "
            f"{GRID_NEAR_TIE['bfloat16']})"] = ok
@@ -8247,9 +8670,11 @@ def _grid_checks(torch, np, parts, oracles, fwd_1p, card):
         f"{GRID_LOGIT_TOKENS} tokens, build "
         f"{[round(r['build_s'], 2) for r in fwd]} s, forward ms "
         f"{[round(1e3 * r['forward_s'], 1) for r in fwd]}, peaks "
-        f"{[round(r['peak_gib'], 2) for r in fwd]} GiB a rank (one process "
-        f"build {fwd_1p['build_s']:.2f} s) [{card}]")
-    runs["d"] = dict(loss=fwd[0]["loss"], loss_one_process=fwd_1p["loss"],
+        f"{[round(r['peak_gib'], 2) for r in fwd]} GiB a rank, stored "
+        f"{fwd[0]['storage']} bytes (rank 0) (one process build "
+        f"{fwd_1p['build_s']:.2f} s) [{card}]")
+    runs["d"] = dict(storage=[r["storage"] for r in fwd],
+                     loss=fwd[0]["loss"], loss_one_process=fwd_1p["loss"],
                      loss_rel_gap=gap, routing_differ=differ,
                      routing_worst_gap=worst, logit_rel_gaps=logit_gaps,
                      logit_max=logit_max, controls=controls,
@@ -8259,49 +8684,67 @@ def _grid_checks(torch, np, parts, oracles, fwd_1p, card):
     return checks, runs
 
 
-def grid_phase(torch, np, ops, card):
+def grid_phase(torch, np, ops, ssd, rg, card):
     """Phase 31: the sharding rules on a data 2 x model 2 grid of
     GRID_RANKS gloo processes on the one card (gloo stages CUDA tensors
     through the host: its times are not speed figures), bf16, seed 0,
-    each model index's data ranks a CAD group: (a) llama3-8b and (b)
+    each model index's data ranks a CAD group, every tensor stored as
+    its placement says (FSDP: split over the data ranks on its dmodel
+    dim, gathered where a layer reads it): (a) llama3-8b and (b)
     smollm-360m (15 heads padded to 16, 8 MHA heads a rank) at every
     width, 2 layers, a [1, 4096] ``prolong`` row a data rank, 2 steps of
     ``trainer.train`` under ``cad`` with remat; (c) qwen2-moe-a2.7b with
     ``expert_parallel`` (30 experts a data rank, ``d_ff_expert`` split
-    over the model ranks), 2 layers, [1, 2048] a data rank, 2 steps; each
-    then as an f32 copy, one step; (a) also on the colocated ``pallas``
-    route at the step-0 weights; (d) llama4-maverick at every width, 1
-    layer, a ``cad`` forward of [1, 2048] a data rank (64 experts a data
-    rank, 8 GB a rank in bf16).  Each against the one-process trainer (or
+    over the model ranks), 2 layers, [1, 2048] a data rank, 2 steps; (e)
+    mamba2-370m at every width, 2 layers, and (f) recurrentgemma-9b at
+    every width, 3 layers (rglru, rglru, local), [1, 4096] a data rank,
+    2 steps each on the ``pallas`` route of a sessionless grid (the SSD
+    kernels at full width on every model rank; lru_scan on this rank's
+    2048 channels, flash on its 8 heads of 256); (g) whisper-large-v3 at
+    every width, 2 encoder and 2 decoder layers, a memory of 1500 frames,
+    [1, 4096] a data rank, 2 ``cad`` steps; each then as an f32 copy, one
+    step ((f) at 2 layers); (a) also on the colocated ``pallas`` route at
+    the step-0 weights; (d) llama4-maverick at every width, 1 layer, a
+    ``cad`` forward of [1, 2048] a data rank (64 experts a data rank, 8
+    GB a rank in bf16); (h) smollm-360m, 4 layers, 4 ``cad`` steps under
+    GRID_RUNTIME (a probe a step, server 1 killed before step 2, a
+    checkpoint after it).  Each against the one-process trainer (or
     forward) on the card on the same weights and batches, run before the
     spawn and freed (maverick's 32 GB first).  Checked: the f32 copies'
-    step-0 loss and grad norm within GRID_F32_LIMIT (the "no causal
-    mask" control outside it), the bf16 gaps logged; (d)'s loss and every
-    rank's logit slice within GRID_D_LOSS_LIMIT and GRID_D_LOGIT_LIMIT
-    (the "return exchange reversed" control outside them); the expert-
-    parallel routing equal to the one-process routing but at near-ties
-    (GRID_NEAR_TIE); the tensors every
-    data rank holds bitwise equal across the data ranks after every
-    step; plan digests equal on all ranks; CA launches a rank a step
-    layers x {2, 1, 1} (flash's on the colocated route); then the CA
-    kernels against their plain versions on (a)'s and (b)'s captured
-    server batches at the grid's per-rank shapes, and timed beside SDPA
-    and their bound.  The kernel libraries are built before the spawn:
-    the ranks load them."""
+    step-0 loss and grad norm within GRID_F32_LIMIT (each path's
+    GRID_REQUIRED_CONTROLS outside it), the bf16 gaps logged; (d)'s loss
+    and every rank's logit slice within GRID_D_LOSS_LIMIT and
+    GRID_D_LOGIT_LIMIT (the "return exchange reversed" control outside
+    them); the expert-parallel routing equal to the one-process routing
+    but at near-ties (GRID_NEAR_TIE); the tensors every data rank holds
+    bitwise equal across them after every step; plan digests
+    equal on all ranks; each path's launches a rank a step; each rank's
+    stored parameter and moment bytes the placements' shard sizes; (h)'s
+    plans, calibrator states and pool epochs equal on every rank, the
+    one-process trainer replaying its observations pulling its plans, its
+    checkpoint loading into one process bitwise; then the CA kernels
+    against their plain versions on (a)'s, (b)'s and (g)'s captured
+    server batches at the grid's per-rank shapes, timed beside SDPA and
+    their bound, and the SSD, lru_scan and flash kernels on (e)'s and
+    (f)'s captured inputs.  The kernel libraries are built before the
+    spawn: the ranks load them."""
     import shutil
     import tempfile
     import torch.multiprocessing as mp
     t_phase = time.perf_counter()
     log(f"phase 31: a data {GRID['data']} x model {GRID['model']} grid of "
-        f"gloo ranks on the card: (a) llama3-8b, (b) smollm-360m, (c) "
-        f"qwen2-moe-a2.7b (expert parallel) trained, (d) "
-        f"llama4-maverick-400b-a17b forward")
+        f"gloo ranks on the card, FSDP storage: (a) llama3-8b, (b) "
+        f"smollm-360m, (c) qwen2-moe-a2.7b (expert parallel), (e) "
+        f"mamba2-370m, (f) recurrentgemma-9b, (g) whisper-large-v3 "
+        f"trained, (d) llama4-maverick-400b-a17b forward, (h) smollm-360m "
+        f"under {GRID_RUNTIME}")
     t0 = time.perf_counter()
     fwd_1p = _grid_one_process_forward(torch, ops)
     oracles = {(path, dtype): _grid_one_process(torch, ops, path, dtype)
                for path in GRID_TRAIN for dtype in GRID_DTYPES}
     oracle_s = time.perf_counter() - t0
-    ops.reset_launches()
+    for m in (ops, ssd, rg):
+        m.reset_launches()
     gc.collect()
     torch.cuda.empty_cache()
     live = sorted(((o.untyped_storage().nbytes(), tuple(o.shape))
@@ -8321,20 +8764,26 @@ def grid_phase(torch, np, ops, card):
     os.environ[GRID_ALLOC_ENV] = "expandable_segments:True"
     try:
         mp.spawn(_grid_rank, args=(str(tmp),), nprocs=GRID_RANKS, join=True)
+        spawn_s = time.perf_counter() - t0
         parts = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
                  for r in range(GRID_RANKS)]
         captured = {path: _grid_capture(torch, tmp / f"capture_{path}")
                     for path in GRID_TIMED}
+        pallas_checks, pallas = _grid_pallas_kernels(torch, ops, ssd, rg,
+                                                     tmp, card)
+        rt_checks, runtime = _grid_runtime_checks(torch, parts, tmp, card)
     finally:
         if alloc is None:
             os.environ.pop(GRID_ALLOC_ENV)
         else:
             os.environ[GRID_ALLOC_ENV] = alloc
         shutil.rmtree(tmp, ignore_errors=True)
-    spawn_s = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
     checks, runs = _grid_checks(torch, np, parts, oracles, fwd_1p, card)
+    checks.update(pallas_checks)
+    checks.update(rt_checks)
+    runs["h"] = runtime
     timed = {}
     for path, rows in GRID_TIMED.items():
         batches = captured_batches(torch, {0: captured[path]})
@@ -8363,34 +8812,66 @@ def grid_phase(torch, np, ops, card):
     failed = [n for n, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"phase 31: failed: {failed}")
-    return dict(checks=checks, runs=runs, timed=timed,
+    return dict(checks=checks, runs=runs, timed=timed, pallas=pallas,
                 colocated=[p["a", "bfloat16"]["colocated"] for p in parts],
                 oracle_s=oracle_s, spawn_s=spawn_s, seconds=seconds,
                 note="gloo stages CUDA tensors through the host: times "
                      "are not speed figures")
 
 
-def _record_grid(ca_fwd, ca_bwd, fl_fwd, fl_bwd, res):
-    """Phase 31's launches, checks and per-rank-shape CA times into the
-    kernels' JSON entries."""
+def _record_grid(ca_fwd, ca_bwd, fl_fwd, fl_bwd, ssd_fm, ssd_bm, ssd_f,
+                 ssd_b, lru_f, lru_b, res):
+    """Phase 31's launches, checks and per-rank-shape kernel times and
+    errors into the kernels' JSON entries."""
     runs = {"_".join(k) if isinstance(k, tuple) else k: v
             for k, v in res["runs"].items()}
     common = {k: res[k] for k in ("checks", "oracle_s", "spawn_s",
                                   "seconds", "note")}
+
+    def per_rank_step(*names):
+        """{run: [[the named kernels' launches a step] a rank]} over the
+        runs that launch them."""
+        return {k: [[sum(s.get(n, 0) for n in names) for s in r]
+                    for r in v["launches_per_rank_step"]]
+                for k, v in runs.items() if "launches_per_rank_step" in v
+                and any(n in s for r in v["launches_per_rank_step"]
+                        for s in r for n in names)}
     ca_fwd["grid_phase31"] = dict(
-        launches_per_rank_step={k: [[s["ca_server_fwd"] for s in r]
-                                    for r in v["launches_per_rank_step"]]
-                                for k, v in runs.items() if k != "d"},
+        launches_per_rank_step=per_rank_step("ca_server_fwd"),
         launches_maverick_forward=[x["ca_server_fwd"]
                                    for x in runs["d"]["launches"]],
         runs=runs, **common)
     ca_bwd["grid_phase31"] = dict(
-        launches_dq_per_rank_step={k: [[s["ca_server_bwd_dq"] for s in r]
-                                       for r in v["launches_per_rank_step"]]
-                                   for k, v in runs.items() if k != "d"},
-        launches_dkv_per_rank_step={k: [[s["ca_server_bwd_dkv"] for s in r]
-                                        for r in v["launches_per_rank_step"]]
-                                    for k, v in runs.items() if k != "d"})
+        launches_dq_per_rank_step=per_rank_step("ca_server_bwd_dq"),
+        launches_dkv_per_rank_step=per_rank_step("ca_server_bwd_dkv"))
+    pallas = res["pallas"]
+    ssd_fm["grid_phase31"] = dict(
+        launches_per_rank_step=per_rank_step("ssd_fwd_mma"),
+        captured_max_abs_err=pallas["e"]["fwd"], shape=pallas["e"]["shape"])
+    ssd_bm["grid_phase31"] = dict(
+        launches_per_rank_step=per_rank_step("ssd_bwd_part",
+                                             "ssd_bwd_fold"),
+        captured_max_abs_err=pallas["e"]["grad"])
+    ssd_f["grid_phase31"] = dict(
+        launches_per_rank_step=per_rank_step("ssd_chunk_fwd"))
+    ssd_b["grid_phase31"] = dict(
+        launches_per_rank_step=per_rank_step(
+            "ssd_chunk_bwd_dc", "ssd_chunk_bwd_dbx", "ssd_chunk_bwd_dcsum"))
+    lru_f["grid_phase31"] = dict(
+        launches_per_rank_step=per_rank_step("lru_scan_fwd"),
+        captured_max_abs_err=pallas["f_lru"]["fwd"],
+        bitwise=pallas["f_lru"]["bitwise"], shape=pallas["f_lru"]["shape"])
+    lru_b["grid_phase31"] = dict(
+        launches_per_rank_step=per_rank_step("lru_scan_bwd"),
+        captured_max_abs_err=pallas["f_lru"]["grad"])
+    fl_fwd["grid_recurrentgemma_local"] = dict(
+        launches_per_rank_step=per_rank_step("flash_fwd"),
+        captured_max_abs_err=pallas["f_flash"]["fwd"],
+        shape=pallas["f_flash"]["shape"])
+    fl_bwd["grid_recurrentgemma_local"] = dict(
+        launches_per_rank_step=per_rank_step("flash_bwd_dq",
+                                             "flash_bwd_dkv"),
+        captured_max_abs_err=pallas["f_flash"]["grad"])
     for path, t in res["timed"].items():
         tot, (f_bound, b_bound) = t["times"], t["bounds"]
         key = f"grid_{GRID_PATHS[path][0].replace('-', '_')}"
@@ -8700,8 +9181,9 @@ def main(argv=None) -> int:
         _record_rank_runtime(ca_fwd, ca_bwd,
                              rank_runtime_phase(torch, np, ops, card))
     elif args.only == "grid":
-        _record_grid(ca_fwd, ca_bwd, fl_fwd, fl_bwd,
-                     grid_phase(torch, np, ops, card))
+        _record_grid(ca_fwd, ca_bwd, fl_fwd, fl_bwd, ssd_fm, ssd_bm, ssd_f,
+                     ssd_b, lru_f, lru_b,
+                     grid_phase(torch, np, ops, ssd, rg, card))
     elif args.only != "kernels":
         engine, launches, captured_err = serve_full_width(torch, np, ops,
                                                           launch)
@@ -9072,8 +9554,9 @@ def main(argv=None) -> int:
                              rank_runtime_phase(torch, np, ops, card))
         gc.collect()
         torch.cuda.empty_cache()
-        _record_grid(ca_fwd, ca_bwd, fl_fwd, fl_bwd,
-                     grid_phase(torch, np, ops, card))
+        _record_grid(ca_fwd, ca_bwd, fl_fwd, fl_bwd, ssd_fm, ssd_bm, ssd_f,
+                     ssd_b, lru_f, lru_b,
+                     grid_phase(torch, np, ops, ssd, rg, card))
     log(json.dumps({"kernels": [kernel, ca_fwd, ca_bwd, ca_rng, ca_glse,
                                 fl_fwd, fl_bwd, fl_rng, ssd_fm, ssd_bm,
                                 ssd_f, ssd_b, lru_f, lru_b]}))

@@ -41,6 +41,13 @@ observations in the same order; the trainer applies the fault schedule's
 membership events on every rank at the same step; and a prefetched plan
 whose calibration version is not the current one is re-planned at pull
 (``_plan_stale``).
+
+On a ``("data", "model")`` grid (``for_pipeline(..., grid=g)``) the CAD
+group is the model index's data ranks, and every model index plans the
+same steps: the model index 0 ranks time their servers and gather the
+timings over their data group, and the gathered list is broadcast over
+each data index's model group (``_gathered``), so all ``data x model``
+calibrators take the same observations in the same order.
 """
 from __future__ import annotations
 
@@ -276,12 +283,26 @@ class CADSession:
 
     def _gathered(self, mine: list) -> list:
         """Under a group: every rank's ``mine`` concatenated in rank
-        order (a collective, on the thread that runs the step)."""
+        order (a collective, on the thread that runs the step).  On a
+        grid, the model index 0 data group's list on every rank: theirs
+        gathered, then broadcast over each model group (the other model
+        indices' ``mine`` is not read)."""
         if self.group is None:
             return mine
         got = [None] * dist.get_world_size(self.group)
-        dist.all_gather_object(got, mine, group=self.group)
+        if self._probing():
+            dist.all_gather_object(got, mine, group=self.group)
+        if self.grid is not None:
+            mg = self.grid.model_group
+            dist.broadcast_object_list(got, dist.get_global_rank(mg, 0),
+                                       group=mg)
         return [x for part in got for x in part]
+
+    def _probing(self) -> bool:
+        """Whether this rank times probes: all but a grid's model index
+        above 0, whose data index's model index 0 rank times its
+        server."""
+        return self.grid is None or self.grid.model_index == 0
 
     def observe(self, q_tokens: int, kv_tokens: int, seconds: float,
                 server: Optional[int] = None) -> None:
@@ -349,7 +370,10 @@ class CADSession:
         a collective: each rank times its own server's batch in its turn,
         the ranks' triples are gathered (on this thread, never the
         prefetch worker), and every rank feeds all of them in server
-        order, so every rank's calibrator holds the same state."""
+        order, so every rank's calibrator holds the same state.  On a
+        grid the probe keeps the reference's shape (the ``CommModel``'s
+        full heads) and the model index 0 ranks alone run it
+        (``_gathered`` hands every rank their triples)."""
         if self.calibrator is None:
             return
         comm = self.comm or CommModel(1, 1, 1)
@@ -363,11 +387,12 @@ class CADSession:
                 else dataclasses.replace(self.cfg, nb=nb)
             cad = CADContext(cfg=cfg, jmax=self.jmax, mask=self.mask)
             label = "probe" if len(plans) == 1 else f"probe/half{i}"
-            for s, tasks, seconds in self._gathered(probe_plan_times(
-                    cad, p, n_heads=comm.n_heads, head_dim=comm.head_dim,
-                    n_kv_heads=comm.n_kv_heads, dtype=dtype, seed=seed,
-                    repeats=repeats, trace_label=label, device=device,
-                    group=self.group)):
+            mine = probe_plan_times(
+                cad, p, n_heads=comm.n_heads, head_dim=comm.head_dim,
+                n_kv_heads=comm.n_kv_heads, dtype=dtype, seed=seed,
+                repeats=repeats, trace_label=label, device=device,
+                group=self.group) if self._probing() else []
+            for s, tasks, seconds in self._gathered(mine):
                 self.calibrator.observe_tasks(tasks, seconds, server=s)
 
     # ----------------------------------------------------------- planning

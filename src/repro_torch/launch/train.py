@@ -69,24 +69,37 @@ each model index's ``--ranks`` ranks are a CAD group, and the M ranks of
 a data index split the heads, FFN columns, expert width, vocabulary and
 residual sequence between them (tensor parallelism, the reference's
 ``"model"`` axis), an expert-parallel arch's experts split over the data
-ranks::
+ranks, and every other tensor's ``dmodel`` dim over the data ranks (FSDP
+storage, gathered where a layer reads it)::
 
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch smollm-360m-reduced --steps 3 --seq 256 --batch 4 --ranks 2 \
       --model-axis 2 --cad --device cpu
 
-With M > 1, --calibrate, --fault-schedule and --ckpt-every raise
-(ROADMAP queue 1 item 12), as do ssd, rglru, cross and enc layers.
+Every layer kind splits: ssd (mamba2-370m; attention-free, so the grid
+trains without --cad, colocated), rglru (recurrentgemma-9b), and the
+cross-attention and encoder layers (whisper-large-v3,
+llama-3.2-vision-11b).  --calibrate, --fault-schedule and --ckpt-every
+work on a grid as under a group: the model index 0 ranks probe, every
+rank applies the membership events at the same step, and rank 0 writes
+each checkpoint whole, in one process's layout.  Without --cad a grid
+trains colocated (``xla``).
+
+An arch that reads a memory (whisper-large-v3, llama-3.2-vision-11b) is
+given a stub one, seeded as the weights are: frame or patch embeddings of
+``encoder.n_ctx`` rows a batch row (``stub_memory``).
 """
 import argparse
 import json
 import os
 
+import torch
+
 from repro_torch.cad import CADSession, available_policies
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import PipelineConfig
 from repro_torch.launch import mesh
-from repro_torch.models.model import resolve_device
+from repro_torch.models.model import needs_memory, resolve_device
 from repro_torch.obs import enable_tracing, get_recorder, get_registry
 from repro_torch.parallel import ParallelContext
 from repro_torch.train.trainer import TrainConfig, train
@@ -178,9 +191,10 @@ def _join(args):
             raise SystemExit("--model-axis needs a process a rank: run "
                              "under torchrun")
         return None, resolve_device(args.device)
-    if not args.cad:
-        raise SystemExit("under torchrun the launcher trains with --cad: "
-                         "the ranks are the attention servers")
+    if not args.cad and args.model_axis == 1:
+        raise SystemExit("under torchrun the launcher trains with --cad "
+                         "(the ranks are the attention servers) or on a "
+                         "grid (--model-axis > 1)")
     world = int(os.environ["WORLD_SIZE"])
     if args.ranks * args.model_axis != world:
         raise SystemExit(f"--ranks {args.ranks} x --model-axis "
@@ -191,6 +205,18 @@ def _join(args):
     else:
         info = mesh.join_group(dev)
     return info, info.device
+
+
+def stub_memory(cfg, rows: int, seed: int) -> torch.Tensor:
+    """A seeded memory ``[rows, encoder.n_ctx, d_model]`` f32 on the CPU:
+    0.02 x (a normal vector each row's frames share + a normal vector
+    each frame), the frame or patch embeddings an arch with
+    cross-attention reads in place of real audio or images."""
+    gen = torch.Generator().manual_seed(seed)
+    shared = torch.randn((rows, 1, cfg.d_model), generator=gen)
+    frames = torch.randn((rows, cfg.encoder.n_ctx, cfg.d_model),
+                         generator=gen)
+    return (shared + frames) * 0.02
 
 
 def main(argv=None):
@@ -241,9 +267,10 @@ def _main(args, info, device):
                   "--stream-chunk/--fault-schedule only apply to the CAD "
                   "attention service — ignored")
         ctx = ParallelContext(attn_impl="xla", remat=True)
-        if info is not None:
+        if info is not None and grid is None:
             raise SystemExit(f"{cfg.arch_id} has no attention for the "
-                             f"ranks to serve: no CAD group to train in")
+                             f"ranks to serve: no CAD group to train in "
+                             f"(a grid, --model-axis > 1, trains it)")
     tc = TrainConfig(steps=args.steps, peak_lr=args.lr,
                      warmup=max(1, args.steps // 10),
                      log_every=max(1, args.steps // 20),
@@ -254,7 +281,10 @@ def _main(args, info, device):
                      if session is not None else "",
                      ckpt_dir=args.ckpt_dir,
                      speculate_pct=args.speculate_pct)
-    res = train(cfg, pipe, tc, ctx=ctx, session=session, device=device)
+    memory = stub_memory(cfg, args.batch, tc.seed) \
+        if needs_memory(cfg) else None
+    res = train(cfg, pipe, tc, ctx=ctx, session=session, device=device,
+                grid=None if session is not None else grid, memory=memory)
     h = res["history"]
     if not lead:
         return res

@@ -16,11 +16,12 @@ transposed, here or in the hot path.
 reference's AdamW decays, a rule it states on the stacked layout.
 
 ``shard_params`` cuts a state_dict into one grid rank's shards as
-``parallel.param_placements`` places them (less the FSDP data axes,
-``parallel.stored_axes``), ``gather_params`` puts the ranks' shards back
-together, and ``shard_model`` cuts a ``Transformer``'s own parameters in
-place: how a grid rank gets its weights, and how tests hold a grid
-against one process.
+``parallel.param_placements`` places them (the FSDP data axes included),
+``gather_params`` puts the ranks' shards back together, and
+``shard_model`` cuts a ``Transformer``'s own parameters in place: how a
+grid rank gets its weights, and how tests hold a grid against one
+process.  ``gather_shard`` is the collective form of ``gather_params``
+for one tensor, on the grid's ranks (a checkpoint, a digest).
 """
 from __future__ import annotations
 
@@ -30,8 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import check_arch, has_encoder
-from repro_torch.parallel import (make_rules, param_placements,
-                                  stored_axes)
+from repro_torch.parallel import make_rules, param_placements
 
 
 def _tensor(x, dtype) -> torch.Tensor:
@@ -138,10 +138,17 @@ def _cut(t: torch.Tensor, axes, coords: Mapping[str, int],
 def grid_placements(cfg, params: Mapping, sizes: Mapping[str, int]) \
         -> Dict[str, Tuple]:
     """Per tensor, the axes it is stored split over on a grid of axis
-    ``sizes``: ``param_placements`` under ``make_rules``, less the FSDP
-    data axes."""
-    placed = param_placements(cfg, params, make_rules(sizes, cfg), sizes)
-    return {k: stored_axes(k, a) for k, a in placed.items()}
+    ``sizes``: ``param_placements`` under ``make_rules``."""
+    return param_placements(cfg, params, make_rules(sizes, cfg), sizes)
+
+
+def shard_shape(shape, axes, sizes: Mapping[str, int]) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a tensor of ``shape`` placed by
+    ``axes`` on a grid of axis ``sizes``."""
+    out = list(shape)
+    for i, n in _split_dims(axes):
+        out[i] //= sizes[n]
+    return tuple(out)
 
 
 def shard_params(full: Mapping[str, torch.Tensor], placements: Mapping,
@@ -182,3 +189,16 @@ def shard_model(model, sizes: Mapping[str, int],
         p.data = _cut(p.data, placed[name], coords, sizes).clone()
     model.grid_placements = placed
     return placed
+
+
+def gather_shard(t: torch.Tensor, axes, groups: Mapping[str, object]) \
+        -> torch.Tensor:
+    """The whole tensor from every rank's shard ``t`` (placed by
+    ``axes``), all-gathered over ``groups[axis]`` for each split axis in
+    the reverse of ``_cut``'s order; a collective (no gradient).  With
+    ``groups`` naming only ``"data"``, the model shard."""
+    from repro_torch.models.sharded import all_gather
+    for i, n in reversed(_split_dims(axes)):
+        if n in groups:
+            t = all_gather(t, groups[n], dim=i)
+    return t

@@ -13,11 +13,15 @@ applied as ``h @ W``.  ``*_init`` returns an ``nn.ParameterDict`` of
 trainable weights; ``*_apply`` takes that or any mapping of tensors, so a
 test can hand in plain tensors.  On one card the reference's sharding
 constraints (``ctx.cons``) are no-ops and are left out; on a ``("data",
-"model")`` grid (``ctx.tp``) the attention, FFN and MoE layers take the
-residual's sequence shard, gather the sequence over the model ranks, work
-on this rank's heads, FFN columns or expert width, and reduce-scatter
-their partial outputs (``models.sharded``), and the MoE routes over the
-data ranks (expert parallelism) where the config asks for it.
+"model")`` grid (``ctx.tp``) every layer takes the residual's sequence
+shard and gathers the sequence over the model ranks: the attention, FFN,
+MoE and RG-LRU layers work on this rank's heads, FFN columns, expert
+width or recurrence channels and reduce-scatter their partial outputs
+(``models.sharded``), the MoE routes over the data ranks (expert
+parallelism) where the config asks for it, the SSD mixer (replicated over
+``"model"`` by the reference's rules) runs whole on every model rank and
+keeps its shard of the output, and cross-attention attends this rank's
+query shard to the whole memory.
 """
 from __future__ import annotations
 
@@ -227,20 +231,28 @@ def cross_attn_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, batch,
     row, whatever its document: the queries take segment ``seg_q > 0``,
     the memory segment 1 (or ``memory_mask``), every memory position is
     0, and the attention is non-causal without softcap.  Padding queries
-    (segment 0) attend nothing."""
+    (segment 0) attend nothing.  On a grid (``ctx.tp``) ``h`` is the
+    residual's sequence shard and the cross weights are whole on every
+    model rank (the reference's rules replicate them over ``"model"``):
+    the rank's queries, with its shard of ``segment_ids`` and
+    ``positions``, attend the whole memory, and the output is its shard
+    already."""
     b, s, _ = h.shape
     dh = cfg.head_dim
     mem = batch["memory"]
     m = mem.shape[1]
+    seg_q, pos_q = batch["segment_ids"], batch["positions"]
+    if getattr(ctx, "tp", False):
+        seg_q, pos_q = S.own_seq(seg_q, ctx), S.own_seq(pos_q, ctx)
     q = (h @ p["xwq"]).reshape(b, s, cfg.n_heads, dh)
     k = (mem @ p["xwk"]).reshape(b, m, cfg.n_kv_heads, dh)
     v = (mem @ p["xwv"]).reshape(b, m, cfg.n_kv_heads, dh)
     mem_mask = batch.get("memory_mask")
     seg_kv = (torch.ones((b, m), dtype=torch.int32, device=h.device)
               if mem_mask is None else mem_mask.to(torch.int32))
-    seg_q_x = (batch["segment_ids"] > 0).to(torch.int32)
+    seg_q_x = (seg_q > 0).to(torch.int32)
     pos_kv = torch.zeros((b, m), dtype=torch.int32, device=h.device)
-    out = core_attention(q, k, v, seg_q_x, batch["positions"], seg_kv,
+    out = core_attention(q, k, v, seg_q_x, pos_q, seg_kv,
                          pos_kv, causal=False, window=0, softcap=0.0,
                          ctx=ctx)
     return cross_gate(p, out.reshape(b, s, cfg.n_heads * dh) @ p["xwo"])
@@ -588,7 +600,19 @@ def ssd_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, batch, cfg,
     """Mamba-2 SSD block (chunked scan), packed-document aware: the decay
     is zeroed at document starts so state never crosses documents.
     ``hook``, if given, is called with the intra-chunk step's arguments
-    (see ``_ssd_chunked``)."""
+    (see ``_ssd_chunked``).  On a grid (``ctx.tp``) ``h`` is the
+    residual's sequence shard: the sequence is gathered over the model
+    ranks, the whole mixer runs on every model rank (the reference keeps
+    ``in_proj`` and ``out_proj`` replicated over ``"model"``) and this
+    rank's shard of the output is returned."""
+    tp = getattr(ctx, "tp", False)
+    if tp:
+        h = S.seq_gather(h, ctx.model_group)
+    out = _ssd_mixer(p, h, batch, cfg, ctx, hook)
+    return S.own_seq(out, ctx) if tp else out
+
+
+def _ssd_mixer(p, h, batch, cfg, ctx, hook):
     s = cfg.ssm
     b, S, _ = h.shape
     seg = batch["segment_ids"]
@@ -709,22 +733,51 @@ def rglru_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, batch, cfg,
                 ctx, hook=None) -> torch.Tensor:
     """Griffin RG-LRU temporal-mixing block with document resets.
     ``hook``, if given, is called with the scan's arguments (see
-    ``_rglru_scan``)."""
-    b, S, _ = h.shape
+    ``_rglru_scan``).
+
+    On a grid (``ctx.tp``) ``h`` is the residual's sequence shard and the
+    sequence is gathered over the model ranks.  The recurrence is per
+    channel, so where the ``ffn`` rule splits the width W (the
+    reference's rules put ``w_x``, ``w_gate_br`` and the gates' columns
+    and ``w_out``'s rows there) each rank runs W/M channels: its columns
+    of ``w_x`` and ``w_gate_br``, its slice of the replicated ``conv_w``,
+    ``conv_b`` and ``lru_a``; the gates read x over all W, gathered along
+    the channels, against this rank's gate columns; and ``w_out``'s
+    partial sums are reduce-scattered.  Otherwise the whole block runs on
+    every model rank and this rank's shard of the output is returned."""
+    tp = getattr(ctx, "tp", False)
+    split = tp and ctx.rules.ffn is not None
+    if tp:
+        h = S.seq_gather(h, ctx.model_group)
     seg = batch["segment_ids"]
     first = torch.cat([torch.ones_like(seg[:, :1], dtype=torch.bool),
                        seg[:, 1:] != seg[:, :-1]], dim=1)
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    if split:
+        w_loc = (cfg.rglru.lru_width or cfg.d_model) // ctx.model_size
+        cols = slice(S.model_rank(ctx) * w_loc,
+                     (S.model_rank(ctx) + 1) * w_loc)
+        conv_w, conv_b = conv_w[:, cols], conv_b[cols]
+        p = dict(p, lru_a=p["lru_a"][cols])
     gate_br = F.gelu(h @ p["w_gate_br"], approximate="tanh")
     x = h @ p["w_x"]
-    x, _ = _causal_conv(x, p["conv_w"], p["conv_b"], first=first)
-    y = _rglru_scan(p, x, first, ctx=ctx, hook=hook)
+    x, _ = _causal_conv(x, conv_w, conv_b, first=first)
+    xg = S.seq_gather(x, ctx.model_group, dim=-1) if split else x
+    y = _rglru_scan(p, x, first, ctx=ctx, hook=hook, xg=xg)
     y = y * gate_br
-    return y @ p["w_out"]
+    out = y @ p["w_out"]
+    if split:
+        return S.seq_scatter(out, ctx.model_group)
+    return S.own_seq(out, ctx) if tp else out
 
 
-def _rglru_gates(p: Mapping[str, torch.Tensor], x: torch.Tensor):
-    rg = torch.sigmoid(x @ p["w_rec_gate"]).float()
-    ig = torch.sigmoid(x @ p["w_input_gate"]).float()
+def _rglru_gates(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                 xg: Optional[torch.Tensor] = None):
+    """The decay's log and the input gate from the gates' input ``xg``
+    (default ``x``: every channel the gate weights' rows read)."""
+    xg = x if xg is None else xg
+    rg = torch.sigmoid(xg @ p["w_rec_gate"]).float()
+    ig = torch.sigmoid(xg @ p["w_input_gate"]).float()
     log_a0 = F.logsigmoid(p["lru_a"].float())
     log_a = _LRU_C * rg * log_a0                       # [B,S,W] (<= 0)
     return log_a, ig
@@ -736,15 +789,16 @@ def _clip01(x: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
 
 
-def _rglru_scan(p, x, first, ctx=None, hook=None):
+def _rglru_scan(p, x, first, ctx=None, hook=None, xg=None):
     """h_t = a_t h_{t-1} + sqrt(1-a_t^2) (i_t x_t), a_t = 0 at document
-    starts; returns h in x's dtype.  ``ctx.attn_impl == "pallas"`` with
+    starts (the gates from ``xg``, default x); returns h in x's dtype.
+    ``ctx.attn_impl == "pallas"`` with
     the channel and sequence lengths multiples of 128 (the reference's
     condition) runs the recurrence in the CUDA kernels (``lru_scan``),
     after calling ``hook``, if given, with its f32 arguments ``a`` and
     ``bterm``; every other case runs the plain forward under autograd
     (the reference's ``associative_scan`` route)."""
-    log_a, ig = _rglru_gates(p, x)
+    log_a, ig = _rglru_gates(p, x, xg)
     log_a = torch.where(first[..., None], -1e30, log_a)
     a = torch.exp(log_a)
     beta = torch.sqrt(_clip01(1.0 - torch.exp(2.0 * log_a)))

@@ -44,7 +44,7 @@ from repro_torch.data.packing import BLOCK as SERVE_BLOCK
 from repro_torch.kernels.packed_flash import ops as pf_ops
 from repro_torch.models import layers as L
 from repro_torch.models import sharded as S
-from repro_torch.parallel import ParallelContext
+from repro_torch.parallel import ParallelContext, make_rules
 
 _ATTN_KINDS = ("global", "local")
 
@@ -83,25 +83,27 @@ def check_arch(cfg) -> None:
         raise NotImplementedError(f"{cfg.arch_id}: qk_norm is not ported")
 
 
-# the item of ROADMAP.md that lists what the model axis does not yet split
-GRID_ITEM = "ROADMAP queue 1 item 12"
-
-
-def check_grid(cfg, model_size: int, seq: int) -> None:
+def check_grid(cfg, model_size: int, seq: int, memory: int = 0) -> None:
     """Raise ``ValueError`` for what a model axis of ``model_size`` ranks
-    cannot split yet: ``ssd``, ``rglru``, ``cross`` and ``enc`` layers, and
-    a sequence the axis does not divide (the residual's shards)."""
+    cannot split: a sequence the axis does not divide (the residual's
+    shards), an encoder's memory of ``memory`` rows that it does not
+    divide (the encoder's residual shards), and an RG-LRU width that the
+    ``ffn`` rule would split but the axis does not divide."""
     if model_size <= 1:
         return
-    kinds = set(cfg.layer_pattern) - set(_ATTN_KINDS)
-    if has_encoder(cfg):
-        kinds.add("enc")
-    if kinds:
-        raise ValueError(f"{cfg.arch_id}: {sorted(kinds)} layers do not "
-                         f"split over a model axis yet ({GRID_ITEM})")
     if seq % model_size:
         raise ValueError(f"a sequence of {seq} tokens does not split over "
                          f"{model_size} model ranks")
+    if has_encoder(cfg) and memory % model_size:
+        raise ValueError(f"{cfg.arch_id}: a memory of {memory} rows does "
+                         f"not split over {model_size} encoder model ranks")
+    if "rglru" in cfg.layer_pattern \
+            and make_rules({"model": model_size}, cfg).ffn is not None:
+        width = cfg.rglru.lru_width or cfg.d_model
+        if width % model_size:
+            raise ValueError(f"{cfg.arch_id}: an RG-LRU width of {width} "
+                             f"does not split over {model_size} model "
+                             f"ranks")
 
 
 def fused_prefill_ok(cfg) -> bool:
@@ -199,6 +201,8 @@ class Transformer(nn.Module):
                 for _ in range(cfg.encoder.n_layers))
             self.enc_final_norm = L.norm_init(cfg.d_model, dt, cfg.norm,
                                               device)
+        # module and parameter names by id, for ``_read`` on a grid
+        self._names: Optional[Dict[int, str]] = None
         # inspection hook: called as attn_hook(layer, inputs) with each
         # sequence mixer's inputs just before its kernel call (serving: the
         # kernel's arguments; training attention: q, k, v, segment_ids,
@@ -212,15 +216,32 @@ class Transformer(nn.Module):
         return self.embed.device
 
     # ------------------------------------------------------ embed/unembed
-    def _embed(self, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
-        """The token embedding.  On a grid (``ctx.tp``) it returns the
-        residual's sequence shard: with the vocabulary split over the
-        model ranks (the ``vocab`` rule) each rank looks up the tokens of
-        its rows of the table (others read zero) and the sums are
-        reduce-scattered; with a replicated table each rank looks up its
-        own tokens."""
+    def _read(self, module, ctx):
+        """``module`` (a block, a ``ParameterDict`` or a ``Parameter`` of
+        this model) as the training path reads it: on a grid its FSDP
+        shards gathered over the data ranks (``sharded.read_weights`` by
+        ``grid_placements``, under the module's name), else itself."""
+        placed = getattr(self, "grid_placements", None)
+        if placed is None:
+            return module
+        if id(module) not in (self._names or {}):
+            # (re)built: ``to_empty`` and the like swap parameter objects
+            self._names = {id(m): n for n, m in self.named_modules()}
+            self._names.update({id(p): n for n, p in
+                                self.named_parameters()})
+        return S.read_weights(module, self._names[id(module)], placed,
+                              ctx.group)
+
+    def _embed(self, tokens: torch.Tensor, ctx=None,
+               table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The token embedding from ``table`` (default: ``self.embed``).
+        On a grid (``ctx.tp``) it returns the residual's sequence shard:
+        with the vocabulary split over the model ranks (the ``vocab``
+        rule) each rank looks up the tokens of its rows of the table
+        (others read zero) and the sums are reduce-scattered; with a
+        replicated table each rank looks up its own tokens."""
         cfg = self.cfg
-        table = self.embed
+        table = self.embed if table is None else table
         tp = getattr(ctx, "tp", False)
         if tp and ctx.rules.vocab is not None:
             start = S.model_rank(ctx) * table.shape[0]
@@ -241,14 +262,17 @@ class Transformer(nn.Module):
                                  device=h.device)
         return h
 
-    def _unembed(self, h: torch.Tensor, ctx=None) -> torch.Tensor:
-        """Logits f32.  On a grid whose ``vocab`` rule splits the table,
-        the whole sequence (gathered) against this rank's rows: ``[B, S,
-        V/M]``; with a replicated table, this rank's sequence shard
-        against all of it: ``[B, S/M, V]`` (``train.loss.grid_nll_sum``
-        reads both)."""
+    def _unembed(self, h: torch.Tensor, ctx=None,
+                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits f32 against ``table`` (default: the tied embedding or
+        ``self.unembed``).  On a grid whose ``vocab`` rule splits the
+        table, the whole sequence (gathered) against this rank's rows:
+        ``[B, S, V/M]``; with a replicated table, this rank's sequence
+        shard against all of it: ``[B, S/M, V]``
+        (``train.loss.grid_nll_sum`` reads both)."""
         cfg = self.cfg
-        table = self.embed if cfg.tie_embeddings else self.unembed
+        if table is None:
+            table = self.embed if cfg.tie_embeddings else self.unembed
         if getattr(ctx, "tp", False) and ctx.rules.vocab is not None:
             h = S.seq_gather(h, ctx.model_group)
         logits = (h @ table.T).float()
@@ -266,10 +290,12 @@ class Transformer(nn.Module):
         cross-attention -> residual] -> norm2 -> FFN or MoE -> [pnorm2] ->
         residual; for an ssd layer norm1 -> SSD mixer -> residual; for an
         rglru layer norm1 -> RG-LRU mixer -> residual -> norm2 -> FFN ->
-        residual.  ``li`` is the decoder layer's index for ``attn_hook``
-        (None for an encoder layer, which is not hooked).  Returns (h, the
-        MoE layer's aux losses or None)."""
+        residual.  The layer's weights are read through ``_read``, inside
+        the remat region.  ``li`` is the decoder layer's index for
+        ``attn_hook`` (None for an encoder layer, which is not hooked).
+        Returns (h, the MoE layer's aux losses or None)."""
         cfg = self.cfg
+        blk = self._read(blk, ctx)
         hook = None
         if self.attn_hook is not None and li is not None:
             hook = lambda inputs, li=li: self.attn_hook(li, inputs)  # noqa
@@ -283,7 +309,7 @@ class Transformer(nn.Module):
                                   batch, cfg, ctx, hook=hook)
             return h + L.ffn_apply(blk.ffn,
                                    L.norm_apply(blk.norm2, h, cfg.norm),
-                                   cfg), None
+                                   cfg, ctx), None
         window = cfg.window if blk.kind == "local" else 0
         a = L.self_attn_apply(blk.attn, L.norm_apply(blk.norm1, h, cfg.norm),
                               batch, cfg, ctx, causal=blk.kind != "enc",
@@ -319,19 +345,27 @@ class Transformer(nn.Module):
         (reference ``models/model.py:145-160``): sinusoidal positions
         0..M-1, one document a row, the non-causal ``enc`` layers (each
         under ``torch.utils.checkpoint`` with ``ctx.remat``), then
-        ``enc_final_norm``.  Returns [B,M,D] in the compute dtype."""
+        ``enc_final_norm``.  On a grid (``ctx.tp``) the encoder's residual
+        is split along the memory over the model ranks, as the decoder's
+        along its sequence, and its output all-gathered over them, so
+        every model rank's cross layers read the whole memory.  Returns
+        [B,M,D] in the compute dtype."""
         cfg = self.cfg
         b, m, _ = memory_raw.shape
         dev = memory_raw.device
         pos = torch.arange(m, dtype=torch.int32, device=dev).expand(b, m)
         h = memory_raw.to(cfg.cdtype) + L.sinusoidal_pos(pos, cfg.d_model,
                                                          cfg.cdtype)
+        tp = getattr(ctx, "tp", False)
+        if tp:
+            h = S.own_seq(h, ctx)
         ebatch = {"segment_ids": torch.ones((b, m), dtype=torch.int32,
                                             device=dev),
                   "positions": pos}
         h, _ = self._run_layers(self.enc_layers, h, ebatch, ctx,
                                 hooked=False)
-        return L.norm_apply(self.enc_final_norm, h, cfg.norm)
+        h = L.norm_apply(self._read(self.enc_final_norm, ctx), h, cfg.norm)
+        return S.seq_gather(h, ctx.model_group) if tp else h
 
     def _memory(self, memory: Optional[torch.Tensor], ctx):
         """What the cross layers attend to: the encoder's output where the
@@ -359,20 +393,27 @@ class Transformer(nn.Module):
         an encoder) and, optionally, ``memory_mask`` [B, M] (0 = a memory
         row no query sees).  Returns (logits [B,S,V] f32, aux-losses: with
         MoE layers ``moe_lb`` and ``moe_z``, f32 scalars summed over the
-        layers in order, else empty).  On a grid (``ctx.tp``) the weights
-        are this rank's shards (``convert.shard_model``), the batch is the
-        data rank's rows on every model rank, the residual stream is split
-        along the sequence over the model ranks between the blocks, the
-        logits are ``_unembed``'s shard and the aux losses this rank's
-        shares."""
+        layers in order, else empty).  On a grid the weights
+        are this rank's shards (``convert.shard_model``), read through
+        ``_read`` (their FSDP dims gathered over the data ranks), and the
+        batch is the data rank's rows on every model rank; with a model
+        axis (``ctx.tp``) the residual stream is split along the sequence
+        over the model ranks between the blocks (an encoder's along its
+        memory), the logits are ``_unembed``'s shard and the aux losses
+        this rank's shares."""
         cfg = self.cfg
         tp = getattr(ctx, "tp", False)
         if tp:
-            check_grid(cfg, ctx.model_size, batch["tokens"].shape[1])
+            mem = batch.get("memory")
+            check_grid(cfg, ctx.model_size, batch["tokens"].shape[1],
+                       0 if mem is None else mem.shape[1])
         memory = self._memory(batch.get("memory"), ctx)
         if memory is not None:
             batch = dict(batch, memory=memory)
-        h = self._embed(batch["tokens"], ctx)
+        # a tied table is gathered once: its two uses' gradients add up
+        # before the data ranks' sum, as they do in one process
+        embed = self._read(self.embed, ctx)
+        h = self._embed(batch["tokens"], ctx, embed)
         if not cfg.use_rope and cfg.has_attention():
             pos = batch["positions"]
             h = h + L.sinusoidal_pos(S.own_seq(pos, ctx) if tp else pos,
@@ -385,8 +426,10 @@ class Transformer(nn.Module):
                                          hooked=True)
         for losses in losses_all:
             aux = {k: aux[k] + v for k, v in losses.items()}
-        h = L.norm_apply(self.final_norm, h, cfg.norm)
-        return self._unembed(h, ctx), aux
+        h = L.norm_apply(self._read(self.final_norm, ctx), h, cfg.norm)
+        unembed = embed if cfg.tie_embeddings \
+            else self._read(self.unembed, ctx)
+        return self._unembed(h, ctx, unembed), aux
 
     # -------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_seq: int,

@@ -20,6 +20,12 @@ style, as ``torch.autograd.Function`` s:
 * ``exchange_rows``: ``all_to_all_single`` with split sizes, for the
   expert-parallel dispatch and return; its backward is the same exchange
   with the splits swapped.
+* ``fsdp_gather``: a weight's FSDP shard (split over ``"data"`` on its
+  ``dmodel`` dim) -> the tensor the layer reads, all-gathered over the
+  data ranks; its backward reduce-scatters the gradient, so a split
+  tensor's gradient leaves the backward summed over ``"data"``.
+  ``read_weights`` is the one accessor through which the model reads a
+  module's weights on a grid.
 
 Reduce-scatters are an all-reduce and a slice, and all-gathers take a
 list (``all_gather``): gloo has no reduce-scatter, and the tensor forms
@@ -27,10 +33,14 @@ of both are deprecated in recent torch.
 """
 from __future__ import annotations
 
-from typing import List
+import types
+from typing import List, Mapping, Optional
 
 import torch
 import torch.distributed as dist
+from torch import nn
+
+from repro_torch.parallel import fsdp_dims
 
 
 def model_rank(ctx) -> int:
@@ -58,7 +68,7 @@ def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return _shard(x, group, dim)
 
 
-class _SeqGather(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim = group, dim
@@ -81,7 +91,7 @@ class _SeqScatter(torch.autograd.Function):
 
 
 def seq_gather(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
-    return _SeqGather.apply(x, group, dim)
+    return _Gather.apply(x, group, dim)
 
 
 def seq_scatter(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
@@ -153,3 +163,44 @@ def exchange_rows(x: torch.Tensor, send: List[int], recv: List[int],
     """Rows of ``x`` to the group's ranks, ``send[r]`` of them to rank r in
     order; returns the ``sum(recv)`` rows received, by source rank."""
     return _ExchangeRows.apply(x, send, recv, group)
+
+
+def fsdp_gather(w: torch.Tensor, dim: int, data_group) -> torch.Tensor:
+    """This rank's FSDP shard of a weight, all-gathered along ``dim`` over
+    ``data_group``; the backward sums the ranks' gradients and keeps this
+    rank's shard (``seq_gather``'s collectives on a weight's dim)."""
+    return _Gather.apply(w, data_group, dim)
+
+
+def _read_tensor(t: torch.Tensor, key: str, placements: Mapping,
+                 data_group):
+    for dim in fsdp_dims(key, placements[key]):
+        t = fsdp_gather(t, dim, data_group)
+    return t
+
+
+def read_weights(module, prefix: str, placements: Optional[Mapping],
+                 data_group):
+    """``module``'s weights as the layers read them.  Without a grid
+    (``placements`` None) the module itself.  On a grid, by
+    ``model.grid_placements``, each FSDP shard all-gathered over the data
+    ranks (``fsdp_gather``) and every other tensor as stored: a
+    ``Parameter`` is itself, a ``ParameterDict`` (a layer's weights)
+    becomes a dict of them, nested as stored, and a block a namespace of
+    its children's dicts with its ``kind``.  ``prefix`` is the module's
+    name in ``named_parameters``.  Called inside a layer's
+    ``torch.utils.checkpoint`` region, the gathered copies are not kept
+    for the backward: the recompute gathers them again."""
+    if placements is None:
+        return module
+    if isinstance(module, torch.Tensor):
+        return _read_tensor(module, prefix, placements, data_group)
+    if isinstance(module, nn.ParameterDict):
+        return {name: read_weights(t, f"{prefix}.{name}", placements,
+                                   data_group)
+                for name, t in module.items()}
+    out = types.SimpleNamespace(kind=module.kind)
+    for name, child in module.named_children():
+        setattr(out, name, read_weights(child, f"{prefix}.{name}",
+                                        placements, data_group))
+    return out

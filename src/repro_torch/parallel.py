@@ -17,10 +17,14 @@ rules are computed from the grid's axis sizes, and the ranks are
   (``residual_seq``, Megatron-SP); ``models.sharded`` holds those layers'
   collectives.
 
-Parameters are stored as :func:`param_placements` says, except the FSDP
-``dmodel -> data`` rule: the port keeps every tensor replicated over
-``"data"`` but an expert-parallel arch's experts (ROADMAP queue 1
-item 12 lists FSDP storage as still to come).
+Parameters are stored as :func:`param_placements` says, the FSDP
+``dmodel -> data`` rule included (the reference's ``param_pspecs``,
+``src/repro/parallel.py:139``): a rank holds its shard of every split
+dim, and the layers all-gather a tensor's FSDP dims over ``"data"`` where
+they read it (:func:`fsdp_dims`, ``models.sharded.fsdp_gather``), as
+GSPMD gathers the reference's at use.  An expert-parallel arch's experts
+are split over ``"data"`` on their expert dim instead, and are never
+gathered: each data rank computes its own experts.
 
 The ping-pong flag lives in one place, ``CADContext.pingpong`` (the
 reference also keeps ``ParallelContext.pingpong``, which nothing reads).
@@ -149,14 +153,16 @@ def param_placements(cfg, params: Mapping[str, Any], rules: ShardingRules,
     return out
 
 
-def stored_axes(key: str, axes: Tuple[Any, ...]) -> Tuple[Any, ...]:
-    """The axes a tensor is stored sharded over: ``param_placements``'s,
-    less the FSDP data axes (kept replicated), so ``"model"`` anywhere and
-    ``"data"`` only on an expert-parallel tensor's expert dim."""
+def fsdp_dims(key: str, axes: Tuple[Any, ...]) -> Tuple[int, ...]:
+    """The dims of tensor ``key`` that its placement ``axes`` splits over
+    ``"data"`` by the FSDP ``dmodel`` rule: each is all-gathered where the
+    tensor is read.  An expert tensor's dim 0 is the expert-parallel
+    split (the ``experts`` rule), not FSDP: its experts stay apart."""
     expert = key.rsplit(".", 1)[-1].startswith("experts_")
-    return tuple(
-        a if a == "model" or (expert and i == 0 and a is not None) else None
-        for i, a in enumerate(axes))
+    return tuple(i for i, a in enumerate(axes)
+                 if a is not None and "data" in (a if isinstance(a, tuple)
+                                                 else (a,))
+                 and not (expert and i == 0))
 
 
 def sharded_over(axes: Tuple[Any, ...]) -> Tuple[str, ...]:
@@ -191,7 +197,8 @@ class ParallelContext:
                  server simulated in this process
     model_group: the ``"model"`` sub-group of a grid, or None
     rules:       the grid's :class:`ShardingRules` (``make_rules``), which
-                 say how the layers' tensors are stored (``stored_axes``)
+                 say how the layers' tensors are stored
+                 (``param_placements``)
     """
     attn_impl: str = "ref"
     cad: Any = None

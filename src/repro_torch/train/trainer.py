@@ -17,12 +17,17 @@ rank plans every step from the same pool epoch and calibration snapshot.
 A killed server's rank goes on training its rows; it serves no task.
 
 With a session on a ``("data", "model")`` grid (``for_pipeline(...,
-grid=g)``) the CAD group is the grid's ``"data"`` sub-group and the model
-is cut to this rank's shards (``convert.shard_model``) before training;
-the model ranks of a data rank train its rows together.  Calibration,
-fault schedules and checkpoints would need every model rank to probe and
-plan as one, and raise there when the model axis has more than one rank
-(``GRID_ITEM``).
+grid=g)``), or with ``grid=g`` and no session (colocated attention, an
+attention-free arch), the CAD group is the grid's ``"data"`` sub-group
+and the model is cut to this rank's shards (``convert.shard_model``, the
+FSDP data axes included) before training; the model ranks of a data rank
+train its rows together.  Every rank of the grid plans every step alike:
+the model index 0 ranks probe their data group's servers in turn and the
+timings reach every model rank (``CADSession.observe_probe``), every
+rank applies the fault schedule at the same step (a killed server is a
+data index, whose model ranks train their rows and serve no task), and
+rank 0 of the world writes each checkpoint, the tensors gathered whole
+from every rank's shards, in the layout one process writes.
 """
 from __future__ import annotations
 
@@ -37,11 +42,12 @@ import torch.distributed as dist
 
 from repro_torch.cad.session import CADSession
 from repro_torch.checkpoint import ckpt
-from repro_torch.data.pipeline import PipelineConfig, raw_batches
-from repro_torch.models.convert import decay_mask, shard_model
-from repro_torch.models.model import GRID_ITEM, Transformer, resolve_device
-from repro_torch.optim.adamw import AdamW, cosine_schedule
-from repro_torch.parallel import ParallelContext, sharded_over
+from repro_torch.data.pipeline import (PipelineConfig, global_token_count,
+                                       raw_batches, rank_rows)
+from repro_torch.models.convert import decay_mask, gather_shard, shard_model
+from repro_torch.models.model import Transformer, resolve_device
+from repro_torch.optim.adamw import AdamW, AdamWState, cosine_schedule
+from repro_torch.parallel import ParallelContext, make_rules, sharded_over
 from repro_torch.train.step import broadcast_params, make_train_step
 
 
@@ -76,11 +82,38 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _grid_rows(batches, grid):
+    """A sessionless grid's batches: this rank's data index's rows of each
+    global batch, with the batch's loss-token count."""
+    for batch in batches:
+        out = rank_rows(batch, grid.data_index, grid.data)
+        out["n_tokens_global"] = global_token_count(batch)
+        yield out
+
+
+def _whole_state(model, opt_state, grid):
+    """The grid's parameters and AdamW state gathered whole from every
+    rank's shards (collectives on every rank), on the host, under the
+    names and in the order of a one-process model's: what a checkpoint
+    holds."""
+    groups = {"data": grid.data_group, "model": grid.model_group}
+    placed = model.grid_placements
+    names = [n for n, _ in model.named_parameters()]
+
+    def whole(ts):
+        return [gather_shard(t.detach(), placed[n], groups).cpu()
+                for n, t in zip(names, ts)]
+    params = dict(zip(names, whole(model.parameters())))
+    return params, AdamWState(step=opt_state.step, mu=whole(opt_state.mu),
+                              nu=whole(opt_state.nu))
+
+
 def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
           ctx: Optional[ParallelContext] = None,
           model: Optional[Transformer] = None,
           session: Optional[CADSession] = None, device="cuda",
-          on_step: Optional[Callable[[int, Dict[str, Any]], None]] = None) \
+          on_step: Optional[Callable[[int, Dict[str, Any]], None]] = None,
+          grid=None, memory: Optional[torch.Tensor] = None) \
         -> Dict[str, Any]:
     """Train ``cfg`` (a ModelConfig) on ``device`` (``cuda`` unless the
     caller asks for the CPU); returns the model, optimizer state and
@@ -114,16 +147,16 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
     the model's tensors, the optimizer state and the calibrator's state
     are saved into ``ckpt_dir``; a calibrator starts from the newest
     checkpoint's calibration state.  Like the reference, the loop does
-    not resume the parameters."""
-    grid = None if session is None else session.grid
-    if grid is not None and grid.model > 1:
-        for flag, on in (("calibrate_every", train_cfg.calibrate_every),
-                         ("fault_schedule", train_cfg.fault_schedule),
-                         ("ckpt_every", train_cfg.ckpt_every)):
-            if on:
-                raise ValueError(f"{flag} on a grid with a model axis of "
-                                 f"{grid.model} ranks: not yet "
-                                 f"({GRID_ITEM})")
+    not resume the parameters.
+
+    ``grid`` (a :class:`~repro_torch.launch.mesh.GridInfo`, without a
+    session) trains on a ``("data", "model")`` grid with ``ctx``'s
+    attention route: each data index takes its rows of every batch.
+    ``memory`` [global rows, M, d_model] is the memory a cross-attention
+    arch reads (stub frame or patch embeddings), each rank's rows added
+    to its batches."""
+    if session is not None:
+        grid = session.grid
     if model is None:
         model = Transformer(cfg, device=resolve_device(device),
                             seed=train_cfg.seed)
@@ -135,7 +168,7 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
     group = None if session is None else session.group
     rank = 0 if group is None else dist.get_rank(group)
     if grid is not None:
-        rank = grid.rank
+        group, rank = grid.data_group, grid.rank
     if session is not None:
         if train_cfg.fault_schedule:
             from repro_torch.runtime import FaultSchedule, ServerPool
@@ -155,6 +188,14 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
     else:
         ctx = ctx or ParallelContext(attn_impl="xla", remat=True)
         gen = raw_batches(pipe_cfg)
+        if grid is not None:
+            ctx = dataclasses.replace(
+                ctx, group=grid.data_group, model_group=grid.model_group,
+                rules=make_rules(grid.sizes, cfg))
+            gen = _grid_rows(gen, grid)
+    if memory is not None and group is not None:
+        rows = memory.shape[0] // dist.get_world_size(group)
+        memory = memory[dist.get_rank(group) * rows:][:rows]
     opt = AdamW(lr=cosine_schedule(train_cfg.peak_lr, train_cfg.warmup,
                                    train_cfg.steps),
                 weight_decay=train_cfg.weight_decay)
@@ -175,6 +216,9 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
             and train_cfg.ckpt_every:
         # calibration survives restarts: pick up the measured grid from
         # the newest checkpoint (no-op when none carries calibration)
+        if group is not None:
+            # rank 0 alone writes: every rank reads a whole checkpoint
+            dist.barrier(group=None if grid is not None else group)
         last = ckpt.latest_step(train_cfg.ckpt_dir)
         if last is not None and ckpt.restore_calibration(
                 train_cfg.ckpt_dir, last, session.calibrator) and rank == 0:
@@ -199,6 +243,8 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
                           f"{', '.join(pool_events)} "
                           f"(epoch {pool.epoch})", flush=True)
             batch = next(gen)
+            if memory is not None:
+                batch["memory"] = memory
             stats = batch.pop("schedule_stats", None)
             plan = batch.get("plan") if calibrating else None
             _sync(dev)
@@ -235,14 +281,17 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
                           f"({m['wall_s']:.1f}s)", flush=True)
             if train_cfg.ckpt_every and step and \
                     step % train_cfg.ckpt_every == 0:
-                ckpt.save(train_cfg.ckpt_dir, step, model.state_dict(),
-                          opt_state,
+                params, saved = model.state_dict(), opt_state
+                if grid is not None:
+                    params, saved = _whole_state(model, opt_state, grid)
+                ckpt.save(train_cfg.ckpt_dir, step, params, saved,
                           calibrator=None if session is None
                           else session.calibrator, rank=rank)
+                del params, saved
                 if group is not None:
                     # rank 0 alone writes: no rank reads the checkpoint
                     # (a restart's calibration) before it is whole
-                    dist.barrier(group=group)
+                    dist.barrier(group=None if grid is not None else group)
     finally:
         gen.close()      # stops the plan-prefetch worker, if any
     return {"model": model, "opt_state": opt_state, "history": history}

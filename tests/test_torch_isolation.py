@@ -195,15 +195,17 @@ _GRID = """
 import torch
 import torch.distributed as dist
 from repro_torch.parallel import (
-    ShardingRules, make_rules, param_placements, stored_axes, sharded_over,
+    ShardingRules, make_rules, param_placements, fsdp_dims, sharded_over,
     head_pad, ParallelContext)
 from repro_torch.launch.mesh import GridInfo, join_grid
 from repro_torch.models.sharded import (
-    seq_gather, seq_scatter, own_seq, vocab_nll, exchange_rows, all_gather)
+    seq_gather, seq_scatter, own_seq, vocab_nll, exchange_rows, all_gather,
+    fsdp_gather, read_weights)
 from repro_torch.models.layers import tp_heads, tp_local_heads
 from repro_torch.models.convert import (
-    shard_params, gather_params, shard_model, grid_placements)
-from repro_torch.models.model import check_grid, GRID_ITEM
+    shard_params, gather_params, shard_model, grid_placements,
+    gather_shard, shard_shape)
+from repro_torch.models.model import check_grid
 from repro_torch.train.loss import grid_nll_sum
 from repro_torch.train.step import grad_groups
 assert head_pad(15, 2) == 16 and not ParallelContext().tp

@@ -3,8 +3,10 @@ group: ``make_rules`` for every registered arch on five meshes (a
 FakeMesh, as ``tests/test_system_e2e.py:58`` makes one), ``param_placements``
 against ``param_pspecs`` on every arch's reduced tree through the port's
 parameter names, ``head_pad``, the per-rank heads of the reference's
-``_pad_heads_for_tp`` on seeded numpy q/k/v, a ``shard_params`` ->
-``gather_params`` round trip (bitwise), and what the model axis refuses."""
+``_pad_heads_for_tp`` on seeded numpy q/k/v, the stored layout (the
+placements themselves, FSDP data axes included) and the FSDP dims a layer
+gathers, a ``shard_params`` -> ``gather_params`` round trip (bitwise),
+and what the model axis refuses."""
 import dataclasses
 import functools
 
@@ -25,11 +27,12 @@ from repro.parallel import param_pspecs
 from repro_torch.configs import get_config
 from repro_torch.models.convert import (_entries, gather_params,
                                         grid_placements, param_shapes,
-                                        shard_params)
+                                        shard_model, shard_params,
+                                        shard_shape)
 from repro_torch.models.layers import tp_local_heads
-from repro_torch.models.model import check_grid
-from repro_torch.parallel import (head_pad, make_rules, param_placements,
-                                  stored_axes)
+from repro_torch.models.model import Transformer, check_grid
+from repro_torch.parallel import (fsdp_dims, head_pad, make_rules,
+                                  param_placements, sharded_over)
 from test_torch_helpers import to_torch
 
 MESHES = {"16x16": (("data", "model"), (16, 16)),
@@ -162,7 +165,10 @@ def test_local_heads_are_the_reference_padded_heads(hq, hkv, model):
     ("llama3-8b-reduced", False), ("smollm-360m-reduced", False),
     ("gemma2-2b-reduced", False), ("qwen2-moe-a2.7b-reduced", False),
     ("qwen2-moe-a2.7b-reduced", True),
-    ("llama4-maverick-400b-a17b-reduced", True)])
+    ("llama4-maverick-400b-a17b-reduced", True),
+    ("mamba2-370m-reduced", False), ("recurrentgemma-9b-reduced", False),
+    ("whisper-large-v3-reduced", False),
+    ("llama-3.2-vision-11b-reduced", False)])
 @pytest.mark.parametrize("grid", [(2, 2), (1, 4), (4, 1)])
 def test_shard_gather_round_trip_bitwise(arch, expert_parallel, grid):
     cfg = get_config(arch)
@@ -171,7 +177,6 @@ def test_shard_gather_round_trip_bitwise(arch, expert_parallel, grid):
             cfg.moe, expert_parallel=True))
     sizes = dict(zip(("data", "model"), grid))
     gen = torch.Generator().manual_seed(0)
-    from repro_torch.models.model import Transformer
     full = {k: torch.randn(v.shape, generator=gen) for k, v in
             Transformer(cfg, device="meta").state_dict().items()}
     placed = grid_placements(cfg, full, sizes)
@@ -182,34 +187,71 @@ def test_shard_gather_round_trip_bitwise(arch, expert_parallel, grid):
     assert sorted(back) == sorted(full)
     for k, v in full.items():
         assert torch.equal(back[k], v), k
-    # what is split: the model axis, and the data axis only for experts
-    split = {a for axes in placed.values() for a in axes if a is not None}
-    if grid[1] > 1:
-        assert "model" in split
+    # what is split: the model axis, and the data axis on the FSDP dims
+    # of every tensor the dmodel rule reaches and on the experts' dim
+    # under expert parallelism
+    split = {a for axes in placed.values() for a in sharded_over(axes)}
+    assert {a for a, n in sizes.items() if n > 1} <= split
     experts = [k for k in placed if ".moe.experts_" in k]
     assert all((placed[k][0] is not None) == expert_parallel
                for k in experts)
-    assert all(a in (None, "model") for k, axes in placed.items()
-               if k not in experts for a in axes)
+    if grid[0] > 1:
+        assert any(fsdp_dims(k, a) for k, a in placed.items()
+                   if k not in experts)
 
 
-def test_stored_axes_keep_data_only_on_the_expert_dim():
-    assert stored_axes("embed", ("model", ("data",))) == ("model", None)
-    assert stored_axes("layers.0.moe.experts_up",
-                       (("data",), None, "model")) == (("data",), None,
-                                                        "model")
-    assert stored_axes("layers.0.attn.wq", (("data",), "model")) == \
-        (None, "model")
+@pytest.mark.parametrize("grid", [(2, 2), (4, 1), (1, 4)])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_stored_axes_equal_param_placements(arch, grid):
+    """On a grid a tensor is stored as ``param_placements`` says, the
+    FSDP data axes included: ``grid_placements`` is it, and
+    ``shard_model`` (on the meta device: shapes only) leaves each tensor
+    at its shard's shape and records those placements."""
+    cfg = get_config(arch + "-reduced")
+    sizes = dict(zip(("data", "model"), grid))
+    model = Transformer(cfg, device="meta")
+    full = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    want = param_placements(cfg, dict(model.state_dict()),
+                            make_rules(sizes, cfg), sizes)
+    assert grid_placements(cfg, dict(model.state_dict()), sizes) == want
+    placed = shard_model(model, sizes, {"data": grid[0] - 1,
+                                        "model": grid[1] - 1})
+    assert placed == want == model.grid_placements
+    for k, p in model.named_parameters():
+        assert tuple(p.shape) == shard_shape(full[k], want[k], sizes), k
+
+
+@pytest.mark.parametrize("key,axes,want", [
+    ("embed", ("model", ("data",)), (1,)),
+    ("layers.0.attn.wq", (("data",), "model"), (0,)),
+    ("layers.0.attn.wo", ("model", ("data",)), (1,)),
+    ("layers.0.mixer.in_proj", (("data",), None), (0,)),
+    ("layers.0.moe.experts_up", (None, ("data",), "model"), (1,)),
+    ("layers.0.moe.experts_up", (("data",), None, "model"), ()),
+    ("layers.0.norm1.scale", (None,), ())])
+def test_fsdp_dims_are_the_data_dims_but_the_expert_dim(key, axes, want):
+    """The dims a layer gathers over the data ranks: every dim a
+    placement splits over ``"data"``, but an expert tensor's dim 0 (its
+    experts, split by expert parallelism, stay apart)."""
+    assert fsdp_dims(key, axes) == want
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b",
                                   "llama-3.2-vision-11b",
                                   "whisper-large-v3"])
-def test_model_axis_refuses_unsplit_layer_kinds(arch):
+@pytest.mark.parametrize("model_size", [2, 4])
+def test_model_axis_splits_every_layer_kind(arch, model_size):
+    """ssd, rglru, cross and enc layers split over a model axis: only a
+    sequence, or an encoder's memory, that the axis does not divide is
+    refused."""
     cfg = get_config(arch + "-reduced")
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 12"):
-        check_grid(cfg, 2, 256)
-    check_grid(cfg, 1, 256)
+    check_grid(cfg, model_size, 256, 24)
+    check_grid(cfg, 1, 256, 25)
+    with pytest.raises(ValueError, match="does not split"):
+        check_grid(cfg, model_size, 257, 24)
+    if cfg.encoder and cfg.encoder.n_layers:
+        with pytest.raises(ValueError, match="memory of 25 rows"):
+            check_grid(cfg, model_size, 256, 25)
 
 
 def test_model_axis_needs_a_sequence_it_divides():

@@ -239,7 +239,8 @@ def test_launcher_raises_for_what_is_not_ported(flag, monkeypatch,
     from repro_torch.obs import get_recorder, set_recorder
     seen = {}
 
-    def fake_train(cfg, pipe, tc, ctx=None, session=None, device=None):
+    def fake_train(cfg, pipe, tc, ctx=None, session=None, device=None,
+                   **kw):
         seen.update(tc=tc, session=session)
         return {"history": [{"loss": 1.0}]}
     monkeypatch.setattr(launch, "train", fake_train)
