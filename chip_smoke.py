@@ -102,7 +102,11 @@ Phases, each of which fails the run:
    family (SSD, flash, LRU, CA and ragged kernels, cuBLAS matmuls,
    copies, the rest by name), the CA kernels' share of the busy time, each
    hand-written kernel's launches, busy time, the device's idle share
-   inside the step and the SM clock through it.  It runs after phases
+   inside the step and the SM clock through it; and in each traced window
+   (the serving calls too) device ms by bucket: attention, attention_bwd,
+   moe_experts, unembed, dispatch, bwd_other, fwd_other, each kernel
+   taking its launching op's (``launch/breakdown.py``, which holds the
+   kernel families and ``device_breakdown``).  It runs after phases
    11-14, before phase 13's xla-route check;
 11. mamba2-370m at full width and depth (48 layers, bf16, seeded weights)
    through ``trainer.train`` with ``attn_impl="pallas"`` and remat, 3
@@ -414,6 +418,20 @@ is timed).
    captured server batches at the per-rank shapes, against their plain
    versions and timed (PERF.md rows 4g/5g, 4p/5p, 4h/5h), and the SSD,
    lru_scan and flash kernels on (e)'s and (f)'s captured inputs.
+32. (after 28, before 24: it traces) the launch tooling
+   (``repro_torch.launch``): (a) started right after phase 1, two host
+   processes dry-run LAUNCH_ARCH x LAUNCH_SHAPE on the reference's 16 x 16
+   grid, plain and with CAD (``launch.dryrun``: rank 0's step on the meta
+   device over a fake process group of 256 ranks, under the op counter),
+   read back here: trace seconds, per-rank argument, temp and peak bytes,
+   FLOPs, collective bytes and the roofline row on the H100's rates;
+   (b) LAUNCH_ARCH at LAUNCH_LAYERS layers, one rank, LAUNCH_ROWS x 4096
+   tokens, ``xla`` route with remat, through ``launch.perf.measure``: the
+   dry run's argument bytes equal the card's parameters, AdamW moments and
+   batch exactly, the op counter's FLOPs of the step on the card equal
+   its meta trace's exactly, the predicted peak beside
+   ``max_memory_allocated`` (reported); (c) the same step traced: device
+   ms by bucket beside each bucket's compute and memory terms.
 
 The line before the card line lists every ported kernel as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after
@@ -421,7 +439,7 @@ phase 2: the short first call for a new kernel; ``--only ranks`` runs
 phases 1, 5 and 24; ``--only moe`` phases 1, 25 and 26; ``--only
 cross`` phases 1, 27 and 28; ``--only pipeline`` phases 1 and 29;
 ``--only rank_runtime`` phases 1 and 30; ``--only grid`` phases 1 and
-31.  Every traced
+31; ``--only launch`` phases 1 and 32.  Every traced
 or profiled window opens with LEAD_IN_KERNELS spin kernels
 (TRACE_LEAD_IN_CYCLES in all, ~2 ms), not counted.
 """
@@ -556,8 +574,8 @@ def profiled_device_ms(fn, n=20):
     PROFILE_WINDOWS windows, and counted in EMPTY_PROFILE_WINDOWS; when
     none has device time the result is None: not measured."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import breakdown
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_WINDOWS):
@@ -571,8 +589,7 @@ def profiled_device_ms(fn, n=20):
                 fn()
             torch.cuda.synchronize()
         us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and SPIN_KERNEL not in e.name)
+                 if breakdown.is_kernel(e) and SPIN_KERNEL not in e.name)
         EMPTY_PROFILE_WINDOWS[1] += 1
         if us:
             return us / 1e3 / n
@@ -1108,6 +1125,7 @@ def _trace_chunk_call(torch, engine, fn, nth):
     with ``torch.profiler``: that call's device breakdown, its host ms
     (ended by a synchronize) and its rows."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import breakdown
     orig, seen, res = engine._chunk, [0], {}
 
     def traced(*a):
@@ -1123,7 +1141,7 @@ def _trace_chunk_call(torch, engine, fn, nth):
         torch.cuda.synchronize()
         res["host_ms"] = 1e3 * (time.perf_counter() - t0)
         prof.stop()
-        res["bd"] = device_breakdown(prof.events())
+        res["bd"] = breakdown.device_breakdown(prof.events())
         res["rows"] = int(a[1].shape[0])
         return lg
     engine._chunk = traced
@@ -1171,6 +1189,7 @@ def traced_serving(torch, np, engine, card):
             f"host time); ragged_decode {ragged:.3f} ms = "
             f"{out[name]['ragged_share']:.4f} of busy; ms by family: {fams} "
             f"[{card}]")
+        log(f"  ms by bucket: {_bucket_ms(bd, 3)} [{card}]")
         for fam in ("CA-server kernels", "SSD kernels"):
             ms = bd["families"][fam]
             if ms:
@@ -2290,8 +2309,8 @@ def _traced_breakdown(fn):
     ``torch.profiler``, after an untraced warm-up call; a window with no
     device event is traced again (PROFILE_WINDOWS)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import breakdown
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_WINDOWS):
@@ -2300,8 +2319,8 @@ def _traced_breakdown(fn):
             fn()
             torch.cuda.synchronize()
         events = prof.events()
-        if any(e.device_type == DeviceType.CUDA for e in events):
-            return device_breakdown(events)
+        if any(breakdown.is_kernel(e) for e in events):
+            return breakdown.device_breakdown(events)
     raise SystemExit(f"phase 17: the profiler recorded no device time in "
                      f"{PROFILE_WINDOWS} windows")
 
@@ -3470,54 +3489,12 @@ def xla_route_on_card(torch, ops, card):
 
 
 # ----------------------------------------------------------- phase 10
-# kernel families of a traced step, matched in order on the kernel's name;
-# the attention kernels' pattern captures the kernel's short name
-KERNEL_FAMILIES = (
-    ("SSD kernels",
-     r"(ssd_(?:fwd|bwd_dc|bwd_dbx|fwd_mma|bwd_part|bwd_fold|dcsum))_kernel"),
-    ("flash kernels",
-     r"(flash_(?:fwd|bwd_dq|bwd_dkv|fwd_mma|dq_mma|dkv_mma))_kernel"),
-    ("LRU kernels", r"(lru_scan_(?:fwd|bwd))(?:_direct)?_kernel"),
-    ("CA-server kernels",
-     r"(ca_(?:fwd|bwd_dq|bwd_dkv|fwd_mma|dq_mma|dkv_mma))_kernel"),
-    ("ragged_decode kernels", r"(ragged_(?:mma|f32))_kernel"),
-    ("matmuls (cuBLAS)", r"gemm|nvjet|xmma|cutlass|cublas|splitk"),
-    ("copies and fills", r"^memcpy|^memset"))
-
-
-def device_breakdown(events):
-    """Device time of one traced window, in ms: per kernel family, each
-    attention kernel's launches, the largest of the rest by name, busy
-    time (the union of the kernels' intervals) and the span from the first
-    kernel's start to the last kernel's end."""
-    import re
-    from torch.autograd import DeviceType
-    kernels = [(e.name, e.time_range.start, e.time_range.end)
-               for e in events if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        raise SystemExit("phase 10: the profiler recorded no device time")
-    families = dict.fromkeys([f for f, _ in KERNEL_FAMILIES] + ["other"],
-                             0.0)
-    attention, other = {}, {}
-    for name, a, b in kernels:
-        ms = (b - a) / 1e3
-        fam, hit = next(((f, m) for f, pat in KERNEL_FAMILIES
-                         if (m := re.search(pat, name, re.I))),
-                        ("other", None))
-        families[fam] += ms
-        if fam == "other":
-            other[name] = other.get(name, 0.0) + ms
-        elif hit.groups():
-            attention.setdefault(hit.group(1), []).append(ms)
-    busy, end = 0.0, -math.inf
-    for _, a, b in sorted(kernels, key=lambda x: x[1]):
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    span = max(b for *_, b in kernels) - min(a for _, a, _ in kernels)
-    top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
-    return dict(kernels=len(kernels), busy_ms=busy / 1e3,
-                span_ms=span / 1e3, families=families, attention=attention,
-                top_other=top)
+# device ms by kernel family and by bucket: launch/breakdown.py's
+# KERNEL_FAMILIES and device_breakdown
+def _bucket_ms(bd, digits=1) -> str:
+    """A traced window's device ms by bucket (those with any), as text."""
+    return ", ".join(f"{b} {ms:.{digits}f}" for b, ms in bd["buckets"].items()
+                     if ms)
 
 
 def sm_clocks_start():
@@ -3563,6 +3540,7 @@ def traced_steps(torch, card, cad_steps, co_steps, mamba_steps, rg_steps):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.attention import mask_fn
     from repro_torch.data.pipeline import raw_batches
+    from repro_torch.launch import breakdown
     from repro_torch.parallel import ParallelContext
     from repro_torch.train.trainer import train
     cfg, pipe, tc, session = _train_setup()
@@ -3610,7 +3588,7 @@ def traced_steps(torch, card, cad_steps, co_steps, mamba_steps, rg_steps):
             raise
         gc.collect()
         torch.cuda.empty_cache()
-        bd = device_breakdown(prof.events())
+        bd = breakdown.device_breakdown(prof.events())
         del prof
         host_ms, ref_ms = 1e3 * traced["step_s"], 1e3 * untraced[1]["step_s"]
         fams = ", ".join(f"{f} {ms:.1f}" for f, ms in bd["families"].items())
@@ -3623,6 +3601,7 @@ def traced_steps(torch, card, cad_steps, co_steps, mamba_steps, rg_steps):
             f"{1 - bd['busy_ms'] / ref_ms:.4f} of the untraced step); ms by "
             f"family: {fams}; SM clock {lo:.0f} / {med:.0f} / {hi:.0f} MHz "
             f"(min / median / max), power draw up to {watts:.1f} W [{card}]")
+        log(f"  ms by bucket: {_bucket_ms(bd)} [{card}]")
         for fam in ("CA-server kernels", "SSD kernels"):
             ms = bd["families"][fam]
             if ms:
@@ -5844,9 +5823,12 @@ def _cross_breakdown(prof, phase, n_calls):
     are then not measured."""
     import re
     from torch.autograd import DeviceType
+    from repro_torch.launch import breakdown
     kernels = []
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA:
+        # a region's range repeated on the card's timeline is no kernel
+        if e.device_type() != DeviceType.CUDA \
+                or e.name() in breakdown.REGIONS:
             continue
         start = e.start_ns() if hasattr(e, "start_ns") \
             else 1e3 * e.start_us()
@@ -5858,8 +5840,9 @@ def _cross_breakdown(prof, phase, n_calls):
         raise SystemExit(f"phase {phase}: the profiler recorded no device "
                          f"time")
     fams = dict.fromkeys(CROSS_FAMILIES, 0.0)
-    ca = re.compile(dict(KERNEL_FAMILIES)["CA-server kernels"], re.I)
-    mm = re.compile(dict(KERNEL_FAMILIES)["matmuls (cuBLAS)"], re.I)
+    families = dict(breakdown.KERNEL_FAMILIES)
+    ca = re.compile(families["CA-server kernels"], re.I)
+    mm = re.compile(families["matmuls (cuBLAS)"], re.I)
     inside, marks, n = False, 0, 0
     busy, end, first = 0.0, -math.inf, None
     for a, b, name in kernels:
@@ -6109,6 +6092,7 @@ def serve_cross(torch, np, ops, card, arch):
     permuted, bitwise; then the f32 serve-vs-forward check."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
+    from repro_torch.launch import breakdown
     from repro_torch.models.model import Transformer
     from repro_torch.parallel import ParallelContext
     from repro_torch.serve import Engine, ServeConfig
@@ -6181,7 +6165,7 @@ def serve_cross(torch, np, ops, card, arch):
     torch.cuda.synchronize()
     host_ms = 1e3 * (time.perf_counter() - t0)
     prof.stop()
-    bd = device_breakdown(prof.events())
+    bd = breakdown.device_breakdown(prof.events())
     del prof
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"phase {phase}: {arch} served at full depth ({cfg.n_layers} "
@@ -6358,8 +6342,8 @@ def _traced_exchanges(torch, fn, n, ca_names, n_ca):
     window, so each window opens with spin kernels (``trace_lead_in``)
     before ``fn``.  Returns (None, what each window held) when none was
     whole."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import breakdown
     fn()
     torch.cuda.synchronize()
     held = []
@@ -6371,8 +6355,7 @@ def _traced_exchanges(torch, fn, n, ca_names, n_ca):
             fn()
             torch.cuda.synchronize()
         ev = sorted(((e.name, e.time_range.start, e.time_range.end)
-                     for e in prof.events()
-                     if e.device_type == DeviceType.CUDA),
+                     for e in prof.events() if breakdown.is_kernel(e)),
                     key=lambda x: x[1])
         xch = _exchanges(ev, n)
         ca = [e for e in ev if any(c in e[0] for c in ca_names)]
@@ -8997,6 +8980,120 @@ def _record_rank_runtime(ca_fwd, ca_bwd, res):
                                         per_rank("ca_server_bwd_dkv")))
 
 
+# ----------------------------------------------------------- phase 32
+LAUNCH_ARCH = "llama3-8b"
+LAUNCH_SHAPE = "train_4k"
+LAUNCH_LAYERS = 2          # phase 32(b): the step on the card, one rank
+LAUNCH_ROWS = 1
+DRYRUN_TIMEOUT_S = 600     # phase 32(a)'s dry runs, from their start
+
+
+def start_dry_runs(tmp):
+    """Phase 32(a), started after phase 1 and read in phase 32: the dry run
+    of LAUNCH_ARCH x LAUNCH_SHAPE on the reference's 16 x 16 grid, plain and
+    with CAD (``python -m repro_torch.launch.dryrun``), each a process of
+    its own on the host (meta tensors over a fake process group, no card:
+    the card is hidden from it) beside the card's phases.  Returns {name:
+    (process, its JSONL file)}."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    runs = {}
+    for name, extra in (("plain", []), ("cad", ["--cad"])):
+        out = Path(tmp) / f"dryrun_{name}.jsonl"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               LAUNCH_ARCH, "--shape", LAUNCH_SHAPE, "--out", str(out),
+               *extra]
+        runs[name] = (subprocess.Popen(cmd, env=env, cwd=str(ROOT),
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      out)
+    return runs
+
+
+def stop_dry_runs(runs, tmp) -> None:
+    """Kill any dry run still going and remove their files (the run is
+    ending)."""
+    import shutil
+    for proc, _ in runs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def launch_phase(torch, card, runs, started):
+    """Phase 32: the launch tooling.  (a) phase 32(a)'s dry runs read back:
+    trace seconds, per-rank bytes, FLOPs, collective bytes and the
+    roofline row.  (b) LAUNCH_ARCH at LAUNCH_LAYERS layers, one rank,
+    LAUNCH_ROWS x 4096 tokens on the ``xla`` route with remat (the dry
+    run's route) through ``perf.measure``: the dry run's argument bytes
+    equal the card's parameters, moments and batch, exactly; the op
+    counter's FLOPs of the step on the card equal the meta trace's,
+    exactly (the meta trace is the program that runs); the predicted peak
+    beside ``max_memory_allocated`` (reported, not checked).  (c) the same
+    step traced: device ms by bucket beside each bucket's compute and
+    memory terms."""
+    from repro_torch.launch.perf import format_measure, measure
+    from repro_torch.launch.roofline import roofline_row
+    t0 = time.perf_counter()
+    out = {}
+    for name, (proc, path) in runs.items():
+        left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - started))
+        text, _ = proc.communicate(timeout=left)
+        if proc.returncode:
+            raise SystemExit(f"phase 32(a): the {name} dry run failed "
+                             f"(exit {proc.returncode}):\n{text[-4000:]}")
+        rec = json.loads(path.read_text().splitlines()[-1])
+        row = roofline_row(rec)
+        gib = 2 ** 30
+        log(f"phase 32(a): dry run of {LAUNCH_ARCH} x {LAUNCH_SHAPE} on the "
+            f"{'x'.join(map(str, rec['mesh']))} grid ({name}): traced in "
+            f"{rec['trace_s']} s ({rec['n_ops']} ops, built in "
+            f"{rec['build_s']} s; host seconds, beside the card's phases); "
+            f"per rank: params {rec['param_bytes'] / gib:.3f} + moments "
+            f"{rec['moment_bytes'] / gib:.3f} + batch "
+            f"{rec['batch_bytes'] / gib:.4f} = arguments "
+            f"{rec['argument_bytes'] / gib:.3f} GiB, temp "
+            f"{rec['temp_bytes'] / gib:.3f} GiB, peak "
+            f"{rec['peak_bytes'] / gib:.3f} GiB; flops "
+            f"{rec['hlo_flops_per_device']:.4e}, op bytes "
+            f"{rec['hlo_bytes_per_device']:.4e}, collective bytes "
+            f"{rec['collective_bytes_per_device']:.4e} "
+            f"{json.dumps(rec['collective_breakdown'])}; flops by bucket "
+            f"{json.dumps({k: float(f'{v:.4e}') for k, v in rec['flops_by_bucket'].items()})}")
+        log(f"  roofline (H100 data-sheet rates): compute "
+            f"{row['compute_s']:.4f} s, memory {row['memory_s']:.4f} s, "
+            f"collective {row['collective_s']:.4f} s, dominant "
+            f"{row['dominant']}, useful {row['useful_ratio']:.4f}, peak "
+            f"{row['peak_gib_per_dev']:.3f} GiB/rank, fits "
+            f"{row['fits_hbm']} [{card}]")
+        out[name] = dict(rec=rec, row=row)
+    res = measure(LAUNCH_ARCH, LAUNCH_SHAPE, layers=LAUNCH_LAYERS,
+                  rows=LAUNCH_ROWS, device=DEVICE,
+                  lead_in=lambda: trace_lead_in(torch), skip=SPIN_KERNEL)
+    for line in format_measure(res).splitlines():
+        log(f"phase 32(b,c): {line}")
+    log(f"phase 32(b,c): [{card}]")
+    p, m = res["predicted"], res["measured"]
+    parts = ("param_bytes", "moment_bytes", "batch_bytes", "argument_bytes")
+    if any(p[k] != m[k] for k in parts):
+        raise SystemExit(f"phase 32(b): the dry run's argument bytes "
+                         f"{[p[k] for k in parts]} differ from the card's "
+                         f"{[m[k] for k in parts]}")
+    if p["flops"] != m["flops"]:
+        raise SystemExit(f"phase 32(b): the step on the card counts "
+                         f"{m['flops']!r} flops, its meta trace "
+                         f"{p['flops']!r}")
+    if not math.isfinite(res["loss"]):
+        raise SystemExit(f"phase 32(b): loss {res['loss']}")
+    secs = time.perf_counter() - t0
+    log(f"phase 32: {secs:.1f} s (the dry runs of (a) ran beside the "
+        f"earlier phases)")
+    out["measure"] = dict(res, breakdown=None)
+    out["seconds"] = secs
+    return out
+
+
 def build_kernels(build, ops, ssd, rg):
     """Phase 1: build every kernel source, one nvcc each, all at once."""
     loaders = {"ragged_decode": ops.load_library,
@@ -9047,13 +9144,15 @@ def build_kernels(build, ops, ssd, rg):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only", choices=("kernels", "ranks", "moe", "cross",
-                                      "pipeline", "rank_runtime", "grid"),
+                                      "pipeline", "rank_runtime", "grid",
+                                      "launch"),
                    default=None,
                    help="'kernels': stop after the kernel checks (phases "
                         "1-2); 'ranks': phases 1, 5 and 24 alone; 'moe': "
                         "phases 1, 25 and 26; 'cross': phases 1, 27 and 28; "
                         "'pipeline': phases 1 and 29; 'rank_runtime': "
-                        "phases 1 and 30; 'grid': phases 1 and 31")
+                        "phases 1 and 30; 'grid': phases 1 and 31; "
+                        "'launch': phases 1 and 32")
     return p.parse_args(argv)
 
 
@@ -9079,6 +9178,14 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     build_kernels(build, ops, ssd, rg)
+    dry_runs = {}
+    if args.only in (None, "launch"):
+        import atexit
+        import tempfile
+        dry_started = time.perf_counter()
+        dry_tmp = tempfile.mkdtemp(prefix="chip_smoke_dry_")
+        dry_runs = start_dry_runs(dry_tmp)
+        atexit.register(stop_dry_runs, dry_runs, dry_tmp)
 
     f32_err = check_ragged_decode_cases(torch, ops)
     long_worst = check_ragged_long_cases(torch, ops)
@@ -9180,6 +9287,8 @@ def main(argv=None) -> int:
     elif args.only == "rank_runtime":
         _record_rank_runtime(ca_fwd, ca_bwd,
                              rank_runtime_phase(torch, np, ops, card))
+    elif args.only == "launch":
+        launch_phase(torch, card, dry_runs, dry_started)
     elif args.only == "grid":
         _record_grid(ca_fwd, ca_bwd, fl_fwd, fl_bwd, ssd_fm, ssd_bm, ssd_f,
                      ssd_b, lru_f, lru_b,
@@ -9540,6 +9649,10 @@ def main(argv=None) -> int:
                     moe_phases(torch, np, ops, launch, card))
         # phases 27-28: the cross-attention archs
         _record_cross(ca_fwd, ca_bwd, cross_phases(torch, np, ops, card))
+        # phase 32: the launch tooling (its dry runs started after phase 1)
+        launch_phase(torch, card, dry_runs, dry_started)
+        gc.collect()
+        torch.cuda.empty_cache()
         # last: the phases that join a process group and spawn; no traced
         # window comes after them
         ca_fwd["ranks_phase24"] = ranks_phase(

@@ -23,6 +23,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.obs.regions import marked
+
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps padded rows NaN-free
 LSE_DEAD = 2.0 ** 30  # lse of a fully masked row: exp(x - LSE_DEAD) == 0
 
@@ -64,6 +66,7 @@ def _repeat_kv(k, n_rep: int):
         .reshape(b, s, h * n_rep, d)
 
 
+@marked("attention")
 def ref_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv, *, causal=True,
                   window=0, sink=0, rate=1, blk=128, softcap=0.0,
                   scale: Optional[float] = None):
@@ -86,6 +89,7 @@ def ref_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv, *, causal=True,
 
 
 # --------------------------------------------------------------------- xla
+@marked("attention")
 def xla_flash_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv, *,
                         causal=True, window=0, sink=0, rate=1, blk=128,
                         softcap=0.0, scale: Optional[float] = None,
@@ -262,6 +266,7 @@ class _XlaFlash(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------- decoding
+@marked("attention")
 def decode_attention(q, k_cache, v_cache, cache_len_mask, pos_q, pos_kv, *,
                      window=0, softcap=0.0, scale: Optional[float] = None):
     """One-token (or few-token) query against a dense cache, the legacy

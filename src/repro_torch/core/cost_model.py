@@ -31,6 +31,7 @@ import numpy as np
 PEAK_FLOPS_BF16 = 989e12          # FLOP/s, bf16 tensor cores
 HBM_BW = 3.35e12                  # B/s
 NVLINK_BW = 450e9                 # B/s each way
+HBM_BYTES = 80e9                  # bytes of HBM3 (the data sheet's 80 GB)
 BYTES_PER_EL = 2                  # bf16
 
 

@@ -67,6 +67,7 @@ from repro_torch.kernels.packed_flash.ops import (ca_partial_attention,
                                                   merge_softmax_partials)
 from repro_torch.obs import server_track
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.regions import marked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -808,6 +809,7 @@ def iter_plan_tasks(cfg: CADConfig, plan, mask=None) \
 
 
 # --------------------------------------------------------------- frontend
+@marked("dispatch")
 def cad_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv, *, ctx,
                   causal=True, window=0, softcap=0.0, scale=None,
                   mask=None):

@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.core.attention import LSE_DEAD, NEG_INF, mask_fn
 from repro_torch.kernels import build
+from repro_torch.obs.regions import marked
 
 KV_TILE = 64                  # the CUDA kernel's kv tile; S must divide by it
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -293,6 +294,7 @@ def ragged_decode_fwd(q_blocks, k_cache, v_cache, block_req, kv_len, q_pos,
     return out
 
 
+@marked("attention")
 def ragged_decode_attention(q, k_cache, v_cache, block_req, q_pos, kv_len,
                             *, window=0, softcap=0.0, scale=None):
     """Fused cache attention over a ragged request batch (DESIGN.md §8).
@@ -687,6 +689,7 @@ class _KernelAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+@marked("attention")
 def ca_server_attention(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
                         kv_pos, *, window=0, softcap=0.0, scale=None, jmax=0,
                         sink=0, rate=1):
@@ -701,8 +704,11 @@ def ca_server_attention(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
 
     CUDA tensors launch the kernels (f32 or bf16, head_dim 64, 128, 192 or
     256, blk 64 or 128, any Hq / Hkv); anything they do not cover raises.
-    CPU tensors run the plain versions."""
-    if not q_tasks.is_cuda and q_tasks.device.type != "cpu":
+    CPU tensors run the plain versions, and so do meta tensors: a dry run
+    (``launch.dryrun_lib``) traces the plain versions' shapes and
+    products, as the reference's dry run lowers its servers' ``xla``
+    route."""
+    if not q_tasks.is_cuda and q_tasks.device.type not in ("cpu", "meta"):
         raise ValueError(f"ca_server_attention: no kernel for device "
                          f"{q_tasks.device}")
     opts = dict(jmax=jmax, window=window, sink=sink, rate=rate,
@@ -825,6 +831,7 @@ class _PartialAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+@marked("attention")
 def ca_partial_attention(q_tasks, k_buf, v_buf, kv_start, kv_len, q_pos,
                          kv_pos, *, jmax=0, window=0, softcap=0.0,
                          scale=None, sink=0, rate=1):
@@ -1325,6 +1332,7 @@ def flash_bwd(q, k, v, out, lse, do, seg_q, pos_q, seg_kv, pos_kv, *,
     return dq, dk, dv
 
 
+@marked("attention")
 def packed_flash_attention(q, k, v, seg_q, pos_q, seg_kv, pos_kv,
                            causal=True, window=0, softcap=0.0, scale=None,
                            sink=0, rate=1):

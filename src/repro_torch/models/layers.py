@@ -35,6 +35,7 @@ from torch import nn
 from repro_torch.core.attention import core_attention
 from repro_torch.core.dispatch import _GatherRows
 from repro_torch.models import sharded as S
+from repro_torch.obs.regions import marked
 from repro_torch.parallel import head_pad
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -347,6 +348,7 @@ def _token_of_slot(slot, n_tok: int, k: int, n_slots: int):
     return out[:-1]
 
 
+@marked("moe_experts")
 def _experts(p, xs, act, lo: int, n: int, whole: bool = True):
     """Experts ``[lo, lo + n)`` on ``xs [n, cap, D]``: from tensors that
     hold all E experts (``whole``), or just these (stored split by the
@@ -412,20 +414,31 @@ def _route_expert_parallel(p, x, idx, gate_vals, cfg, act, group,
     in_cap, slot = _slot_table(S.all_gather(idx, group).reshape(-1), n_e,
                                cap)
     per_rank = e_loc * cap
-    token_of_slot = _token_of_slot(slot, n_glob, k, n_e * cap)
     mine = slice(r * n_tok * k, (r + 1) * n_tok * k)
-    my_in, my_slot = in_cap[mine], slot[mine]
-    # sends: this rank's kept choices in slot order (so by owner)
-    send_idx = torch.nonzero(my_in)[:, 0]
-    send_idx = send_idx[torch.argsort(my_slot[send_idx], stable=True)]
-    send = torch.bincount(my_slot[send_idx] // per_rank,
-                          minlength=n_ranks).tolist()
-    # receives: this rank's live slots by source rank, then slot
-    tok = token_of_slot[r * per_rank:(r + 1) * per_rank]
-    live = torch.nonzero(tok >= 0)[:, 0]
-    src = tok[live] // n_tok
-    live = live[torch.argsort(src * per_rank + live, stable=True)]
-    recv = torch.bincount(src, minlength=n_ranks).tolist()
+    my_in = in_cap[mine]
+    if x.device.type == "meta":
+        # a dry run's shapes (``launch.dryrun_lib``): which choices stay
+        # and where they go depend on values meta tensors do not hold;
+        # take the routing the capacity is sized for, every choice kept
+        # and each rank's experts taking an even share of every rank's
+        n_keep = min(n_tok * k, per_rank) // n_ranks
+        send = recv = [n_keep] * n_ranks
+        send_idx, live = (torch.empty(n_keep * n_ranks, dtype=torch.long,
+                                      device=dev) for _ in range(2))
+    else:
+        token_of_slot = _token_of_slot(slot, n_glob, k, n_e * cap)
+        my_slot = slot[mine]
+        # sends: this rank's kept choices in slot order (so by owner)
+        send_idx = torch.nonzero(my_in)[:, 0]
+        send_idx = send_idx[torch.argsort(my_slot[send_idx], stable=True)]
+        send = torch.bincount(my_slot[send_idx] // per_rank,
+                              minlength=n_ranks).tolist()
+        # receives: this rank's live slots by source rank, then slot
+        tok = token_of_slot[r * per_rank:(r + 1) * per_rank]
+        live = torch.nonzero(tok >= 0)[:, 0]
+        src = tok[live] // n_tok
+        live = live[torch.argsort(src * per_rank + live, stable=True)]
+        recv = torch.bincount(src, minlength=n_ranks).tolist()
     rows = S.exchange_rows(_GatherRows.apply(x, send_idx // k), send, recv,
                            group)
     at = torch.full((per_rank,), live.shape[0], dtype=torch.long,

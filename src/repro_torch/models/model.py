@@ -44,6 +44,7 @@ from repro_torch.data.packing import BLOCK as SERVE_BLOCK
 from repro_torch.kernels.packed_flash import ops as pf_ops
 from repro_torch.models import layers as L
 from repro_torch.models import sharded as S
+from repro_torch.obs.regions import marked
 from repro_torch.parallel import ParallelContext, make_rules
 
 _ATTN_KINDS = ("global", "local")
@@ -262,6 +263,7 @@ class Transformer(nn.Module):
                                  device=h.device)
         return h
 
+    @marked("unembed")
     def _unembed(self, h: torch.Tensor, ctx=None,
                  table: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits f32 against ``table`` (default: the tied embedding or

@@ -128,8 +128,11 @@ class _VocabNLL(torch.autograd.Function):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
         grad = p * g[:, None]
-        rows = torch.nonzero(inside)[:, 0]
-        grad[rows, tl[rows]] -= g[rows]
+        # minus g at each row's gold column where this shard holds it: a
+        # scatter of one column a row (adding -0.0 elsewhere changes no
+        # bit), with no data-dependent shape, so a meta trace runs it
+        grad.scatter_add_(1, tl[:, None],
+                          torch.where(inside, -g, -0.0)[:, None])
         return grad, None, None, None
 
 

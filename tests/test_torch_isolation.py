@@ -218,6 +218,31 @@ def test_sharding_rules_and_grid_layers_load_no_jax():
     _probe(_GRID)
 
 
+# the launch tooling, each module by name, and one dry run on a fake grid
+# (the fake process group, the meta step, the op counter and the roofline)
+_LAUNCH = """
+import torch
+import torch.distributed as dist
+from repro_torch.configs import ASSIGNED_ARCHS
+from repro_torch.launch import (breakdown, dryrun, dryrun_lib, op_analysis,
+                                perf, roofline)
+from repro_torch.obs.regions import REGIONS, region, marked
+rec = dryrun_lib.run_dryrun("smollm-360m-reduced",
+                            dict(kind="train", seq=256, batch=4),
+                            {"data": 2, "model": 2}, cad=True)
+assert rec["hlo_flops_per_device"] > 0 and rec["collective_bytes_per_device"]
+assert breakdown.report(op_analysis.OpCost(flops=1.0))
+assert len(ASSIGNED_ARCHS) == 10 and callable(perf.measure)
+assert callable(roofline.main) and callable(dryrun.main)
+assert not dist.is_initialized()
+assert torch.cuda.is_initialized() is False
+"""
+
+
+def test_launch_tooling_loads_no_jax():
+    _probe(_LAUNCH)
+
+
 def test_importing_chip_smoke_loads_no_jax():
     _probe(_SMOKE)
 
