@@ -237,19 +237,19 @@ Phases, each of which fails the run:
    decode ms a step, one decode step traced (host against busy ms), peak
    memory, and the kernel timed at this head_dim as phase 4 times it;
 21. mamba2-370m served at full width and depth (48 ssd layers), 4 slots,
-   prompts of 100-300 tokens prefilled a token a step, 32 new tokens: no
+   prompts of 25-75 tokens prefilled a token a step, 32 new tokens: no
    kernel launch (its SSD layers decode in torch ops, as the
    reference's), the concurrent run's tokens equal to those of its SOLO
    shortest prompts served alone (which idled through the others'
-   prefill steps), rates at the middle of its prompt lengths (4 x 200),
+   prefill steps), rates at the middle of its prompt lengths (4 x 50),
    one decode step traced, peak memory; then an f32 copy of 2 layers:
    per-token serve logits against ``Transformer.forward``'s within
    SERVE_FWD_REL_BOUND, the controls SERVE_FWD_CONTROLS outside it (TF32
    matmuls, the state reset at every token), a third (the recurrent
    state stored in bf16) recorded;
 22. recurrentgemma-9b served at full width and depth (38 layers, 12 of
-   them local), as phase 21 with prompts of 50-200 tokens (rates at 4 x
-   125) and 16 new: the ragged kernel once a local layer a device call,
+   them local), as phase 21 with prompts of 13-50 tokens (rates at 4 x
+   31) and 16 new: the ragged kernel once a local layer a device call,
    held against its plain version on a captured decode step of layer 2,
    and timed as phase 4 times it at the local layers' decode shape with
    kv 3000, past the window; the f32 check at 3 layers (rglru, rglru,
@@ -310,8 +310,8 @@ is timed).
    CO_LOSS_LIMIT, the flash kernels on the captured q/k/v; step ms,
    tokens/s, peak memory;
 26. (after 25) the MoE archs served through ``launch/serve.py``'s engine
-   at every width, a token a step (MOE_SERVE): qwen2-moe-a2.7b at 12 of
-   24 layers, 4 slots, prompts of 100-300 tokens, 16 new: launches = layers
+   at every width, a token a step (MOE_SERVE): qwen2-moe-a2.7b at 6 of
+   24 layers, 4 slots, prompts of 50-150 tokens, 16 new: launches = layers
    x device calls, the kernel on a captured decode step, the concurrent
    run's tokens equal to its SOLO shortest prompts' served alone, rates
    and one decode step traced; an f32 copy of MOE_FWD_LAYERS layers:
@@ -336,7 +336,7 @@ is timed).
    across the batch, the CA kernels on layer 0's captured server batches
    against their plain versions and timed beside flash (phase 6's way);
    (b) served at full depth through ``Engine(memory=...)``'s legacy
-   branch (a dense 4 x 128 prompt batch, 16 new tokens, a token a step,
+   branch (a dense 4 x 32 prompt batch, 16 new tokens, a token a step,
    no kernel launched): build and encode ms, prefill tokens/s, decode
    ms a step, one decode step traced, peak memory; the prompts and
    memory rows permuted together give the tokens permuted, bitwise; an
@@ -393,13 +393,13 @@ is timed).
    of 64 a rank) at every width with 2 layers, a [1, 4096] row a data
    rank, and (c) qwen2-moe-a2.7b with expert parallelism (30 experts a
    data rank, the expert width split over the model ranks), 2 layers,
-   [1, 2048] a data rank, 2 ``cad`` steps each; (e) mamba2-370m (2
+   [1, 2048] a data rank, a ``cad`` step each; (e) mamba2-370m (2
    layers, the SSD kernels at full width on every model rank) and (f)
    recurrentgemma-9b (rglru, rglru, local: lru_scan on 2048 channels a
    rank, flash on 8 heads of 256) at every width, [1, 4096] a data rank,
-   2 steps on the ``pallas`` route of a sessionless grid; (g)
+   a step on the ``pallas`` route of a sessionless grid; (g)
    whisper-large-v3 at every width, 2 encoder and 2 decoder layers, a
-   memory of 1500 frames, [1, 4096] a data rank, 2 ``cad`` steps; each
+   memory of 1500 frames, [1, 4096] a data rank, a ``cad`` step; each
    then an f32 copy's step; (a) also on the colocated ``pallas`` route;
    (d) llama4-maverick at every width, 1 layer, one ``cad`` forward (64
    experts, 8 GB, a rank); (h) smollm-360m, 4 layers, 4 ``cad`` steps
@@ -417,12 +417,26 @@ is timed).
    process bitwise; then the CA kernels on (a)'s, (b)'s and (g)'s
    captured server batches at the per-rank shapes, against their plain
    versions and timed (PERF.md rows 4g/5g, 4p/5p, 4h/5h), and the SSD,
-   lru_scan and flash kernels on (e)'s and (f)'s captured inputs.
+   lru_scan and flash kernels on (e)'s and (f)'s captured inputs.  In
+   the same spawn, last, the decode step on the grid (GRID_DECODE): (i)
+   llama3-8b at every width, 2 layers, in the decode_32k layout (4 rows,
+   2 a data rank, a cache of 32768 positions split over the model ranks,
+   filled to 32000), 8 steps; (j) gemma2-2b at every width, a local and
+   a global layer, in the long_500k layout (1 row, 524288 positions and
+   the 4096-slot ring over all 4 ranks, filled to 524000), 4 steps; each
+   in f32, and in bf16 for GRID_DECODE_BF16_STEPS steps, against the
+   one-process ``decode_step`` on the same
+   weights and cache, run in the parent: the f32 logits within
+   GRID_DECODE_F32_LIMIT of their std and the next tokens equal on every
+   rank (the control, the first rank's slice dropped, outside), the bf16
+   gap logged; ms a decode step in one process and on the grid.
 32. (after 28, before 24: it traces) the launch tooling
-   (``repro_torch.launch``): (a) started right after phase 1, two host
+   (``repro_torch.launch``): (a) started right after phase 1, four host
    processes dry-run LAUNCH_ARCH x LAUNCH_SHAPE on the reference's 16 x 16
-   grid, plain and with CAD (``launch.dryrun``: rank 0's step on the meta
-   device over a fake process group of 256 ranks, under the op counter),
+   grid, plain and with CAD, LAUNCH_ARCH x decode_32k there and
+   LONG_DRYRUN_ARCH x long_500k on 2 x 16 x 16 (``launch.dryrun``: rank
+   0's step on the meta device over a fake process group, under the op
+   counter),
    read back here: trace seconds, per-rank argument, temp and peak bytes,
    FLOPs, collective bytes and the roofline row on the H100's rates;
    (b) LAUNCH_ARCH at LAUNCH_LAYERS layers, one rank, LAUNCH_ROWS x 4096
@@ -431,7 +445,13 @@ is timed).
    batch exactly, the op counter's FLOPs of the step on the card equal
    its meta trace's exactly, the predicted peak beside
    ``max_memory_allocated`` (reported); (c) the same step traced: device
-   ms by bucket beside each bucket's compute and memory terms.
+   ms by bucket beside each bucket's compute and memory terms; (d) a
+   decode step of LAUNCH_ARCH (LAUNCH_DECODE_ROWS rows against full
+   decode_32k caches, one rank) through ``perf.measure``: its argument
+   bytes, the cache's among them, equal the meta trace's exactly.
+33. (after 32) ``examples/torch_quickstart.py`` and
+   ``examples/torch_serve_batch.py``, each a process of its own (the two
+   at once), must exit 0.
 
 The line before the card line lists every ported kernel as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after
@@ -439,7 +459,8 @@ phase 2: the short first call for a new kernel; ``--only ranks`` runs
 phases 1, 5 and 24; ``--only moe`` phases 1, 25 and 26; ``--only
 cross`` phases 1, 27 and 28; ``--only pipeline`` phases 1 and 29;
 ``--only rank_runtime`` phases 1 and 30; ``--only grid`` phases 1 and
-31; ``--only launch`` phases 1 and 32.  Every traced
+31; ``--only launch`` phases 1 and 32; ``--only examples`` phases 1 and
+33.  Every traced
 or profiled window opens with LEAD_IN_KERNELS spin kernels
 (TRACE_LEAD_IN_CYCLES in all, ~2 ms), not counted.
 """
@@ -483,8 +504,23 @@ BF16_ATOL = BF16_RTOL = 2e-2
 PREFILL_REL_BOUND = 1e-3
 
 
+# host seconds by phase: the time from one log line to the next, charged
+# to the phase the line names ("phase N..."), or else to the last named
+PHASE_CLOCK = {"t": None, "phase": "0", "seconds": {}}
+
+
 def log(*args):
     print(*args, flush=True)
+    now = time.perf_counter()
+    line = " ".join(str(a) for a in args)
+    digits = line[6:].split(":")[0].split(" ")[0].split("(")[0]
+    if line.startswith("phase ") and digits.isdigit():
+        PHASE_CLOCK["phase"] = digits
+    if PHASE_CLOCK["t"] is not None:
+        sec = PHASE_CLOCK["seconds"]
+        sec[PHASE_CLOCK["phase"]] = (sec.get(PHASE_CLOCK["phase"], 0.0)
+                                     + now - PHASE_CLOCK["t"])
+    PHASE_CLOCK["t"] = now
 
 
 def card_line() -> str:
@@ -4879,7 +4915,7 @@ def serve_nemotron(torch, np, ops, launch, card):
 
 
 # the f32 check of phases 21-22: per-token serve logits against
-# Transformer.forward's on the same 2 x 512 tokens, as max |logit diff| /
+# Transformer.forward's on the same 2 x 256 tokens, as max |logit diff| /
 # std(logits) (PREFILL_REL_BOUND's measure).  The two sum in other orders
 # (one token a step against chunked scans and blockwise attention), each
 # f32 rounding ~6e-8 relative.  Most positions' logit vectors differ by
@@ -4898,7 +4934,10 @@ def serve_nemotron(torch, np, ops, launch, card):
 # tokens) and 1.7e-3 on the H100 (mamba2's 2.3e-2).
 SERVE_FWD_REL_BOUND = 1e-3
 SERVE_FWD_CONTROLS = ("TF32 matmuls", "state reset every token")
-SERVE_FWD_TOKENS = 512
+# 256 tokens a row since the script took 1217 s on a slow host (512 until
+# then: the TF32 controls landed at 2.0e-2, 3.5e-3 and 7.7e-1 in phases
+# 21, 22 and 26)
+SERVE_FWD_TOKENS = 256
 
 
 def _serve_vs_forward(torch, np, cfg, phase):
@@ -4962,15 +5001,20 @@ def _serve_vs_forward(torch, np, cfg, phase):
     return gap, ctrl
 
 
-SOLO = 2          # prompts of phases 21-22 served alone again
+# prompts of phases 21, 22 and 26 served alone again: 1 since the whole
+# script took 1217 s on a slow host (2 until then)
+SOLO = 1
 RECURRENT_SERVE = {
     # phase: (arch, prompt lengths, new tokens, max_seq, the f32 check's
-    #         layer pattern and depth).  The prompts were twice as long
-    #         until phases 27-28 came: on a slow host the whole run then
-    #         took 1222 s, past its 1200 s limit, and these a-token-a-step
-    #         phases (21, 22, 26) took 607 s of it
-    21: ("mamba2-370m", (100, 301), 32, 640, ("ssd",), 2),
-    22: ("recurrentgemma-9b", (50, 201), 16, 512,
+    #         layer pattern and depth).  The prompts were four times as
+    #         long until phases 27-28 came (on a slow host the whole run
+    #         then took 1222 s, past its 1200 s limit, and these
+    #         a-token-a-step phases (21, 22, 26) took 607 s of it), and
+    #         twice as long until phase 31's grid decode came (1304 s on a
+    #         slow host), and twice as long again until the script took
+    #         1217 s and 1156 s on slow hosts
+    21: ("mamba2-370m", (25, 76), 32, 640, ("ssd",), 2),
+    22: ("recurrentgemma-9b", (13, 51), 16, 512,
          ("rglru", "rglru", "local"), 3),
 }
 
@@ -5010,10 +5054,13 @@ def serve_recurrent(torch, np, ops, launch, card, phase):
         f"{engine.fused_ok}")
     captured = {}
 
+    # the first step at which every slot holds a token at a position of
+    # the shortest prompt's length or past it (every slot is still busy
+    # there: each holds a prompt of at least plens[0] and new tokens)
     def capture(layer, inputs):
         if local and layer == local[0] and not captured \
                 and int((inputs["q_pos"] >= 0).sum()) == 4 \
-                and int(inputs["q_pos"].min()) >= 40:
+                and int(inputs["q_pos"].min()) >= plens[0]:
             captured[("decode", layer)] = {
                 k: v.clone() if torch.is_tensor(v) else v
                 for k, v in inputs.items()}
@@ -5443,8 +5490,11 @@ def train_moe(torch, ops, card):
 
 # phase 26: (arch, depth, prompt lengths, new tokens, max_seq); qwen2-moe
 # at 12 of 24 layers since phase 31 grew (its 24 took 91 s of the script's
-# 1200 s limit, a token a step through the host-bound loop)
-MOE_SERVE = {"qwen2-moe-a2.7b": (12, (100, 301), 16, 640),
+# 1200 s limit, a token a step through the host-bound loop), at 6 since
+# phase 31's grid decode came (12 took 73.6 s on a slow host, where the
+# script took 1304 s); its prompts 50-150 tokens since the script took
+# 1217 s on a slow host (100-300 until then)
+MOE_SERVE = {"qwen2-moe-a2.7b": (6, (50, 151), 16, 640),
              # 1 of 48 layers: 18.4 B params, 36.8 GB of bf16 weights (one
              # layer's 128 experts are 32 GB); two would not leave room
              "llama4-maverick-400b-a17b": (1, (64, 161), 16, 192)}
@@ -5664,7 +5714,9 @@ def moe_phases(torch, np, ops, launch, card):
 # ``xgate`` to 0, so at init cross-attention adds exactly nothing and its
 # weights get no gradient: no check at init could see it broken.
 CROSS_GATE = 0.5
-CROSS_STEPS = 3
+# 2 steps (the second traced) since the script took 1217 s on a slow
+# host; 3 until then
+CROSS_STEPS = 2
 CROSS_SEQ = 4096
 CROSS_ROWS = 4
 # the f32 serve-vs-forward copy's (encoder, decoder) layers
@@ -5677,12 +5729,14 @@ CROSS_ARCHS = {
     # config has no encoder, so this run has none
     "llama-3.2-vision-11b": dict(phase=28, train_layers=5,
                                  fwd_layers=(0, 5))}
-# serving: rows, prompt tokens, new tokens
-CROSS_SERVE = (4, 128, 16)
+# serving: rows, prompt tokens, new tokens (32 prompt tokens since the
+# script took 1217 s and 1156 s on slow hosts; 128 until then, 19.7 s of
+# serving for vision's 40 layers, twice)
+CROSS_SERVE = (4, 32, 16)
 CROSS_FWD_CONTROLS = ("TF32 matmuls", "memory rows rotated")
 # the f32 copies' tokens a row, a token a decode step (3 passes each);
-# 512 took vision's copy ~20 s
-CROSS_FWD_TOKENS = 256
+# 512 took vision's copy ~20 s; 256 until phase 31's grid decode came
+CROSS_FWD_TOKENS = 128
 CROSS_FAMILIES = ("CA-server kernels", "matmuls (cuBLAS)",
                   "xla route (encoder and cross-attention)", "other")
 
@@ -7211,11 +7265,15 @@ def pipeline_phase(torch, np, card):
 # fault schedule
 RT_ARCH = "smollm-360m"
 # of its 32 layers: gloo stages every exchange through the host (~50 MB/s
-# in phase 29), so 32 layers would take ~40 s a step
+# in phase 29), so 32 layers would take ~40 s a step.  At 2 layers the
+# bf16 step-0 loss came out of bitwise agreement with the one-process
+# trainer's on one H100 (NVIDIA H100 80GB HBM3, 700 W), so 4 stay
 RT_LAYERS = 4
 RT_RANKS = 4
 RT_SEQ = 4096
-RT_STEPS = 4
+# 3 steps (the kill at step 2 still one step in) since the script took
+# 1217 s on a slow host; 4 until then
+RT_STEPS = 3
 RT_FAULTS = "kill:1@2"
 RT_KILLED, RT_KILL_STEP = 1, 2
 # the training run in bf16, then an f32 copy for the loss bound
@@ -7550,18 +7608,20 @@ GRID_RANKS = GRID["data"] * GRID["model"]
 # path: (arch, layers, tokens a data rank, bf16 steps, expert parallel);
 # every width, depth cut.  (d) is a forward only: maverick's 128 experts
 # of [5120, 8192] are 32 GB in bf16, 8 GB a rank, and training would need
-# ~48 GB a rank for weights, gradients and f32 AdamW moments
+# ~48 GB a rank for weights, gradients and f32 AdamW moments.  The trained
+# paths take 1 bf16 step since the script took 1217 s on a slow host (2
+# until then; the second took 6.7 s of (a)'s and 9.1 s of (f)'s time)
 GRID_PATHS = {
-    "a": ("llama3-8b", 2, 4096, 2, False),
-    "b": ("smollm-360m", 2, 4096, 2, False),
-    "c": ("qwen2-moe-a2.7b", 2, 2048, 2, True),
+    "a": ("llama3-8b", 2, 4096, 1, False),
+    "b": ("smollm-360m", 2, 4096, 1, False),
+    "c": ("qwen2-moe-a2.7b", 2, 2048, 1, True),
     "d": ("llama4-maverick-400b-a17b", 1, 2048, 0, True),
     # the other layer kinds: the SSD mixer whole on every model rank, the
     # RG-LRU width split over them (rglru, rglru, local), whisper's
     # encoder and cross-attention (GRID_ENC_LAYERS encoder layers)
-    "e": ("mamba2-370m", 2, 4096, 2, False),
-    "f": ("recurrentgemma-9b", 3, 4096, 2, False),
-    "g": ("whisper-large-v3", 2, 4096, 2, False),
+    "e": ("mamba2-370m", 2, 4096, 1, False),
+    "f": ("recurrentgemma-9b", 3, 4096, 1, False),
+    "g": ("whisper-large-v3", 2, 4096, 1, False),
     # the runtime on the grid: GRID_RUNTIME's calibration, kill and
     # checkpoints, bf16 only
     "h": ("smollm-360m", 4, 4096, 4, False),
@@ -7634,6 +7694,248 @@ GRID_CA = ("ca_server_fwd", "ca_server_bwd_dq", "ca_server_bwd_dkv")
 GRID_ALLOC_ENV = "PYTORCH_CUDA_ALLOC_CONF"
 GRID_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
               "flash_tile_ranges")
+
+
+# (i)-(j): the decode step on the grid (``Transformer.decode_step(...,
+# ctx)`` under ``parallel.decode_rules``), in the same spawn, after the
+# training paths.  path: (arch, layers, layout, rows, cache positions,
+# positions filled before the first step, f32 decode steps); every width.
+# (i) the decode_32k layout: rows over the data ranks, each model rank
+# holding every kv head of its half of the sequence; (j) the long_500k
+# layout: one row, the sequence over all four ranks (a local layer's
+# 4096-slot ring too), gemma2's local and global layer
+GRID_DECODE = {
+    "i": ("llama3-8b", 2, "decode", 4, 32768, 32000, 8),
+    "j": ("gemma2-2b", 2, "long", 1, 524288, 524000, 4),
+}
+GRID_DECODE_DTYPES = ("float32", "bfloat16")
+# the bf16 runs' steps (their gap is logged, not checked): each grid step
+# gathers the FSDP weight shards through gloo's host staging, 2.2 s of
+# (i)'s bf16 step and 4.3 s of its f32 one on one H100 (NVIDIA H100 80GB
+# HBM3, 700 W), so 8 bf16 steps would add ~13 s to a script near its time
+# limit
+GRID_DECODE_BF16_STEPS = 2
+GRID_DECODE_SEED = 7
+# the f32 logits' max |diff| over the one-process logits' std; the
+# control (the one-process step with the first rank's slice of every
+# attention cache emptied, a merge that lost one partial) must fall
+# outside.  Measured on one H100 (NVIDIA H100 80GB HBM3, 700 W): gaps
+# 7.27e-6 ((i)) and 6.71e-6 ((j)), the controls 1.59 and 2.12 (the CPU
+# tests' reduced widths: 2e-6 to 5e-6); set ~7x above the worst gap
+GRID_DECODE_F32_LIMIT = 5e-5
+GRID_DECODE_CONTROL = "the first rank's slice of the cache dropped"
+
+
+def _decode_setup(path, dtype):
+    from repro_torch.configs import get_config
+    arch, layers, layout, rows, seq, filled, steps = GRID_DECODE[path]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              param_dtype=dtype, compute_dtype=dtype)
+    if dtype == "bfloat16":
+        steps = GRID_DECODE_BF16_STEPS
+    return cfg, layout == "long", rows, seq, filled, steps
+
+
+def _decode_cache(torch, model, rows, seq, filled, drop=0):
+    """The whole decode cache of ``rows`` x ``seq`` positions on the
+    card, filled as if ``filled`` tokens had been decoded: every k/v leaf
+    0.5 x a normal draw seeded by (GRID_DECODE_SEED, layer, name), the
+    same on every process; ``kv_pos`` the positions each slot holds (a
+    ring the window before ``filled``).  ``drop`` > 0 empties the first
+    ``drop``-th of every attention cache's slots (the control)."""
+    import zlib
+    cache = model.init_cache(rows, seq, layout="decode")
+    gen = torch.Generator(device=model.device)
+    for li, slot in enumerate(cache["slots"]):
+        for name, t in slot.items():
+            if name == "kv_pos":
+                n = t.shape[1]
+                p = torch.arange(max(0, filled - n), filled,
+                                 device=t.device, dtype=torch.int32)
+                held = torch.full((n,), -1, dtype=torch.int32,
+                                  device=t.device)
+                held[(p % n).long()] = p
+                if drop:
+                    held[:n // drop] = -1
+                t.copy_(held.expand(rows, n))
+                continue
+            gen.manual_seed(GRID_DECODE_SEED * 1_000_003
+                            + zlib.crc32(f"{li}.{name}".encode()))
+            t.copy_(torch.randn(t.shape, generator=gen, device=t.device,
+                                dtype=t.dtype).mul_(0.5))
+    return cache
+
+
+def _decode_tokens(torch, cfg, rows, steps):
+    gen = torch.Generator(device="cpu").manual_seed(GRID_DECODE_SEED)
+    return torch.randint(1, cfg.vocab_size, (rows, steps), generator=gen,
+                         dtype=torch.int32)
+
+
+def _decode_run(torch, step, cache, toks, filled, steps, device):
+    """``steps`` decode steps of ``toks`` from position ``filled``: the
+    f32 logits [rows, steps, V] on the host and each step's ms."""
+    logits, ms = [], []
+    rows = toks.shape[0]
+    for t in range(steps):
+        pos = torch.full((rows,), filled + t, dtype=torch.int32,
+                         device=device)
+        tok = toks[:, t:t + 1].to(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lg = step(cache, tok, pos)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        logits.append(lg[:, 0].float().cpu())
+    return torch.stack(logits, 1), ms
+
+
+def _grid_decode_one_process(torch, path, dtype):
+    """Path (i) or (j) in one process on the card: the whole model
+    (``_grid_fill``'s values) and cache, ``make_serve_step`` without a
+    grid: the logits, the ms a step, the peak; in f32 also the control's
+    first-step logits."""
+    from repro_torch.models.model import Transformer
+    from repro_torch.train.step import make_serve_step
+    cfg, long, rows, seq, filled, steps = _decode_setup(path, dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(cfg, device="meta")
+    model.to_empty(device=DEVICE)
+    _grid_fill(torch, model, 0)
+    toks = _decode_tokens(torch, cfg, rows, steps)
+    step = make_serve_step(model)
+    cache = _decode_cache(torch, model, rows, seq, filled)
+    logits, ms = _decode_run(torch, step, cache, toks, filled, steps,
+                             DEVICE)
+    rec = dict(logits=logits, ms=ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del cache
+    if dtype == "float32":
+        ranks = GRID_RANKS if long else GRID["model"]
+        cache = _decode_cache(torch, model, rows, seq, filled, drop=ranks)
+        rec["control"], _ = _decode_run(torch, step, cache, toks, filled, 1,
+                                        DEVICE)
+        del cache
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _grid_rank_decode(torch, grid):
+    """Paths (i) and (j) on one rank, in each of GRID_DECODE_DTYPES: its
+    shards of the weights (``_grid_fill``) under ``decode_rules``, its
+    shard of the whole cache (``cache_shard``), its rows' decode steps
+    through ``make_serve_step(model, ctx)``: logits, ms a step (gloo
+    stages every collective through the host), cache and weight bytes,
+    peak."""
+    from repro_torch.models.convert import shard_model
+    from repro_torch.models.model import Transformer, cache_shard
+    from repro_torch.parallel import ParallelContext, decode_rules, make_rules
+    from repro_torch.train.step import make_serve_step
+    coords = {"data": grid.data_index, "model": grid.model_index}
+    out = {}
+    for path in GRID_DECODE:
+        for dtype in GRID_DECODE_DTYPES:
+            cfg, long, rows, seq, filled, steps = _decode_setup(path, dtype)
+            rules = decode_rules(make_rules(grid.sizes, cfg), grid.sizes,
+                                 long)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = Transformer(cfg, device="meta")
+            shard_model(model, grid.sizes, coords, rules=rules)
+            model.to_empty(device=grid.device)
+            _grid_fill(torch, model, 0, coords)
+            ctx = ParallelContext(attn_impl="xla", remat=False,
+                                  group=grid.data_group,
+                                  model_group=grid.model_group, rules=rules)
+            whole = _decode_cache(torch, model, rows, seq, filled)
+            cache = cache_shard(cfg, whole, ctx)
+            del whole
+            torch.cuda.empty_cache()
+            build_s = time.perf_counter() - t0
+            mine = slice(0, rows) if long else slice(
+                grid.data_index * rows // GRID["data"],
+                (grid.data_index + 1) * rows // GRID["data"])
+            toks = _decode_tokens(torch, cfg, rows, steps)[mine]
+            logits, ms = _decode_run(torch, make_serve_step(model, ctx),
+                                     cache, toks, filled, steps, grid.device)
+            out[path, dtype] = dict(
+                logits=logits, ms=ms, rows=mine, build_s=build_s,
+                cache_bytes=sum(t.nbytes for slot in cache["slots"]
+                                for t in slot.values()),
+                param_bytes=sum(p.nbytes for p in model.parameters()),
+                cache_shape=tuple(next(slot["k"].shape
+                                       for slot in cache["slots"]
+                                       if "k" in slot)),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            del model, cache, ctx
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def _grid_decode_checks(torch, parts, oracles, card):
+    """Paths (i)-(j)'s checks: in f32 every rank's logits of its rows
+    within GRID_DECODE_F32_LIMIT of the one-process logits (over their
+    std), the next tokens equal, the control outside the limit; in bf16
+    the gap logged.  Logs the ms a step beside the card."""
+    import statistics
+    checks, runs = {}, {}
+    for path in GRID_DECODE:
+        arch, layers, layout, rows, seq, filled, _ = GRID_DECODE[path]
+        for dtype in GRID_DECODE_DTYPES:
+            steps = _decode_setup(path, dtype)[-1]
+            one = oracles[path, dtype]
+            want = one["logits"]
+            std = float(want.std())
+            gaps, equal = [], True
+            for part in parts:
+                r = part["decode"][path, dtype]
+                w = want[r["rows"]]
+                gaps.append(float((r["logits"] - w).abs().max()) / std)
+                equal &= bool(torch.equal(r["logits"].argmax(-1),
+                                          w.argmax(-1)))
+            tag = (f"({path}) {arch} {layers} layers, {layout} layout, "
+                   f"{rows} x {seq} filled to {filled}, {steps} steps, "
+                   f"{dtype}")
+            ctrl = None
+            if dtype == "float32":
+                ctrl = float((one["control"][:, 0] - want[:, 0]).abs()
+                             .max()) / std
+                checks[f"{tag}: logits within {GRID_DECODE_F32_LIMIT} of "
+                       f"the one-process step's std on every rank"] = \
+                    max(gaps) <= GRID_DECODE_F32_LIMIT
+                checks[f"{tag}: next tokens equal on every rank"] = equal
+                checks[f"{tag}: the control ({GRID_DECODE_CONTROL}) "
+                       f"outside the limit"] = ctrl > GRID_DECODE_F32_LIMIT
+            rank_ms = [statistics.median(p["decode"][path, dtype]["ms"])
+                       for p in parts]
+            r0 = parts[0]["decode"][path, dtype]
+            log(f"  {tag}: logits max |diff| / std by rank {gaps!r} "
+                f"(next tokens equal: {equal}; control {ctrl!r}); ms a "
+                f"decode step, median: one process "
+                f"{statistics.median(one['ms']):.2f} (all "
+                f"{[round(x, 2) for x in one['ms']]}), the grid by rank "
+                f"{[round(x, 2) for x in rank_ms]} (gloo stages every "
+                f"collective through the host: not a speed figure); rank 0 "
+                f"holds cache {tuple(r0['cache_shape'])} a layer's k, "
+                f"{r0['cache_bytes'] / 2 ** 30:.3f} GiB of cache and "
+                f"{r0['param_bytes'] / 2 ** 30:.3f} GiB of weights, peaks "
+                f"{[round(p['decode'][path, dtype]['peak_gib'], 2) for p in parts]}"
+                f" GiB a rank, {one['peak_gib']:.2f} GiB in one process "
+                f"[{card}]")
+            runs[f"{path}_{dtype}"] = dict(
+                rel_gaps=gaps, next_tokens_equal=equal, control=ctrl,
+                one_process_ms=one["ms"],
+                grid_ms=[p["decode"][path, dtype]["ms"] for p in parts],
+                cache_bytes=r0["cache_bytes"], param_bytes=r0["param_bytes"],
+                one_process_peak_gib=one["peak_gib"],
+                peak_gib=[p["decode"][path, dtype]["peak_gib"]
+                          for p in parts])
+    return checks, runs
 
 
 def _grid_setup(path, dtype="bfloat16"):
@@ -8099,6 +8401,11 @@ def _grid_rank(rank, tmp):
         t0 = time.perf_counter()
         recs["h"] = _grid_rank_runtime(torch, ops, grid, tmp)
         recs["h"]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        recs["decode"] = _grid_rank_decode(torch, grid)
+        recs["decode_s"] = time.perf_counter() - t0
         torch.save(recs, tmp / f"rank{rank}.pt")
         dist.barrier()
     finally:
@@ -8675,17 +8982,17 @@ def grid_phase(torch, np, ops, ssd, rg, card):
     its placement says (FSDP: split over the data ranks on its dmodel
     dim, gathered where a layer reads it): (a) llama3-8b and (b)
     smollm-360m (15 heads padded to 16, 8 MHA heads a rank) at every
-    width, 2 layers, a [1, 4096] ``prolong`` row a data rank, 2 steps of
+    width, 2 layers, a [1, 4096] ``prolong`` row a data rank, a step of
     ``trainer.train`` under ``cad`` with remat; (c) qwen2-moe-a2.7b with
     ``expert_parallel`` (30 experts a data rank, ``d_ff_expert`` split
-    over the model ranks), 2 layers, [1, 2048] a data rank, 2 steps; (e)
+    over the model ranks), 2 layers, [1, 2048] a data rank, a step; (e)
     mamba2-370m at every width, 2 layers, and (f) recurrentgemma-9b at
     every width, 3 layers (rglru, rglru, local), [1, 4096] a data rank,
-    2 steps each on the ``pallas`` route of a sessionless grid (the SSD
+    a step each on the ``pallas`` route of a sessionless grid (the SSD
     kernels at full width on every model rank; lru_scan on this rank's
     2048 channels, flash on its 8 heads of 256); (g) whisper-large-v3 at
     every width, 2 encoder and 2 decoder layers, a memory of 1500 frames,
-    [1, 4096] a data rank, 2 ``cad`` steps; each then as an f32 copy, one
+    [1, 4096] a data rank, a ``cad`` step; each then as an f32 copy, one
     step ((f) at 2 layers); (a) also on the colocated ``pallas`` route at
     the step-0 weights; (d) llama4-maverick at every width, 1 layer, a
     ``cad`` forward of [1, 2048] a data rank (64 experts a data rank, 8
@@ -8726,6 +9033,10 @@ def grid_phase(torch, np, ops, ssd, rg, card):
     oracles = {(path, dtype): _grid_one_process(torch, ops, path, dtype)
                for path in GRID_TRAIN for dtype in GRID_DTYPES}
     oracle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decode_1p = {(path, dtype): _grid_decode_one_process(torch, path, dtype)
+                 for path in GRID_DECODE for dtype in GRID_DECODE_DTYPES}
+    decode_oracle_s = time.perf_counter() - t0
     for m in (ops, ssd, rg):
         m.reset_launches()
     gc.collect()
@@ -8767,6 +9078,12 @@ def grid_phase(torch, np, ops, ssd, rg, card):
     checks.update(pallas_checks)
     checks.update(rt_checks)
     runs["h"] = runtime
+    dec_checks, runs["decode"] = _grid_decode_checks(torch, parts,
+                                                     decode_1p, card)
+    checks.update(dec_checks)
+    runs["decode"]["seconds"] = dict(
+        one_process=decode_oracle_s,
+        ranks=[p["decode_s"] for p in parts])
     timed = {}
     for path, rows in GRID_TIMED.items():
         batches = captured_batches(torch, {0: captured[path]})
@@ -8985,24 +9302,34 @@ LAUNCH_ARCH = "llama3-8b"
 LAUNCH_SHAPE = "train_4k"
 LAUNCH_LAYERS = 2          # phase 32(b): the step on the card, one rank
 LAUNCH_ROWS = 1
+# phase 32(d): a decode step of LAUNCH_ARCH at LAUNCH_LAYERS layers, one
+# rank: LAUNCH_DECODE_ROWS rows against full caches of decode_32k's length
+LAUNCH_DECODE_SHAPE = "decode_32k"
+LAUNCH_DECODE_ROWS = 4
 DRYRUN_TIMEOUT_S = 600     # phase 32(a)'s dry runs, from their start
+LONG_DRYRUN_ARCH = "gemma2-2b"   # phase 32(a)'s long_500k dry run
 
 
 def start_dry_runs(tmp):
     """Phase 32(a), started after phase 1 and read in phase 32: the dry run
     of LAUNCH_ARCH x LAUNCH_SHAPE on the reference's 16 x 16 grid, plain and
-    with CAD (``python -m repro_torch.launch.dryrun``), each a process of
+    with CAD, of LAUNCH_ARCH x decode_32k there and of LONG_DRYRUN_ARCH x
+    long_500k on 2 x 16 x 16 (``python -m repro_torch.launch.dryrun``),
+    each a process of
     its own on the host (meta tensors over a fake process group, no card:
     the card is hidden from it) beside the card's phases.  Returns {name:
     (process, its JSONL file)}."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
     runs = {}
-    for name, extra in (("plain", []), ("cad", ["--cad"])):
+    for name, extra in (("plain", ["--shape", LAUNCH_SHAPE]),
+                        ("cad", ["--shape", LAUNCH_SHAPE, "--cad"]),
+                        ("decode", ["--shape", "decode_32k"]),
+                        ("long", ["--shape", "long_500k", "--multi-pod"])):
+        arch = LONG_DRYRUN_ARCH if name == "long" else LAUNCH_ARCH
         out = Path(tmp) / f"dryrun_{name}.jsonl"
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               LAUNCH_ARCH, "--shape", LAUNCH_SHAPE, "--out", str(out),
-               *extra]
+               arch, "--out", str(out), *extra]
         runs[name] = (subprocess.Popen(cmd, env=env, cwd=str(ROOT),
                                        stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
@@ -9032,7 +9359,10 @@ def launch_phase(torch, card, runs, started):
     exactly (the meta trace is the program that runs); the predicted peak
     beside ``max_memory_allocated`` (reported, not checked).  (c) the same
     step traced: device ms by bucket beside each bucket's compute and
-    memory terms."""
+    memory terms.  (d) a decode step of LAUNCH_ARCH (LAUNCH_DECODE_ROWS
+    rows against full decode_32k caches) through ``perf.measure``: the
+    meta trace's argument bytes (the cache's among them) equal the
+    card's, exactly; FLOPs and the traced buckets logged."""
     from repro_torch.launch.perf import format_measure, measure
     from repro_torch.launch.roofline import roofline_row
     t0 = time.perf_counter()
@@ -9046,13 +9376,14 @@ def launch_phase(torch, card, runs, started):
         rec = json.loads(path.read_text().splitlines()[-1])
         row = roofline_row(rec)
         gib = 2 ** 30
-        log(f"phase 32(a): dry run of {LAUNCH_ARCH} x {LAUNCH_SHAPE} on the "
+        log(f"phase 32(a): dry run of {rec['arch']} x {rec['shape']} on the "
             f"{'x'.join(map(str, rec['mesh']))} grid ({name}): traced in "
             f"{rec['trace_s']} s ({rec['n_ops']} ops, built in "
             f"{rec['build_s']} s; host seconds, beside the card's phases); "
             f"per rank: params {rec['param_bytes'] / gib:.3f} + moments "
             f"{rec['moment_bytes'] / gib:.3f} + batch "
-            f"{rec['batch_bytes'] / gib:.4f} = arguments "
+            f"{rec['batch_bytes'] / gib:.4f} + cache "
+            f"{rec['cache_bytes'] / gib:.3f} = arguments "
             f"{rec['argument_bytes'] / gib:.3f} GiB, temp "
             f"{rec['temp_bytes'] / gib:.3f} GiB, peak "
             f"{rec['peak_bytes'] / gib:.3f} GiB; flops "
@@ -9086,12 +9417,64 @@ def launch_phase(torch, card, runs, started):
                          f"{p['flops']!r}")
     if not math.isfinite(res["loss"]):
         raise SystemExit(f"phase 32(b): loss {res['loss']}")
+    dec = measure(LAUNCH_ARCH, LAUNCH_DECODE_SHAPE, layers=LAUNCH_LAYERS,
+                  rows=LAUNCH_DECODE_ROWS, device=DEVICE,
+                  lead_in=lambda: trace_lead_in(torch), skip=SPIN_KERNEL)
+    for line in format_measure(dec).splitlines():
+        log(f"phase 32(d): {line}")
+    log(f"phase 32(d): [{card}]")
+    p, m = dec["predicted"], dec["measured"]
+    parts = parts + ("cache_bytes",)
+    if any(p[k] != m[k] for k in parts):
+        raise SystemExit(f"phase 32(d): the decode step's meta trace gives "
+                         f"argument bytes {[p[k] for k in parts]}, the card "
+                         f"{[m[k] for k in parts]}")
+    out["measure_decode"] = dict(dec, breakdown=None)
     secs = time.perf_counter() - t0
     log(f"phase 32: {secs:.1f} s (the dry runs of (a) ran beside the "
         f"earlier phases)")
     out["measure"] = dict(res, breakdown=None)
     out["seconds"] = secs
     return out
+
+
+# phase 33: the PyTorch examples that reach the card's kernels, each a
+# process of its own with its defaults (``--device cuda``)
+EXAMPLES_ON_CARD = ("torch_quickstart.py", "torch_serve_batch.py")
+EXAMPLE_TIMEOUT_S = 300
+
+
+def examples_phase(card):
+    """Phase 33: ``examples/torch_quickstart.py`` (CAD through the CA
+    kernels, its error against monolithic attention under its bound) and
+    ``examples/torch_serve_batch.py`` (continuous batching through the
+    ragged-decode kernel) run as users run them; each must exit 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / name)], cwd=str(ROOT),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in EXAMPLES_ON_CARD}
+    failed = []
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, EXAMPLE_TIMEOUT_S
+                            - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        for line in stdout.splitlines():
+            log(f"phase 33: {name}: {line}")
+        log(f"phase 33: {name} exited {proc.returncode}")
+        if proc.returncode:
+            failed.append(f"{name} exited {proc.returncode}:\n"
+                          f"{stderr[-4000:]}")
+    secs = time.perf_counter() - t0
+    if failed:
+        raise SystemExit("phase 33: " + "\n".join(failed))
+    log(f"phase 33: both examples (at once) in {secs:.1f} s [{card}]")
+    return dict(seconds=secs)
 
 
 def build_kernels(build, ops, ssd, rg):
@@ -9145,14 +9528,15 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only", choices=("kernels", "ranks", "moe", "cross",
                                       "pipeline", "rank_runtime", "grid",
-                                      "launch"),
+                                      "launch", "examples"),
                    default=None,
                    help="'kernels': stop after the kernel checks (phases "
                         "1-2); 'ranks': phases 1, 5 and 24 alone; 'moe': "
                         "phases 1, 25 and 26; 'cross': phases 1, 27 and 28; "
                         "'pipeline': phases 1 and 29; 'rank_runtime': "
                         "phases 1 and 30; 'grid': phases 1 and 31; "
-                        "'launch': phases 1 and 32")
+                        "'launch': phases 1 and 32; 'examples': phases 1 "
+                        "and 33")
     return p.parse_args(argv)
 
 
@@ -9289,6 +9673,8 @@ def main(argv=None) -> int:
                              rank_runtime_phase(torch, np, ops, card))
     elif args.only == "launch":
         launch_phase(torch, card, dry_runs, dry_started)
+    elif args.only == "examples":
+        examples_phase(card)
     elif args.only == "grid":
         _record_grid(ca_fwd, ca_bwd, fl_fwd, fl_bwd, ssd_fm, ssd_bm, ssd_f,
                      ssd_b, lru_f, lru_b,
@@ -9653,6 +10039,8 @@ def main(argv=None) -> int:
         launch_phase(torch, card, dry_runs, dry_started)
         gc.collect()
         torch.cuda.empty_cache()
+        # phase 33: two of the PyTorch examples, as processes of their own
+        examples_phase(card)
         # last: the phases that join a process group and spawn; no traced
         # window comes after them
         ca_fwd["ranks_phase24"] = ranks_phase(
@@ -9670,6 +10058,8 @@ def main(argv=None) -> int:
         _record_grid(ca_fwd, ca_bwd, fl_fwd, fl_bwd, ssd_fm, ssd_bm, ssd_f,
                      ssd_b, lru_f, lru_b,
                      grid_phase(torch, np, ops, ssd, rg, card))
+    log("host seconds by phase (log line to log line): " + json.dumps(
+        {k: round(v, 1) for k, v in PHASE_CLOCK["seconds"].items()}))
     log(json.dumps({"kernels": [kernel, ca_fwd, ca_bwd, ca_rng, ca_glse,
                                 fl_fwd, fl_bwd, fl_rng, ssd_fm, ssd_bm,
                                 ssd_f, ssd_b, lru_f, lru_b]}))

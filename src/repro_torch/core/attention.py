@@ -266,6 +266,27 @@ class _XlaFlash(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------- decoding
+def _decode_probs(q, k_cache, v_cache, cache_len_mask, pos_q, pos_kv, *,
+                  window, softcap, scale):
+    """The decode attention's masked f32 logits [B,Hq,Sq,S], its mask and
+    its probabilities (rows with no visible slot all 0)."""
+    dh = q.shape[-1]
+    n_rep = q.shape[2] // k_cache.shape[2]
+    scale = scale if scale is not None else dh ** -0.5
+    k = _repeat_kv(k_cache, n_rep)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = _softcap(logits, softcap)
+    m = cache_len_mask[:, None, None, :] & (
+        pos_q[:, None, :, None] >= pos_kv[:, None, None, :])
+    if window and window > 0:
+        m = m & ((pos_q[:, None, :, None] - pos_kv[:, None, None, :])
+                 < window)
+    logits = torch.where(m, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(m.any(-1)[..., None], p, 0.0)
+    return logits, m, p
+
+
 @marked("attention")
 def decode_attention(q, k_cache, v_cache, cache_len_mask, pos_q, pos_kv, *,
                      window=0, softcap=0.0, scale: Optional[float] = None):
@@ -277,23 +298,46 @@ def decode_attention(q, k_cache, v_cache, cache_len_mask, pos_q, pos_kv, *,
     q [B,Sq,Hq,dh]; caches [B,S,Hkv,dh]; cache_len_mask [B,S] bool (True =
     the slot holds a real token); pos_q [B,Sq]; pos_kv [B,S] absolute
     positions (a ring buffer's slot order is not its position order)."""
-    dh = q.shape[-1]
-    n_rep = q.shape[2] // k_cache.shape[2]
-    scale = scale if scale is not None else dh ** -0.5
-    k = _repeat_kv(k_cache, n_rep)
-    v = _repeat_kv(v_cache, n_rep)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    logits = _softcap(logits, softcap)
-    m = cache_len_mask[:, None, None, :] & (
-        pos_q[:, None, :, None] >= pos_kv[:, None, None, :])
-    if window and window > 0:
-        m = m & ((pos_q[:, None, :, None] - pos_kv[:, None, None, :])
-                 < window)
-    logits = torch.where(m, logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
-    p = torch.where(m.any(-1)[..., None], p, 0.0)
+    _, _, p = _decode_probs(q, k_cache, v_cache, cache_len_mask, pos_q,
+                            pos_kv, window=window, softcap=softcap,
+                            scale=scale)
+    v = _repeat_kv(v_cache, q.shape[2] // v_cache.shape[2])
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype)
+
+
+@marked("attention")
+def decode_attention_partial(q, k_cache, v_cache, cache_len_mask, pos_q,
+                             pos_kv, *, window=0, softcap=0.0,
+                             scale: Optional[float] = None):
+    """``decode_attention`` over one slice of a cache, as a partial for
+    :func:`merge_decode_partials`: (out [B,Sq,Hq,dh] f32, normalized over
+    the slice; lse [B,Hq,Sq] f32, the log-sum-exp of the slice's visible
+    logits).  A row with no visible slot gives out 0 and lse ``LSE_DEAD``,
+    which the merge treats as absent."""
+    logits, m, p = _decode_probs(q, k_cache, v_cache, cache_len_mask, pos_q,
+                                 pos_kv, window=window, softcap=softcap,
+                                 scale=scale)
+    v = _repeat_kv(v_cache, q.shape[2] // v_cache.shape[2])
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    lse = torch.where(m.any(-1), torch.logsumexp(logits, dim=-1), LSE_DEAD)
+    return out, lse
+
+
+def merge_decode_partials(out, lse):
+    """Merge attention partials stacked on dim 0, out [n,B,Sq,H,dh] f32 and
+    lse [n,B,H,Sq] f32, by ``merge_softmax_partials``' arithmetic over n
+    (the max of the live lse, their log-sum-exp, then each partial
+    weighted by exp(lse_i - lse), a dead one by 0), summed in the order of
+    dim 0.  Returns (out [B,Sq,H,dh] f32, lse [B,H,Sq]); rows dead in
+    every partial give out 0 and lse ``LSE_DEAD``."""
+    dead = lse >= LSE_DEAD / 2
+    la = torch.where(dead, -LSE_DEAD, lse)
+    m = la.max(0).values
+    lse_m = m + torch.log(torch.exp(la - m).sum(0))
+    w = torch.where(dead, 0.0, torch.exp(lse - lse_m))
+    merged = (w.transpose(-1, -2)[..., None] * out).sum(0)
+    return merged, torch.where(dead.all(0), LSE_DEAD, lse_m)
 
 
 # ------------------------------------------------------------------ router

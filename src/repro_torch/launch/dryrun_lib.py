@@ -23,10 +23,16 @@ the plain versions of the CA kernels (``ca_server_attention`` on meta
 tensors), as the reference lowers its servers' ``xla`` route.
 Attention takes the ``xla`` route with remat, as the reference's.
 
-Decode shapes (``decode_32k``, ``long_500k``) raise ``NotImplementedError``:
-the reference lowers them as a sharded serve step (its cache sequence
-over ``model``), and the port's serving has no grid yet (ROADMAP queue 1
-item 16, the grid decode step).
+A decode shape (``decode_32k``, ``long_500k``) is one token a row of
+``make_serve_step`` on the grid under ``parallel.decode_rules``: the
+rank's weights, its shard of the decode cache (an argument of the step,
+as the reference's ``cache_sds``: ``parallel.cache_placements``, the
+sequence over ``"model"``, or over every axis for ``long_500k``), and
+its rows' tokens ``[B/data, 1]`` and positions; ``Transformer.
+decode_step`` spells out the collectives GSPMD places in the reference
+(q gathered over the model ranks, the partial attentions of each rank's
+slice of the cache exchanged and merged by their lse, the row-parallel
+partial sums all-reduced, the vocabulary shards' logits gathered).
 """
 from __future__ import annotations
 
@@ -43,10 +49,11 @@ from repro_torch.core.dispatch import CADContext
 from repro_torch.core.plan import CADConfig, PingPongPlan, StepPlan, empty_plan
 from repro_torch.launch.op_analysis import OpCounter
 from repro_torch.models.convert import decay_mask, shard_model
-from repro_torch.models.model import Transformer, resolve_device
+from repro_torch.models.model import (Transformer, check_decode_grid,
+                                      decode_cache_layout, resolve_device)
 from repro_torch.optim.adamw import AdamW
-from repro_torch.parallel import ParallelContext, make_rules
-from repro_torch.train.step import make_train_step
+from repro_torch.parallel import ParallelContext, decode_rules, make_rules
+from repro_torch.train.step import make_serve_step, make_train_step
 
 INPUT_SHAPES = {
     "train_4k": dict(kind="train", seq=4096, batch=256),
@@ -56,11 +63,6 @@ INPUT_SHAPES = {
 }
 
 GRID_AXES = ("pod", "data", "model")
-DECODE_TODO = ("a decode step on a process grid is not ported: the "
-               "reference lowers decode_32k / long_500k as a sharded serve "
-               "step (the cache sequence over 'model', partial attention "
-               "merged across the model ranks); see ROADMAP queue 1 item "
-               "16, the grid decode step")
 
 
 def applicable(cfg, shape_name: str) -> Tuple[bool, str]:
@@ -118,25 +120,29 @@ def fake_grid(sizes: Mapping[str, int]):
 @dataclasses.dataclass
 class Step:
     """One rank's step: ``fn(*args)`` runs it; the model, its AdamW state
-    (None for a forward-only shape) and the batch are what it reads."""
+    (None for a forward-only shape), the batch and a decode shape's cache
+    shard are what it reads."""
     fn: Any
     args: Tuple
     model: Transformer
     opt_state: Any
     batch: Dict[str, Any]
+    cache: Optional[Dict] = None
 
     def argument_bytes(self) -> Dict[str, int]:
-        """Bytes of the parameters, the AdamW moments and the batch
-        tensors (this rank's shards), and their sum.  The plan is host
-        arrays, made into tensors inside the step."""
+        """Bytes of the parameters, the AdamW moments, the batch tensors
+        and the decode cache (this rank's shards), and their sum.  The
+        plan is host arrays, made into tensors inside the step."""
         params = sum(p.nbytes for p in self.model.parameters())
         moments = 0 if self.opt_state is None else sum(
             t.nbytes for t in (*self.opt_state.mu, *self.opt_state.nu))
         batch = sum(v.nbytes for v in self.batch.values()
                     if torch.is_tensor(v))
+        cache = 0 if self.cache is None else sum(
+            t.nbytes for slot in self.cache["slots"] for t in slot.values())
         return dict(param_bytes=params, moment_bytes=moments,
-                    batch_bytes=batch,
-                    argument_bytes=params + moments + batch)
+                    batch_bytes=batch, cache_bytes=cache,
+                    argument_bytes=params + moments + batch + cache)
 
 
 def make_batch(cfg, rows: int, seq: int, device, *, labels: bool = True,
@@ -201,10 +207,11 @@ def build_step(cfg, sizes: Optional[Mapping[str, int]], shape, *,
     the port's grid trains.  A train shape's step is ``make_train_step``
     (forward, backward with remat, gradient sums, AdamW) on (AdamW state,
     batch); a prefill shape's is the forward without gradients, the last
-    position's logits."""
+    position's logits; a decode shape's is :func:`decode_step`'s."""
     info = dict(INPUT_SHAPES[shape] if isinstance(shape, str) else shape)
     if info["kind"] == "decode":
-        raise NotImplementedError(DECODE_TODO)
+        return decode_step(cfg, sizes, info, device=device, groups=groups,
+                           seed=seed)
     dev = resolve_device(device)
     data_n = data_size(sizes)
     if info["batch"] % data_n:
@@ -239,6 +246,73 @@ def build_step(cfg, sizes: Optional[Mapping[str, int]], shape, *,
     opt_state = opt.init(list(model.parameters()))
     fn = make_train_step(model, ctx, opt, decay_mask(model))
     return Step(fn, (opt_state, step_batch), model, opt_state, batch)
+
+
+def decode_step(cfg, sizes: Optional[Mapping[str, int]], info: Mapping,
+                *, device="meta", groups=None, seed: int = 0) -> Step:
+    """One rank's decode step of ``cfg`` at a decode shape ``info``
+    (``batch`` rows, a cache of ``seq`` positions, ``long``) on a grid of
+    ``sizes`` under ``parallel.decode_rules`` (None: one rank): the
+    rank's weights (``shard_model`` by those rules), its cache shard
+    (``decode_cache_layout``; a cross arch's ``xk``/``xv`` over the
+    reference's memory length, built as shapes, not encoded) and its rows
+    of tokens ``[B/data, 1]`` (every row for ``long``) at the last
+    position, through ``make_serve_step``.  Off ``meta`` (one rank, no
+    grid: ``perf --measure``) the cache holds seeded k/v and every slot
+    visible (a ring the window before that position), so the step
+    attends a full cache."""
+    long = bool(info.get("long"))
+    dev = resolve_device(device)
+    if sizes and groups is None:
+        raise ValueError("a grid's step needs its (data, model) groups")
+    data_g, model_g = groups if sizes else (None, None)
+    rules = decode_rules(make_rules(sizes, cfg), sizes, long)
+    ctx = ParallelContext(attn_impl="xla", remat=False, group=data_g,
+                          model_group=model_g, rules=rules)
+    b, seq = info["batch"], info["seq"]
+    if sizes:
+        check_decode_grid(cfg, ctx, b, seq)
+    model = Transformer(cfg, device=dev, seed=seed)
+    if sizes:
+        shard_model(model, sizes, {a: 0 for a in sizes}, rules=rules)
+    mem = (cfg.encoder.n_ctx if cfg.encoder else 1601) \
+        if cfg.family in ("vlm", "audio") else 0
+    layout = decode_cache_layout(cfg, ctx if sizes else None, b, seq, mem)
+    rows = b // (1 if long else data_size(sizes))
+    last = seq - 1
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    slots = []
+    for shapes in layout["slots"]:
+        slot = {}
+        for name, (shape, dt) in shapes.items():
+            if dev.type == "meta":
+                slot[name] = torch.empty(shape, dtype=dt, device=dev)
+            elif name == "kv_pos":
+                slot[name] = _visible_positions(shape, last).to(dev)
+            else:
+                slot[name] = (torch.randn(shape, generator=gen) * 0.5).to(
+                    dtype=dt, device=dev)
+        slots.append(slot)
+    cache = {"slots": slots}
+    tokens = torch.randint(0, cfg.vocab_size, (rows, 1), generator=gen,
+                           dtype=torch.int32).to(dev)
+    pos = torch.full((rows,), last, dtype=torch.int32, device=dev)
+    fn = make_serve_step(model, ctx)
+    return Step(fn, (cache, tokens, pos), model, None,
+                {"tokens": tokens, "pos": pos}, cache)
+
+
+def _visible_positions(shape, last: int) -> torch.Tensor:
+    """``kv_pos`` [rows, n] of a one-rank cache whose n slots hold the n
+    positions before ``last`` (a ring of n slots holds position p at
+    slot p mod n; a cache of ``last + 1`` slots holds 0..last-1 in order,
+    its last slot empty)."""
+    rows, n = shape
+    p = torch.arange(last - n, last)
+    kv = torch.full((n,), -1, dtype=torch.int32)
+    keep = p >= 0
+    kv[p[keep] % n] = p[keep].to(torch.int32)
+    return kv.expand(rows, n).contiguous()
 
 
 def arch_config(arch: str, layers: Optional[int] = None):

@@ -164,6 +164,7 @@ class OpCounter(TorchDispatchMode):
         self._uids = itertools.count()
         self._pending: list = []           # last op's outputs to tag
         self._ops: Dict[Any, tuple] = {}    # func -> _op_info
+        self._composites: Dict[Any, bool] = {}  # func -> _composite
 
     # ------------------------------------------------------ enter / exit
     def __enter__(self):
@@ -220,6 +221,17 @@ class OpCounter(TorchDispatchMode):
             self._events.append((uid, n))
 
     # ----------------------------------------------------------- dispatch
+    def _composite(self, func) -> bool:
+        """Whether ``func`` is an aten op with a composite (implicit
+        autograd) kernel, i.e. one that other ops implement."""
+        hit = self._composites.get(func)
+        if hit is None:
+            hit = func.namespace == "aten" and \
+                torch._C._dispatch_has_kernel_for_dispatch_key(
+                    func.name(), "CompositeImplicitAutograd")
+            self._composites[func] = hit
+        return hit
+
     def _op_info(self, func):
         """(collective name or None, flop formula or None, moves bytes)
         of ``func``, worked out once."""
@@ -236,6 +248,13 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._composite(func):
+            # under ``torch.inference_mode`` a composite op (``matmul``,
+            # ``einsum``) reaches the mode whole; count the ops it runs
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
         if self._pending:
             self._tag_pending()
         region = regions.current()

@@ -9,8 +9,9 @@ against.
       --shape train_4k [--cad] [--pingpong] [--multi-pod]
 
 ``--measure`` also runs one rank's step on the card (``--device``,
-``cuda`` by default): ``--rows`` rows of the shape's sequence (no grid)
-at ``--layers`` layers, first under the op counter (its FLOPs against
+``cuda`` by default): ``--rows`` rows of the shape's sequence (no grid;
+a decode shape's one token a row against a full cache of that many
+positions) at ``--layers`` layers, first under the op counter (its FLOPs against
 the meta trace of the same step, the card's peak allocation against the
 predicted peak), then once more traced with ``torch.profiler``, and
 prints the device ms of each bucket beside that bucket's compute and
@@ -121,7 +122,8 @@ def format_measure(res: Dict[str, Any]) -> str:
         f"{res['loss']}",
         f"argument bytes: predicted {p['argument_bytes']} (params "
         f"{p['param_bytes']}, moments {p['moment_bytes']}, batch "
-        f"{p['batch_bytes']}), on the device {m['argument_bytes']}",
+        f"{p['batch_bytes']}, cache {p['cache_bytes']}), on the device "
+        f"{m['argument_bytes']}",
         f"flops: meta trace {p['flops']:.6e}, on the device "
         f"{m['flops']:.6e}",
         f"peak: predicted {p['peak_bytes'] / 2 ** 30:.3f} GiB (temp "

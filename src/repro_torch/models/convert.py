@@ -135,11 +135,13 @@ def _cut(t: torch.Tensor, axes, coords: Mapping[str, int],
     return t
 
 
-def grid_placements(cfg, params: Mapping, sizes: Mapping[str, int]) \
-        -> Dict[str, Tuple]:
+def grid_placements(cfg, params: Mapping, sizes: Mapping[str, int],
+                    rules=None) -> Dict[str, Tuple]:
     """Per tensor, the axes it is stored split over on a grid of axis
-    ``sizes``: ``param_placements`` under ``make_rules``."""
-    return param_placements(cfg, params, make_rules(sizes, cfg), sizes)
+    ``sizes``: ``param_placements`` under ``rules`` (default
+    ``make_rules``; a decode step's: ``parallel.decode_rules``)."""
+    return param_placements(cfg, params, rules or make_rules(sizes, cfg),
+                            sizes)
 
 
 def shard_shape(shape, axes, sizes: Mapping[str, int]) -> Tuple[int, ...]:
@@ -179,12 +181,13 @@ def gather_params(parts: Mapping[Tuple[int, int], Mapping[str, torch.Tensor]],
 
 @torch.no_grad()
 def shard_model(model, sizes: Mapping[str, int],
-                coords: Mapping[str, int]) -> Dict[str, Tuple]:
+                coords: Mapping[str, int], rules=None) -> Dict[str, Tuple]:
     """Cut ``model``'s parameters in place to the shards the rank at
-    ``coords`` stores (each a tensor of its own: the whole one is freed);
-    records and returns the placements (``model.grid_placements``)."""
+    ``coords`` stores under ``rules`` (default ``make_rules``; each a
+    tensor of its own: the whole one is freed); records and returns the
+    placements (``model.grid_placements``)."""
     placed = grid_placements(model.cfg, dict(model.named_parameters()),
-                             sizes)
+                             sizes, rules)
     for name, p in model.named_parameters():
         p.data = _cut(p.data, placed[name], coords, sizes).clone()
     model.grid_placements = placed

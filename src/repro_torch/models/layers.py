@@ -276,13 +276,14 @@ def ffn_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor,
     """The MLP.  On a grid whose ``ffn`` rule splits it (``ctx.tp``), h is
     the residual's sequence shard: the whole sequence meets this rank's
     columns of ``w_gate``/``w_up`` and rows of ``w_down``, and the partial
-    sums are reduce-scattered.  Otherwise it runs on the tokens it is
-    given."""
+    sums are reduce-scattered (all-reduced where a decode step's residual
+    is whole, ``models.sharded.model_output``).  Otherwise it runs on the
+    tokens it is given."""
     split = getattr(ctx, "tp", False) and ctx.rules.ffn is not None
     if split:
-        h = S.seq_gather(h, ctx.model_group)
+        h = S.model_input(h, ctx)
     out = _mlp(p, h, activation_fn(cfg.activation))
-    return S.seq_scatter(out, ctx.model_group) if split else out
+    return S.model_output(out, ctx) if split else out
 
 
 def _mlp(p, x, act):
@@ -478,7 +479,9 @@ def moe_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, cfg,
     (``_route_expert_parallel``).  On a grid (``ctx.tp``) ``h`` is the
     residual's sequence shard: the router runs on it, the experts (this
     rank's columns of ``d_ff_expert``) and shared experts on the whole
-    sequence, and the partial outputs are reduce-scattered.  The
+    sequence, and the partial outputs are reduce-scattered (a decode
+    step's whole residual: routed as it is, the partial outputs
+    all-reduced, the aux losses of its own tokens).  The
     auxiliary losses are this rank's shares of the global values (every
     rank holds the same number of tokens): the top-1 counts are summed
     over the ranks inside this call, and summed over the ranks the shares
@@ -501,7 +504,8 @@ def moe_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, cfg,
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
 
     xr, idx_r, gate_r = x, idx, gate_vals
-    if tp:
+    split = tp and S.residual_split(ctx)
+    if split:
         # the data shard's tokens, row-major, on every model rank
         mg = ctx.model_group
         xr = S.seq_gather(h, mg).reshape(-1, d)
@@ -519,12 +523,12 @@ def moe_apply(p: Mapping[str, torch.Tensor], h: torch.Tensor, cfg,
     if e.n_shared_experts and "w_gate" in p:
         out = out + _mlp(p, xr, act)
     if tp:
-        out = S.seq_scatter(out.reshape(b, -1, d), ctx.model_group)
+        out = S.model_output(out.reshape(b, -1, d), ctx)
 
     # aux losses: Switch-style load balance and the router z-loss
     lse2 = torch.logsumexp(logits, -1) ** 2
     top1 = F.one_hot(idx[:, 0], n_e)
-    groups = [g for g in (group, ctx.model_group if tp else None)
+    groups = [g for g in (group, ctx.model_group if split else None)
               if g is not None]
     if not groups:
         me = probs.mean(0)
@@ -828,11 +832,13 @@ def _rglru_scan(p, x, first, ctx=None, hook=None, xg=None):
 # ------------------------------------------------------ recurrent decoding
 def rglru_decode(p: Mapping[str, torch.Tensor], x_t: torch.Tensor,
                  h_prev: torch.Tensor,
-                 reset: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 reset: Optional[torch.Tensor] = None,
+                 xg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One RG-LRU step: x_t [B,1,W] (after the conv), h_prev [B,W] f32;
     ``reset`` [B] bool zeroes the decay (a document start), as the packed
-    forward does at segment boundaries.  Returns h [B,W] f32."""
-    log_a, ig = _rglru_gates(p, x_t)
+    forward does at segment boundaries; ``xg`` is the gates' input (default
+    x_t; on a grid every channel, gathered).  Returns h [B,W] f32."""
+    log_a, ig = _rglru_gates(p, x_t, xg)
     a = torch.exp(log_a[:, 0])
     if reset is not None:
         a = torch.where(reset[:, None], 0.0, a)

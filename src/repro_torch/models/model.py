@@ -28,10 +28,14 @@ and recurrent state in it and run decode-mode steps only, one token a
 request; MoE archs prefill a token a request per step too, as the
 reference's engine gates them); every pattern from the legacy dense
 decode cache, a token a step, its attention in plain torch ops
-(``decode_attention``), as the reference's.
+(``decode_attention``), as the reference's, in one process or on a
+process grid under a decode step's rules (``parallel.decode_rules``:
+the cache's sequence split over the model ranks, or over every rank for
+``long_500k``; ``decode_step(..., ctx)``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -39,13 +43,16 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch.core.attention import decode_attention
+from repro_torch.core.attention import (LSE_DEAD, decode_attention,
+                                        decode_attention_partial,
+                                        merge_decode_partials)
 from repro_torch.data.packing import BLOCK as SERVE_BLOCK
 from repro_torch.kernels.packed_flash import ops as pf_ops
 from repro_torch.models import layers as L
 from repro_torch.models import sharded as S
 from repro_torch.obs.regions import marked
-from repro_torch.parallel import ParallelContext, make_rules
+from repro_torch.parallel import (ParallelContext, axis_size,
+                                  cache_placements, make_rules)
 
 _ATTN_KINDS = ("global", "local")
 
@@ -105,6 +112,172 @@ def check_grid(cfg, model_size: int, seq: int, memory: int = 0) -> None:
             raise ValueError(f"{cfg.arch_id}: an RG-LRU width of {width} "
                              f"does not split over {model_size} model "
                              f"ranks")
+
+
+def on_grid(ctx) -> bool:
+    """Whether ``ctx`` places the model on a process grid (a data or a
+    model group)."""
+    return ctx is not None and (ctx.group is not None
+                                or ctx.model_group is not None)
+
+
+def _axes_group(ctx, axes):
+    """The process group of the ranks along ``axes`` (a rule's value):
+    the model group for ``"model"``, the data group (``ctx.group``, over
+    ``"pod"`` and ``"data"``) for data axes, every rank for both; None
+    for no axis."""
+    names = () if axes is None else axes if isinstance(axes, tuple) \
+        else (axes,)
+    if not names:
+        return None
+    if names == ("model",):
+        return ctx.model_group
+    if "model" in names:
+        import torch.distributed as dist
+        return dist.group.WORLD
+    return ctx.group
+
+
+def axes_coord(ctx, axes) -> Tuple[int, int]:
+    """(this rank's index, the rank count) along ``axes`` on ``ctx``'s
+    grid, ranks laid out row-major over ``("pod", "data", "model")``."""
+    group = _axes_group(ctx, axes)
+    if group is None:
+        return 0, 1
+    import torch.distributed as dist
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def grid_sizes(ctx) -> Dict[str, int]:
+    """Axis sizes of ``ctx``'s grid: ``"data"`` the data group's ranks (a
+    ``"pod"`` axis folded in), ``"model"`` the model group's."""
+    import torch.distributed as dist
+    data = 1 if ctx.group is None else dist.get_world_size(ctx.group)
+    return {"data": data, "model": ctx.model_size}
+
+
+def _seq_shard(ctx):
+    """(group, this rank's index, ranks) of the ranks that split a decode
+    cache's sequence (the ``seq`` rule: the model ranks for
+    ``decode_32k``, every rank for ``long_500k``), or None."""
+    if not on_grid(ctx):
+        return None
+    group = _axes_group(ctx, ctx.rules.seq)
+    index, n = axes_coord(ctx, ctx.rules.seq)
+    return (group, index, n) if n > 1 else None
+
+
+def check_decode_grid(cfg, ctx, batch: int, max_seq: int) -> None:
+    """The decode form of :func:`check_grid`: raise ``ValueError`` where
+    ``ctx``'s grid, under a decode step's rules
+    (``parallel.decode_rules``), cannot split a decode cache of ``batch``
+    rows and ``max_seq`` positions: rows the ``batch`` rule's ranks do not
+    divide, a cache length or a ``local`` ring the ``seq`` rule's ranks
+    do not divide, or an RG-LRU width as in ``check_grid``.  A cross
+    layer's memory is not split (its ``xk``/``xv`` are whole over the
+    model ranks), so its length is not checked."""
+    _, n_b = axes_coord(ctx, ctx.rules.batch)
+    if batch % n_b:
+        raise ValueError(f"a decode batch of {batch} rows does not split "
+                         f"over {n_b} data ranks")
+    _, n_s = axes_coord(ctx, ctx.rules.seq)
+    for kind in set(cfg.layer_pattern) - set(_RECURRENT):
+        n = min(cfg.window, max_seq) if kind == "local" else max_seq
+        if n % n_s:
+            raise ValueError(f"{cfg.arch_id}: a {kind} layer's {n} cache "
+                             f"slots do not split over {n_s} ranks")
+    check_grid(cfg, ctx.model_size, 0)
+
+
+def _recurrent_shapes(cfg, kind: str, b: int) -> Dict:
+    """A recurrent layer's cache leaves, (shape, dtype) by name: an ssd
+    layer's ``conv`` [B, W-1, d_in + 2·G·N] (compute dtype) and ``state``
+    [B, H, N, P] f32; an rglru layer's ``conv`` [B, W-1, lru_width] and
+    ``h`` [B, lru_width] f32."""
+    cdt, f32 = cfg.cdtype, torch.float32
+    if kind == "ssd":
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        conv_ch = d_in + 2 * s.n_groups * s.d_state
+        return {"conv": ((b, s.conv_width - 1, conv_ch), cdt),
+                "state": ((b, d_in // s.head_dim, s.d_state, s.head_dim),
+                          f32)}
+    w = cfg.rglru.lru_width or cfg.d_model
+    return {"conv": ((b, cfg.rglru.conv_width - 1, w), cdt),
+            "h": ((b, w), f32)}
+
+
+def decode_cache_shapes(cfg, batch: int, max_seq: int,
+                        memory_rows: int = 0) -> Dict:
+    """The whole (shape, dtype) of every leaf of a ``layout="decode"``
+    cache, one dict a layer: a ``global`` or ``cross`` layer's ``k``/``v``
+    [B, max_seq, Hkv, dh] and ``kv_pos`` [B, max_seq], a ``local`` layer's
+    ring of ``min(window, max_seq)`` slots, a ``cross`` layer's ``xk``/
+    ``xv`` [B, memory_rows, Hkv, dh], a recurrent layer's
+    (:func:`_recurrent_shapes`) (reference ``init_cache``,
+    ``models/model.py:194-257``)."""
+    cdt = cfg.cdtype
+    b, hkv, dh = batch, cfg.n_kv_heads, cfg.head_dim
+    slots = []
+    for li in range(cfg.n_layers):
+        kind = cfg.layer_pattern[li % cfg.period]
+        if kind in _RECURRENT:
+            slots.append(_recurrent_shapes(cfg, kind, b))
+            continue
+        n = min(cfg.window, max_seq) if kind == "local" else max_seq
+        c = {"k": ((b, n, hkv, dh), cdt), "v": ((b, n, hkv, dh), cdt),
+             "kv_pos": ((b, n), torch.int32)}
+        if kind == "cross":
+            c["xk"] = c["xv"] = ((b, memory_rows, hkv, dh), cdt)
+        slots.append(c)
+    return {"slots": slots}
+
+
+def decode_cache_layout(cfg, ctx, batch: int, max_seq: int,
+                        memory_rows: int = 0) -> Dict:
+    """This rank's (shape, dtype) of every decode cache leaf: the whole
+    shapes of :func:`decode_cache_shapes` cut along each dim that
+    ``parallel.cache_placements`` splits under ``ctx``'s rules; the whole
+    shapes off a grid."""
+    shapes = decode_cache_shapes(cfg, batch, max_seq, memory_rows)
+    if not on_grid(ctx):
+        return shapes
+    sizes = grid_sizes(ctx)
+    placed = cache_placements(cfg, {"slots": [
+        {n: shp for n, (shp, _) in slot.items()}
+        for slot in shapes["slots"]]}, ctx.rules, sizes)
+    out = []
+    for slot, axes in zip(shapes["slots"], placed["slots"]):
+        cut = {}
+        for name, (shape, dt) in slot.items():
+            shape = list(shape)
+            for i, ax in enumerate(axes[name]):
+                if ax is not None:
+                    shape[i] //= axis_size(ax, sizes)
+            cut[name] = (tuple(shape), dt)
+        out.append(cut)
+    return {"slots": out}
+
+
+def cache_shard(cfg, cache: Dict, ctx) -> Dict:
+    """This rank's shard of a whole ``layout="decode"`` cache (each leaf
+    cut as ``parallel.cache_placements`` says under ``ctx``'s rules, a
+    copy of its own): what ``init_cache(..., ctx=ctx)`` holds, filled
+    from whole values, e.g. a cache filled once and held against the
+    one-process ``decode_step``."""
+    placed = cache_placements(cfg, cache, ctx.rules, grid_sizes(ctx))
+    slots = []
+    for slot, axes in zip(cache["slots"], placed["slots"]):
+        part = {}
+        for name, t in slot.items():
+            for i, ax in enumerate(axes[name]):
+                if ax is not None:
+                    index, n = axes_coord(ctx, ax)
+                    size = t.shape[i] // n
+                    t = t.narrow(i, index * size, size)
+            part[name] = t.clone()
+        slots.append(part)
+    return {"slots": slots}
 
 
 def fused_prefill_ok(cfg) -> bool:
@@ -240,7 +413,9 @@ class Transformer(nn.Module):
         with the vocabulary split over the model ranks (the ``vocab``
         rule) each rank looks up the tokens of its rows of the table
         (others read zero) and the sums are reduce-scattered; with a
-        replicated table each rank looks up its own tokens."""
+        replicated table each rank looks up its own tokens.  Under a
+        decode step's rules the residual is whole on every model rank:
+        the sums are all-reduced, or every token looked up."""
         cfg = self.cfg
         table = self.embed if table is None else table
         tp = getattr(ctx, "tp", False)
@@ -250,9 +425,9 @@ class Transformer(nn.Module):
             inside = (t >= 0) & (t < table.shape[0])
             h = F.embedding(torch.where(inside, t, 0), table) \
                 * inside[..., None].to(table.dtype)
-            h = S.seq_scatter(h, ctx.model_group).to(cfg.cdtype)
+            h = S.model_output(h, ctx).to(cfg.cdtype)
         else:
-            if tp:
+            if tp and S.residual_split(ctx):
                 tokens = S.own_seq(tokens, ctx)
             # F.embedding, not self.embed[tokens]: the backward of
             # advanced indexing on the CPU sums repeated rows with atomic
@@ -276,7 +451,7 @@ class Transformer(nn.Module):
         if table is None:
             table = self.embed if cfg.tie_embeddings else self.unembed
         if getattr(ctx, "tp", False) and ctx.rules.vocab is not None:
-            h = S.seq_gather(h, ctx.model_group)
+            h = S.model_input(h, ctx)
         logits = (h @ table.T).float()
         if cfg.final_logit_softcap:
             logits = torch.tanh(logits / cfg.final_logit_softcap) \
@@ -436,7 +611,8 @@ class Transformer(nn.Module):
     # -------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_seq: int,
                    layout: str = "serve",
-                   memory: Optional[torch.Tensor] = None) -> Dict:
+                   memory: Optional[torch.Tensor] = None,
+                   ctx=None) -> Dict:
         """A decoding cache, one slot dict a layer.
 
         ``layout="serve"``: the ragged serving cache (DESIGN.md §8): an
@@ -449,82 +625,90 @@ class Transformer(nn.Module):
         per-request visibility bound ``kv_len [B]``.  Archs that read a
         memory have no serve layout (``needs_memory``).
 
-        ``layout="decode"``: the legacy dense decode cache (reference
-        ``models/model.py:194-257``): a ``global`` or ``cross`` layer's
-        ``k``/``v`` [B, max_seq, Hkv, dh] and ``kv_pos`` [B, max_seq]
-        (the position a slot holds, -1 = empty); a ``local`` layer's ring
-        of ``min(window, max_seq)`` slots, written at ``pos % size``; the
-        recurrent layers' states as above; and each ``cross`` layer's
-        ``xk``/``xv`` [B, M, Hkv, dh], projected once from ``memory``
+        ``layout="decode"``: the legacy dense decode cache
+        (:func:`decode_cache_shapes`; reference ``models/model.py:194-257``):
+        ``kv_pos`` holds the position a slot holds (-1 = empty), a
+        ``local`` layer's ring is written at ``pos % size``, and each
+        ``cross`` layer's ``xk``/``xv`` are projected once from ``memory``
         [B, M, D] (through the encoder first where the config has one,
         its attention on the blockwise ``xla`` route; the memory is taken
-        in the compute dtype, as ``forward`` takes it)."""
+        in the compute dtype, as ``forward`` takes it).  On a grid
+        (``ctx``, a decode step's rules: ``parallel.decode_rules``) it is
+        this rank's shard of every leaf, as ``parallel.cache_placements``
+        says: its rows of the batch, and along the sequence slots
+        ``[r·S/n, (r+1)·S/n)`` of every attention layer (a ring's slots
+        alike), ``r`` its index among the n ranks of the ``seq`` rule;
+        ``memory`` is then the rows this rank holds, the encoder runs as
+        the training path runs it on the grid (its residual split along
+        the memory over the model ranks), and ``xk``/``xv`` are whole over
+        the model ranks."""
         cfg = self.cfg
         check_arch(cfg)
         if layout not in ("serve", "decode"):
             raise ValueError(f"unknown cache layout {layout!r}")
-        if layout == "serve" and needs_memory(cfg):
+        if layout == "decode":
+            return self._init_decode_cache(batch_size, max_seq, memory, ctx)
+        if needs_memory(cfg):
             raise ValueError(f"{cfg.arch_id}: the serve cache layout does "
                              f"not support cross-attention/encoder "
                              f"architectures; use layout='decode'")
-        dev, cdt, f32 = self.device, cfg.cdtype, torch.float32
-        b = batch_size
-        if layout == "serve":
-            s_len = -(-max_seq // SERVE_BLOCK) * SERVE_BLOCK
-        else:
-            s_len = max_seq
-            if "cross" in cfg.layer_pattern:
-                if memory is None:
-                    raise ValueError(
-                        f"{cfg.arch_id}: the decode cache of a "
-                        f"cross-attention arch needs the memory its cross "
-                        f"layers attend to (Engine(memory=...))")
-                if memory.shape[0] != b:
-                    raise ValueError(f"memory has {memory.shape[0]} rows, "
-                                     f"the cache {b}")
-                with torch.no_grad():
-                    memory = self._memory(memory.to(dev), ParallelContext(
-                        attn_impl="xla", remat=False))
-
-        def slot(blk):
-            kind = blk.kind
-            if kind == "ssd":
-                s = cfg.ssm
-                d_in = s.expand * cfg.d_model
-                conv_ch = d_in + 2 * s.n_groups * s.d_state
-                return {"conv": torch.zeros((b, s.conv_width - 1, conv_ch),
-                                            dtype=cdt, device=dev),
-                        "state": torch.zeros((b, d_in // s.head_dim,
-                                              s.d_state, s.head_dim),
-                                             dtype=f32, device=dev)}
-            if kind == "rglru":
-                w = cfg.rglru.lru_width or cfg.d_model
-                return {"conv": torch.zeros((b, cfg.rglru.conv_width - 1, w),
-                                            dtype=cdt, device=dev),
-                        "h": torch.zeros((b, w), dtype=f32, device=dev)}
-            n = s_len
-            if layout == "decode" and kind == "local":
-                n = min(cfg.window, max_seq)
-            shape = (b, n, cfg.n_kv_heads, cfg.head_dim)
-            c = {"k": torch.zeros(shape, dtype=cdt, device=dev),
-                 "v": torch.zeros(shape, dtype=cdt, device=dev)}
-            if layout == "decode":
-                c["kv_pos"] = torch.full((b, n), -1, dtype=torch.int32,
-                                         device=dev)
-            if kind == "cross":
-                m = memory.shape[1]
-                kv = (b, m, cfg.n_kv_heads, cfg.head_dim)
-                with torch.no_grad():
-                    c["xk"] = (memory @ blk.attn["xwk"]).reshape(kv)
-                    c["xv"] = (memory @ blk.attn["xwv"]).reshape(kv)
-            return c
-
+        dev, b = self.device, batch_size
+        s_len = -(-max_seq // SERVE_BLOCK) * SERVE_BLOCK
+        kv = ((b, s_len, cfg.n_kv_heads, cfg.head_dim), cfg.cdtype)
         slots: List[Dict[str, torch.Tensor]] = [
-            slot(blk) for blk in self.layers]
-        if layout == "decode":
-            return {"slots": slots}
+            {name: torch.zeros(shape, dtype=dt, device=dev)
+             for name, (shape, dt) in (
+                 _recurrent_shapes(cfg, blk.kind, b) if blk.kind in _RECURRENT
+                 else {"k": kv, "v": kv}).items()}
+            for blk in self.layers]
         return {"slots": slots,
                 "kv_len": torch.zeros(b, dtype=torch.int32, device=dev)}
+
+    def _init_decode_cache(self, b: int, max_seq: int,
+                           memory: Optional[torch.Tensor], ctx) -> Dict:
+        cfg = self.cfg
+        dev = self.device
+        grid = on_grid(ctx)
+        if grid:
+            check_decode_grid(cfg, ctx, b, max_seq)
+        layout = decode_cache_layout(cfg, ctx if grid else None, b, max_seq,
+                                     0 if memory is None else memory.shape[1])
+        if "cross" in cfg.layer_pattern:
+            if memory is None:
+                raise ValueError(
+                    f"{cfg.arch_id}: the decode cache of a cross-attention "
+                    f"arch needs the memory its cross layers attend to "
+                    f"(Engine(memory=...))")
+            rows = next(slot["xk"][0][0] for slot in layout["slots"]
+                        if "xk" in slot)
+            if memory.shape[0] != rows:
+                raise ValueError(f"memory has {memory.shape[0]} rows, the "
+                                 f"cache {rows}")
+            enc = ParallelContext(attn_impl="xla", remat=False)
+            if grid:
+                enc = dataclasses.replace(ctx, attn_impl="xla", remat=False,
+                                          cad=None)
+                if ctx.tp:
+                    enc = dataclasses.replace(enc, rules=dataclasses.replace(
+                        ctx.rules, residual_seq="model"))
+                    check_grid(cfg, ctx.model_size, 0, memory.shape[1])
+            with torch.no_grad():
+                memory = self._memory(memory.to(dev), enc)
+        slots = []
+        for blk, shapes in zip(self.layers, layout["slots"]):
+            c = {name: (torch.full(shape, -1, dtype=dt, device=dev)
+                        if name == "kv_pos" else
+                        torch.zeros(shape, dtype=dt, device=dev))
+                 for name, (shape, dt) in shapes.items()
+                 if name not in ("xk", "xv")}
+            if blk.kind == "cross":
+                p = self._read(blk.attn, ctx) if grid else blk.attn
+                kv = shapes["xk"][0]
+                with torch.no_grad():
+                    c["xk"] = (memory @ p["xwk"]).reshape(kv)
+                    c["xv"] = (memory @ p["xwv"]).reshape(kv)
+            slots.append(c)
+        return {"slots": slots}
 
     @staticmethod
     def reset_serve_slots(cache: Dict, reset_mask: torch.Tensor) -> Dict:
@@ -601,17 +785,24 @@ class Transformer(nn.Module):
                              block_req, kv_len_next, blk.kind)
         return self._attn_residual_tail(blk, h, a, no_drop=True)[0]
 
-    def _recurrent_step(self, blk: nn.Module, hb, cache_slot, reset):
+    def _recurrent_step(self, blk: nn.Module, hb, cache_slot, reset,
+                        ctx=None):
         """One token of a recurrent layer (reference ``block_decode``,
         ``models/model.py:516-536``): hb [B, 1, D]; ``reset`` [B] bool
         starts an rglru row's recurrence afresh.  Returns (hb, the new
-        conv window and state by name); the cache is not written."""
+        conv window and state by name); the cache is not written.  On a
+        grid the SSD mixer runs whole on every model rank (the reference's
+        rules replicate it over ``"model"``); an rglru layer whose width
+        the ``ffn`` rule splits runs :meth:`_rglru_step_split`."""
         cfg = self.cfg
         xin = L.norm_apply(blk.norm1, hb, cfg.norm)
         if blk.kind == "ssd":
             y, conv, state = L.ssd_decode(blk.mixer, xin, cache_slot["conv"],
                                           cache_slot["state"], cfg)
             return hb + y, {"conv": conv, "state": state}
+        if getattr(ctx, "tp", False) and ctx.rules.ffn is not None:
+            return self._rglru_step_split(blk, hb, xin, cache_slot, reset,
+                                          ctx)
         mixer = blk.mixer
         gate_br = F.gelu(xin @ mixer["w_gate_br"], approximate="tanh")
         x, conv = L._causal_conv(xin @ mixer["w_x"], mixer["conv_w"],
@@ -619,8 +810,34 @@ class Transformer(nn.Module):
         hstate = L.rglru_decode(mixer, x, cache_slot["h"], reset=reset)
         hb = hb + (hstate[:, None].to(hb.dtype) * gate_br) @ mixer["w_out"]
         hb = hb + L.ffn_apply(blk.ffn, L.norm_apply(blk.norm2, hb, cfg.norm),
-                              cfg)
+                              cfg, ctx)
         return hb, {"conv": conv, "h": hstate}
+
+    def _rglru_step_split(self, blk, hb, xin, cache_slot, reset, ctx):
+        """An rglru layer's token with its width W split over the model
+        ranks (``rglru_apply``'s split): this rank's W/M channels of the
+        branches, the conv and the recurrence, the gates reading x over
+        all W (gathered along the channels), ``w_out``'s partial sums
+        all-reduced; the new conv window and state (whole on every model
+        rank, as the cache holds them) gathered along the channels."""
+        cfg = self.cfg
+        mixer, mg = blk.mixer, ctx.model_group
+        w_loc = (cfg.rglru.lru_width or cfg.d_model) // ctx.model_size
+        cols = slice(S.model_rank(ctx) * w_loc,
+                     (S.model_rank(ctx) + 1) * w_loc)
+        gate_br = F.gelu(xin @ mixer["w_gate_br"], approximate="tanh")
+        x, conv = L._causal_conv(xin @ mixer["w_x"], mixer["conv_w"][:, cols],
+                                 mixer["conv_b"][cols],
+                                 cache_slot["conv"][..., cols])
+        hstate = L.rglru_decode(dict(mixer, lru_a=mixer["lru_a"][cols]), x,
+                                cache_slot["h"][:, cols], reset=reset,
+                                xg=S.all_gather(x, mg, dim=-1))
+        y = (hstate[:, None].to(hb.dtype) * gate_br) @ mixer["w_out"]
+        hb = hb + S.model_output(y, ctx)
+        hb = hb + L.ffn_apply(blk.ffn, L.norm_apply(blk.norm2, hb, cfg.norm),
+                              cfg, ctx)
+        return hb, {"conv": S.all_gather(conv, mg, dim=-1),
+                    "h": S.all_gather(hstate, mg, dim=-1)}
 
     def _recurrent_serve(self, blk: nn.Module, h, cache_slot, pos):
         """A recurrent layer in a decode-mode step (reference
@@ -710,10 +927,12 @@ class Transformer(nn.Module):
         cache_slot["v"][rows, slot] = v_new[:, 0]
         cache_slot["kv_pos"][rows, slot] = pos.to(torch.int32)
 
-    def _attn_decode(self, p, h, cache_slot, pos, kind):
+    def _attn_decode(self, p, h, cache_slot, pos, kind, ctx=None):
         """Self-attention of one token a row against the dense cache
         (reference ``attn_decode``, ``models/model.py:450``).  h [B,1,D];
-        returns [B,1,D]."""
+        returns [B,1,D].  On a grid: :meth:`_attn_decode_grid`."""
+        if _seq_shard(ctx) is not None or getattr(ctx, "tp", False):
+            return self._attn_decode_grid(p, h, cache_slot, pos, kind, ctx)
         cfg = self.cfg
         b = h.shape[0]
         posb = pos[:, None]
@@ -725,6 +944,94 @@ class Transformer(nn.Module):
                                window=cfg.window if kind == "local" else 0,
                                softcap=cfg.attn_logit_softcap)
         return out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+
+    @staticmethod
+    def _write_cache_shard(cache_slot, k_new, v_new, pos, ring: bool,
+                           index: int, n: int) -> None:
+        """``_write_cache`` into this rank's shard, slots ``[index·S/n,
+        (index+1)·S/n)`` of a cache of S: a row's k/v and position land
+        only where this rank holds its slot (``pos``, or ``pos % S`` in a
+        ring); the other rows keep their values (a select, no
+        data-dependent shape)."""
+        n_loc = cache_slot["k"].shape[1]
+        slot = (pos % (n_loc * n) if ring else pos).long()
+        mine = slot // n_loc == index
+        loc = slot % n_loc
+        rows = torch.arange(pos.shape[0], device=pos.device)
+        for name, new in (("k", k_new[:, 0]), ("v", v_new[:, 0]),
+                          ("kv_pos", pos.to(torch.int32))):
+            c = cache_slot[name]
+            keep = mine.reshape((-1,) + (1,) * (new.dim() - 1))
+            c[rows, loc] = torch.where(keep, new, c[rows, loc])
+
+    def _attn_decode_grid(self, p, h, cache_slot, pos, kind, ctx):
+        """The grid's decode attention: this rank's q heads (``tp_heads``,
+        padded where the heads do not divide the model axis) and every kv
+        head (the decode rules keep ``wk``/``wv`` whole over the model
+        ranks); q gathered over the model ranks; the token's k/v written
+        on the rank that holds its slot; every head attended against this
+        rank's slice of the cache (``decode_attention_partial``); the
+        partials of this rank's heads exchanged across the ranks that
+        split the sequence and merged (:meth:`_own_heads`); the row-parallel
+        ``wo`` on them, its partial sums all-reduced over the model
+        ranks."""
+        cfg = self.cfg
+        b, hq, dh = h.shape[0], cfg.n_heads, cfg.head_dim
+        posb = pos[:, None]
+        tp = ctx.tp
+        group, index, n = _seq_shard(ctx) or (None, 0, 1)
+        m_size, mi = ctx.model_size, S.model_rank(ctx) if tp else 0
+        lo, n_real, per = L.tp_heads(cfg, ctx.rules, m_size, mi)
+        w = {name: p[name] for name in ("wq", "wk", "wv", "wo")}
+        if tp and ctx.rules.heads is None:
+            cols = slice(lo * dh, (lo + n_real) * dh)
+            w.update(wq=w["wq"][:, cols], wo=w["wo"][cols])
+        q, k, v = L.qkv_proj(w, h, cfg, posb if cfg.use_rope else None)
+        if tp:
+            q = F.pad(q, (0, 0, 0, per - n_real))
+            q = S.all_gather(q, ctx.model_group, dim=2)[:, :, :hq]
+        self._write_cache_shard(cache_slot, k, v, pos, kind == "local",
+                                index, n)
+        kp = cache_slot["kv_pos"]
+        out, lse = decode_attention_partial(
+            q, cache_slot["k"], cache_slot["v"], kp >= 0, posb, kp,
+            window=cfg.window if kind == "local" else 0,
+            softcap=cfg.attn_logit_softcap)
+        out = self._own_heads(out, lse, group, n, m_size, mi, per)
+        a = out[:, :, :n_real].to(q.dtype).reshape(b, 1, n_real * dh) \
+            @ w["wo"]
+        return S.model_output(a, ctx) if tp else a
+
+    @staticmethod
+    def _own_heads(out, lse, group, n: int, m_size: int, mi: int,
+                   per: int):
+        """This rank's ``per`` heads (model index ``mi``) of the attention
+        over the whole cache, from every head's partial over this rank's
+        slice (out [B,1,Hq,dh] f32, lse [B,Hq,1]): the ``n`` ranks of
+        ``group`` that split the sequence (rank r at model index r mod
+        ``m_size``) send each other the (out, lse) of the receiver's heads
+        in one ``all_to_all_single``, and the received partials are merged
+        in rank order (``merge_decode_partials``).  Heads past Hq (the
+        padding) are dead partials.  Returns [B,1,per,dh] f32."""
+        b, _, hq, dh = out.shape
+        part = torch.cat([out[:, 0], lse[..., :1]], -1)       # [B,Hq,dh+1]
+        pad = m_size * per - hq
+        if pad:
+            dead = part.new_zeros((b, pad, dh + 1))
+            dead[..., dh] = LSE_DEAD
+            part = torch.cat([part, dead], 1)
+        if n == 1:
+            mine = part[None, :, mi * per:(mi + 1) * per]
+        else:
+            send = torch.stack([part[:, (r % m_size) * per:
+                                     (r % m_size + 1) * per]
+                                for r in range(n)])
+            mine = torch.empty_like(send)
+            import torch.distributed as dist
+            dist.all_to_all_single(mine, send, group=group)
+        merged, _ = merge_decode_partials(mine[..., None, :, :dh],
+                                          mine[..., dh, None])
+        return merged
 
     def _cross_decode(self, p, h, cache_slot):
         """Cross-attention of one token a row to the cached ``xk``/``xv``
@@ -743,45 +1050,69 @@ class Transformer(nn.Module):
         out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["xwo"]
         return L.cross_gate(p, out)
 
-    def _block_decode(self, blk: nn.Module, h, cache_slot, pos):
+    def _block_decode(self, blk: nn.Module, h, cache_slot, pos, ctx=None):
         """One token a row through one layer (reference ``block_decode``,
         ``models/model.py:507``): the attention kinds through
-        ``_attn_residual_tail`` (MoE without drops), a ``cross`` layer's
+        ``_attn_residual_tail`` (MoE without drops; on a grid routed over
+        the data ranks as training routes), a ``cross`` layer's
         cross-attention inserted there, the recurrent kinds through
-        ``_recurrent_step`` with the rglru reset at pos == 0."""
+        ``_recurrent_step`` with the rglru reset at pos == 0.  On a grid
+        the layer's weights are read through ``_read``."""
+        if ctx is not None:
+            blk = self._read(blk, ctx)
         if blk.kind in _RECURRENT:
-            h, new = self._recurrent_step(blk, h, cache_slot, pos == 0)
+            h, new = self._recurrent_step(blk, h, cache_slot, pos == 0, ctx)
             cache_slot.update(new)
             return h
         cfg = self.cfg
         a = self._attn_decode(blk.attn, L.norm_apply(blk.norm1, h, cfg.norm),
-                              cache_slot, pos, blk.kind)
+                              cache_slot, pos, blk.kind, ctx)
         cross_fn = None
         if blk.kind == "cross":
             cross_fn = lambda hh: self._cross_decode(  # noqa: E731
                 blk.attn, L.norm_apply(blk.xnorm, hh, cfg.norm), cache_slot)
-        return self._attn_residual_tail(blk, h, a, no_drop=True,
-                                         cross_fn=cross_fn)[0]
+        return self._attn_residual_tail(blk, h, a,
+                                        group=getattr(ctx, "group", None),
+                                        no_drop=True, cross_fn=cross_fn,
+                                        ctx=ctx)[0]
 
     def decode_step(self, cache: Dict, tokens: torch.Tensor,
-                    pos: torch.Tensor) -> torch.Tensor:
+                    pos: torch.Tensor, ctx=None) -> torch.Tensor:
         """One decode step against a ``layout="decode"`` cache (reference
         ``decode_step``, ``models/model.py:539``).  tokens [B, 1] int32,
         pos [B] int32 (the tokens each row has cached).  Returns logits
         [B, 1, V] f32; the cache is updated in place.  A position past the
         end of a ``global``/``cross`` layer's cache raises (the reference
-        clamps it onto the last slot)."""
+        clamps it onto the last slot).
+
+        On a grid (``ctx`` under ``parallel.decode_rules``, the weights
+        this rank's shards, the cache its shard from ``init_cache(...,
+        ctx=ctx)``) tokens and pos are this rank's rows; the residual is
+        whole on every model rank (one token a row), the tensor-parallel
+        layers all-reduce their partial sums over the model ranks, the
+        attention layers merge their slices of the cache across the ranks
+        of the ``seq`` rule (:meth:`_attn_decode_grid`), and the logits
+        are gathered whole over the vocabulary shards."""
         cfg = self.cfg
-        full = [c["k"].shape[1] for blk, c in zip(self.layers,
-                                                 cache["slots"])
+        shard = _seq_shard(ctx)
+        n_seq = shard[2] if shard else 1
+        full = [c["k"].shape[1] * n_seq for blk, c in zip(self.layers,
+                                                          cache["slots"])
                 if blk.kind in ("global", "cross")]
-        if full and int(pos.max()) >= min(full):
+        if full and pos.device.type != "meta" and int(pos.max()) >= min(full):
             raise ValueError(f"decode position {int(pos.max())} is past the "
                              f"end of the {min(full)}-slot decode cache")
-        h = self._embed(tokens)
+        read = (lambda m: m) if ctx is None else \
+            (lambda m: self._read(m, ctx))
+        embed = read(self.embed)
+        h = self._embed(tokens, ctx, embed)
         if not cfg.use_rope and cfg.has_attention():
             h = h + L.sinusoidal_pos(pos[:, None], cfg.d_model, cfg.cdtype)
         for blk, slot in zip(self.layers, cache["slots"]):
-            h = self._block_decode(blk, h, slot, pos)
-        h = L.norm_apply(self.final_norm, h, cfg.norm)
-        return self._unembed(h)
+            h = self._block_decode(blk, h, slot, pos, ctx)
+        h = L.norm_apply(read(self.final_norm), h, cfg.norm)
+        logits = self._unembed(h, ctx, embed if cfg.tie_embeddings
+                               else read(self.unembed))
+        if getattr(ctx, "tp", False) and ctx.rules.vocab is not None:
+            logits = S.all_gather(logits, ctx.model_group, dim=-1)
+        return logits

@@ -20,6 +20,10 @@ style, as ``torch.autograd.Function`` s:
 * ``exchange_rows``: ``all_to_all_single`` with split sizes, for the
   expert-parallel dispatch and return; its backward is the same exchange
   with the splits swapped.
+* ``model_input`` / ``model_output``: the two above where the residual
+  is split along its sequence (training), the residual itself and an
+  all-reduce of the partial sums where it is whole on every model rank
+  (a decode step, ``parallel.decode_rules``: one token a row).
 * ``fsdp_gather``: a weight's FSDP shard (split over ``"data"`` on its
   ``dmodel`` dim) -> the tensor the layer reads, all-gathered over the
   data ranks; its backward reduce-scatters the gradient, so a split
@@ -96,6 +100,32 @@ def seq_gather(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
 
 def seq_scatter(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
     return _SeqScatter.apply(x, group, dim)
+
+
+def residual_split(ctx) -> bool:
+    """Whether the residual between the blocks is split along its
+    sequence over the model ranks (training's ``residual_seq`` rule);
+    under a decode step's rules (``parallel.decode_rules``) it is whole
+    on every model rank, one token a row."""
+    return ctx.rules.residual_seq is not None
+
+
+def model_input(h: torch.Tensor, ctx) -> torch.Tensor:
+    """A tensor-parallel layer's input from the residual: the sequence
+    gathered over the model ranks where the residual is split, else the
+    residual itself."""
+    return seq_gather(h, ctx.model_group) if residual_split(ctx) else h
+
+
+def model_output(x: torch.Tensor, ctx) -> torch.Tensor:
+    """A tensor-parallel layer's partial sums back to the residual's
+    layout: reduce-scattered along the sequence where it is split, else
+    all-reduced (a decode step's whole residual; no backward)."""
+    if residual_split(ctx):
+        return seq_scatter(x, ctx.model_group)
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=ctx.model_group)
+    return x
 
 
 def own_seq(x: torch.Tensor, ctx, dim: int = 1) -> torch.Tensor:

@@ -26,6 +26,11 @@ GSPMD gathers the reference's at use.  An expert-parallel arch's experts
 are split over ``"data"`` on their expert dim instead, and are never
 gathered: each data rank computes its own experts.
 
+A decode step on the grid takes the reference's decode shapes' rules
+(:func:`decode_rules`: the cache's sequence over ``"model"``, or over
+every axis for ``long_500k``, the residual whole on every model rank)
+and places its cache by :func:`cache_placements`.
+
 The ping-pong flag lives in one place, ``CADContext.pingpong`` (the
 reference also keeps ``ParallelContext.pingpong``, which nothing reads).
 """
@@ -86,6 +91,89 @@ def make_rules(sizes: Optional[Mapping[str, int]], cfg) -> ShardingRules:
         cad_axis=data_axes)
 
 
+def decode_rules(rules: ShardingRules, sizes: Optional[Mapping[str, int]],
+                 long: bool) -> ShardingRules:
+    """``make_rules``' output with the reference's replacements for a
+    decode shape (``src/repro/launch/dryrun_lib.py:154-171``): for
+    ``decode_32k`` the cache's sequence over ``"model"``, the kv heads
+    yielding to it (a grid axis may appear once in a placement); for
+    ``long_500k`` (``long``) no batch rule and the sequence over every
+    axis, ``("pod", "data", "model")`` as present.  Neither splits the
+    residual's sequence (a step holds one token a row).  One departure:
+    in the ``long`` branch the kv heads yield to the sequence as they do
+    in the ``decode`` branch; the reference keeps ``make_rules``'
+    ``kv_heads`` there and names ``"model"`` twice in a cache placement
+    wherever the kv heads divide the model axis (it raises then)."""
+    if not sizes:
+        return rules
+    has_model = "model" in sizes
+    kv_heads = None if has_model else rules.kv_heads
+    if long:
+        seq = tuple(a for a in ("pod", "data") if a in sizes) \
+            + (("model",) if has_model else ())
+        return dataclasses.replace(rules, batch=None, seq=seq,
+                                   residual_seq=None, kv_heads=kv_heads)
+    return dataclasses.replace(rules, seq="model" if has_model else None,
+                               kv_heads=kv_heads, residual_seq=None)
+
+
+def axis_size(axes: Any, sizes: Mapping[str, int]) -> int:
+    """Ranks along ``axes`` (None, a grid axis name or a tuple of them)."""
+    n = 1
+    for a in (() if axes is None else axes if isinstance(axes, tuple)
+              else (axes,)):
+        n *= sizes.get(a, 1)
+    return n
+
+
+def _fit(shape: Tuple[int, ...], dims: Tuple[Any, ...],
+         sizes: Mapping[str, int]) -> Tuple[Any, ...]:
+    """``dims`` padded on the left with None to ``shape``'s rank, each
+    axis kept only where it divides its dim (the reference's safety
+    net)."""
+    dims = (None,) * (len(shape) - len(dims)) + tuple(dims)
+    return tuple(ax if ax is None or shape[i] % axis_size(ax, sizes) == 0
+                 else None for i, ax in enumerate(dims))
+
+
+# a decode cache leaf's logical dims by name (``_cache_pspecs``); the
+# reference's leading stacked-group dim is not in the port's cache
+_CACHE_DIMS = {"k": ("batch", "seq", "kv_heads", None),
+               "v": ("batch", "seq", "kv_heads", None),
+               "kv_pos": ("batch", "seq"),
+               "xk": ("batch", None, "kv_heads", None),
+               "xv": ("batch", None, "kv_heads", None),
+               "state": ("batch", None, None, None),
+               "conv": ("batch", None, None),
+               "h": ("batch", None)}
+
+
+def cache_placements(cfg, cache: Mapping[str, Any], rules: ShardingRules,
+                     sizes: Optional[Mapping[str, int]]) -> Dict[str, Any]:
+    """Per leaf of a ``layout="decode"`` cache (``{"slots": [{name:
+    shaped}]}``, whole shapes: a tensor or a shape tuple), the grid axes
+    of each dim: the reference's ``_cache_pspecs``
+    (``src/repro/launch/dryrun_lib.py:86-105``) under ``rules``, with
+    ``param_placements``' divisibility fallback.  Attention ``k``/``v``
+    over (batch, seq, kv_heads), ``kv_pos`` over (batch, seq), a cross
+    layer's ``xk``/``xv`` over (batch, kv_heads) with the memory whole,
+    the recurrent states over the batch alone; a ``local`` layer's ring is
+    split along its slots as a global cache is.  Returns the same
+    structure of axes tuples."""
+    del cfg     # the reference's placements read names and shapes only
+    sizes = sizes or {}
+    out = []
+    for slot in cache["slots"]:
+        placed = {}
+        for name, t in slot.items():
+            shape = tuple(t if isinstance(t, tuple) else t.shape)
+            dims = tuple(None if d is None else getattr(rules, d)
+                         for d in _CACHE_DIMS.get(name, ()))
+            placed[name] = _fit(shape, dims, sizes)
+        out.append(placed)
+    return {"slots": out}
+
+
 # the reference's replicated leaf names (``param_pspecs``)
 _REPLICATED = {"scale", "bias", "lru_a", "conv_b", "conv_w", "A_log",
                "D_skip", "dt_bias", "xgate", "enc_pos"}
@@ -98,15 +186,7 @@ def _leaf_axes(name: str, shape: Tuple[int, ...], rules: ShardingRules,
     ndim = len(shape)
 
     def wrap(*dims):
-        dims = (None,) * (ndim - len(dims)) + tuple(dims)
-        fixed = []
-        for i, ax in enumerate(dims):
-            n = 1
-            for a in (() if ax is None else
-                      ax if isinstance(ax, tuple) else (ax,)):
-                n *= sizes.get(a, 1)
-            fixed.append(ax if ax is None or shape[i] % n == 0 else None)
-        return tuple(fixed)
+        return _fit(shape, dims, sizes)
 
     if name in _REPLICATED or ndim <= 1:
         return (None,) * ndim

@@ -199,16 +199,19 @@ def make_eval_step(model, ctx):
     return eval_step
 
 
-def make_serve_step(model):
+def make_serve_step(model, ctx=None):
     """One new token a row against a ``layout="decode"`` cache, the legacy
     dense decode path (the reference's ``make_serve_step``; the engine
-    serves the cross-attention archs through it).  Returns
-    ``serve_step(cache, tokens [B, 1], pos [B]) -> (next token [B] int32,
-    logits [B, 1, V] f32)``; runs under ``torch.inference_mode`` and
-    updates the cache in place."""
+    serves the cross-attention archs through it, and the dry run's
+    ``decode_32k`` / ``long_500k`` shapes are this step on a grid).
+    Returns ``serve_step(cache, tokens [B, 1], pos [B]) -> (next token [B]
+    int32, logits [B, 1, V] f32)``; runs under ``torch.inference_mode``
+    and updates the cache in place.  With ``ctx`` (a grid under
+    ``parallel.decode_rules``) the model, cache, tokens and pos are this
+    rank's (``Transformer.decode_step``)."""
     def serve_step(cache, tokens, pos):
         with torch.inference_mode():
-            logits = model.decode_step(cache, tokens, pos)
+            logits = model.decode_step(cache, tokens, pos, ctx)
             return logits[:, -1].argmax(-1).to(torch.int32), logits
     return serve_step
 

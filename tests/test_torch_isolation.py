@@ -269,3 +269,45 @@ def test_chip_smoke_without_a_card_or_the_repo_prints_no_result(tmp_path):
                                if k != "PYTHONPATH"})
     assert proc.returncode != 0
     assert proc.stdout == ""
+
+
+# the grid decode step's dry run (decode_32k and long_500k on a fake
+# 2 x 2 grid), run, not only imported
+_GRID_DECODE = """
+from repro_torch.launch.dryrun_lib import run_dryrun
+for shape in ("decode_32k", "long_500k"):
+    rec = run_dryrun("gemma2-2b-reduced", shape, {"data": 2, "model": 2},
+                     layers=2)
+    assert rec["cache_bytes"] > 0 and rec["hlo_flops_per_device"] > 0
+"""
+
+
+def test_grid_decode_dry_run_loads_no_jax():
+    _probe(_GRID_DECODE)
+
+
+TORCH_EXAMPLES = ("torch_quickstart", "torch_train_cad", "torch_serve_batch",
+                  "torch_elastic_train", "torch_traced_recovery",
+                  "torch_schedule_explore")
+_EXAMPLES = """
+for name in {names!r}:
+    spec = importlib.util.spec_from_file_location(
+        name, {root!r} + "/examples/" + name + ".py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert callable(mod.main)
+""".format(names=TORCH_EXAMPLES, root=str(ROOT))
+
+
+def test_importing_the_torch_examples_loads_no_jax():
+    _probe(_EXAMPLES)
+
+
+def test_no_torch_example_line_imports_jax_or_repro():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+    hits = [f"{name}:{i}" for name in TORCH_EXAMPLES
+            for i, line in enumerate(
+                (ROOT / "examples" / f"{name}.py").read_text().splitlines(),
+                1)
+            if pattern.match(line)]
+    assert not hits, hits

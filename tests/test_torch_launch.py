@@ -46,7 +46,8 @@ MESHES = {"16x16": {"data": 16, "model": 16},
 # route, so its pair loop runs more than once on both sides (at one pair
 # XLA merges the remat and backward loops and drops a product)
 SMALL = {"train_small": dict(kind="train", seq=1024, batch=2),
-         "prefill_small": dict(kind="prefill", seq=1024, batch=2)}
+         "prefill_small": dict(kind="prefill", seq=1024, batch=2),
+         "decode_small": dict(kind="decode", seq=1024, batch=2)}
 # The port's op counter against the reference's HLO analysis, measured:
 # forwards are equal (gap 0 for all three archs); train steps differ by
 # which forward products the remat recompute re-runs: torch.utils.checkpoint
@@ -125,6 +126,88 @@ def test_rank_param_and_moment_bytes_match_reference(arch, mesh):
     assert got["batch_bytes"] >= 4 * rows * 4096 * 4
 
 
+LONG_ARCHS = [a for a in ASSIGNED_ARCHS if get_config(a).subquadratic]
+
+
+def _ref_decode_rank_bytes(arch, sizes, shape):
+    """The reference's per-device parameter and cache bytes of a decode
+    shape: ``param_pspecs`` and ``_cache_pspecs`` under its decode rules
+    (``build_step``'s replacements) of ``jax.eval_shape`` of ``M.init``
+    and ``M.init_cache`` (a memory of the encoder's n_ctx or 1601 rows, as
+    ``cache_sds``), on a stub mesh."""
+    from repro.models import model as M
+    from repro.parallel import ParallelContext, make_rules, param_pspecs
+    from test_torch_grid_decode import ref_decode_rules
+    cfg = ref_config(arch)
+    info = RD.INPUT_SHAPES[shape]
+    mesh = types.SimpleNamespace(axis_names=tuple(sizes),
+                                 devices=np.empty(tuple(sizes.values()),
+                                                  dtype=np.int8))
+    rules = ref_decode_rules(make_rules(mesh, cfg), mesh.axis_names,
+                             bool(info.get("long")))
+    shapes = jax.eval_shape(lambda: M.init(jax.random.PRNGKey(0), cfg))
+    mem = None
+    if cfg.family in ("vlm", "audio"):
+        m = cfg.encoder.n_ctx if cfg.encoder else 1601
+        mem = jax.ShapeDtypeStruct((info["batch"], m, cfg.d_model),
+                                   cfg.cdtype)
+    ctx = ParallelContext(attn_impl="xla", remat=False)
+    cache = jax.eval_shape(lambda p, mm: M.init_cache(
+        p, cfg, info["batch"], info["seq"], memory=mm, ctx=ctx), shapes, mem)
+
+    def shard(leaf, spec):
+        shape = list(leaf.shape)
+        for i, ax in enumerate(spec):
+            for a in (() if ax is None else
+                      ax if isinstance(ax, tuple) else (ax,)):
+                assert shape[i] % sizes[a] == 0, (leaf.shape, spec)
+                shape[i] //= sizes[a]
+        return math.prod(shape) * leaf.dtype.itemsize
+
+    def total(tree, specs):
+        return sum(jax.tree.leaves(jax.tree.map(shard, tree, specs)))
+    return (total(shapes, param_pspecs(cfg, shapes, rules, mesh)),
+            total(cache, RD._cache_pspecs(cfg, cache, rules)))
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch,shape",
+                         [(a, "decode_32k") for a in ASSIGNED_ARCHS]
+                         + [(a, "long_500k") for a in LONG_ARCHS])
+def test_rank_decode_param_and_cache_bytes_match_reference(arch, shape,
+                                                            mesh):
+    """A decode shape's per-rank parameter and cache bytes on the
+    production grids: the dry run's step (weights and cache shard on meta
+    over a fake process group) against the reference's shards."""
+    sizes = MESHES[mesh]
+    with D.fake_grid(sizes) as groups:
+        step = D.build_step(get_config(arch), sizes, shape, groups=groups)
+        got = step.argument_bytes()
+        k = next((s["k"] for s in step.cache["slots"] if "k" in s), None)
+    params, cache = _ref_decode_rank_bytes(arch, sizes, shape)
+    assert (got["param_bytes"], got["cache_bytes"]) == (params, cache)
+    assert got["moment_bytes"] == 0
+    assert got["argument_bytes"] == params + cache + got["batch_bytes"]
+    info = D.INPUT_SHAPES[shape]
+    ranks = math.prod(sizes.values())
+    if info.get("long"):
+        # one row, the sequence over every rank (1024 positions a rank on
+        # 2 x 16 x 16); a 4096-slot ring over 256 ranks is 16 a rank
+        assert tuple(step.batch["tokens"].shape) == (1, 1)
+        if arch == "gemma2-2b":
+            glob = step.cache["slots"][1]["k"]
+            assert glob.shape[:2] == (1, info["seq"] // ranks)
+            assert k.shape[1] == 4096 // ranks
+    else:
+        # 8 rows and 2048 positions a rank on 16 x 16
+        rows = info["batch"] // D.data_size(sizes)
+        assert tuple(step.batch["tokens"].shape) == (rows, 1)
+        assert all(t.shape[0] == rows for slot in step.cache["slots"]
+                   for t in slot.values())
+        if arch == "llama3-8b":
+            assert k.shape[1] == info["seq"] // sizes["model"]
+
+
 def _ref_cost(arch, shape):
     from repro.compat import make_mesh
     from repro.launch.breakdown import flops_breakdown as ref_breakdown
@@ -135,10 +218,35 @@ def _ref_cost(arch, shape):
     return ref_analyze(txt).flops, ref_breakdown(txt)
 
 
+def _ref_decode_cost(arch, shape):
+    """The reference's serve step of a decode shape compiled for one
+    device without a mesh: its decode rules cannot lower on a model axis
+    of one device (``ffn_apply``'s constraint names ``"model"`` for both
+    the one-token sequence and the FFN columns; ROADMAP queue 3)."""
+    from repro.launch.breakdown import flops_breakdown as ref_breakdown
+    from repro.launch.hlo_analysis import analyze as ref_analyze
+    from repro.models import model as M
+    from repro.parallel import ParallelContext
+    from repro.train.step import make_serve_step
+    cfg = ref_config(arch)
+    info = RD.INPUT_SHAPES[shape]
+    b = info["batch"]
+    ctx = ParallelContext(attn_impl="xla", remat=False)
+    params = jax.eval_shape(lambda: M.init(jax.random.PRNGKey(0), cfg))
+    cache = jax.eval_shape(lambda p: M.init_cache(p, cfg, b, info["seq"],
+                                                  ctx=ctx), params)
+    tok = jax.ShapeDtypeStruct((b, 1), np.int32)
+    pos = jax.ShapeDtypeStruct((b,), np.int32)
+    txt = jax.jit(make_serve_step(cfg, ctx)).lower(
+        params, cache, tok, pos).compile().as_text()
+    return ref_analyze(txt).flops, ref_breakdown(txt)
+
+
 @pytest.mark.parametrize("shape", list(SMALL))
 @pytest.mark.parametrize("arch", FLOPS_ARCHS)
 def test_flops_match_reference(arch, shape, small_shapes):
-    ref_flops, ref_b = _ref_cost(arch, shape)
+    ref_flops, ref_b = (_ref_decode_cost if shape.startswith("decode")
+                        else _ref_cost)(arch, shape)
     rec = D.run_dryrun(arch, shape, None)
     rtol = TRAIN_RTOL if shape.startswith("train") else FWD_RTOL
     assert rec["hlo_flops_per_device"] == pytest.approx(ref_flops, rel=rtol)
@@ -317,9 +425,14 @@ def test_dryrun_cli_writes_reference_records(tmp_path):
     assert "all-to-all" not in plain["collective_breakdown"]
     assert roofline.roofline_row(plain)["dominant"] in (
         "compute", "memory", "collective")
-    with pytest.raises(NotImplementedError, match="grid decode step"):
-        D.run_dryrun("smollm-360m-reduced", "decode_32k",
-                     {"data": 4, "model": 2})
+    dec = D.run_dryrun("smollm-360m-reduced", "decode_32k",
+                       {"data": 4, "model": 2})
+    assert dec["cache_bytes"] > 0 and dec["moment_bytes"] == 0
+    assert dec["argument_bytes"] == dec["param_bytes"] \
+        + dec["cache_bytes"] + dec["batch_bytes"]
+    assert dec["hlo_flops_per_device"] > 0
+    assert {"all-gather", "all-reduce", "all-to-all"} \
+        <= set(dec["collective_breakdown"])
     skipped = D.run_dryrun("smollm-360m-reduced", "long_500k",
                            {"data": 4, "model": 2})
     assert skipped["skipped"] and "500K" in skipped["reason"]
