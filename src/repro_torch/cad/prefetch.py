@@ -80,13 +80,11 @@ class PlanPrefetcher:
         return False
 
     def _work(self) -> None:
-        rec = obs_trace.get_recorder()
         try:
             for raw in self._source:
                 if self._stop.is_set():
                     return
-                with rec.span("prefetch.plan", "prefetch"):
-                    item = self._fn(raw)
+                item = self._fn(raw)
                 if not self._put(item):
                     return
                 self._depth_gauge()

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 from typing import Any, Dict, Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
@@ -396,20 +397,27 @@ class CADSession:
                 self.calibrator.observe_tasks(tasks, seconds, server=s)
 
     # ----------------------------------------------------------- planning
-    def plan(self, segment_ids: np.ndarray) \
-            -> Tuple[Plan, Dict[str, float]]:
+    def plan(self, segment_ids: np.ndarray, *,
+             step: Optional[int] = None) -> Tuple[Plan, Dict[str, float]]:
         """Plan one step.  ``segment_ids`` is the rank-major [D, T] packed
         layout (T = tokens per rank; 2·nb·blk when ping-pong is on).
         With a calibrator attached, the whole step (both ping-pong
         halves) plans from ONE calibration snapshot, recorded in the
         stats as ``calib_version`` with the per-server speeds used.
         Narrated to the observability layer (DESIGN.md §14): a
-        ``plan.build`` span on the ``planner`` track and the plan-quality
-        gauges — no-ops unless tracing is enabled / read."""
+        ``plan.build`` span on the ``planner`` track (``step``: the
+        batch's index in the stream), whose args carry the plan's
+        ``load_max_over_mean`` and the scheduler's ``imbalance``,
+        ``n_moves`` and ``comm_bytes``, and the plan-quality gauges —
+        no-ops unless tracing is enabled / read."""
+        args = {"policy": self.plan_policy}
         with obs_trace.get_recorder().span("plan.build", "planner",
-                                           args={"policy":
-                                                 self.plan_policy}):
+                                           step=step, args=args):
             plan, stats = self._plan_impl(segment_ids)
+            args.update(
+                load_max_over_mean=stats["load_max_over_mean"],
+                imbalance=stats["load_max_over_mean"] - 1.0,
+                n_moves=stats["n_moves"], comm_bytes=stats["comm_bytes"])
         reg = obs_metrics.get_registry()
         reg.gauge("cad_plan_load_max_over_mean",
                   "planned per-server load max/mean").set(
@@ -467,9 +475,11 @@ class CADSession:
                 res.stats["load_max_over_mean"])
         return PingPongPlan(*halves), self._annotate(stats, snap, view)
 
-    def plan_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+    def plan_batch(self, batch: Dict[str, Any], *,
+                   step: Optional[int] = None) -> Dict[str, Any]:
         """Attach ``plan`` + ``schedule_stats`` to one pipeline batch
-        (rows are rank-major: rank r owns rows [r·rpr, (r+1)·rpr)).
+        (rows are rank-major: rank r owns rows [r·rpr, (r+1)·rpr));
+        ``step`` is the batch's index in the stream, for the trace.
         Under a group the global batch is planned and this rank's rows
         are returned with the global plan, the batch's global count of
         loss tokens (``n_tokens_global``) and the plan's digest
@@ -481,7 +491,8 @@ class CADSession:
             if rpr % 2:
                 raise ValueError("ping-pong needs an even number of rows "
                                  f"per rank, got {rpr}")
-        plan, stats = self.plan(segs.reshape(self.cfg.n_servers, -1))
+        plan, stats = self.plan(segs.reshape(self.cfg.n_servers, -1),
+                                step=step)
         out = dict(batch)
         if self.group is not None:
             out = rank_rows(batch, dist.get_rank(self.group),
@@ -523,9 +534,10 @@ class CADSession:
         superseded membership epoch always is: a plan that routes tasks
         to a dead server must never reach the dispatch."""
         depth = self.prefetch if prefetch is None else prefetch
+        pulled = _pulled(batch_iter)
         if depth <= 0:
-            for batch in batch_iter:
-                out = self.plan_batch(batch)
+            for i, batch in pulled:
+                out = self.plan_batch(batch, step=i)
                 self.check_plan_agreement(out)
                 yield out
             return
@@ -534,11 +546,12 @@ class CADSession:
             def stale(item):
                 return self._plan_stale(item[1])
 
-        def plan(raw):
+        def plan(item):
             # the raw batch rides along: under a group the planned batch
             # holds this rank's rows alone, and a re-plan needs them all
-            return raw, self.plan_batch(raw)
-        pf = PlanPrefetcher(batch_iter, plan, depth=depth, is_stale=stale,
+            i, raw = item
+            return item, self.plan_batch(raw, step=i)
+        pf = PlanPrefetcher(pulled, plan, depth=depth, is_stale=stale,
                             refresh=lambda item: plan(item[0]))
         try:
             for _, out in pf:
@@ -546,6 +559,21 @@ class CADSession:
                 yield out
         finally:
             pf.close()
+
+
+def _pulled(batches: Iterable[Dict[str, Any]]) \
+        -> Iterator[Tuple[int, Dict[str, Any]]]:
+    """(index in the stream, batch) of ``batches``, each pull traced as a
+    ``data.next`` span on the ``prefetch`` track (on the thread that
+    pulls: the prefetch worker, or the caller without prefetch)."""
+    it = iter(batches)
+    for i in itertools.count():
+        with obs_trace.get_recorder().span("data.next", "prefetch",
+                                           step=i):
+            batch = next(it, None)
+        if batch is None:
+            return
+        yield i, batch
 
 
 def plan_digest(plan) -> str:

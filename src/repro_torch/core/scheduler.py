@@ -73,7 +73,6 @@ import numpy as np
 from repro_torch.core.cost_model import CommModel, CostModel, MemoryModel
 from repro_torch.core.mask import MaskSpec, live_block_mask, live_block_table
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass
@@ -726,13 +725,6 @@ def schedule(segment_ids: np.ndarray, *, blk: int, n_servers: int,
         "cad_schedule_imbalance",
         "scheduled per-server load max/mean - 1 (straggler "
         "overhang)").set(imbalance(loads))
-    rec = obs_trace.get_recorder()
-    if rec.enabled:
-        rec.instant("schedule", "planner",
-                    args={"imbalance": imbalance(loads),
-                          "n_moves": n_moves,
-                          "comm_bytes": float(comm_bytes),
-                          "excluded": sorted(exclude)})
     return Schedule(assign=assign, docs=docs, doc_of_block=doc_of,
                     bi_of_block=bi_of, n_servers=n_servers, nb=nb, blk=blk,
                     loads=loads, comm_bytes=comm_bytes, n_moves=n_moves,

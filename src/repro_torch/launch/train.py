@@ -291,7 +291,8 @@ def _main(args, info, device):
     print(f"done: loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}")
     if args.trace:
         rec = get_recorder()
-        rec.save(args.trace)
+        # under a profiler, the clock anchor places the file on its trace
+        rec.save(args.trace, anchor=rec.clock_anchor())
         print(f"trace: {len(rec)} events -> {args.trace} "
               f"({rec.n_dropped} dropped)")
     if args.metrics:

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.obs import trace as obs_trace
 from repro_torch.parallel import sharded_over
 from repro_torch.train.loss import grid_nll_sum, lm_loss
 
@@ -40,6 +41,8 @@ BATCH_KEYS = ("tokens", "labels", "segment_ids", "positions", "memory",
               "memory_mask")
 # elements of one all-reduce bucket: bounds the flat copy of the grads
 BUCKET_ELEMS = 1 << 26
+# the trace track of the training loop's spans
+TRACK = "train"
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
@@ -134,52 +137,69 @@ def _allreduce_by_group(grads, groups) -> None:
 
 
 def make_train_step(model, ctx, optimizer, decay):
-    """Returns ``train_step(opt_state, batch) -> (opt_state, metrics)``.
-    ``decay`` flags the parameters that take weight decay
+    """Returns ``train_step(opt_state, batch, step=None) -> (opt_state,
+    metrics)``.  ``decay`` flags the parameters that take weight decay
     (``models.convert.decay_mask``).
     ``batch`` is a pipeline batch (host arrays) that may carry a CAD plan
     under 'plan'; it is data, consumed by the dispatch through the ctx.
-    The model's parameters are updated in place."""
+    The model's parameters are updated in place.  The step's parts are
+    traced (DESIGN.md §14) as ``train.h2d``, ``train.forward``,
+    ``train.backward`` and ``optim.update`` on the ``train`` track, with
+    ``step`` (the batch's index in the stream) as their step; the copy
+    and the update also enter profiler ranges while a profiler runs (the
+    model's parts are named by its own regions there)."""
     params = list(model.parameters())
     group = getattr(ctx, "group", None)
     tp = getattr(ctx, "tp", False)
     grid = getattr(model, "grid_placements", None) is not None
     sums, norms = zip(*grad_groups(model, ctx))
 
-    def train_step(opt_state, batch):
-        b = batch_to_device(batch, model.device)
-        logits, aux = model(b, _bind(ctx, b))
-        if tp:
-            nll = grid_nll_sum(logits, b["labels"], b["segment_ids"], ctx)
-        else:
-            loss, stats = lm_loss(logits, b["labels"], b["segment_ids"])
-            nll, n_tokens = stats["nll_sum"], stats["n_tokens"]
-        del logits
-        if group is not None:
-            # this rank's share of the global mean, divided as lm_loss
-            # divides (by an integer tensor: a Python float divisor takes
-            # CUDA's multiply-by-reciprocal path, other bits)
-            n_tokens = torch.as_tensor(int(batch["n_tokens_global"]),
-                                       device=model.device)
-            loss = nll / n_tokens
-        total = loss
-        for v in aux.values():
-            total = total + v
-        grads = torch.autograd.grad(total, params)
-        _allreduce_by_group(grads, sums)
-        if group is not None:
-            # the global loss and aux losses: each rank holds its share
-            everyone = dist.group.WORLD if grid else group
-            loss = loss.detach().clone()
-            dist.all_reduce(loss, group=everyone)
-            aux = {k: v.detach().clone() for k, v in aux.items()}
-            for v in aux.values():
-                dist.all_reduce(v, group=everyone)
+    def train_step(opt_state, batch, step=None):
+        rec = obs_trace.get_recorder()
+        with rec.span("train.h2d", TRACK, step=step, profiled=True):
+            b = batch_to_device(batch, model.device)
+        with rec.span("train.forward", TRACK, step=step):
+            logits, aux = model(b, _bind(ctx, b))
+            if tp:
+                nll = grid_nll_sum(logits, b["labels"], b["segment_ids"],
+                                   ctx)
+            else:
+                loss, stats = lm_loss(logits, b["labels"], b["segment_ids"])
+                nll, n_tokens = stats["nll_sum"], stats["n_tokens"]
+            del logits
+            if group is not None:
+                # this rank's share of the global mean, divided as lm_loss
+                # divides (by an integer tensor: a Python float divisor
+                # takes CUDA's multiply-by-reciprocal path, other bits)
+                n_tokens = torch.as_tensor(int(batch["n_tokens_global"]),
+                                           device=model.device)
+                loss = nll / n_tokens
             total = loss
             for v in aux.values():
                 total = total + v
-        opt_state, gnorm = optimizer.update(grads, opt_state, params,
-                                            decay, norm_groups=norms)
+        with rec.span("train.backward", TRACK, step=step):
+            grads = torch.autograd.grad(total, params)
+            # free the graph here, not at the return: at full depth its
+            # nodes take the host milliseconds to free
+            loss, total = loss.detach(), total.detach()
+            aux = {k: v.detach() for k, v in aux.items()}
+            nll = stats = None
+            _allreduce_by_group(grads, sums)
+            if group is not None:
+                # the global loss and aux losses: each rank holds its share
+                everyone = dist.group.WORLD if grid else group
+                loss = loss.detach().clone()
+                dist.all_reduce(loss, group=everyone)
+                aux = {k: v.detach().clone() for k, v in aux.items()}
+                for v in aux.values():
+                    dist.all_reduce(v, group=everyone)
+                total = loss
+                for v in aux.values():
+                    total = total + v
+        with rec.span("optim.update", TRACK, step=step, profiled=True):
+            opt_state, gnorm = optimizer.update(grads, opt_state, params,
+                                                decay, norm_groups=norms)
+            del grads       # freed inside the span, not at the return
         metrics = {"loss": loss.detach(), "total_loss": total.detach(),
                    "grad_norm": gnorm, "n_tokens": n_tokens}
         metrics.update({k: v.detach() for k, v in aux.items()})

@@ -46,9 +46,10 @@ from repro_torch.data.pipeline import (PipelineConfig, global_token_count,
                                        raw_batches, rank_rows)
 from repro_torch.models.convert import decay_mask, gather_shard, shard_model
 from repro_torch.models.model import Transformer, resolve_device
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.adamw import AdamW, AdamWState, cosine_schedule
 from repro_torch.parallel import ParallelContext, make_rules, sharded_over
-from repro_torch.train.step import broadcast_params, make_train_step
+from repro_torch.train.step import TRACK, broadcast_params, make_train_step
 
 
 @dataclasses.dataclass
@@ -154,7 +155,16 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
     attention route: each data index takes its rows of every batch.
     ``memory`` [global rows, M, d_model] is the memory a cross-attention
     arch reads (stub frame or patch embeddings), each rank's rows added
-    to its batches."""
+    to its batches.
+
+    Traced (DESIGN.md §14): each iteration is a ``train.step`` span on the
+    ``train`` track, holding ``train.batch_wait`` (``next`` on the batch
+    stream, the plan wait and the plan agreement included, up to the
+    synchronize before the step), the step's
+    own spans (``make_train_step``) and ``train.readback`` (the
+    synchronize and the metrics' reads), all with the batch's index in
+    the stream as their step; the wait and the readback also enter
+    profiler ranges while a profiler runs."""
     if session is not None:
         grid = session.grid
     if model is None:
@@ -226,72 +236,83 @@ def train(cfg, pipe_cfg: PipelineConfig, train_cfg: TrainConfig,
 
     history = []
     t0 = time.time()
+    rec = obs_trace.get_recorder()
     try:
         for step in range(train_cfg.steps):
-            pool_events = []
-            if faults is not None:
-                # membership events land at step granularity on the
-                # fused path: the planner is re-invoked against the
-                # survivors and stale prefetched plans re-plan at pull
-                # (kills apply before the step — the fused step cannot
-                # lose a server mid-flight; same shared semantics as
-                # the elastic executor)
-                pool_events = faults.apply_pre_step(pool, step) \
-                    + faults.apply_failures(pool, step)
-                if pool_events and rank == 0:
-                    print(f"step {step:5d} pool: "
-                          f"{', '.join(pool_events)} "
-                          f"(epoch {pool.epoch})", flush=True)
-            batch = next(gen)
-            if memory is not None:
-                batch["memory"] = memory
-            stats = batch.pop("schedule_stats", None)
-            plan = batch.get("plan") if calibrating else None
-            _sync(dev)
-            ts = time.perf_counter()
-            opt_state, metrics = step_fn(opt_state, batch)
-            _sync(dev)
-            m = {k: float(v) for k, v in metrics.items()}
-            m["step_s"] = time.perf_counter() - ts
-            m["tokens_per_s"] = tokens / m["step_s"]
-            if plan is not None and step % train_cfg.calibrate_every == 0:
-                # measure -> fit: the per-server timings feed the
-                # calibrator, so the (prefetched) plan of a later batch
-                # is built from them (under a group each rank times its
-                # own server and every rank feeds all the timings)
-                session.observe_probe(plan, seed=train_cfg.seed + step,
-                                      dtype=model.cfg.cdtype,
-                                      device=dev)
-            m["step"] = step
-            m["wall_s"] = time.time() - t0
-            if stats:
-                m.update({f"sched_{k}": v for k, v in stats.items()})
-            if pool_events:
-                m["pool_events"] = ";".join(pool_events)
-            if on_step is not None:
-                on_step(step, m)
-            if step % train_cfg.log_every == 0 \
-                    or step == train_cfg.steps - 1:
-                history.append(m)
-                if rank == 0:
-                    aux = "".join(f" {k} {m[k]:.4e}" for k in
-                                  ("moe_lb", "moe_z") if k in m)
-                    print(f"step {step:5d} loss {m['loss']:.4f} "
-                          f"gnorm {m['grad_norm']:.3f}{aux} "
-                          f"({m['wall_s']:.1f}s)", flush=True)
-            if train_cfg.ckpt_every and step and \
-                    step % train_cfg.ckpt_every == 0:
-                params, saved = model.state_dict(), opt_state
-                if grid is not None:
-                    params, saved = _whole_state(model, opt_state, grid)
-                ckpt.save(train_cfg.ckpt_dir, step, params, saved,
-                          calibrator=None if session is None
-                          else session.calibrator, rank=rank)
-                del params, saved
-                if group is not None:
-                    # rank 0 alone writes: no rank reads the checkpoint
-                    # (a restart's calibration) before it is whole
-                    dist.barrier(group=None if grid is not None else group)
+            with rec.span("train.step", TRACK, step=step):
+                pool_events = []
+                if faults is not None:
+                    # membership events land at step granularity on
+                    # the fused path: the planner is re-invoked against
+                    # the survivors and stale prefetched plans re-plan at
+                    # pull (kills apply before the step — the fused step
+                    # cannot lose a server mid-flight; same shared
+                    # semantics as the elastic executor)
+                    pool_events = faults.apply_pre_step(pool, step) \
+                        + faults.apply_failures(pool, step)
+                    if pool_events and rank == 0:
+                        print(f"step {step:5d} pool: "
+                              f"{', '.join(pool_events)} "
+                              f"(epoch {pool.epoch})", flush=True)
+                with rec.span("train.batch_wait", TRACK, step=step,
+                              profiled=True):
+                    batch = next(gen)
+                    if memory is not None:
+                        batch["memory"] = memory
+                    stats = batch.pop("schedule_stats", None)
+                    plan = batch.get("plan") if calibrating else None
+                    _sync(dev)
+                ts = time.perf_counter()
+                opt_state, metrics = step_fn(opt_state, batch, step=step)
+                with rec.span("train.readback", TRACK, step=step,
+                              profiled=True):
+                    _sync(dev)
+                    m = {k: float(v) for k, v in metrics.items()}
+                m["step_s"] = time.perf_counter() - ts
+                m["tokens_per_s"] = tokens / m["step_s"]
+                if plan is not None \
+                        and step % train_cfg.calibrate_every == 0:
+                    # measure -> fit: the per-server timings feed the
+                    # calibrator, so the (prefetched) plan of a later
+                    # batch is built from them (under a group each rank
+                    # times its own server and every rank feeds all the
+                    # timings)
+                    session.observe_probe(plan, seed=train_cfg.seed + step,
+                                          dtype=model.cfg.cdtype,
+                                          device=dev)
+                m["step"] = step
+                m["wall_s"] = time.time() - t0
+                if stats:
+                    m.update({f"sched_{k}": v for k, v in stats.items()})
+                if pool_events:
+                    m["pool_events"] = ";".join(pool_events)
+                if on_step is not None:
+                    on_step(step, m)
+                if step % train_cfg.log_every == 0 \
+                        or step == train_cfg.steps - 1:
+                    history.append(m)
+                    if rank == 0:
+                        aux = "".join(f" {k} {m[k]:.4e}" for k in
+                                      ("moe_lb", "moe_z") if k in m)
+                        print(f"step {step:5d} loss {m['loss']:.4f} "
+                              f"gnorm {m['grad_norm']:.3f}{aux} "
+                              f"({m['wall_s']:.1f}s)", flush=True)
+                if train_cfg.ckpt_every and step and \
+                        step % train_cfg.ckpt_every == 0:
+                    params, saved = model.state_dict(), opt_state
+                    if grid is not None:
+                        params, saved = _whole_state(model, opt_state,
+                                                     grid)
+                    ckpt.save(train_cfg.ckpt_dir, step, params, saved,
+                              calibrator=None if session is None
+                              else session.calibrator, rank=rank)
+                    del params, saved
+                    if group is not None:
+                        # rank 0 alone writes: no rank reads the
+                        # checkpoint (a restart's calibration) before it
+                        # is whole
+                        dist.barrier(group=None if grid is not None
+                                     else group)
     finally:
         gen.close()      # stops the plan-prefetch worker, if any
     return {"model": model, "opt_state": opt_state, "history": history}
